@@ -18,6 +18,18 @@ Run from the root of the repository. Phases, each printing JSON lines:
             128 new tokens) greedy and sampled, with each kernel's launch
             count over that run held against what the path implies.
 5. profile  device busy time over a short generate (torch.profiler).
+6. serve    the same model behind ``ContinuousBatcher`` (8 slots), page-
+            resident (prefix cache on) and with contiguous slots: 32
+            chat requests sharing a 192-token system prompt, served twice
+            (the second pass hits the radix tree), with per-mode latency
+            and throughput, launch counts held against the ticks, leak
+            counts, prefix hits, greedy streams teacher-forced through the
+            card's own forward, and the per-row sampling step on the card
+            held against the CPU over the sampled streams' logits.
+
+The ``kernels`` line gives each kernel's launches per path (``generate``,
+``serve_paged``, ``serve_contiguous``: each zeroed before its run and read
+after it) and their sum.
 
 It exits non-zero, printing no result line, without CUDA or outside the
 repository; any failed phase makes it exit non-zero. The last line is
@@ -36,9 +48,10 @@ import time
 
 SEED = 1234
 
-# NVIDIA data sheets: HBM bytes/s and dense bf16 tensor-core flop/s
-CARD_PEAKS = {"H100 PCIe": (2.0e12, 756e12), "H100 NVL": (3.9e12, 835e12),
-              "H100 SXM": (3.35e12, 989e12)}
+# NVIDIA data sheets: HBM bytes/s, dense bf16 tensor-core flop/s and fp32
+# (non-tensor) flop/s
+CARD_PEAKS = {"H100 PCIe": (2.0e12, 756e12, 51e12), "H100 NVL": (3.9e12, 835e12, 60e12),
+              "H100 SXM": (3.35e12, 989e12, 67e12)}
 
 
 def emit(obj) -> None:
@@ -59,8 +72,8 @@ def nvidia_smi() -> str:
     return out.stdout.strip().splitlines()[0] if out.returncode == 0 else "unavailable"
 
 
-def bound_ms(nbytes: float, flops: float, peaks) -> tuple[float, str]:
-    t_bytes, t_ops = nbytes / peaks[0], flops / peaks[1]
+def bound_ms(nbytes: float, flops: float, peaks, fp32: bool = False) -> tuple[float, str]:
+    t_bytes, t_ops = nbytes / peaks[0], flops / peaks[2 if fp32 else 1]
     return (max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes >= t_ops else "operations")
 
 
@@ -175,6 +188,8 @@ def kernel_cases(torch, F, peaks):
             bound=bound_ms(2 * live * KV * D * 2 + 2 * B * H * D * 2 + B * 4,
                            4 * live * H * D, peaks)))
 
+    cases += paged_cases(torch, F, peaks)
+
     M, E, N, Fh = 8, 768, 2304, 3072
     ln = lambda: (1 + randn(E, std=0.1, dtype=torch.float32), randn(E, std=0.1, dtype=torch.float32))  # noqa: E731
     sets = []
@@ -210,6 +225,75 @@ def kernel_cases(torch, F, peaks):
     return cases
 
 
+def paged_arena(torch, g, lengths, B, H, KV, D, pt, T, dtype):
+    """One paged decode case: q, and K/V arenas whose live positions sit in
+    shuffled pages named by the table, every other position (the tail
+    pages' dead rows, unused pages, the trash page 0 past each row's pages)
+    NaN."""
+    dev = "cuda"
+    P = B * T + 1
+    perm = torch.randperm(P - 1, generator=g, device=dev).to(torch.int32) + 1
+    table = torch.zeros((B, T), dtype=torch.int32, device=dev)
+    kp = torch.full((P, pt, KV, D), float("nan"), dtype=dtype, device=dev)
+    vp = torch.full_like(kp, float("nan"))
+    q = torch.randn((B, 1, H, D), generator=g, device=dev).to(dtype)
+    dead = (torch.arange(T * pt, device=dev)[None, :]
+            >= torch.tensor(lengths, device=dev)[:, None])[:, :, None, None]
+    n_pages = [min(-(-L // pt), T) for L in lengths]
+    starts = [sum(n_pages[:b]) for b in range(B)]
+    for b, n in enumerate(n_pages):
+        table[b, :n] = perm[starts[b]:starts[b] + n]
+    for arena in (kp, vp):
+        full = torch.randn((B, T * pt, KV, D), generator=g, device=dev).to(dtype)
+        full = full.masked_fill(dead, float("nan")).reshape(B, T, pt, KV, D)
+        for b, n in enumerate(n_pages):
+            arena[table[b, :n].long()] = full[b, :n]
+    return q, kp, vp, table
+
+
+def paged_cases(torch, F, peaks):
+    """Paged decode attention at the serve phase's geometry (B=8, H=KV=12,
+    D=64, 16-token pages, 32 table entries), in GQA (H=32, KV=8, D=128) and
+    in fp32; live positions in shuffled pages, everything else NaN."""
+    from deepspeed_tpu_torch.ops import paged_attention as pa
+
+    g = torch.Generator(device="cuda").manual_seed(SEED + 3)
+    cases = []
+    geoms = ((torch.bfloat16, 12, 12, 64, [1, 16, 17, 255, 256, 300, 511, 512]),
+             (torch.bfloat16, 32, 8, 128, [1, 16, 17, 255, 256, 300, 511, 512]),
+             (torch.float32, 8, 2, 64, [0, 3, 40, 130, 600]))   # L=0, and L > T*pt
+    for dtype, H, KV, D, lens in geoms:
+        B, pt, T = len(lens), 16, 32
+        sets = [paged_arena(torch, g, lens, B, H, KV, D, pt, T, dtype) for _ in range(8)]
+        lengths = torch.tensor(lens, dtype=torch.int32, device="cuda")
+        live = sum(min(L, T * pt) for L in lens)
+        item = torch.empty((), dtype=dtype).element_size()
+        scale = D ** -0.5
+        S_kv = T * pt
+        mask = (torch.arange(S_kv, device="cuda")[None, :]
+                < lengths.clamp(max=S_kv)[:, None])[:, None, None, :]
+
+        def gather_sdpa(q, kp, vp, table, G=H // KV, mask=mask):
+            k, v = pa.gather_kv_pages(kp, table), pa.gather_kv_pages(vp, table)
+            k, v = k.repeat_interleave(G, dim=2), v.repeat_interleave(G, dim=2)
+            return F.scaled_dot_product_attention(q.transpose(1, 2), k.transpose(1, 2),
+                                                  v.transpose(1, 2), attn_mask=mask)
+        cases.append(dict(
+            name="paged_attention", shape=f"B={B} H={H} KV={KV} D={D} pt={pt} T={T} "
+            f"{str(dtype)[6:]} lengths=" + ",".join(map(str, lens)),
+            main=dtype == torch.bfloat16 and H == KV,
+            replaces="deepspeed_tpu/ops/pallas/paged_attention.py:88",
+            source="deepspeed_tpu_torch/ops/csrc/paged_attention.cu", sets=sets,
+            kernel=lambda q, kp, vp, t, L=lengths: pa.paged_decode_attention(q, kp, vp, t, L),
+            plain=lambda q, kp, vp, t, L=lengths, sc=scale: pa.paged_decode_attention_plain(
+                q, kp, vp, t, L, sc),
+            library=gather_sdpa, library_label="gather_kv_pages + SDPA on the gathered view",
+            compare="bf16" if dtype == torch.bfloat16 else "fp32",
+            bound=bound_ms(2 * live * KV * D * item + 2 * B * H * D * item + B * T * 4 + B * 4,
+                           4 * live * H * D, peaks, fp32=dtype == torch.float32)))
+    return cases
+
+
 def run_kernels(torch, F, peaks):
     results = []
     for case in kernel_cases(torch, F, peaks):
@@ -226,14 +310,22 @@ def run_kernels(torch, F, peaks):
             tol = 2 * bf16_ulp(float(ro.float().abs().max()))
             ok = err <= tol and lse_err <= 1e-4 * max(1.0, float(rlse.abs().max()))
             extra = {"lse_max_err": lse_err}
+        elif case["compare"] == "fp32":
+            err = float((got - ref).abs().max())
+            # fp32 sums in another order: 1e-4 relative to the output's scale
+            tol = 1e-4 * max(1.0, float(ref.abs().max()))
+            ok = err <= tol and bool(torch.isfinite(got).all())
+            extra = {}
         else:
             err = float((got.float() - ref.float()).abs().max())
             # fp32 arithmetic in a different order, one cast at the end (and
             # bf16 casts of normalised rows where an fp32 difference can
             # tip a rounding): allow two bf16 ulps at the output's scale
             tol = 2 * bf16_ulp(float(ref.float().abs().max()))
-            ok = err <= tol
+            ok = err <= tol and bool(torch.isfinite(got).all())
             extra = {}
+        if "library_label" in case:
+            extra["library"] = case["library_label"]
         rot = Rotation(case["sets"])
         iters = 20 if case["name"] == "flash_attention_fwd" else 100
         timed = {}
@@ -310,9 +402,20 @@ def counters():
     from deepspeed_tpu_torch.ops import decode_attention as da
     from deepspeed_tpu_torch.ops import decode_layer as dl
     from deepspeed_tpu_torch.ops import flash_attention as fa
+    from deepspeed_tpu_torch.ops import paged_attention as pa
 
     return {"flash_attention_fwd": fa.KERNEL, "decode_attention": da.KERNEL,
-            "norm_qkv": dl.NORM_PROJ, "post_attn": dl.POST_ATTN}
+            "norm_qkv": dl.NORM_PROJ, "post_attn": dl.POST_ATTN,
+            "paged_attention": pa.KERNEL}
+
+
+def zero_counts() -> None:
+    for k in counters().values():
+        k.launches = 0
+
+
+def read_counts() -> dict:
+    return {name: k.launches for name, k in counters().items()}
 
 
 def run_slice(torch):
@@ -338,18 +441,16 @@ def run_slice(torch):
         torch.cuda.synchronize()
         return out, (time.perf_counter() - t0) * 1e3
 
-    kernels = counters()
-    for k in kernels.values():
-        k.launches = 0
+    zero_counts()
     logits, fwd_ms = timed(lambda: eng(ids))
     _, ttft_ms = timed(lambda: eng.generate(prompt, max_new_tokens=1))
     greedy, gen_ms = timed(lambda: eng.generate(prompt, max_new_tokens=new))
     sampled, samp_ms = timed(lambda: eng.generate(prompt, max_new_tokens=new, temperature=0.8,
                                                   top_p=0.9, seed=7))
-    launches = {name: k.launches for name, k in kernels.items()}
+    launches = read_counts()
     ticks = 2 * (new - 1)   # greedy + sampled; the max_new_tokens=1 run has no tick
     expected = {"flash_attention_fwd": L, "decode_attention": L * ticks,
-                "norm_qkv": L * ticks, "post_attn": L * ticks}
+                "norm_qkv": L * ticks, "post_attn": L * ticks, "paged_attention": 0}
     ms_per_tick = (gen_ms - ttft_ms) / (new - 1)
     emit(dict(phase="slice", model="gpt2-125m", dtype="bfloat16", forward_shape=[2, 1024],
               forward_ms=fwd_ms, generate_shape=[8, 256, new], ttft_ms=ttft_ms,
@@ -406,6 +507,215 @@ def run_slice(torch):
               teacher_forced_top1=tf_agree, teacher_forced_within_delta=tf_ties,
               flatness=flatness, checks=checks))
     return launches, all(checks.values()), eng, prompt
+
+
+# ---------------------------------------------------------------------------
+# serve phase
+# ---------------------------------------------------------------------------
+
+def serve_requests(vocab: int):
+    """32 chat requests: a shared 192-token system prompt plus a unique
+    16–64-token suffix, 64–128 new tokens; even uids greedy, odd uids
+    sampled at T=0.8, top-p 0.9."""
+    import numpy as np
+
+    rng = np.random.default_rng(SEED + 4)
+    system = rng.integers(0, vocab, size=192)
+    reqs = []
+    for i in range(32):
+        suffix = rng.integers(0, vocab, size=int(rng.integers(16, 65)))
+        reqs.append(dict(prompt=np.concatenate([system, suffix]).astype(np.int32),
+                         max_new_tokens=int(rng.integers(64, 129)),
+                         temperature=0.0 if i % 2 == 0 else 0.8,
+                         top_p=1.0 if i % 2 == 0 else 0.9))
+    return reqs
+
+
+def serve_pass(torch, batcher, reqs):
+    """Submit every request at once, ``step(ticks=8)`` until all finish;
+    returns the outputs in request order and the pass's numbers."""
+    pc = batcher.prefix_cache
+    hit0, miss0 = (pc.hit_tokens, pc.miss_tokens) if pc is not None else (0, 0)
+    st0 = dict(batcher.stats)
+    batcher.reset_latency_stats()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    uids = [batcher.submit(**r) for r in reqs]
+    out = {}
+    while len(out) < len(uids):
+        out.update(batcher.step(ticks=8))
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    st = {k: batcher.stats[k] - st0[k] for k in st0}
+    lat = batcher.latency_stats()
+    hit, miss = (pc.hit_tokens - hit0, pc.miss_tokens - miss0) if pc is not None else (0, 0)
+    nums = dict(wall_s=wall, ttft_p50_ms=lat["ttft_p50_s"] * 1e3,
+                ttft_p90_ms=lat["ttft_p90_s"] * 1e3, e2e_p50_ms=lat["e2e_p50_s"] * 1e3,
+                decode_tokens_per_s=st["decode_tokens"] / st["decode_s"],
+                ms_per_tick=st["decode_s"] * 1e3 / st["ticks"], ticks=st["ticks"],
+                windows=st["windows"], one_token_prefills=st["one_token_prefills"],
+                prefill_tokens=st["prefill_tokens"], hit_tokens=hit, miss_tokens=miss,
+                hit_token_share=hit / max(1, hit + miss), leaks=batcher.leak_counts())
+    return [out[u] for u in uids], nums
+
+
+def serve_profile(torch, batcher, reqs, out_path=None):
+    """Device time against wall time for one 16-tick decode window of 8
+    live slots (greedy and sampled rows, no waiters): the serve tick's
+    device busy share."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    uids = [batcher.submit(**r) for r in reqs[:batcher.n_slots]]
+    batcher.step(ticks=1)                       # admit and place all eight
+    st0 = dict(batcher.stats)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        batcher.step(ticks=16)
+        torch.cuda.synchronize()
+    ticks = batcher.stats["ticks"] - st0["ticks"]
+    wall_ms = (batcher.stats["decode_s"] - st0["decode_s"]) * 1e3
+    dev_ms = sum(e.time_range.elapsed_us() for e in prof.events()
+                 if e.device_type == DeviceType.CUDA) / 1e3
+    batcher.wait(uids)
+    if out_path:
+        with open(out_path, "w") as fh:
+            fh.write(prof.key_averages().table(sort_by="self_cpu_time_total", row_limit=50))
+    return dict(window_ticks=ticks, tick_wall_ms=wall_ms / ticks,
+                tick_device_ms=dev_ms / ticks if dev_ms else "not measured",
+                tick_device_busy_share=dev_ms / wall_ms if dev_ms else "not measured")
+
+
+def run_serve(torch, delta_of, out_dir=None):
+    """gpt2-125m behind ContinuousBatcher in both cache modes, two passes
+    each; launch counts zeroed before each mode and read after it."""
+    import numpy as np
+
+    import deepspeed_tpu_torch as ds
+    from deepspeed_tpu_torch.models.gpt2 import GPT2LMHeadModel, gpt2_config
+
+    cfg = gpt2_config("gpt2-125m")
+    model = GPT2LMHeadModel(cfg).init_weights(torch.Generator().manual_seed(SEED))
+    eng = ds.init_inference(model, dtype=torch.bfloat16, max_tokens=512)
+    reqs = serve_requests(cfg.vocab_size)
+    L, V = cfg.n_layer, cfg.vocab_size
+    modes = {"paged": {"page_tokens": 16, "n_pages": 512}, "contiguous": None}
+    ok, greedy_out, by_mode = True, {}, {}
+    for mode, pc in modes.items():
+        batcher = ds.ContinuousBatcher(eng, n_slots=8, prefix_cache=pc, seed=SEED)
+        zero_counts()
+        outs, passes = [], []
+        for _ in range(2):
+            o, nums = serve_pass(torch, batcher, reqs)
+            outs.append(o)
+            passes.append(nums)
+        launches = read_counts()
+        by_mode[f"serve_{mode}"] = launches
+        singles = sum(p["ticks"] + p["one_token_prefills"] for p in passes)
+        attn = "paged_attention" if mode == "paged" else "decode_attention"
+        other = "decode_attention" if mode == "paged" else "paged_attention"
+        expected = {attn: L * singles, other: 0, "norm_qkv": L * singles,
+                    "post_attn": L * singles, "flash_attention_fwd": 0}
+        checks = {"launch_counts": launches == expected,
+                  "no_leaks": all(v == 0 for p in passes for v in p["leaks"].values()),
+                  "shapes_and_vocab": all(len(o) == len(r["prompt"]) + r["max_new_tokens"]
+                                          and int(o.max()) < V
+                                          for o_pass in outs for o, r in zip(o_pass, reqs))}
+        if mode == "paged":
+            checks["pass2_hits"] = passes[1]["hit_tokens"] > 0
+        # greedy streams teacher-forced through the card's own forward
+        agree, ties = [], []
+        for o_pass in outs:
+            for i in range(0, len(reqs), 2):
+                seq = torch.as_tensor(o_pass[i], dtype=torch.long, device=eng.device)
+                n0 = len(reqs[i]["prompt"])
+                lg = eng(seq[None, :-1])[0, n0 - 1:, :V].float()
+                pick = seq[n0:]
+                agree.append(float((lg.argmax(-1) == pick).float().mean()))
+                ties.append(near_max_share(pick, lg, delta_of(lg)))
+        tf_strict, tf_ties = float(np.mean(agree)), float(np.mean(ties))
+        checks["greedy_teacher_forced"] = tf_ties >= 0.99 and tf_strict >= 0.95
+        greedy_out[mode] = [outs[p][i] for p in range(2) for i in range(0, len(reqs), 2)]
+        if mode == "paged":
+            samp = sampling_check(torch, eng, reqs, outs[0])
+            checks["sampling_card_vs_cpu"] = samp["ok"]
+        prof = serve_profile(torch, batcher, reqs,
+                             out_dir and os.path.join(out_dir, f"profile_serve_{mode}.txt"))
+        checks["no_leaks"] &= all(v == 0 for v in batcher.leak_counts().values())
+        emit(dict(phase="serve", mode=mode, model="gpt2-125m", dtype="bfloat16", n_slots=8,
+                  requests=len(reqs), prefix_cache=pc, passes=passes, launches=launches,
+                  expected_launches=expected, teacher_forced_top1=tf_strict,
+                  teacher_forced_within_delta=tf_ties, profile=prof, checks=checks))
+        ok &= all(checks.values())
+        del batcher
+    a, b = greedy_out["paged"], greedy_out["contiguous"]
+    same = [float(np.mean(x[len(r["prompt"]):] == y[len(r["prompt"]):]))
+            for x, y, r in zip(a, b, [reqs[i] for _ in range(2) for i in range(0, len(reqs), 2)])]
+    emit(dict(phase="serve_compare", greedy_tokens_equal_paged_vs_contiguous=float(np.mean(same)),
+              greedy_streams_identical=sum(s == 1.0 for s in same), greedy_streams=len(same)))
+    return by_mode, ok
+
+
+def sampling_check(torch, eng, reqs, outs, per_stream: int = 16):
+    """The batcher's per-row sampling step on the card against the same step
+    on the CPU, over logits the traffic produces: the sampled streams of one
+    pass teacher-forced through the card's forward, ``per_stream`` positions
+    each. Rows alternate greedy and T=0.8/top-p 0.9 as the traffic does, and
+    every fourth row also takes a repetition penalty of 1.3 over its prompt.
+
+    Greedy rows must pick the same token. Random-weight logits are so flat
+    (~2e-5 mass per token) that the two devices' fp32 cumsum rounding
+    (~6e-8) can move a sampled pick across a step, so a sampled pick must
+    sit on the CPU's fp64 CDF at the same uniform within ``cdf_tol``, a
+    tenth of a mean token's mass: a pick one token off fails on about half
+    of the rows."""
+    import numpy as np
+
+    from deepspeed_tpu_torch.inference.engine import _filtered_logits, _penalized_logits
+    from deepspeed_tpu_torch.inference.serving import _uniforms, sample_rows
+
+    V = eng.model_cfg.vocab_size
+    rows, seen_rows = [], []
+    for i in range(1, len(reqs), 2):
+        seq = torch.as_tensor(outs[i], dtype=torch.long, device=eng.device)
+        n0 = len(reqs[i]["prompt"])
+        lg = eng(seq[None, :-1])[0, n0 - 1:n0 - 1 + per_stream].float()
+        rows.append(lg)
+        seen = torch.zeros((len(lg), lg.shape[-1]), dtype=torch.bool, device=eng.device)
+        seen[:, seq[:n0]] = True
+        seen_rows.append(seen)
+    logits, seen = torch.cat(rows), torch.cat(seen_rows)
+    n = logits.shape[0]
+    k = np.arange(n)
+    temp = np.where(k % 2 == 1, 0.8, 0.0).astype(np.float32)
+    top_p = np.where(k % 2 == 1, 0.9, 1.0).astype(np.float32)
+    rep = np.where(k % 4 == 3, 1.3, 1.0).astype(np.float32)
+    u = torch.as_tensor(_uniforms(SEED, 1, n))
+
+    def pick(dev):
+        t, p, r = (torch.as_tensor(a, device=dev) for a in (temp, top_p, rep))
+        return sample_rows(logits.to(dev), False, t, p, r, seen.to(dev), u.to(dev), 0).cpu()
+
+    card, cpu = pick(eng.device), pick("cpu")
+    greedy, sampled = torch.as_tensor(temp <= 0), torch.as_tensor(temp > 0)
+    # where the card's pick lies on the CPU's CDF at the same uniform
+    lg = _penalized_logits(logits.cpu(), torch.as_tensor(rep)[:, None], seen.cpu())
+    probs = torch.softmax(_filtered_logits(lg, torch.as_tensor(temp), 0, torch.as_tensor(top_p)),
+                          dim=-1).double()
+    cdf = torch.cumsum(probs, dim=-1)
+    x = u.double() * cdf[:, -1]
+    hi = cdf.gather(1, card[:, None])[:, 0]
+    lo = hi - probs.gather(1, card[:, None])[:, 0]
+    cdf_tol = 2e-6
+    on_cdf = (x >= lo - cdf_tol) & (x <= hi + cdf_tol)
+    res = dict(rows=n, greedy_rows=int(greedy.sum()), sampled_rows=int(sampled.sum()),
+               greedy_equal=bool((card[greedy] == cpu[greedy]).all()),
+               sampled_equal_share=float((card[sampled] == cpu[sampled]).float().mean()),
+               sampled_on_cpu_cdf=bool(on_cdf[sampled].all()), cdf_tol=cdf_tol,
+               picks_below_vocab=bool((card < V).all()))
+    res["ok"] = res["greedy_equal"] and res["sampled_on_cpu_cdf"] and res["picks_below_vocab"]
+    emit(dict(phase="serve_sampling", **res))
+    return res
 
 
 def near_max_share(pick, ref_logits, delta: float) -> float:
@@ -474,7 +784,7 @@ def main() -> int:
     peaks = card_peaks(name)
     emit(dict(phase="env", nvidia_smi=smi, device=name, count=torch.cuda.device_count(),
               torch=torch.__version__, cuda=torch.version.cuda,
-              peaks={"bytes_per_s": peaks[0], "bf16_flops": peaks[1]}))
+              peaks={"bytes_per_s": peaks[0], "bf16_flops": peaks[1], "fp32_flops": peaks[2]}))
 
     ok = True
     t0 = time.perf_counter()
@@ -492,14 +802,22 @@ def main() -> int:
     launches, slice_ok, eng, prompt = run_slice(torch)
     ok &= slice_ok
     run_profile(torch, eng, prompt, args.out)
+    del eng
+    serve_launches, serve_ok = run_serve(
+        torch, lambda lg: 2 * bf16_ulp(float(lg.abs().max())), args.out)
+    ok &= serve_ok
+    # each path's counts were zeroed before it and read after it
+    by_path = {"generate": launches, **serve_launches}
 
     summary = []
     for case, r in kernel_results:
         if not case["main"]:
             continue
+        per_path = {p: c.get(case["name"], 0) for p, c in by_path.items()}
         summary.append(dict(
             name=case["name"], route="cuda", source=case["source"], replaces=case["replaces"],
-            launches=launches.get(case["name"], 0), max_abs_err=r["max_err"], ms=r["kernel_ms"],
+            launches=sum(per_path.values()), launches_by_path=per_path,
+            max_abs_err=r["max_err"], ms=r["kernel_ms"],
             plain_ms=r["plain_ms"], bound_ms=r["bound_us"] / 1e3, bound_by=r["bound_by"],
             library_ms=r["library_ms"]))
     print(smi, flush=True)

@@ -10,8 +10,13 @@ Top-level API (the JAX package's ``init_inference``):
 
 - ``init_inference(model, params=..., dtype=..., max_tokens=..., device=None)``
   → :class:`~deepspeed_tpu_torch.inference.engine.InferenceEngine`
+- ``ContinuousBatcher(engine, n_slots, prefix_cache=...)`` — the slot-pool
+  server over an engine, contiguous or page-resident
+  (:mod:`~deepspeed_tpu_torch.inference.serving`)
 """
 from __future__ import annotations
+
+from .inference.serving import ContinuousBatcher
 
 __version__ = "0.1.0"
 

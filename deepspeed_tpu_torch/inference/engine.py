@@ -61,9 +61,13 @@ class InferenceConfig:
             raise NotImplementedError(f"mp_size/ep_size > 1 (multi-card serving) {todo}")
         if self.quant.get("enabled"):
             raise NotImplementedError(f"quant (int8 / fake-quant weights) {todo}")
-        for name in ("prefix_cache", "specdec", "paged_decode", "checkpoint"):
+        for name in ("specdec", "checkpoint"):
             if getattr(self, name):
                 raise NotImplementedError(f"{name} {todo}")
+        prefix_on = isinstance(self.prefix_cache, dict) or bool(self.prefix_cache)
+        if prefix_on and self.paged_decode is False:
+            raise NotImplementedError(f"prefix_cache with paged_decode=False (the gather "
+                                      f"path) {todo}")
 
 
 def resolve_device(device) -> torch.device:
@@ -99,6 +103,9 @@ class InferenceEngine:
             over["decode_fused"] = bool(self.config.decode_fused)
         self.model_cfg = dataclasses.replace(cfg, **over)
         self._gen_limit, self.cache_len = self._limits(self.model_cfg)
+        # the decode model knows its cache length (the paged path slices its
+        # gathered view to it), as the JAX engine's decode_cfg does
+        self.model_cfg = dataclasses.replace(self.model_cfg, cache_len=self.cache_len)
         self.module = GPT2LMHeadModel(self.model_cfg, device=self.device, dtype=dtype)
         self.module.requires_grad_(False)
         self.load_params(model.state_dict() if params is None else params)
@@ -165,10 +172,23 @@ class InferenceEngine:
 
     __call__ = forward
 
-    def init_cache(self, batch_size: int) -> list:
+    def init_cache(self, batch_size: int, per_row: bool = True) -> list:
+        """A zeroed contiguous cache, one dict per layer, with a ``(B,)``
+        write head per row (``per_row=False``: one host ``int`` head, the
+        static batch of ``generate`` and of a prefill)."""
         cfg = self.model_cfg
         return [init_layer_cache(batch_size, self.cache_len, cfg.n_head, cfg.head_dim,
-                                 cfg.dtype, self.device) for _ in range(cfg.n_layer)]
+                                 cfg.dtype, self.device, per_row) for _ in range(cfg.n_layer)]
+
+    @torch.no_grad()
+    def prefill(self, cache: list, input_ids, positions):
+        """The batched (suffix) prefill the continuous batcher runs (the JAX
+        engine's ``_compiled_prefill``): ``input_ids`` ``(B, S)`` at
+        ``positions`` ``(1, S)`` or ``(B, S)`` appended to ``cache`` in
+        place; returns ``(logits, cache)``."""
+        ids = self._ids(input_ids)
+        pos = torch.as_tensor(positions, dtype=torch.long, device=self.device)
+        return self.module(ids, position_ids=pos, cache=cache).logits, cache
 
     @torch.no_grad()
     def generate(self, input_ids, max_new_tokens: int = 32, temperature: float = 0.0,
@@ -188,7 +208,7 @@ class InferenceEngine:
         if S + max_new_tokens > self._gen_limit:
             raise ValueError(f"prompt({S}) + max_new_tokens({max_new_tokens}) exceeds the "
                              f"generation limit {self._gen_limit} (max_tokens/model context)")
-        cache = self.init_cache(B)
+        cache = self.init_cache(B, per_row=False)
         positions = torch.arange(S, device=self.device)[None, :].expand(B, S)
         logits = self.module(ids, position_ids=positions, cache=cache).logits
         gen = torch.Generator(device=self.device).manual_seed(seed)
@@ -227,22 +247,34 @@ def _penalized_logits(logits, repetition_penalty=1.0, seen_mask=None):
     return logits
 
 
-def _filtered_logits(logits, temperature: float, top_k: int, top_p: float = 1.0):
+def _filtered_logits(logits, temperature, top_k: int, top_p=1.0):
     """Penalised logits → the categorical's input: temperature, top-k mask,
     nucleus mask (the smallest prefix of descending-probability tokens
-    whose mass reaches ``top_p``; the top token always survives)."""
-    scaled = logits / max(temperature, 1e-6)
+    whose mass reaches ``top_p``; the top token always survives).
+
+    ``temperature`` and ``top_p`` are python floats (one value for the
+    batch) or ``(B,)`` tensors, one per row (the continuous batcher); a
+    per-row ``top_p`` keeps the nucleus live for every row, as the JAX
+    package's traced ``top_p`` does (``<= 0`` means 1)."""
+    if isinstance(temperature, torch.Tensor):
+        scaled = logits / temperature.clamp(min=1e-6)[:, None]
+    else:
+        scaled = logits / max(temperature, 1e-6)
     if top_k > 0:
         kth = torch.sort(scaled, dim=-1).values[:, -top_k][:, None]
         scaled = scaled.masked_fill(scaled < kth, float("-inf"))
-    if 0.0 < top_p < 1.0:
-        sorted_desc = torch.sort(scaled, dim=-1, descending=True).values
-        probs = torch.softmax(sorted_desc, dim=-1)
-        mass_before = torch.cumsum(probs, dim=-1) - probs
-        thr = torch.where(mass_before < top_p, sorted_desc,
-                          torch.full_like(sorted_desc, float("inf"))).amin(-1, keepdim=True)
-        scaled = scaled.masked_fill(scaled < thr, float("-inf"))
-    return scaled
+    if isinstance(top_p, torch.Tensor):
+        p = torch.where(top_p <= 0.0, torch.ones_like(top_p), top_p)[:, None]
+    elif 0.0 < top_p < 1.0:
+        p = top_p
+    else:
+        return scaled
+    sorted_desc = torch.sort(scaled, dim=-1, descending=True).values
+    probs = torch.softmax(sorted_desc, dim=-1)
+    mass_before = torch.cumsum(probs, dim=-1) - probs
+    thr = torch.where(mass_before < p, sorted_desc,
+                      torch.full_like(sorted_desc, float("inf"))).amin(-1, keepdim=True)
+    return scaled.masked_fill(scaled < thr, float("-inf"))
 
 
 def _sample(logits, generator: torch.Generator, temperature: float, top_k: int = 0,

@@ -10,7 +10,11 @@ transposes; the scanned stack becomes an ``nn.ModuleList`` ``h``.
 shape allows). ``forward(ids, position_ids=..., cache=...)`` is the decode
 mode: K/V are appended to the cache, single-token ticks run the fused
 decode kernels when ``decode_fused_plan`` allows, and the rest runs the
-unfused chain over the cache.
+unfused chain over the cache. The cache is any layout of
+``models/common.append_kv_cache`` (one write head, per-row heads, or the
+paged arena) and ``position_ids`` are per row, ``(B, S)`` or ``(1, S)``:
+``cached_decode_attention`` dispatches on the layout, as in the JAX
+package.
 """
 from __future__ import annotations
 
@@ -112,7 +116,7 @@ class SelfAttention(nn.Module):
         if layer_cache is None:
             y = dot_product_attention(q, k, v, causal=True, mask=mask, impl=self.cfg.attn_impl)
         else:
-            kc, vc, cur = append_kv_cache(layer_cache, k, v)
+            kc, vc, cur = append_kv_cache(layer_cache, k, v, self.cfg.cache_len)
             y = cached_decode_attention(q, kc, vc, cur, mask)
         return y.reshape(B, S, self.cfg.n_embd)
 

@@ -155,9 +155,11 @@ def test_entry_points_stay_on_the_card(monkeypatch):
 
 
 @pytest.mark.parametrize("kw", [dict(mp_size=2), dict(ep_size=2), dict(quant={"enabled": True}),
-                                dict(prefix_cache=True), dict(specdec=True),
-                                dict(paged_decode=True), dict(checkpoint="ckpt")])
+                                dict(prefix_cache=True, paged_decode=False), dict(specdec=True),
+                                dict(prefix_cache={"page_tokens": 8}, paged_decode=False),
+                                dict(checkpoint="ckpt")])
 def test_unported_options_raise(kw):
+    # a prefix cache with paged decode off is the gather path, not ported
     m = GPT2LMHeadModel(gpt2_config("gpt2-tiny", dtype=torch.float32))
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         deepspeed_tpu_torch.init_inference(m.init_weights(torch.Generator().manual_seed(0)),
