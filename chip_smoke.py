@@ -26,10 +26,35 @@ Run from the root of the repository. Phases, each printing JSON lines:
             counts, prefix hits, greedy streams teacher-forced through the
             card's own forward, and the per-row sampling step on the card
             held against the CPU over the sampled streams' logits.
+7. train    GPT-2-125M at full width and depth through ``initialize`` with
+            the JAX package's flagship training config (S=1024, micro 24,
+            gradient accumulation 4, adamw lr 1e-4 wd 0.1, clipping 1.0,
+            ZeRO stage 1, bf16 gradient accumulation, the chunked CE head
+            as one chunk): first a gradient gate at micro 2 (the fp32
+            engine through the flash kernels against the fp32 engine on
+            dense attention, per-leaf relative error ≤ 1e-3; the merged
+            backward against the split pair; the bf16 engine against fp32
+            dense, cosine ≥ 0.99 per leaf; one micro 2 × gas 2 step with
+            bf16 gradient accumulation against the same step in fp32:
+            grad_norm within 2^-7, each element's update within 2·lr and
+            ≤ 1% of them off by more than lr/2), then 2 warm-up and 8 timed
+            ``train_batches`` steps on a fixed seeded batch (losses finite
+            and falling, exactly 12 × 4 forward and merged-backward
+            launches per step), one profiled step (device busy share, top
+            device ops) and one step with ``DS_TPU_FLASH_BWD=split``
+            (12 × 4 launches of each split kernel).
+
+The kernels phase also holds the flash backward kernels (merged, and the
+split dq/dkv pair) against their plain version: bf16 at the train shape and
+fp32 at D=128, D=256, a ragged S and a non-causal Sk != S, each with its
+device time, the plain version's, SDPA's backward and the bound. At each
+of these cases the forward kernel's output and lse, which the backward
+takes, are held against the plain forward first; at the train shape the
+forward is timed too (the ``at_train_shape`` entry of its ``kernels`` row).
 
 The ``kernels`` line gives each kernel's launches per path (``generate``,
-``serve_paged``, ``serve_contiguous``: each zeroed before its run and read
-after it) and their sum.
+``serve_paged``, ``serve_contiguous``, ``train``, ``train_split``: each
+zeroed before its run and read after it) and their sum.
 
 It exits non-zero, printing no result line, without CUDA or outside the
 repository; any failed phase makes it exit non-zero. The last line is
@@ -101,7 +126,24 @@ def device_ms(torch, fn, iters: int):
     """Mean device time per call: the summed durations of the GPU kernels
     and copies ``iters`` calls ran (torch.profiler / CUPTI), so launch gaps
     do not count. None if the profiler recorded no device activity."""
+    return device_ms_by_name(torch, fn, iters)[0]
+
+
+def device_ms_of(prof) -> dict:
+    """Device ms by kernel (or copy) name in a finished torch.profiler run:
+    the summed durations of its CUDA events."""
     from torch.autograd import DeviceType
+
+    by_name = {}
+    for e in prof.events():
+        if e.device_type == DeviceType.CUDA:
+            by_name[e.name] = by_name.get(e.name, 0.0) + e.time_range.elapsed_us() / 1e3
+    return by_name
+
+
+def device_ms_by_name(torch, fn, iters: int):
+    """Mean device ms per call, in all and by kernel name (torch.profiler),
+    after warm-up; (None, {}) if the profiler saw no device activity."""
     from torch.profiler import ProfilerActivity, profile
 
     for _ in range(3):
@@ -111,9 +153,8 @@ def device_ms(torch, fn, iters: int):
         for _ in range(iters):
             fn()
         torch.cuda.synchronize()
-    us = sum(e.time_range.elapsed_us() for e in prof.events()
-             if e.device_type == DeviceType.CUDA)
-    return us / 1e3 / iters if us else None
+    by_name = {k: v / iters for k, v in device_ms_of(prof).items()}
+    return (sum(by_name.values()) or None), by_name
 
 
 class Rotation:
@@ -394,6 +435,144 @@ def run_fp32_shapes(torch):
     return ok
 
 
+def run_bwd_kernels(torch, F, peaks):
+    """The flash backward kernels against ``flash_attention_bwd_plain``: bf16
+    at the train shape (B=24, S=1024, H=12, D=64, causal) and fp32 at D=128,
+    D=256, a ragged S and a non-causal Sk != S; merged and split at each.
+
+    The forward kernel's (o, lse), which both backward versions take, is
+    first held against ``flash_attention_plain`` at each case; at the
+    train shape, where the train path launches it, it is timed too. Each
+    backward kernel's time is its own device time (the merged wrapper's
+    delta, zero fill and scale-and-cast are printed beside it as
+    ``wrapper_ms``); its bound counts what its function must move: q, k,
+    v, do, lse and delta read, its gradients written in the inputs'
+    dtype. The merged design's zeroed fp32 dq buffer, read and written,
+    is its own cost, printed beside the bound as ``dq_scratch_ms``. The
+    plain version and the library call (SDPA's forward + backward through
+    ``torch.autograd.grad`` minus its forward) compute all three
+    gradients. Tolerance: 2 bf16 ulps at each output's scale; fp32 1e-4
+    relative (the merged dq adds with atomics in no fixed order), lse
+    1e-4 relative. Returns ``{kernel name: row}`` of the train-shape
+    case (the forward's under ``flash_attention_fwd``) and ok."""
+    from deepspeed_tpu_torch.ops import flash_attention as fa
+
+    g = torch.Generator(device="cuda").manual_seed(SEED + 6)
+    cases = [(torch.bfloat16, 24, 1024, 1024, 12, 64, True),
+             (torch.float32, 2, 512, 512, 8, 128, True),
+             (torch.float32, 2, 512, 512, 4, 256, True),
+             (torch.float32, 2, 200, 200, 12, 64, True),
+             (torch.float32, 2, 384, 640, 12, 64, False)]
+    main_rows, ok = {}, True
+    for dt, B, S, Sk, H, D, causal in cases:
+        def rnd(*shape):
+            return torch.randn(shape, generator=g, device="cuda").to(dt)
+        q, k, v, do = rnd(B, S, H, D), rnd(B, Sk, H, D), rnd(B, Sk, H, D), rnd(B, S, H, D)
+        sc = D ** -0.5
+        fp32 = dt == torch.float32
+        item = q.element_size()
+        nq, nk, rows = B * S * H * D, B * Sk * H * D, B * H * S
+        pairs = B * H * (sum(min(i + 1, Sk) for i in range(S)) if causal else S * Sk)
+        shape = f"B={B} S={S} Sk={Sk} H={H} D={D} causal={causal} {str(dt)[6:]}"
+        o, lse = fa._flash_fwd(q, k, v, causal, sc)
+        ro, rlse = fa.flash_attention_plain(q, k, v, causal, sc)
+        torch.cuda.synchronize()
+        o_scale = float(ro.float().abs().max())
+        fwd_err = float((o.float() - ro.float()).abs().max())
+        fwd_tol = 1e-4 * max(1.0, o_scale) if fp32 else 2 * bf16_ulp(o_scale)
+        lse_err = float((lse - rlse).abs().max())
+        lse_tol = 1e-4 * max(1.0, float(rlse.abs().max()))
+        fwd_ok = (fwd_err <= fwd_tol and lse_err <= lse_tol
+                  and bool(torch.isfinite(o).all()) and bool(torch.isfinite(lse).all()))
+        ok &= fwd_ok
+        del ro, rlse
+        fwd = dict(phase="kernels_fwd_at_bwd_shape", shape=shape, max_err=fwd_err, tol=fwd_tol,
+                   lse_max_err=lse_err, lse_tol=lse_tol, ok=fwd_ok)
+
+        def plain():
+            delta = (do.float() * o.float()).sum(-1).permute(0, 2, 1).reshape(B * H, 1, S)
+            return fa.flash_attention_bwd_plain(q, k, v, o, lse, do, delta, causal, sc)
+
+        ref = plain()
+        qt, kt, vt = (t.transpose(1, 2).contiguous().requires_grad_() for t in (q, k, v))
+        dot = do.transpose(1, 2).contiguous()
+
+        def lib_fwd():
+            return F.scaled_dot_product_attention(qt, kt, vt, is_causal=causal)
+
+        def lib_fwd_bwd():
+            return torch.autograd.grad(lib_fwd(), (qt, kt, vt), dot)
+
+        iters = 5 if S * B >= 8192 else 10
+        plain_ms, _ = device_ms_by_name(torch, plain, 3)
+        lib_fb, lib_f = (device_ms_by_name(torch, fn, iters)[0] for fn in (lib_fwd_bwd, lib_fwd))
+        lib_ms = lib_fb - lib_f if lib_fb and lib_f else None
+        if dt == torch.bfloat16:
+            # the train path's forward: its own time, plain and bound here
+            f_bound, f_by = bound_ms(item * (2 * nq + 2 * nk) + 4 * rows, 4 * D * pairs, peaks)
+            fwd.update(ms=device_ms(torch, lambda: fa._flash_fwd(q, k, v, causal, sc), iters),
+                       plain_ms=device_ms(torch, lambda: fa.flash_attention_plain(
+                           q, k, v, causal, sc), 3),
+                       library_ms=lib_f, library="SDPA forward", bound_ms=f_bound, bound_by=f_by)
+            main_rows["flash_attention_fwd"] = dict(
+                {k_: fwd[k_] for k_ in ("shape", "ms", "plain_ms", "library_ms", "bound_ms",
+                                        "bound_by")}, max_abs_err=fwd_err)
+        emit(fwd)
+        reads = item * (2 * nq + 2 * nk) + 2 * 4 * rows     # q, do, k, v, lse, delta
+        bounds = {"flash_attention_bwd_merged": bound_ms(reads + item * (nq + 2 * nk),
+                                                         5 * 2 * D * pairs, peaks, fp32),
+                  "flash_attention_bwd_dq": bound_ms(reads + item * nq, 3 * 2 * D * pairs,
+                                                     peaks, fp32),
+                  "flash_attention_bwd_dkv": bound_ms(reads + item * 2 * nk,
+                                                      4 * 2 * D * pairs, peaks, fp32)}
+        for mode in ("merged", "split"):
+            got = fa.flash_attention_bwd(q, k, v, o, lse, do, causal, sc, mode=mode)
+            torch.cuda.synchronize()
+            errs, tols = [], []
+            for x, r in zip(got, ref):
+                scale_ = float(r.float().abs().max())
+                errs.append(float((x.float() - r.float()).abs().max()))
+                tols.append(1e-4 * max(1.0, scale_) if fp32 else 2 * bf16_ulp(scale_))
+            finite = all(bool(torch.isfinite(x).all()) for x in got)
+            case_ok = finite and all(e <= t for e, t in zip(errs, tols))
+            def wrapper(m=mode):
+                return fa.flash_attention_bwd(q, k, v, o, lse, do, causal, sc, mode=m)
+
+            total, by_name = device_ms_by_name(torch, wrapper, iters)
+            # the kv-loop kernel is the merged one in merged mode, dkv in split mode
+            names = ({"flash_bwd_kv_kernel": "flash_attention_bwd_merged"} if mode == "merged"
+                     else {"flash_bwd_dq_kernel": "flash_attention_bwd_dq",
+                           "flash_bwd_kv_kernel": "flash_attention_bwd_dkv"})
+            kernels = {}
+            for sub, key in names.items():
+                hits = [ms for n, ms in by_name.items() if sub in n]
+                if hits:
+                    b_ms, b_by = bounds[key]
+                    kernels[key] = dict(ms=sum(hits), bound_ms=b_ms, bound_by=b_by)
+            if "flash_attention_bwd_merged" in kernels:
+                # its fp32 dq buffer read and written once: this design's
+                # own traffic, beyond the function's bound
+                kernels["flash_attention_bwd_merged"]["dq_scratch_ms"] = 2 * 4 * nq / peaks[0] * 1e3
+            # event time of the same calls: a cross-check of the profiler's
+            # sums (equal to device time where the card, not the host, is
+            # the limit)
+            emit(dict(phase="kernels_bwd", mode=mode, shape=shape, max_err_dq_dk_dv=errs,
+                      tol=tols, ok=case_ok, wrapper_ms=total,
+                      wrapper_event_ms=cuda_ms(torch, wrapper, iters), kernels=kernels,
+                      plain_ms=plain_ms, library_ms=lib_ms,
+                      library_event_ms=cuda_ms(torch, lib_fwd_bwd, iters)
+                      - cuda_ms(torch, lib_fwd, iters),
+                      library="SDPA forward+backward via torch.autograd.grad minus SDPA forward"))
+            ok &= case_ok and len(kernels) == len(names)
+            if dt == torch.bfloat16:
+                for key, kern in kernels.items():
+                    main_rows[key] = dict(kern, max_abs_err=max(errs), plain_ms=plain_ms,
+                                          library_ms=lib_ms, shape=shape)
+        del q, k, v, do, o, lse, ref, qt, kt, vt, dot
+        torch.cuda.empty_cache()
+    return main_rows, ok
+
+
 # ---------------------------------------------------------------------------
 # slice phase
 # ---------------------------------------------------------------------------
@@ -406,7 +585,13 @@ def counters():
 
     return {"flash_attention_fwd": fa.KERNEL, "decode_attention": da.KERNEL,
             "norm_qkv": dl.NORM_PROJ, "post_attn": dl.POST_ATTN,
-            "paged_attention": pa.KERNEL}
+            "paged_attention": pa.KERNEL, "flash_attention_bwd_merged": fa.BWD_MERGED,
+            "flash_attention_bwd_dq": fa.BWD_DQ, "flash_attention_bwd_dkv": fa.BWD_DKV}
+
+
+# serving runs no backward
+NO_BACKWARD = {"flash_attention_bwd_merged": 0, "flash_attention_bwd_dq": 0,
+               "flash_attention_bwd_dkv": 0}
 
 
 def zero_counts() -> None:
@@ -443,17 +628,20 @@ def run_slice(torch):
 
     zero_counts()
     logits, fwd_ms = timed(lambda: eng(ids))
+    _, fwd_again_ms = timed(lambda: eng(ids))   # the first call at this shape pays set-up
     _, ttft_ms = timed(lambda: eng.generate(prompt, max_new_tokens=1))
     greedy, gen_ms = timed(lambda: eng.generate(prompt, max_new_tokens=new))
     sampled, samp_ms = timed(lambda: eng.generate(prompt, max_new_tokens=new, temperature=0.8,
                                                   top_p=0.9, seed=7))
     launches = read_counts()
     ticks = 2 * (new - 1)   # greedy + sampled; the max_new_tokens=1 run has no tick
-    expected = {"flash_attention_fwd": L, "decode_attention": L * ticks,
-                "norm_qkv": L * ticks, "post_attn": L * ticks, "paged_attention": 0}
+    expected = {"flash_attention_fwd": 2 * L, "decode_attention": L * ticks,
+                "norm_qkv": L * ticks, "post_attn": L * ticks, "paged_attention": 0,
+                **NO_BACKWARD}
     ms_per_tick = (gen_ms - ttft_ms) / (new - 1)
     emit(dict(phase="slice", model="gpt2-125m", dtype="bfloat16", forward_shape=[2, 1024],
-              forward_ms=fwd_ms, generate_shape=[8, 256, new], ttft_ms=ttft_ms,
+              forward_ms=fwd_ms, forward_again_ms=fwd_again_ms,
+              generate_shape=[8, 256, new], ttft_ms=ttft_ms,
               generate_ms=gen_ms, ms_per_tick=ms_per_tick,
               tokens_per_s=8 * new / (gen_ms / 1e3), decode_tokens_per_s=8 / (ms_per_tick / 1e3),
               sampled_generate_ms=samp_ms, launches=launches, expected_launches=expected))
@@ -563,7 +751,6 @@ def serve_profile(torch, batcher, reqs, out_path=None):
     """Device time against wall time for one 16-tick decode window of 8
     live slots (greedy and sampled rows, no waiters): the serve tick's
     device busy share."""
-    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     uids = [batcher.submit(**r) for r in reqs[:batcher.n_slots]]
@@ -575,8 +762,7 @@ def serve_profile(torch, batcher, reqs, out_path=None):
         torch.cuda.synchronize()
     ticks = batcher.stats["ticks"] - st0["ticks"]
     wall_ms = (batcher.stats["decode_s"] - st0["decode_s"]) * 1e3
-    dev_ms = sum(e.time_range.elapsed_us() for e in prof.events()
-                 if e.device_type == DeviceType.CUDA) / 1e3
+    dev_ms = sum(device_ms_of(prof).values())
     batcher.wait(uids)
     if out_path:
         with open(out_path, "w") as fh:
@@ -615,7 +801,7 @@ def run_serve(torch, delta_of, out_dir=None):
         attn = "paged_attention" if mode == "paged" else "decode_attention"
         other = "decode_attention" if mode == "paged" else "paged_attention"
         expected = {attn: L * singles, other: 0, "norm_qkv": L * singles,
-                    "post_attn": L * singles, "flash_attention_fwd": 0}
+                    "post_attn": L * singles, "flash_attention_fwd": 0, **NO_BACKWARD}
         checks = {"launch_counts": launches == expected,
                   "no_leaks": all(v == 0 for p in passes for v in p["leaks"].values()),
                   "shapes_and_vocab": all(len(o) == len(r["prompt"]) + r["max_new_tokens"]
@@ -730,7 +916,6 @@ def near_max_share(pick, ref_logits, delta: float) -> float:
 def run_profile(torch, eng, prompt, out_dir):
     """Device time against wall time for a prefill alone (1 new token) and
     for a prefill plus 16 ticks; their difference is 16 ticks."""
-    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     windows = {}
@@ -742,11 +927,8 @@ def run_profile(torch, eng, prompt, out_dir):
             eng.generate(prompt, max_new_tokens=new)
             torch.cuda.synchronize()
             wall_ms = (time.perf_counter() - t0) * 1e3
-        by_name = {}
-        for e in prof.events():
-            if e.device_type == DeviceType.CUDA:
-                by_name[e.name] = by_name.get(e.name, 0.0) + e.time_range.elapsed_us()
-        windows[new] = (wall_ms, sum(by_name.values()) / 1e3, by_name)
+        by_name = device_ms_of(prof)
+        windows[new] = (wall_ms, sum(by_name.values()), by_name)
         if out_dir:
             with open(os.path.join(out_dir, f"profile_new{new}.txt"), "w") as fh:
                 fh.write(prof.key_averages().table(sort_by="self_cuda_time_total",
@@ -759,7 +941,220 @@ def run_profile(torch, eng, prompt, out_dir):
               prefill_wall_ms=w1, prefill_device_ms=d1 if measured else "not measured",
               tick_wall_ms=tick_wall, tick_device_ms=tick_dev if measured else "not measured",
               tick_device_busy_share=tick_dev / tick_wall if measured else "not measured",
-              top_device_us_new17={k[:90]: v for k, v in top}))
+              top_device_us_new17={k[:90]: v * 1e3 for k, v in top}))
+
+
+# ---------------------------------------------------------------------------
+# train phase
+# ---------------------------------------------------------------------------
+
+def train_config(micro: int, gas: int, accum: str = "bf16") -> dict:
+    """The JAX package's flagship GPT-2-125M training config (bench.py)."""
+    return {"train_micro_batch_size_per_gpu": micro, "gradient_accumulation_steps": gas,
+            "optimizer": {"type": "adamw", "params": {"lr": 1e-4, "weight_decay": 0.1}},
+            "gradient_clipping": 1.0, "zero_optimization": {"stage": 1},
+            "data_types": {"grad_accum_dtype": accum}, "steps_per_print": 1000000}
+
+
+def text_like_ids(rng, rows: int, seq: int, vocab: int):
+    """Token ids with a Zipf (s = 1.2) unigram skew, like text's, so that a
+    few steps on a fixed batch have something to learn."""
+    return ((rng.zipf(1.2, size=(rows, seq)) - 1) % vocab).astype("int64")
+
+
+def grad_gate(torch, cfg):
+    """One micro-batch (2 × 1024) of gradients: the fp32 engine through the
+    flash kernels (merged, then split) against the fp32 engine on dense
+    attention, and the bf16 engine against the fp32 dense one. Then one
+    optimizer step of the bf16 engine at micro 2 × gas 2 with bf16
+    gradient accumulation, as the train path runs, against the same step
+    accumulating in fp32: grad_norm and each leaf's update."""
+    import dataclasses
+
+    import numpy as np
+
+    import deepspeed_tpu_torch as ds
+    from deepspeed_tpu_torch.models.gpt2 import GPT2LMHeadModel
+
+    ids = text_like_ids(np.random.default_rng(SEED + 7), 2, 1024, cfg.vocab_size)
+
+    def grads(dtype, attn, mode=None):
+        model = GPT2LMHeadModel(dataclasses.replace(cfg, dtype=dtype, attn_impl=attn),
+                                device="meta")
+        eng, *_ = ds.initialize(model=model, config=train_config(2, 1, "fp32"))
+        eng.init_params()
+        if mode:
+            os.environ["DS_TPU_FLASH_BWD"] = mode
+        try:
+            zero_counts()
+            _, g = eng._grads_of(eng._to_device({"input_ids": ids, "labels": ids}))
+            torch.cuda.synchronize()
+            counts = read_counts()
+        finally:
+            os.environ.pop("DS_TPU_FLASH_BWD", None)
+        out = {n: x.float() for n, x in zip(eng._names, g)}
+        del eng, g
+        torch.cuda.empty_cache()
+        return out, counts
+
+    dense, dense_counts = grads(torch.float32, "jnp")
+    flash, flash_counts = grads(torch.float32, "auto")
+    split, split_counts = grads(torch.float32, "auto", "split")
+    bf16, _ = grads(torch.bfloat16, "auto")
+
+    ids4 = text_like_ids(np.random.default_rng(SEED + 9), 4, 1024, cfg.vocab_size)
+    step = {}
+    for accum in ("bf16", "fp32"):
+        eng, *_ = ds.initialize(model=GPT2LMHeadModel(cfg, device="meta"),
+                                config=train_config(2, 2, accum))
+        eng.init_params()       # the same seeded weights for both
+        before = [p.detach().clone() for p in eng._params]
+        eng.train_batch({"input_ids": ids4, "labels": ids4})
+        step[accum] = (float(eng.metrics["grad_norm"]), eng.metrics["lr"],
+                       {n: p.detach() - b for n, p, b in zip(eng._names, eng._params, before)})
+        del eng, before
+        torch.cuda.empty_cache()
+    (gn_b, lr, upd_b), (gn_f, _, upd_f) = step["bf16"], step["fp32"]
+    E = cfg.n_embd
+
+    def flat(upd):
+        # the key-bias third of c_attn_bias has a zero gradient but for
+        # rounding noise (softmax ignores a shift shared by a row), so its
+        # Adam step's sign is noise in both: left out
+        return torch.cat([torch.cat([u[:E], u[2 * E:]]) if n.endswith("c_attn_bias")
+                          else u.flatten() for n, u in upd.items()])
+
+    diff = (flat(upd_b) - flat(upd_f)).abs()
+    upd_diff, flip_share = float(diff.max()), float((diff > lr / 2).float().mean())
+    del diff, upd_b, upd_f
+
+    def rel(a, b):
+        return max(float((a[n] - b[n]).abs().max() / b[n].abs().max().clamp(min=1e-30))
+                   for n in b)
+
+    def min_cos(a, b):
+        return min(float(torch.nn.functional.cosine_similarity(
+            a[n].flatten(), b[n].flatten(), dim=0)) for n in b if b[n].abs().max() > 0)
+
+    L = cfg.n_layer
+    res = dict(flash_vs_dense_max_rel=rel(flash, dense), split_vs_merged_max_rel=rel(split, flash),
+               bf16_vs_fp32_dense_min_cos=min_cos(bf16, dense),
+               bf16_accum_grad_norm=gn_b, fp32_accum_grad_norm=gn_f,
+               bf16_accum_update_flip_share=flip_share, bf16_accum_update_max_abs_diff=upd_diff,
+               lr=lr,
+               launches_merged=flash_counts, launches_split=split_counts,
+               launches_dense=dense_counts)
+    # fp32 through 12 layers, sums in another order (the merged dq with
+    # atomics): 1e-3 of each leaf's largest gradient
+    checks = {"flash_vs_dense": res["flash_vs_dense_max_rel"] <= 1e-3,
+              "split_vs_merged": res["split_vs_merged_max_rel"] <= 1e-3,
+              "bf16_vs_fp32_cos": res["bf16_vs_fp32_dense_min_cos"] >= 0.99,
+              # each bf16 buffer element is rounded at most twice (2^-9
+              # relative each), and the merged dq's atomics tip a few bf16
+              # roundings run to run: the norm within 2^-7
+              "bf16_accum_grad_norm": abs(gn_b / gn_f - 1) <= 2 ** -7,
+              # Adam's first step is lr·(m̂/(√v̂+eps) + wd·p) with |m̂/(√v̂+eps)|
+              # ≤ 1, about lr·sign(g): no element's step differs by more
+              # than 2·lr, and by more than lr/2 only where rounding flipped
+              # the sign of a sum that nearly cancels (a dropped or
+              # mis-added micro-batch flips a large share): ≤ 1% of elements
+              "bf16_accum_update_flips": flip_share <= 0.01,
+              "bf16_accum_update_bound": upd_diff <= 2 * lr * (1 + 1e-3),
+              "kernels_ran": (flash_counts["flash_attention_bwd_merged"] == L
+                              and flash_counts["flash_attention_fwd"] == L
+                              and split_counts["flash_attention_bwd_dq"] == L
+                              and split_counts["flash_attention_bwd_dkv"] == L
+                              and split_counts["flash_attention_bwd_merged"] == 0
+                              and sum(dense_counts.values()) == 0)}
+    emit(dict(phase="train_grad_gate", model="gpt2-125m", micro_batch=[2, 1024],
+              accum_step="micro 2 x gas 2, bf16 compute", **res, checks=checks))
+    return all(checks.values())
+
+
+def run_train(torch, peaks, out_dir=None):
+    """gpt2-125m through ``initialize`` at the flagship config: the gradient
+    gate, 2 warm-up and 8 timed steps (launches zeroed before the timed run
+    and read after it), one profiled step, one step in split mode."""
+    import numpy as np
+    from torch.profiler import ProfilerActivity, profile
+
+    import deepspeed_tpu_torch as ds
+    from deepspeed_tpu_torch.models.gpt2 import GPT2LMHeadModel, gpt2_config
+
+    cfg = gpt2_config("gpt2-125m", n_positions=1024, loss_chunk=1 << 30)
+    ok = grad_gate(torch, cfg)
+    micro, gas, S, L = 24, 4, 1024, cfg.n_layer
+    model = GPT2LMHeadModel(cfg, device="meta")
+    eng, opt, _, sched = ds.initialize(model=model, config=train_config(micro, gas))
+    eng.init_params()
+    ids = text_like_ids(np.random.default_rng(SEED + 8), micro * gas, S, cfg.vocab_size)
+    batch = {"input_ids": ids, "labels": ids}
+    t0 = time.perf_counter()
+    warm = eng.train_batches(batch, 2, stacked=False)
+    torch.cuda.synchronize()
+    warm_s = time.perf_counter() - t0
+
+    torch.cuda.reset_peak_memory_stats()
+    zero_counts()
+    t0 = time.perf_counter()
+    losses = eng.train_batches(batch, 8, stacked=False)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = read_counts()
+    peak_mem = torch.cuda.max_memory_allocated()
+    losses = [float(x) for x in torch.cat([warm, losses])]
+    tokens = 8 * micro * gas * S
+    tok_s = tokens / wall
+    per_step = {"flash_attention_fwd": L * gas, "flash_attention_bwd_merged": L * gas}
+    expected = {n: 8 * per_step.get(n, 0) for n in launches}
+
+    dev_batch = eng._to_device(batch)
+    eng.train_batch(dev_batch)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t1 = time.perf_counter()
+        eng.train_batch(dev_batch)
+        torch.cuda.synchronize()
+        prof_wall = (time.perf_counter() - t1) * 1e3
+    by_name = device_ms_of(prof)
+    dev_ms = sum(by_name.values())
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:12]
+    if out_dir:
+        with open(os.path.join(out_dir, "profile_train_step.txt"), "w") as fh:
+            fh.write(prof.key_averages().table(sort_by="self_cuda_time_total", row_limit=40))
+
+    os.environ["DS_TPU_FLASH_BWD"] = "split"
+    try:
+        zero_counts()
+        split_loss = float(eng.train_batch(dev_batch))
+        torch.cuda.synchronize()
+        split_launches = read_counts()
+    finally:
+        os.environ.pop("DS_TPU_FLASH_BWD", None)
+    split_expected = {n: {"flash_attention_fwd": L * gas, "flash_attention_bwd_dq": L * gas,
+                          "flash_attention_bwd_dkv": L * gas}.get(n, 0) for n in split_launches}
+
+    mfu = model.flops_per_token() * tok_s / peaks[1]
+    timed = losses[2:]
+    checks = {"losses_finite": all(math.isfinite(x) for x in losses + [split_loss]),
+              "loss_falling": timed[-1] < timed[0] and losses[-1] < losses[0],
+              "launch_counts": launches == expected,
+              "split_launch_counts": split_launches == split_expected,
+              "grad_gate": ok}
+    emit(dict(phase="train", model="gpt2-125m", config=train_config(micro, gas),
+              loss_chunk=cfg.loss_chunk, dtype="bfloat16", batch=[micro * gas, S],
+              warmup_s=warm_s, timed_steps=8, wall_s=wall, ms_per_step=wall * 1e3 / 8,
+              tokens_per_s=tok_s, flops_per_token=model.flops_per_token(), mfu=mfu,
+              max_memory_allocated_gb=peak_mem / 2 ** 30, losses=losses, split_step_loss=split_loss,
+              launches=launches, expected_launches=expected, split_launches=split_launches,
+              profile=dict(step_wall_ms=prof_wall,
+                           step_device_ms=dev_ms if dev_ms else "not measured",
+                           device_busy_share=dev_ms / prof_wall if dev_ms else "not measured",
+                           top_device_ms={k[:90]: v for k, v in top}),
+              checks=checks))
+    del eng, opt
+    torch.cuda.empty_cache()
+    return {"train": launches, "train_split": split_launches}, all(checks.values())
 
 
 def main() -> int:
@@ -799,6 +1194,8 @@ def main() -> int:
     kernel_results = run_kernels(torch, F, peaks)
     ok &= all(r["ok"] for _, r in kernel_results)
     ok &= run_fp32_shapes(torch)
+    bwd_rows, bwd_ok = run_bwd_kernels(torch, F, peaks)
+    ok &= bwd_ok
     launches, slice_ok, eng, prompt = run_slice(torch)
     ok &= slice_ok
     run_profile(torch, eng, prompt, args.out)
@@ -806,20 +1203,39 @@ def main() -> int:
     serve_launches, serve_ok = run_serve(
         torch, lambda lg: 2 * bf16_ulp(float(lg.abs().max())), args.out)
     ok &= serve_ok
+    train_launches, train_ok = run_train(torch, peaks, args.out)
+    ok &= train_ok
     # each path's counts were zeroed before it and read after it
-    by_path = {"generate": launches, **serve_launches}
+    by_path = {"generate": launches, **serve_launches, **train_launches}
 
     summary = []
     for case, r in kernel_results:
         if not case["main"]:
             continue
         per_path = {p: c.get(case["name"], 0) for p, c in by_path.items()}
-        summary.append(dict(
+        row = dict(
             name=case["name"], route="cuda", source=case["source"], replaces=case["replaces"],
             launches=sum(per_path.values()), launches_by_path=per_path,
             max_abs_err=r["max_err"], ms=r["kernel_ms"],
             plain_ms=r["plain_ms"], bound_ms=r["bound_us"] / 1e3, bound_by=r["bound_by"],
-            library_ms=r["library_ms"]))
+            library_ms=r["library_ms"])
+        if case["name"] in bwd_rows:   # the forward: also at the train shape
+            row["at_train_shape"] = bwd_rows[case["name"]]
+        summary.append(row)
+    replaces = {"flash_attention_bwd_merged": "deepspeed_tpu/ops/pallas/flash_attention.py:182",
+                "flash_attention_bwd_dq": "deepspeed_tpu/ops/pallas/flash_attention.py:93",
+                "flash_attention_bwd_dkv": "deepspeed_tpu/ops/pallas/flash_attention.py:133"}
+    for kname, where in replaces.items():
+        r = bwd_rows.get(kname)
+        if r is None:   # the kernels phase failed before timing it (already not ok)
+            continue
+        per_path = {p: c.get(kname, 0) for p, c in by_path.items()}
+        summary.append(dict(
+            name=kname, route="cuda", source="deepspeed_tpu_torch/ops/csrc/flash_attention_bwd.cu",
+            replaces=where, launches=sum(per_path.values()), launches_by_path=per_path,
+            max_abs_err=r["max_abs_err"], ms=r["ms"], plain_ms=r["plain_ms"],
+            bound_ms=r["bound_ms"], bound_by=r["bound_by"], library_ms=r["library_ms"]))
+    ok &= all(k in bwd_rows for k in replaces) and "flash_attention_fwd" in bwd_rows
     print(smi, flush=True)
     emit({"kernels": summary})
     if not ok:

@@ -70,12 +70,18 @@ class InferenceConfig:
                                       f"path) {todo}")
 
 
-def resolve_device(device) -> torch.device:
-    """``None`` → the card. Never moves to the CPU by itself."""
+def resolve_device(device, entry: str = "init_inference") -> torch.device:
+    """``None`` → the card. Never moves to the CPU by itself. On the card,
+    TF32 is off for fp32 matmuls and convolutions (fp32 results are full
+    fp32) and so are reduced-precision bf16 reductions."""
     dev = torch.device("cuda" if device is None else device)
-    if dev.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError("init_inference runs on the card and CUDA is not available; "
-                           "pass device='cpu' to run the plain PyTorch versions on the CPU")
+    if dev.type == "cuda":
+        if not torch.cuda.is_available():
+            raise RuntimeError(f"{entry} runs on the card and CUDA is not available; "
+                               "pass device='cpu' to run the plain PyTorch versions on the CPU")
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
+        torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
     return dev
 
 
@@ -92,10 +98,6 @@ class InferenceEngine:
         merged.update(kwargs)
         self.config = InferenceConfig.load(merged)
         self.device = resolve_device(device)
-        if self.device.type == "cuda":
-            torch.backends.cuda.matmul.allow_tf32 = False
-            torch.backends.cudnn.allow_tf32 = False
-            torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
         cfg = model.cfg
         dtype = self.config.dtype or torch.bfloat16
         over = {"dtype": dtype}

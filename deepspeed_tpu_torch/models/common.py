@@ -1,12 +1,16 @@
-"""Shared model plumbing: LayerNorm math, model outputs, the KV-cache
-contract and the fused decode-tick dispatch.
+"""Shared model plumbing: LayerNorm math, model outputs, the losses, the
+remat policy, the KV-cache contract and the fused decode-tick dispatch.
 
-Port of the serving half of ``deepspeed_tpu/models/common.py``. The cache
-is a list with one dict per layer holding the leaves the JAX package names
-(``cached_key``, ``cached_value``, ``cache_index`` and, in a paged cache,
-``page_table``). Every append writes IN PLACE (JAX returns a new cache tree
-and leans on buffer donation; the port saves the copy, so the JAX
-donation/``adopt`` dance has no counterpart here).
+Port of ``deepspeed_tpu/models/common.py``. The losses are
+:func:`cross_entropy_loss` (dense logits) and :func:`chunked_lm_loss`, the
+tied-head cross-entropy whose ``(N, V)`` fp32 logits and cotangent never
+exist whole (``_FusedCE``, the JAX package's ``_fused_ce`` custom vjp).
+
+The cache is a list with one dict per layer holding the leaves the JAX
+package names (``cached_key``, ``cached_value``, ``cache_index`` and, in a
+paged cache, ``page_table``). Every append writes IN PLACE (JAX returns a
+new cache tree and leans on buffer donation; the port saves the copy, so
+the JAX donation/``adopt`` dance has no counterpart here).
 
 Three layouts share :func:`append_kv_cache`:
 
@@ -26,6 +30,7 @@ import functools
 from typing import Optional
 
 import torch
+import torch.utils.checkpoint
 
 from ..ops.decode_layer import norm_proj_supported, post_attn_supported
 from ..ops.paged_attention import PagedKV
@@ -57,6 +62,136 @@ class ModelOutput(dict):
             return self[k]
         except KeyError as e:
             raise AttributeError(k) from e
+
+
+def resolve_remat_policy(name: str):
+    """Config remat-policy name → ``remat(fn, *args)``, which runs ``fn``
+    under activation checkpointing. ``"nothing_saveable"`` (keep nothing
+    inside the block, recompute it all in backward) is
+    ``torch.utils.checkpoint`` without reentrancy; the JAX package's other
+    ``jax.checkpoint`` policies (the dot-saving ones, ``+flash``,
+    ``+offload``) raise ``NotImplementedError``."""
+    if name != "nothing_saveable":
+        raise NotImplementedError(
+            f"remat policy {name!r} is not ported to the PyTorch engine yet: only "
+            "'nothing_saveable' is (ROADMAP.md A3)")
+    return functools.partial(torch.utils.checkpoint.checkpoint, use_reentrant=False)
+
+
+def cross_entropy_loss(logits: torch.Tensor, labels: torch.Tensor, ignore_index: int = -100,
+                       z_loss: float = 0.0) -> torch.Tensor:
+    """Mean token cross-entropy with ignore-index masking, fp32 softmax."""
+    logits = logits.float()
+    valid = labels != ignore_index
+    safe = torch.where(valid, labels, 0).long()
+    logz = torch.logsumexp(logits, dim=-1)
+    nll = logz - logits.gather(-1, safe[..., None]).squeeze(-1)
+    if z_loss > 0.0:
+        nll = nll + z_loss * logz.square()
+    nll = torch.where(valid, nll, 0.0)
+    return nll.sum() / valid.sum().clamp(min=1)
+
+
+def shift_labels(input_ids: torch.Tensor, pad_id: int = -100) -> torch.Tensor:
+    """Next-token labels for causal LM: ``labels[t] = input_ids[t+1]``."""
+    return torch.cat([input_ids[:, 1:], torch.full_like(input_ids[:, :1], pad_id)], dim=1)
+
+
+def _mm_f32(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """``a @ b`` as an fp32 result accumulated in fp32 (the JAX package's
+    ``preferred_element_type=float32``), whatever the inputs' dtype."""
+    if a.dtype == torch.float32:
+        return a @ b
+    if a.is_cuda:
+        return torch.mm(a, b, out_dtype=torch.float32)
+    return a.float() @ b.float()
+
+
+class _FusedCE(torch.autograd.Function):
+    """Chunked tied-head cross-entropy, summed over tokens (the JAX
+    package's ``_fused_ce``). Inputs: ``hf (K, C, E)`` token chunks,
+    ``wteT (E, Vp)``, ``tf (K, C)`` labels.
+
+    The forward forms each chunk's ``(C, Vp)`` fp32 logits, keeps only their
+    per-token ``logz``, and frees them (or keeps a copy in ``hf``'s dtype
+    when ``save_logits``). The backward recomputes each chunk's logits, or
+    replays the saved copy, and builds ``(p − onehot)·g`` chunk by chunk in
+    place: the ``(N, Vp)`` fp32 cotangent never exists whole. Padded vocab
+    columns sit at ``finfo(fp32).min`` in every pass, so their probability
+    and gradient are 0."""
+
+    @staticmethod
+    def _logits(hc, wteT, vocab_size):
+        logits = _mm_f32(hc, wteT)
+        if wteT.shape[1] != vocab_size:
+            logits[:, vocab_size:] = torch.finfo(torch.float32).min
+        return logits
+
+    @staticmethod
+    def forward(ctx, hf, wteT, tf, vocab_size: int, ignore_index: int, save_logits: bool):
+        total = torch.zeros((), dtype=torch.float32, device=hf.device)
+        logzs, saved = [], []
+        for hc, tc in zip(hf, tf):
+            logits = _FusedCE._logits(hc, wteT, vocab_size)
+            valid = tc != ignore_index
+            safe = torch.where(valid, tc, 0).long()
+            logz = torch.logsumexp(logits, dim=-1)
+            nll = logz - logits.gather(1, safe[:, None])[:, 0]
+            total += torch.where(valid, nll, 0.0).sum()
+            logzs.append(logz)
+            if save_logits:
+                saved.append(logits.to(hf.dtype))
+            del logits
+        ctx.save_for_backward(hf, wteT, tf, torch.stack(logzs), *saved)
+        ctx.vocab_size, ctx.ignore_index, ctx.save_logits = vocab_size, ignore_index, save_logits
+        return total
+
+    @staticmethod
+    def backward(ctx, g):
+        hf, wteT, tf, logzs, *saved = ctx.saved_tensors
+        V = ctx.vocab_size
+        dh = torch.empty_like(hf)
+        dwteT = torch.zeros(wteT.shape, dtype=torch.float32, device=wteT.device)
+        rows = torch.arange(hf.shape[1], device=hf.device)
+        for c, (hc, tc) in enumerate(zip(hf, tf)):
+            if ctx.save_logits:
+                logits = saved[c].float()
+                if wteT.shape[1] != V:
+                    logits[:, V:] = torch.finfo(torch.float32).min
+            else:
+                logits = _FusedCE._logits(hc, wteT, V)
+            valid = tc != ctx.ignore_index
+            safe = torch.where(valid, tc, 0).long()
+            p = logits.sub_(logzs[c][:, None]).exp_()                 # softmax rows
+            p[rows, safe] -= 1.0                                      # p − onehot
+            p.mul_((g * valid)[:, None])
+            dlog = p.to(hc.dtype)
+            del logits, p
+            dh[c] = dlog @ wteT.T
+            dwteT += _mm_f32(hc.T, dlog)
+        return dh, dwteT.to(wteT.dtype), None, None, None, None
+
+
+def chunked_lm_loss(h: torch.Tensor, wte: torch.Tensor, labels: torch.Tensor, *,
+                    vocab_size: int, padded_vocab_size: int, chunk: int, dtype,
+                    ignore_index: int = -100, save_logits: bool = False) -> torch.Tensor:
+    """Tied-head mean cross-entropy without the ``(B, S, V)`` fp32 logits or
+    their cotangent (:class:`_FusedCE`); the same loss as the dense path.
+    ``chunk >= B·S`` is one full-width chunk: one head matmul per pass."""
+    B, S, E = h.shape
+    if wte.shape[0] != padded_vocab_size:
+        raise ValueError(f"wte has {wte.shape[0]} rows, padded vocab is {padded_vocab_size}")
+    N = B * S
+    chunk = min(chunk, N)
+    hf, tf = h.reshape(N, E), labels.reshape(N)
+    pad = (-N) % chunk
+    if pad:
+        hf = torch.cat([hf, hf.new_zeros((pad, E))])
+        tf = torch.cat([tf, tf.new_full((pad,), ignore_index)])
+    hf, tf = hf.reshape(-1, chunk, E), tf.reshape(-1, chunk)
+    nll_sum = _FusedCE.apply(hf, wte.to(dtype).T, tf, vocab_size, ignore_index,
+                             bool(save_logits))
+    return nll_sum / (tf != ignore_index).sum().clamp(min=1)
 
 
 def cache_leaf_kind(name: str) -> Optional[str]:

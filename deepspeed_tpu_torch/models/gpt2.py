@@ -1,16 +1,21 @@
 """GPT-2 in PyTorch: pre-LN blocks, tanh-GELU, learned positions, tied and
 padded LM head.
 
-Port of ``deepspeed_tpu/models/gpt2.py`` for serving. Parameters keep the
-flax names and layouts — dense kernels are ``(in, out)`` with
-``y = x @ W + b`` — so ``models/convert.py`` copies a flax tree without
-transposes; the scanned stack becomes an ``nn.ModuleList`` ``h``.
+Port of ``deepspeed_tpu/models/gpt2.py`` for training and serving.
+Parameters keep the flax names and layouts — dense kernels are
+``(in, out)`` with ``y = x @ W + b`` — so ``models/convert.py`` copies a
+flax tree without transposes; the scanned stack becomes an
+``nn.ModuleList`` ``h``.
 
-``forward(ids)`` is the training-style forward (flash attention where the
-shape allows). ``forward(ids, position_ids=..., cache=...)`` is the decode
-mode: K/V are appended to the cache, single-token ticks run the fused
-decode kernels when ``decode_fused_plan`` allows, and the rest runs the
-unfused chain over the cache. The cache is any layout of
+``forward(ids, labels=...)`` is the training forward (flash attention,
+forward and backward, where the shape allows): with ``loss_chunk`` set the
+output holds only the chunked-head ``loss``, else ``logits`` and the dense
+``loss``. ``remat=True`` checkpoints each block (``remat_policy``
+``"nothing_saveable"``). Dropout, MoE, ``fused_mlp`` and ``loss_pallas``
+are not ported and raise. ``forward(ids, position_ids=..., cache=...)`` is
+the decode mode: K/V are appended to the cache, single-token ticks run the
+fused decode kernels when ``decode_fused_plan`` allows, and the rest runs
+the unfused chain over the cache. The cache is any layout of
 ``models/common.append_kv_cache`` (one write head, per-row heads, or the
 paged arena) and ``position_ids`` are per row, ``(B, S)`` or ``(1, S)``:
 ``cached_decode_attention`` dispatches on the layout, as in the JAX
@@ -20,14 +25,15 @@ from __future__ import annotations
 
 import dataclasses
 import math
-from typing import Optional
+from typing import Any, Optional
 
 import torch
 from torch import nn
 
 from ..ops.attention import cached_decode_attention, dot_product_attention
 from ..ops.decode_layer import fused_norm_proj, fused_post_attn
-from .common import ModelOutput, append_kv_cache, decode_fused_plan, layer_norm
+from .common import (ModelOutput, append_kv_cache, chunked_lm_loss, cross_entropy_loss,
+                     decode_fused_plan, layer_norm, resolve_remat_policy, shift_labels)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -39,11 +45,38 @@ class GPT2Config:
     n_layer: int = 12
     n_head: int = 12
     layer_norm_epsilon: float = 1e-5
+    embd_pdrop: float = 0.0               # dropout: only 0.0 is ported
+    attn_pdrop: float = 0.0
+    resid_pdrop: float = 0.0
     initializer_range: float = 0.02
     dtype: torch.dtype = torch.bfloat16   # compute dtype
+    remat: bool = False                   # activation checkpointing per block
+    remat_policy: str = "nothing_saveable"
     attn_impl: str = "auto"               # auto | jnp | flash
+    fused_mlp: bool = False               # the fused FFN kernel: not ported
     vocab_pad_multiple: int = 128
+    moe: Optional[Any] = None             # mixture of experts: not ported
     decode_fused: Optional[bool] = None   # None: on for the card, off on the CPU
+    # chunked tied-head loss (common.chunked_lm_loss): token rows per chunk;
+    # None = dense logits. With labels, the output then carries only "loss".
+    loss_chunk: Optional[int] = None
+    # chunked head backward: replay the logits saved in forward in the
+    # compute dtype (True) or recompute them (False)
+    loss_save_logits: bool = False
+    loss_pallas: bool = False             # the fused CE head kernel: not ported
+
+    def __post_init__(self):
+        todo = "is not ported to the PyTorch model yet"
+        for name in ("embd_pdrop", "attn_pdrop", "resid_pdrop"):
+            if getattr(self, name) > 0.0:
+                raise NotImplementedError(f"{name} > 0 (dropout) {todo} (ROADMAP.md A2)")
+        if self.moe is not None:
+            raise NotImplementedError(f"moe {todo} (ROADMAP.md A9)")
+        if self.fused_mlp:
+            raise NotImplementedError(f"fused_mlp (the fused FFN kernel) {todo} (ROADMAP.md B8)")
+        if self.loss_pallas:
+            raise NotImplementedError(f"loss_pallas (the fused CE head kernel) {todo} "
+                                      "(ROADMAP.md B6)")
 
     @property
     def padded_vocab_size(self) -> int:
@@ -181,14 +214,17 @@ class Block(nn.Module):
 class GPT2LMHeadModel(nn.Module):
     """Causal-LM GPT-2 with tied embeddings; ``forward`` returns a
     :class:`ModelOutput` with ``logits`` ``(B, S, padded_vocab)``, the
-    padded columns at ``finfo(dtype).min``.
+    padded columns at ``finfo(dtype).min``, and ``loss`` when given
+    ``labels`` (only ``loss`` under ``loss_chunk``).
 
     Parameters are created uninitialised (``torch.empty``): call
-    :meth:`init_weights` or load a state dict."""
+    :meth:`init_weights` or load a state dict. ``has_values`` says whether
+    one of the two has run (the training engine then takes the values)."""
 
     def __init__(self, cfg: GPT2Config, device=None, dtype=torch.float32):
         super().__init__()
         self.cfg = cfg
+        self.has_values = False
         E = cfg.n_embd
         self.wte = _param((cfg.padded_vocab_size, E), device, dtype)
         self.wpe = _param((cfg.n_positions, E), device, dtype)
@@ -214,11 +250,21 @@ class GPT2LMHeadModel(nn.Module):
                 s = proj_std if leaf == "c_proj_kernel" else std
                 w = torch.empty(p.shape, dtype=torch.float32, device=generator.device)
                 p.copy_(w.normal_(0.0, s, generator=generator))
+        self.has_values = True
         return self
+
+    def load_state_dict(self, state_dict, strict: bool = True, assign: bool = False):
+        out = super().load_state_dict(state_dict, strict=strict, assign=assign)
+        self.has_values = True
+        return out
 
     def forward(self, input_ids: torch.Tensor, position_ids: Optional[torch.Tensor] = None,
                 attention_mask: Optional[torch.Tensor] = None,
-                cache: Optional[list] = None) -> ModelOutput:
+                cache: Optional[list] = None, labels: Optional[torch.Tensor] = None,
+                shift: bool = True) -> ModelOutput:
+        """``labels`` adds the mean next-token ``loss`` (``shift=True``
+        shifts them by one, for ``labels=input_ids``); with ``loss_chunk``
+        the output then holds only ``loss``."""
         cfg, dt = self.cfg, self.cfg.dtype
         B, S = input_ids.shape
         if position_ids is None:
@@ -230,11 +276,43 @@ class GPT2LMHeadModel(nn.Module):
         mask = None
         if attention_mask is not None:
             mask = attention_mask[:, None, None, :].bool()
+        remat = None
+        if cfg.remat and cache is None and torch.is_grad_enabled():
+            remat = resolve_remat_policy(cfg.remat_policy)
         for i, block in enumerate(self.h):
-            h = block(h, mask, None if cache is None else cache[i])
+            if remat is not None:
+                h = remat(block, h, mask)
+            else:
+                h = block(h, mask, None if cache is None else cache[i])
         h = self.ln_f(h)
+        tgt = None if labels is None else (shift_labels(labels) if shift else labels)
+        if cfg.loss_chunk and tgt is not None:
+            # memory-bounded head: the logits never exist whole
+            return ModelOutput(loss=chunked_lm_loss(
+                h, self.wte, tgt, vocab_size=cfg.vocab_size,
+                padded_vocab_size=cfg.padded_vocab_size, chunk=cfg.loss_chunk, dtype=dt,
+                save_logits=cfg.loss_save_logits))
         logits = h @ self.wte.to(dt).T
         if cfg.padded_vocab_size != cfg.vocab_size:
-            # padded vocab columns out of the softmax
+            # padded vocab columns out of the softmax (in place on the
+            # product's output, which its backward does not read: the
+            # columns get zero gradient)
             logits[..., cfg.vocab_size:] = torch.finfo(logits.dtype).min
-        return ModelOutput(logits=logits)
+        out = ModelOutput(logits=logits)
+        if tgt is not None:
+            out["loss"] = cross_entropy_loss(logits, tgt)
+        return out
+
+    def dummy_inputs(self, batch_size: int = 2, seq_len: Optional[int] = None) -> dict:
+        S = seq_len or min(self.cfg.n_positions, 128)
+        ids = torch.zeros((batch_size, S), dtype=torch.long)
+        return {"input_ids": ids, "labels": ids}
+
+    def flops_per_token(self) -> float:
+        """6·N_params + attention flops, for MFU accounting (the JAX
+        package's formula)."""
+        cfg = self.cfg
+        n_params = (cfg.padded_vocab_size * cfg.n_embd + cfg.n_positions * cfg.n_embd
+                    + cfg.n_layer * (12 * cfg.n_embd ** 2 + 13 * cfg.n_embd) + 2 * cfg.n_embd)
+        attn = 12 * cfg.n_layer * cfg.n_embd * cfg.n_positions
+        return 6.0 * n_params + attn

@@ -1,9 +1,13 @@
 """Attention dispatch: one API over the flash kernel and dense attention.
 
-Port of ``deepspeed_tpu/ops/attention.py`` for the serving slice. The same
-shape predicates choose the path on every device: the flash kernel when
-S ≥ 128 and D ∈ {64, 128, 256}, else dense attention; on the CPU the flash
-wrapper runs its plain version. Shapes are ``(batch, seq, heads, head_dim)``.
+Port of ``deepspeed_tpu/ops/attention.py``. The same shape predicates
+choose the path on every device: the flash kernels when S ≥ 128 and
+D ∈ {64, 128, 256}, else dense attention; on the CPU the flash wrapper runs
+its plain versions. Both paths are differentiable: flash through its
+``autograd.Function`` (the backward kernels on the card), dense attention
+through torch's autograd. The port has no attention dropout (the JAX
+package takes flash only at ``dropout_rate == 0``; a ``*_pdrop`` above 0
+raises in the model config). Shapes are ``(batch, seq, heads, head_dim)``.
 
 ``cached_decode_attention`` covers the KV caches: over a contiguous cache,
 single-token ticks go to the decode kernel and multi-token queries
