@@ -43,8 +43,25 @@ Run from the root of the repository. Phases, each printing JSON lines:
             launches per step), one profiled step (device busy share, top
             device ops) and one step with ``DS_TPU_FLASH_BWD=split``
             (12 × 4 launches of each split kernel).
+8. train_1p5b  GPT-2-1.5B at full width and depth through ``initialize``
+            with the JAX package's north-star recipe (S=1024, micro 2,
+            adamw8bit lr 1e-4 wd 0.1 with the fused update kernel, ZeRO
+            stage 3, remat ``dots_saveable+flash``, the chunked CE head at
+            ``loss_chunk`` 8192, bf16 compute over fp32 masters): 2 warm-up
+            and 8 timed steps (tokens/s, ms per step, MFU, peak memory, the
+            optimizer state's bytes against fp32 AdamW's; exactly one
+            adam8bit launch per leaf and 48 flash forward and merged-backward
+            launches per step), the fused update against the unfused chain
+            from the same state and gradients (and their times), one
+            profiled step, and one step each of engines built from the same
+            weights under ``dots_saveable`` (96 flash forwards) and
+            ``loss_pallas`` (one launch of each fused CE kernel), their
+            losses held against the chunked head's at those weights.
 
-The kernels phase also holds the flash backward kernels (merged, and the
+The kernels phase also holds the fused adam8bit update at the 1.5B leaf
+shapes (and a 100000-wide row, and three steps in place) and the three
+fused CE kernels at the 1.5B head in bf16 and a ragged fp32 shape against
+their plain versions. It also holds the flash backward kernels (merged, and the
 split dq/dkv pair) against their plain version: bf16 at the train shape and
 fp32 at D=128, D=256, a ragged S and a non-causal Sk != S, each with its
 device time, the plain version's, SDPA's backward and the bound. At each
@@ -53,13 +70,15 @@ takes, are held against the plain forward first; at the train shape the
 forward is timed too (the ``at_train_shape`` entry of its ``kernels`` row).
 
 The ``kernels`` line gives each kernel's launches per path (``generate``,
-``serve_paged``, ``serve_contiguous``, ``train``, ``train_split``: each
-zeroed before its run and read after it) and their sum.
+``serve_paged``, ``serve_contiguous``, ``train``, ``train_split``,
+``train_1p5b``, ``train_1p5b_dots``, ``train_1p5b_pallas``: each zeroed
+before its run and read after it) and their sum.
 
 It exits non-zero, printing no result line, without CUDA or outside the
 repository; any failed phase makes it exit non-zero. The last line is
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
-``--out DIR`` also writes the compiler output and the profiler table there.
+``--out DIR`` also writes the compiler output, the profiler tables and every
+JSON line (``smoke.jsonl``) there.
 """
 from __future__ import annotations
 
@@ -79,8 +98,17 @@ CARD_PEAKS = {"H100 PCIe": (2.0e12, 756e12, 51e12), "H100 NVL": (3.9e12, 835e12,
               "H100 SXM": (3.35e12, 989e12, 67e12)}
 
 
+# with --out, every emitted line is also appended here: the tool that runs
+# the script on the card returns only the end of its output
+_LOG_PATH = None
+
+
 def emit(obj) -> None:
-    print(json.dumps(obj), flush=True)
+    line = json.dumps(obj)
+    print(line, flush=True)
+    if _LOG_PATH:
+        with open(_LOG_PATH, "a") as fh:
+            fh.write(line + "\n")
 
 
 def card_peaks(name: str):
@@ -437,12 +465,13 @@ def run_fp32_shapes(torch):
 
 def run_bwd_kernels(torch, F, peaks):
     """The flash backward kernels against ``flash_attention_bwd_plain``: bf16
-    at the train shape (B=24, S=1024, H=12, D=64, causal) and fp32 at D=128,
-    D=256, a ragged S and a non-causal Sk != S; merged and split at each.
+    at the two train shapes (125M: B=24, S=1024, H=12, D=64; gpt2-1.5b:
+    B=2, H=25; causal) and fp32 at D=128, D=256, a ragged S and a
+    non-causal Sk != S; merged and split at each.
 
     The forward kernel's (o, lse), which both backward versions take, is
     first held against ``flash_attention_plain`` at each case; at the
-    train shape, where the train path launches it, it is timed too. Each
+    train shapes, where the train paths launch it, it is timed too. Each
     backward kernel's time is its own device time (the merged wrapper's
     delta, zero fill and scale-and-cast are printed beside it as
     ``wrapper_ms``); its bound counts what its function must move: q, k,
@@ -453,18 +482,22 @@ def run_bwd_kernels(torch, F, peaks):
     ``torch.autograd.grad`` minus its forward) compute all three
     gradients. Tolerance: 2 bf16 ulps at each output's scale; fp32 1e-4
     relative (the merged dq adds with atomics in no fixed order), lse
-    1e-4 relative. Returns ``{kernel name: row}`` of the train-shape
+    1e-4 relative. Returns ``{kernel name: row}`` of the 125M train-shape
     case (the forward's under ``flash_attention_fwd``) and ok."""
     from deepspeed_tpu_torch.ops import flash_attention as fa
 
     g = torch.Generator(device="cuda").manual_seed(SEED + 6)
+    # the first case is the 125M train shape (its rows are the kernels
+    # line's), the second the gpt2-1.5b train shape (B·H = 50)
     cases = [(torch.bfloat16, 24, 1024, 1024, 12, 64, True),
+             (torch.bfloat16, 2, 1024, 1024, 25, 64, True),
              (torch.float32, 2, 512, 512, 8, 128, True),
              (torch.float32, 2, 512, 512, 4, 256, True),
              (torch.float32, 2, 200, 200, 12, 64, True),
              (torch.float32, 2, 384, 640, 12, 64, False)]
     main_rows, ok = {}, True
-    for dt, B, S, Sk, H, D, causal in cases:
+    for ci, (dt, B, S, Sk, H, D, causal) in enumerate(cases):
+        main = ci == 0
         def rnd(*shape):
             return torch.randn(shape, generator=g, device="cuda").to(dt)
         q, k, v, do = rnd(B, S, H, D), rnd(B, Sk, H, D), rnd(B, Sk, H, D), rnd(B, S, H, D)
@@ -474,7 +507,7 @@ def run_bwd_kernels(torch, F, peaks):
         nq, nk, rows = B * S * H * D, B * Sk * H * D, B * H * S
         pairs = B * H * (sum(min(i + 1, Sk) for i in range(S)) if causal else S * Sk)
         shape = f"B={B} S={S} Sk={Sk} H={H} D={D} causal={causal} {str(dt)[6:]}"
-        o, lse = fa._flash_fwd(q, k, v, causal, sc)
+        o, lse = fa.flash_attention_fwd_op(q, k, v, causal, sc)
         ro, rlse = fa.flash_attention_plain(q, k, v, causal, sc)
         torch.cuda.synchronize()
         o_scale = float(ro.float().abs().max())
@@ -508,12 +541,14 @@ def run_bwd_kernels(torch, F, peaks):
         lib_fb, lib_f = (device_ms_by_name(torch, fn, iters)[0] for fn in (lib_fwd_bwd, lib_fwd))
         lib_ms = lib_fb - lib_f if lib_fb and lib_f else None
         if dt == torch.bfloat16:
-            # the train path's forward: its own time, plain and bound here
+            # a train path's forward: its own time, plain and bound here
             f_bound, f_by = bound_ms(item * (2 * nq + 2 * nk) + 4 * rows, 4 * D * pairs, peaks)
-            fwd.update(ms=device_ms(torch, lambda: fa._flash_fwd(q, k, v, causal, sc), iters),
+            fwd.update(ms=device_ms(torch, lambda: fa.flash_attention_fwd_op(q, k, v, causal, sc),
+                                    iters),
                        plain_ms=device_ms(torch, lambda: fa.flash_attention_plain(
                            q, k, v, causal, sc), 3),
                        library_ms=lib_f, library="SDPA forward", bound_ms=f_bound, bound_by=f_by)
+        if main:
             main_rows["flash_attention_fwd"] = dict(
                 {k_: fwd[k_] for k_ in ("shape", "ms", "plain_ms", "library_ms", "bound_ms",
                                         "bound_by")}, max_abs_err=fwd_err)
@@ -564,13 +599,302 @@ def run_bwd_kernels(torch, F, peaks):
                       - cuda_ms(torch, lib_fwd, iters),
                       library="SDPA forward+backward via torch.autograd.grad minus SDPA forward"))
             ok &= case_ok and len(kernels) == len(names)
-            if dt == torch.bfloat16:
+            if main:
                 for key, kern in kernels.items():
                     main_rows[key] = dict(kern, max_abs_err=max(errs), plain_ms=plain_ms,
                                           library_ms=lib_ms, shape=shape)
         del q, k, v, do, o, lse, ref, qt, kt, vt, dot
         torch.cuda.empty_cache()
     return main_rows, ok
+
+
+# ---------------------------------------------------------------------------
+# kernels phase: the training kernels of the 1.5B recipe
+# ---------------------------------------------------------------------------
+
+ADAM_HYPER = dict(b1=0.9, b2=0.999, eps=1e-8)
+
+
+def adam8bit_leaf(torch, g, shape):
+    """A (R, C) leaf with moments in it: fp32 g and p, random int8/uint8
+    codes, row scales; on the card."""
+    R, C = shape
+    dev = "cuda"
+    return dict(g=torch.randn(shape, generator=g, device=dev) * 1e-3,
+                p=torch.randn(shape, generator=g, device=dev) * 0.02,
+                mc=torch.randint(-127, 128, shape, generator=g, device=dev).to(torch.int8),
+                rc=torch.randint(0, 256, shape, generator=g, device=dev).to(torch.uint8),
+                scm=torch.rand((R, 1), generator=g, device=dev) * 1e-4 + 1e-6,
+                scr=torch.rand((R, 1), generator=g, device=dev) * 1e-4 + 1e-6)
+
+
+ADAM_KEYS = ("p", "mc", "rc", "scm", "scr")
+
+
+def adam8bit_errors(got, ref) -> dict:
+    """Kernel outputs against the plain version's: the parameter's largest
+    difference, each code's largest difference and share of codes that
+    differ, the scales' largest relative difference."""
+    p, mc, rc, scm, scr = got
+    rp, rmc, rrc, rscm, rscr = ref
+    dm = (mc.int() - rmc.int()).abs()
+    dr = (rc.int() - rrc.int()).abs()
+    return dict(p_max_err=float((p - rp).abs().max()), p_scale=float(rp.abs().max()),
+                code_max_diff=int(max(dm.max(), dr.max())),
+                code_diff_share=float(((dm > 0).float().mean() + (dr > 0).float().mean()) / 2),
+                scale_max_rel_err=float(max(((scm - rscm).abs() / rscm).max(),
+                                            ((scr - rscr).abs() / rscr).max())))
+
+
+def adam8bit_ok(e: dict) -> bool:
+    """The kernel and its plain version round at the same points (the _rn
+    intrinsics, no FMA contraction): parameters within 1e-6 of their
+    scale, codes off by at most one on at most 0.1% (a last-bit difference
+    at a round-half tie), scales within 1e-6 relative."""
+    return (e["p_max_err"] <= 1e-6 * e["p_scale"] and e["code_max_diff"] <= 1
+            and e["code_diff_share"] <= 1e-3 and e["scale_max_rel_err"] <= 1e-6)
+
+
+def run_adam8bit_kernel(torch, peaks):
+    """The fused adam8bit update against ``adam8bit_leaf_plain`` at the
+    1.5B leaf shapes (c_attn, the MLP's c_proj, wte, a bias, the bias with
+    L2 on as well), a 100000-wide row (past the shared-memory staging: the
+    recomputing pass) and three consecutive steps on one leaf (the in-place
+    scale update read back). adamw8bit's hyper-parameters (wd 0.1), clip
+    scale 0.7, lr 1e-4, count 3. Times: the kernel in place (device time),
+    the plain version; no PyTorch call computes this update (library null).
+    Bound: 16 bytes per element (g, p, codes read; p, codes written) and 16
+    per row (the two scales read and written), by bytes."""
+    from deepspeed_tpu_torch.ops import adam8bit as a8
+
+    g = torch.Generator(device="cuda").manual_seed(SEED + 11)
+    c1, c2 = 1 - 0.9 ** 3, 1 - 0.999 ** 3
+    scalars = torch.tensor([0.7, 1e-4, c1, c2], dtype=torch.float32, device="cuda")
+    cases = [("c_attn_kernel", (1600, 4800), 0.1, 0.0),
+             ("mlp_c_proj_kernel", (6400, 1600), 0.1, 0.0), ("wte", (50304, 1600), 0.1, 0.0),
+             ("c_attn_bias", (1, 4800), 0.1, 0.0), ("c_attn_bias_l2", (1, 4800), 0.1, 0.01),
+             ("row_100000", (3, 100000), 0.1, 0.0)]
+    ok, max_err = True, 0.0
+    for name, shape, wd, l2 in cases:
+        leaf = adam8bit_leaf(torch, g, shape)
+        kw = dict(ADAM_HYPER, wd=wd, l2=l2)
+        ref = a8.adam8bit_leaf_plain(leaf["g"], *(leaf[k] for k in ADAM_KEYS), scalars, **kw)
+        got = {k: v.clone() for k, v in leaf.items()}
+        a8.adam8bit_update(got["g"], *(got[k] for k in ADAM_KEYS), scalars, **kw)
+        torch.cuda.synchronize()
+        err = adam8bit_errors([got[k] for k in ADAM_KEYS], ref)
+        case_ok = adam8bit_ok(err) and bool(torch.isfinite(got["p"]).all())
+        n, R = shape[0] * shape[1], shape[0]
+        b_ms, b_by = bound_ms(16 * n + 16 * R, 0, peaks)
+
+        def kernel(t=got):
+            a8.adam8bit_update(t["g"], *(t[k] for k in ADAM_KEYS), scalars, **kw)
+
+        def plain(t=leaf):
+            return a8.adam8bit_leaf_plain(t["g"], *(t[k] for k in ADAM_KEYS), scalars, **kw)
+
+        k_dev, p_dev = device_ms(torch, kernel, 20), device_ms(torch, plain, 5)
+        emit(dict(phase="kernels_adam8bit", name="adam8bit_update", leaf=name, shape=list(shape),
+                  wd=wd, l2=l2, **err, ok=case_ok, kernel_ms=k_dev, plain_ms=p_dev,
+                  kernel_event_ms=cuda_ms(torch, kernel, 20),
+                  plain_event_ms=cuda_ms(torch, plain, 5),
+                  library_ms=None, bound_ms=b_ms, bound_by=b_by))
+        ok &= case_ok
+        max_err = max(max_err, err["p_max_err"])
+        del leaf, ref, got
+    # three steps in place against three plain steps fed forward
+    leaf = adam8bit_leaf(torch, g, (6400, 1600))
+    ker, pl = {k: v.clone() for k, v in leaf.items()}, {k: v.clone() for k, v in leaf.items()}
+    steps = []
+    for step in range(3):
+        sc = torch.tensor([0.7, 1e-4, 1 - 0.9 ** (3 + step), 1 - 0.999 ** (3 + step)],
+                          dtype=torch.float32, device="cuda")
+        a8.adam8bit_update(ker["g"], *(ker[k] for k in ADAM_KEYS), sc, **ADAM_HYPER, wd=0.1)
+        out = a8.adam8bit_leaf_plain(pl["g"], *(pl[k] for k in ADAM_KEYS), sc, **ADAM_HYPER,
+                                     wd=0.1)
+        pl.update(zip(ADAM_KEYS, out))
+        torch.cuda.synchronize()
+        steps.append(adam8bit_errors([ker[k] for k in ADAM_KEYS], [pl[k] for k in ADAM_KEYS]))
+    steps_ok = all(adam8bit_ok(e) for e in steps)
+    emit(dict(phase="kernels_adam8bit", name="adam8bit_update", leaf="three_steps_in_place",
+              shape=[6400, 1600], steps=steps, ok=steps_ok))
+    torch.cuda.empty_cache()
+    return max(max_err, max(e["p_max_err"] for e in steps)), ok and steps_ok
+
+
+def ce_bwd_limits(torch, ce, h, wteT, labels, lse, V, delta=1e-4):
+    """Per-element limits of dh (N, E) and dw (E, Vp) against
+    ``fused_ce_bwd_plain``, and the dlog matrix they come from.
+
+    Each product sums ``dlog_c · x`` in fp32 in another order than the
+    plain version: 1e-4 of ``Σ|dlog_c|·|x|``, element by element, with
+    ``dlog_c`` the plain dlog cast as the kernel casts it. In bf16 a dlog
+    element can also round to its neighbour: the kernel's fp32 logit may
+    differ from the plain one in its last bits, and an fp32 dlog near a
+    rounding midpoint of bf16 then tips. For logit errors up to ``delta``,
+    p lies within a factor exp(±delta) of the plain p; each dlog element
+    whose two ends round apart may be off by that spread ``A``, which adds
+    ``A·|x|`` to the element's limit (in fp32, A = 0)."""
+    logits = ce._logits_plain(h, wteT, V)
+    t = logits - lse[:, None]
+    del logits
+    vpos = torch.arange(wteT.shape[1], device=h.device)
+    onehot = (vpos[None, :] == labels[:, None].long()).float()
+    valid = (labels != -100).float()[:, None]
+    d0 = (torch.exp(t) - onehot) * valid
+    b0 = d0.to(h.dtype).float()
+    m = 1e-4 * b0.abs()
+    spread = torch.zeros_like(m)
+    if h.dtype != torch.float32:
+        for sgn in (-1.0, 1.0):
+            dd = ((torch.exp(t + sgn * delta) - onehot) * valid).to(h.dtype).float()
+            spread = torch.maximum(spread, (dd - b0).abs())
+            del dd
+        m += spread
+    del t, onehot, d0
+    w_abs, h_abs = wteT.float().T.abs(), h.float().abs()
+    lim_dh, lim_dw = m @ w_abs, h_abs.T @ m
+    info = dict(logit_delta=delta, dlog_elements_that_may_round_apart=int((spread > 0).sum()),
+                dlog_elements=spread.numel())
+    return lim_dh, lim_dw, info
+
+
+def run_fused_ce_kernels(torch, peaks):
+    """The three fused CE kernels against ``fused_ce_plain`` /
+    ``fused_ce_bwd_plain``: bf16 at the 1.5B head (N = 2048 tokens, E =
+    1600, Vp = 50304, vocab 50257, the last token of each 1024-token row
+    labelled ignore_index, as shifted labels are) and fp32 at a ragged shape
+    (N = 300, E = 200, Vp = 1000, vocab 990, every 7th token ignored). dh
+    and dw take the plain version's lse, so each kernel is held alone.
+
+    Tolerances: nll and lse 1e-4 of max(1, |lse|) (fp32 sums over E in
+    another order); dh and dw element by element, from ``ce_bwd_limits``.
+    Each limit's power is shown too: a dh without its softmax term (only
+    the label column's −W[label]) and a dw with the rows of vocab entries
+    that no token labels zeroed must each exceed its limit somewhere.
+    Times: each kernel (device time; dh and dw from one ``fused_ce_bwd``
+    call, split by kernel name), the plain version (dh and dw together),
+    and the chunked head (``chunked_lm_loss``, one chunk: ``torch.mm`` +
+    logsumexp) forward, and its backward (dh and dw together) beside dh and
+    dw. Bound: 2·N·E·Vp flops for the forward, 4·N·E·Vp for dh and for dw
+    (rebuild the logits, one more product), at the dtype's peak."""
+    from deepspeed_tpu_torch.models.common import chunked_lm_loss
+    from deepspeed_tpu_torch.ops import fused_ce as ce
+
+    g = torch.Generator(device="cuda").manual_seed(SEED + 12)
+    rows, ok = {}, True
+    for dt, N, E, Vp, V in ((torch.bfloat16, 2048, 1600, 50304, 50257),
+                            (torch.float32, 300, 200, 1000, 990)):
+        fp32 = dt == torch.float32
+        h = torch.randn((N, E), generator=g, device="cuda").to(dt)
+        w = (torch.randn((Vp, E), generator=g, device="cuda") * 0.02).to(dt)
+        labels = torch.randint(0, V, (N,), generator=g, device="cuda")
+        if fp32:
+            labels[::7] = -100
+        else:
+            labels[1023::1024] = -100
+        wteT = w.T
+        shape = f"N={N} E={E} Vp={Vp} vocab={V} {str(dt)[6:]}"
+        nll_p, lse_p = ce.fused_ce_plain(h, wteT, labels, V, -100)
+        nll, lse = ce.fused_ce_fwd(h, wteT, labels, V, -100)
+        dh_p, dw_p = ce.fused_ce_bwd_plain(h, wteT, labels, lse_p, V, -100)
+        dh, dw = ce.fused_ce_bwd(h, wteT, labels, lse_p, V, -100)
+        torch.cuda.synchronize()
+        z_tol = 1e-4 * max(1.0, float(lse_p.abs().max()))
+        fwd_err = max(float((nll - nll_p).abs().max()), float((lse - lse_p).abs().max()))
+        lim_dh, lim_dw, lim_info = ce_bwd_limits(torch, ce, h, wteT, labels, lse_p, V)
+        labelled = torch.zeros(Vp, dtype=torch.bool, device="cuda")
+        labelled[labels[labels != -100]] = True
+        tiny = torch.finfo(torch.float32).tiny
+
+        def held(err, lim):
+            i = int(err.argmax())
+            return dict(max_err=float(err.max()), tol_at_max_err=float(lim.flatten()[i]),
+                        max_err_over_tol=float((err / lim.clamp(min=tiny)).max()),
+                        ok=bool((err <= lim).all()))
+
+        e_dh, e_dw = (dh - dh_p).abs(), (dw - dw_p).abs()
+        errs = {"fused_ce_fwd": dict(max_err=fwd_err, tol=z_tol, ok=fwd_err <= z_tol),
+                "fused_ce_dh": held(e_dh, lim_dh),
+                "fused_ce_dw": dict(held(e_dw, lim_dw),
+                                    labelled_rows=held(e_dw[:, labelled], lim_dw[:, labelled]),
+                                    other_rows=held(e_dw[:, ~labelled], lim_dw[:, ~labelled]))}
+        # the limits' power: what a kernel without the softmax term (dh) or
+        # with the unlabelled vocab rows lost (dw) would be off by
+        valid = (labels != -100)
+        dh_label_only = -(w.float()[labels.clamp(min=0)] * valid[:, None]).to(dt).float()
+        power = {"fused_ce_dh": float(((dh_p - dh_label_only).abs()
+                                       / lim_dh.clamp(min=tiny)).max()),
+                 "fused_ce_dw": float((dw_p[:, ~labelled].abs()
+                                       / lim_dw[:, ~labelled].clamp(min=tiny)).max())}
+        finite = all(bool(torch.isfinite(x).all()) for x in (nll, lse, dh, dw))
+        del nll_p, dh_p, dw_p, nll, dh, dw, e_dh, e_dw, lim_dh, lim_dw, dh_label_only
+        torch.cuda.empty_cache()
+        item = h.element_size()
+        ins = N * E * item + Vp * E * item + N * 8
+        flops = 2.0 * N * E * Vp
+        bounds = {"fused_ce_fwd": bound_ms(ins + 2 * N * 4, flops, peaks, fp32),
+                  "fused_ce_dh": bound_ms(ins + N * 4 + N * E * 4, 2 * flops, peaks, fp32),
+                  "fused_ce_dw": bound_ms(ins + N * 4 + Vp * E * 4, 2 * flops, peaks, fp32)}
+        hl = h[None].clone().requires_grad_()
+        wl = w.clone().requires_grad_()
+        lab2 = labels[None]
+
+        def lib_fwd():
+            return chunked_lm_loss(hl, wl, lab2, vocab_size=V, padded_vocab_size=Vp,
+                                   chunk=1 << 30, dtype=dt)
+
+        def lib_fwd_bwd():
+            return torch.autograd.grad(lib_fwd(), (hl, wl))
+
+        def bwd():
+            return ce.fused_ce_bwd(h, wteT, labels, lse_p, V, -100)
+
+        def bwd_plain():
+            return ce.fused_ce_bwd_plain(h, wteT, labels, lse_p, V, -100)
+
+        iters = 5
+        lib_f = device_ms(torch, lib_fwd, iters)
+        lib_fb = device_ms(torch, lib_fwd_bwd, iters)
+        lib_b = lib_fb - lib_f if lib_fb and lib_f else None
+        _, bwd_by_name = device_ms_by_name(torch, bwd, iters)
+        bwd_plain_ms = device_ms(torch, bwd_plain, 3)
+        bwd_event_ms = cuda_ms(torch, bwd, iters)
+
+        def kernel_time(sub):
+            return sum(v for k, v in bwd_by_name.items() if sub in k) or None
+
+        timing = {
+            "fused_ce_fwd": dict(
+                kernel_ms=device_ms(torch, lambda: ce.fused_ce_fwd(h, wteT, labels, V, -100),
+                                    iters),
+                plain_ms=device_ms(torch, lambda: ce.fused_ce_plain(h, wteT, labels, V, -100),
+                                   3),
+                kernel_event_ms=cuda_ms(torch, lambda: ce.fused_ce_fwd(h, wteT, labels, V, -100),
+                                        iters),
+                library_ms=lib_f, library="chunked_lm_loss forward"),
+            "fused_ce_dh": dict(kernel_ms=kernel_time("ce_dh_kernel"), plain_ms=bwd_plain_ms),
+            "fused_ce_dw": dict(kernel_ms=kernel_time("ce_dw_kernel"), plain_ms=bwd_plain_ms)}
+        for name in ("fused_ce_dh", "fused_ce_dw"):
+            timing[name].update(
+                bwd_event_ms=bwd_event_ms, library_ms=lib_b,
+                plain="fused_ce_bwd_plain (dh and dw together)",
+                library="chunked_lm_loss backward (dh and dw together)")
+        for name, held_ in errs.items():
+            b_ms, b_by = bounds[name]
+            row = dict(phase="kernels_fused_ce", name=name, shape=shape, **held_,
+                       **timing[name], bound_ms=b_ms, bound_by=b_by)
+            if name in power:
+                row.update(limit_power=power[name], limits=lim_info)
+                row["ok"] = row["ok"] and power[name] > 1
+            row["ok"] = row["ok"] and finite and row["kernel_ms"] is not None
+            emit(row)
+            ok &= row["ok"]
+            if not fp32:
+                rows[name] = row
+        del h, w, labels, wteT, lse_p, lse, hl, wl
+        torch.cuda.empty_cache()
+    return rows, ok
 
 
 # ---------------------------------------------------------------------------
@@ -583,15 +907,21 @@ def counters():
     from deepspeed_tpu_torch.ops import flash_attention as fa
     from deepspeed_tpu_torch.ops import paged_attention as pa
 
+    from deepspeed_tpu_torch.ops import adam8bit as a8
+    from deepspeed_tpu_torch.ops import fused_ce as ce
+
     return {"flash_attention_fwd": fa.KERNEL, "decode_attention": da.KERNEL,
             "norm_qkv": dl.NORM_PROJ, "post_attn": dl.POST_ATTN,
             "paged_attention": pa.KERNEL, "flash_attention_bwd_merged": fa.BWD_MERGED,
-            "flash_attention_bwd_dq": fa.BWD_DQ, "flash_attention_bwd_dkv": fa.BWD_DKV}
+            "flash_attention_bwd_dq": fa.BWD_DQ, "flash_attention_bwd_dkv": fa.BWD_DKV,
+            "adam8bit_update": a8.KERNEL, "fused_ce_fwd": ce.FWD, "fused_ce_dh": ce.DH,
+            "fused_ce_dw": ce.DW}
 
 
-# serving runs no backward
+# serving runs no backward, no optimizer and no loss head
 NO_BACKWARD = {"flash_attention_bwd_merged": 0, "flash_attention_bwd_dq": 0,
-               "flash_attention_bwd_dkv": 0}
+               "flash_attention_bwd_dkv": 0, "adam8bit_update": 0, "fused_ce_fwd": 0,
+               "fused_ce_dh": 0, "fused_ce_dw": 0}
 
 
 def zero_counts() -> None:
@@ -1157,6 +1487,221 @@ def run_train(torch, peaks, out_dir=None):
     return {"train": launches, "train_split": split_launches}, all(checks.values())
 
 
+# ---------------------------------------------------------------------------
+# train_1p5b phase
+# ---------------------------------------------------------------------------
+
+def northstar_config(**model_overrides) -> dict:
+    """The JAX package's north-star recipe (bench.py ``bench_northstar``):
+    micro 2, gas 1, adamw8bit lr 1e-4 wd 0.1 (here with ``fused: true``),
+    ZeRO stage 3 (one device: no sharding), no clipping."""
+    cfg = {"train_micro_batch_size_per_gpu": 2, "gradient_accumulation_steps": 1,
+           "optimizer": {"type": "adamw8bit",
+                         "params": {"lr": 1e-4, "weight_decay": 0.1, "fused": True}},
+           "zero_optimization": {"stage": 3}, "steps_per_print": 1000000}
+    if model_overrides:
+        cfg["model_overrides"] = model_overrides
+    return cfg
+
+
+def optimizer_check(torch, eng, batch, peaks):
+    """The fused update (one kernel per leaf) against the unfused chain from
+    the engine's current state and its real gradients on ``batch``: one step
+    each on copies, then their times (CUDA events, and the kernel's own
+    device time), and the plain version's over the same leaves.
+
+    Limits: the two formulas differ in their last bits (see
+    ``ops/adam8bit.py``), so parameters agree within 1e-3 of one lr-sized
+    step plus one fp32 ulp of the parameter (each rounds p − lr·upd to p's
+    grid: 1.2e-7 at a LayerNorm scale of 1), codes differ by at most one on
+    at most 0.1% of elements, scales within 1e-5 relative."""
+    from deepspeed_tpu_torch.ops import adam8bit as a8
+
+    opt = eng.optimizer
+    _, grads = eng._grads_of(batch)
+    norm = torch.linalg.vector_norm(torch.stack(torch._foreach_norm(grads)))
+    runs = {}
+    for fused in (True, False):
+        params = [p.detach().clone() for p in eng._params]
+        o = a8.Adam8bit(params, opt.lr, opt.b1, opt.b2, opt.eps, weight_decay=opt.weight_decay,
+                        l2=opt.l2, clip=opt.clip, fused=fused, names=opt.names)
+        o.load_state_dict(opt.state_dict())
+        o.update(params, grads, norm)
+        runs[fused] = (o, params)
+    torch.cuda.synchronize()
+    (of, pf), (ou, pu) = runs[True], runs[False]
+    lr = float(opt.lr(opt.count))
+    p_diff = max(float((a - b).abs().max()) for a, b in zip(pf, pu))
+    # how far past one ulp of the parameter plus 1e-3·lr the worst element is
+    p_excess = max(float(((a - b).abs() - 2.0 ** -23 * b.abs()).max()) for a, b in zip(pf, pu))
+    code_diff, code_share, n = 0, 0.0, 0
+    for cf, cu in zip(of.m_codes + of.r_codes, ou.m_codes + ou.r_codes):
+        d = (cf.int() - cu.int()).abs()
+        code_diff = max(code_diff, int(d.max()))
+        code_share += float((d > 0).sum())
+        n += d.numel()
+    code_share /= n
+    scale_rel = max(float(((sf[k] - su[k]).abs() / su[k]).max())
+                    for sf, su in zip(of.scales, ou.scales) for k in "mr")
+    checks = {"fused_vs_unfused_params": p_excess <= 1e-3 * lr,
+              "fused_vs_unfused_codes": code_diff <= 1 and code_share <= 1e-3,
+              "fused_vs_unfused_scales": scale_rel <= 1e-5}
+    fused_event = cuda_ms(torch, lambda: of.update(pf, grads, norm), 5)
+    unfused_event = cuda_ms(torch, lambda: ou.update(pu, grads, norm), 3)
+    total, by_name = device_ms_by_name(torch, lambda: of.update(pf, grads, norm), 3)
+    kernel_dev = sum(v for k, v in by_name.items() if "adam8bit_kernel" in k) or None
+    scalars = torch.tensor([1.0, lr, 0.5, 0.5], device=pf[0].device)
+
+    def plain():
+        for i, p in enumerate(pf):
+            if a8.fused_leaf_supported(p.shape):
+                a8.adam8bit_leaf_plain(a8._rows(grads[i]), a8._rows(p), a8._rows(of.m_codes[i]),
+                                       a8._rows(of.r_codes[i]), a8._rows(of.scales[i]["m"]),
+                                       a8._rows(of.scales[i]["r"]), scalars,
+                                       b1=opt.b1, b2=opt.b2, eps=opt.eps, wd=opt.weight_decay)
+
+    plain_ms = cuda_ms(torch, plain, 1)
+    n_el = sum(p.numel() for p in pf)
+    n_rows = sum(p.numel() // p.shape[-1] for p in pf)
+    b_ms, b_by = bound_ms(16 * n_el + 16 * n_rows, 0, peaks)
+    res = dict(leaves=len(pf), elements=n_el, rows=n_rows, launches_per_step=of.launches_per_step,
+               fused_vs_unfused_param_max_diff=p_diff,
+               fused_vs_unfused_param_max_diff_past_one_ulp=p_excess, lr=lr,
+               code_max_diff=code_diff,
+               code_diff_share=code_share, scale_max_rel_diff=scale_rel,
+               fused_step_event_ms=fused_event, unfused_step_event_ms=unfused_event,
+               fused_step_device_ms=total, fused_kernel_device_ms=kernel_dev,
+               plain_event_ms=plain_ms, bound_ms=b_ms, bound_by=b_by)
+    del runs, of, ou, pf, pu, grads
+    torch.cuda.empty_cache()
+    return res, checks
+
+
+def run_train_1p5b(torch, peaks, out_dir=None):
+    """gpt2-1.5b at full width and depth through ``initialize`` with the
+    north-star recipe (``northstar_config``; remat ``dots_saveable+flash``,
+    the chunked head at ``loss_chunk`` 8192, bf16 compute over fp32
+    masters): 2 warm-up and 8 timed steps (launches zeroed before the timed
+    run and read after it), the optimizer check, one profiled step, then
+    one step each of two engines built from the same weights: remat
+    ``dots_saveable`` (no ``+flash``) and ``loss_pallas`` (the fused CE
+    head), each with its launch counts and its loss against the chunked
+    head's on those weights."""
+    import numpy as np
+    from torch.profiler import ProfilerActivity, profile
+
+    import deepspeed_tpu_torch as ds
+    from deepspeed_tpu_torch.models.gpt2 import GPT2LMHeadModel, gpt2_config
+
+    cfg = gpt2_config("gpt2-1.5b", n_positions=1024, remat=True,
+                      remat_policy="dots_saveable+flash", loss_chunk=8192)
+    S, L = 1024, cfg.n_layer
+    t0 = time.perf_counter()
+    model = GPT2LMHeadModel(cfg, device="meta")
+    eng, *_ = ds.initialize(model=model, config=northstar_config())
+    eng.init_params()
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    micro = eng.train_micro_batch_size_per_gpu
+    ids = text_like_ids(np.random.default_rng(SEED + 13), micro, S, cfg.vocab_size)
+    batch = eng._to_device({"input_ids": ids, "labels": ids})
+    n_params = sum(p.numel() for p in eng._params)
+    per_step = {"adam8bit_update": eng.optimizer.launches_per_step,
+                "flash_attention_fwd": L, "flash_attention_bwd_merged": L}
+
+    t0 = time.perf_counter()
+    warm = eng.train_batches(batch, 2, stacked=False)
+    torch.cuda.synchronize()
+    warm_s = time.perf_counter() - t0
+    torch.cuda.reset_peak_memory_stats()
+    zero_counts()
+    t0 = time.perf_counter()
+    losses = eng.train_batches(batch, 8, stacked=False)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = read_counts()
+    peak_mem = torch.cuda.max_memory_allocated()
+    losses = [float(x) for x in torch.cat([warm, losses])]
+    expected = {n: 8 * per_step.get(n, 0) for n in launches}
+    tok_s = 8 * micro * S / wall
+    mfu = model.flops_per_token() * tok_s / peaks[1]
+
+    opt_res, opt_checks = optimizer_check(torch, eng, batch, peaks)
+
+    eng.train_batch(batch)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t1 = time.perf_counter()
+        eng.train_batch(batch)
+        torch.cuda.synchronize()
+        prof_wall = (time.perf_counter() - t1) * 1e3
+    by_name = device_ms_of(prof)
+    dev_ms = sum(by_name.values())
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:15]
+    if out_dir:
+        with open(os.path.join(out_dir, "profile_train_1p5b_step.txt"), "w") as fh:
+            fh.write(prof.key_averages().table(sort_by="self_cuda_time_total", row_limit=50))
+
+    # two variants from the same weights: the loss each reports is the loss
+    # at these weights, which the chunked head gives too
+    ref_loss = float(eng.eval_batch(batch))
+    variants, var_launches = {}, {}
+    for path, over, want in (
+            ("train_1p5b_dots", {"remat_policy": "dots_saveable"},
+             {"adam8bit_update": per_step["adam8bit_update"], "flash_attention_fwd": 2 * L,
+              "flash_attention_bwd_merged": L}),
+            ("train_1p5b_pallas", {"loss_pallas": True},
+             {**per_step, "fused_ce_fwd": 1, "fused_ce_dh": 1, "fused_ce_dw": 1})):
+        e2, *_ = ds.initialize(model=GPT2LMHeadModel(cfg, device="meta"),
+                               config=northstar_config(**over), model_parameters=eng.params)
+        zero_counts()
+        t1 = time.perf_counter()
+        loss = float(e2.train_batch(batch))
+        torch.cuda.synchronize()
+        step_ms = (time.perf_counter() - t1) * 1e3
+        counts = read_counts()
+        var_launches[path] = counts
+        variants[path] = dict(overrides=over, loss=loss, loss_rel_diff=abs(loss / ref_loss - 1),
+                              step_ms_first=step_ms, launches=counts,
+                              expected_launches={n: want.get(n, 0) for n in counts})
+        del e2
+        torch.cuda.empty_cache()
+
+    checks = {"fused_path": eng._fused_opt is not None,
+              "losses_finite": all(math.isfinite(x) for x in losses),
+              "loss_falling": losses[-1] < losses[2] and losses[-1] < losses[0],
+              "launch_counts": launches == expected,
+              "peak_memory_under_80gb": peak_mem < 80e9, **opt_checks}
+    for path, v in variants.items():
+        checks[f"{path}_launch_counts"] = v["launches"] == v["expected_launches"]
+        # bf16 heads against the chunked head at the same weights: the fused
+        # head sums in fp32 in another order (and remat changes nothing)
+        checks[f"{path}_loss"] = math.isfinite(v["loss"]) and v["loss_rel_diff"] <= 1e-3
+    state = eng.optimizer.state_bytes()
+    emit(dict(phase="train_1p5b", model="gpt2-1.5b", config=northstar_config(),
+              remat_policy=cfg.remat_policy, loss_chunk=cfg.loss_chunk, dtype="bfloat16",
+              batch=[micro, S], params=n_params, init_s=init_s, warmup_s=warm_s, timed_steps=8,
+              wall_s=wall, ms_per_step=wall * 1e3 / 8, tokens_per_s=tok_s,
+              flops_per_token=model.flops_per_token(), mfu=mfu,
+              # the host sets the wall time of this step (see the profile's
+              # busy share); the device time of one step is the steadier number
+              step_device_ms=dev_ms if dev_ms else "not measured",
+              tokens_per_device_s=micro * S / (dev_ms / 1e3) if dev_ms else "not measured",
+              max_memory_allocated_gb=peak_mem / 2 ** 30,
+              optimizer_state_gb=state / 1e9, adamw_fp32_state_gb=8 * n_params / 1e9,
+              losses=losses, launches=launches, expected_launches=expected,
+              optimizer=opt_res, chunked_head_loss_at_variant_weights=ref_loss,
+              variants=variants,
+              profile=dict(step_wall_ms=prof_wall,
+                           step_device_ms=dev_ms if dev_ms else "not measured",
+                           device_busy_share=dev_ms / prof_wall if dev_ms else "not measured",
+                           top_device_ms={k[:90]: v for k, v in top}),
+              checks=checks))
+    del eng, batch
+    torch.cuda.empty_cache()
+    return ({"train_1p5b": launches, **var_launches}, opt_res, all(checks.values()))
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--out", default=None, help="directory for build logs and profiles")
@@ -1174,6 +1719,8 @@ def main() -> int:
     torch.backends.cudnn.allow_tf32 = False
     if args.out:
         os.makedirs(args.out, exist_ok=True)
+        global _LOG_PATH
+        _LOG_PATH = os.path.join(args.out, "smoke.jsonl")
     smi = nvidia_smi()
     name = torch.cuda.get_device_name(0)
     peaks = card_peaks(name)
@@ -1196,6 +1743,10 @@ def main() -> int:
     ok &= run_fp32_shapes(torch)
     bwd_rows, bwd_ok = run_bwd_kernels(torch, F, peaks)
     ok &= bwd_ok
+    adam_err, adam_ok = run_adam8bit_kernel(torch, peaks)
+    ok &= adam_ok
+    ce_rows, ce_ok = run_fused_ce_kernels(torch, peaks)
+    ok &= ce_ok
     launches, slice_ok, eng, prompt = run_slice(torch)
     ok &= slice_ok
     run_profile(torch, eng, prompt, args.out)
@@ -1205,8 +1756,10 @@ def main() -> int:
     ok &= serve_ok
     train_launches, train_ok = run_train(torch, peaks, args.out)
     ok &= train_ok
+    big_launches, opt_res, big_ok = run_train_1p5b(torch, peaks, args.out)
+    ok &= big_ok
     # each path's counts were zeroed before it and read after it
-    by_path = {"generate": launches, **serve_launches, **train_launches}
+    by_path = {"generate": launches, **serve_launches, **train_launches, **big_launches}
 
     summary = []
     for case, r in kernel_results:
@@ -1236,6 +1789,31 @@ def main() -> int:
             max_abs_err=r["max_abs_err"], ms=r["ms"], plain_ms=r["plain_ms"],
             bound_ms=r["bound_ms"], bound_by=r["bound_by"], library_ms=r["library_ms"]))
     ok &= all(k in bwd_rows for k in replaces) and "flash_attention_fwd" in bwd_rows
+
+    def path_counts(kname):
+        counts = {p: c.get(kname, 0) for p, c in by_path.items()}
+        return dict(launches=sum(counts.values()), launches_by_path=counts)
+
+    # the optimizer at the 1.5B leaf set, as the train_1p5b step runs it
+    summary.append(dict(
+        name="adam8bit_update", route="cuda", source="deepspeed_tpu_torch/ops/csrc/adam8bit.cu",
+        replaces="deepspeed_tpu/ops/pallas/adam8bit_kernel.py:55", **path_counts("adam8bit_update"),
+        max_abs_err=adam_err, ms=opt_res["fused_kernel_device_ms"],
+        plain_ms=opt_res["plain_event_ms"], bound_ms=opt_res["bound_ms"],
+        bound_by=opt_res["bound_by"], library_ms=None,
+        shape=f"gpt2-1.5b leaf set: {opt_res['leaves']} leaves, {opt_res['elements']} elements"))
+    ce_lines = {"fused_ce_fwd": ":37", "fused_ce_dh": ":72", "fused_ce_dw": ":101"}
+    for kname, line in ce_lines.items():
+        r = ce_rows.get(kname)
+        if r is None:   # the kernels phase failed before timing it (already not ok)
+            continue
+        summary.append(dict(
+            name=kname, route="cuda", source="deepspeed_tpu_torch/ops/csrc/fused_ce.cu",
+            replaces="deepspeed_tpu/ops/pallas/fused_ce.py" + line, **path_counts(kname),
+            max_abs_err=r["max_err"], ms=r["kernel_ms"], plain_ms=r["plain_ms"],
+            bound_ms=r["bound_ms"], bound_by=r["bound_by"], library_ms=r["library_ms"],
+            shape=r["shape"]))
+    ok &= all(k in ce_rows for k in ce_lines)
     print(smi, flush=True)
     emit({"kernels": summary})
     if not ok:

@@ -1,10 +1,12 @@
 """Shared model plumbing: LayerNorm math, model outputs, the losses, the
-remat policy, the KV-cache contract and the fused decode-tick dispatch.
+remat policies, the KV-cache contract and the fused decode-tick dispatch.
 
 Port of ``deepspeed_tpu/models/common.py``. The losses are
-:func:`cross_entropy_loss` (dense logits) and :func:`chunked_lm_loss`, the
+:func:`cross_entropy_loss` (dense logits), :func:`chunked_lm_loss`, the
 tied-head cross-entropy whose ``(N, V)`` fp32 logits and cotangent never
-exist whole (``_FusedCE``, the JAX package's ``_fused_ce`` custom vjp).
+exist whole (``_FusedCE``, the JAX package's ``_fused_ce`` custom vjp), and
+:func:`pallas_lm_loss`, the same loss through the fused CE head kernels
+(``ops/fused_ce.py``), whose logits never reach device memory at all.
 
 The cache is a list with one dict per layer holding the leaves the JAX
 package names (``cached_key``, ``cached_value``, ``cache_index`` and, in a
@@ -31,8 +33,11 @@ from typing import Optional
 
 import torch
 import torch.utils.checkpoint
+from torch.utils.checkpoint import CheckpointPolicy, create_selective_checkpoint_contexts
 
+from ..ops import flash_attention as _flash  # noqa: F401 (registers the flash forward op)
 from ..ops.decode_layer import norm_proj_supported, post_attn_supported
+from ..ops.fused_ce import fused_ce_sum
 from ..ops.paged_attention import PagedKV
 
 KV_CACHE_LEAVES = ("cached_key", "cached_value")
@@ -64,18 +69,71 @@ class ModelOutput(dict):
             raise AttributeError(k) from e
 
 
+# the JAX package's dot-saving bases (``jax.checkpoint_policies``), as the
+# aten ops each saves: dots without batch dims are ``mm``/``addmm`` (a
+# ``(B, S, E) @ (E, F)`` folds to ``mm``), dots with batch dims
+# ``bmm``/``baddbmm``
+_NO_BATCH_DOTS = ("mm", "addmm")
+_BATCH_DOTS = ("bmm", "baddbmm")
+REMAT_BASES = {
+    "nothing_saveable": (),
+    "everything_saveable": None,          # None: save every op
+    "dots_saveable": _NO_BATCH_DOTS + _BATCH_DOTS,
+    "checkpoint_dots": _NO_BATCH_DOTS + _BATCH_DOTS,
+    "dots_with_no_batch_dims_saveable": _NO_BATCH_DOTS,
+    "checkpoint_dots_with_no_batch_dims": _NO_BATCH_DOTS,
+}
+
+
 def resolve_remat_policy(name: str):
     """Config remat-policy name → ``remat(fn, *args)``, which runs ``fn``
-    under activation checkpointing. ``"nothing_saveable"`` (keep nothing
-    inside the block, recompute it all in backward) is
-    ``torch.utils.checkpoint`` without reentrancy; the JAX package's other
-    ``jax.checkpoint`` policies (the dot-saving ones, ``+flash``,
-    ``+offload``) raise ``NotImplementedError``."""
-    if name != "nothing_saveable":
+    under activation checkpointing (port of the JAX package's
+    ``resolve_remat_policy``, ``models/common.py:55-119``).
+
+    The bases are :data:`REMAT_BASES`. ``nothing_saveable`` keeps nothing
+    inside the block and recomputes it all in backward
+    (``torch.utils.checkpoint`` without reentrancy); ``everything_saveable``
+    keeps everything (no recompute); the dot-saving bases keep the outputs
+    of the matrix products and recompute everything else (the norms, the
+    activations, the bf16 weight casts), through PyTorch's selective
+    checkpoint, which sees aten ops (each op of the block passes through
+    its Python dispatch mode, in forward and in recompute: a host cost
+    per op, which dominates a small-batch step on the card; ROADMAP.md's
+    first train lever). ``"<base>+flash"`` also keeps the
+    flash forward op's outputs (``out`` and ``lse``, the JAX package's
+    ``flash_out`` / ``flash_lse`` names), so backward does not rerun the
+    forward kernel. ``+offload`` (cpu_checkpointing) raises
+    ``NotImplementedError``; unknown bases and suffixes raise
+    ``ValueError``."""
+    parts = name.split("+")
+    base, extras = parts[0], parts[1:]
+    bad = [e for e in extras if e not in ("flash", "offload")]
+    if bad:
+        raise ValueError(f"unknown remat policy suffix {bad[0]!r} in "
+                         f"{name!r} (supported: '+flash', '+offload')")
+    if base not in REMAT_BASES:
+        raise ValueError(f"unknown remat policy {base!r}; ported: {sorted(REMAT_BASES)}")
+    if "offload" in extras:
         raise NotImplementedError(
-            f"remat policy {name!r} is not ported to the PyTorch engine yet: only "
-            "'nothing_saveable' is (ROADMAP.md A3)")
-    return functools.partial(torch.utils.checkpoint.checkpoint, use_reentrant=False)
+            f"remat policy {name!r}: cpu_checkpointing (+offload) is not ported to the "
+            "PyTorch engine yet (ROADMAP.md A11)")
+    saved = REMAT_BASES[base]
+    if saved is None:                     # everything saved: nothing to recompute
+        return lambda fn, *args: fn(*args)
+    flash = "flash" in extras
+    if not saved and not flash:
+        return functools.partial(torch.utils.checkpoint.checkpoint, use_reentrant=False)
+    packets = {getattr(torch.ops.aten, op) for op in saved}
+    if flash:
+        packets.add(torch.ops.ds_tpu_torch.flash_attention_fwd)
+    save, recompute = CheckpointPolicy.MUST_SAVE, CheckpointPolicy.PREFER_RECOMPUTE
+
+    def policy(ctx, op, *args, **kwargs):
+        return save if op.overloadpacket in packets else recompute
+
+    return functools.partial(
+        torch.utils.checkpoint.checkpoint, use_reentrant=False,
+        context_fn=functools.partial(create_selective_checkpoint_contexts, policy))
 
 
 def cross_entropy_loss(logits: torch.Tensor, labels: torch.Tensor, ignore_index: int = -100,
@@ -191,6 +249,23 @@ def chunked_lm_loss(h: torch.Tensor, wte: torch.Tensor, labels: torch.Tensor, *,
     hf, tf = hf.reshape(-1, chunk, E), tf.reshape(-1, chunk)
     nll_sum = _FusedCE.apply(hf, wte.to(dtype).T, tf, vocab_size, ignore_index,
                              bool(save_logits))
+    return nll_sum / (tf != ignore_index).sum().clamp(min=1)
+
+
+def pallas_lm_loss(h: torch.Tensor, wte: torch.Tensor, labels: torch.Tensor, *,
+                   vocab_size: int, padded_vocab_size: int, dtype,
+                   ignore_index: int = -100) -> torch.Tensor:
+    """Tied-head mean cross-entropy on the fused CE head
+    (:func:`~deepspeed_tpu_torch.ops.fused_ce.fused_ce_sum`: the kernels on
+    CUDA tensors, their plain version on the CPU); the same contract as
+    :func:`chunked_lm_loss`. The JAX wrapper pads the tokens to its tile with
+    ``ignore_index`` rows; the kernels mask a ragged tile instead, which
+    gives the same sum and the same valid count."""
+    B, S, E = h.shape
+    if wte.shape[0] != padded_vocab_size:
+        raise ValueError(f"wte has {wte.shape[0]} rows, padded vocab is {padded_vocab_size}")
+    tf = labels.reshape(B * S)
+    nll_sum = fused_ce_sum(h.reshape(B * S, E), wte.to(dtype).T, tf, vocab_size, ignore_index)
     return nll_sum / (tf != ignore_index).sum().clamp(min=1)
 
 

@@ -1,4 +1,6 @@
-"""Carry weights across: a flax GPT-2 param tree → the port's state dict.
+"""Carry weights and optimizer state across: a flax GPT-2 param tree → the
+port's state dict, and the JAX ``Adam8bitState`` → the port's
+``Adam8bit`` state.
 
 The port keeps the flax names and ``(in, out)`` kernel layouts, so each
 leaf maps to one state-dict key with no transpose. Both flax layouts are
@@ -6,6 +8,12 @@ taken: ``scan_layers=True`` stacks the blocks under ``h`` with a leading
 layer axis, ``scan_layers=False`` names them ``h_0 … h_{L-1}``. Leaves
 arrive as numpy arrays (``np.asarray`` works on JAX arrays too, without
 this package importing JAX); partition boxes must be unwrapped first.
+
+The int8-moment state (``deepspeed_tpu/ops/adam8bit.py:Adam8bitState``)
+has param-shaped code trees and a scale tree whose leaves are ``{"m",
+"r"}`` dicts of ``(…, 1)`` scales. Its rows are the last axis in both
+layouts, so a scanned ``(L, …, 1)`` scale splits per block like the leaf
+it scales, and each row keeps its scale.
 """
 from __future__ import annotations
 
@@ -32,36 +40,94 @@ def is_flax_tree(params: Mapping) -> bool:
     return isinstance(params.get("ln_f"), Mapping)
 
 
-def gpt2_params_from_jax(np_tree: Mapping, cfg: GPT2Config) -> dict[str, torch.Tensor]:
-    """The port's state dict (CPU tensors, the tree's dtypes) for a flax
-    GPT-2 param tree. Raises ``KeyError`` on missing or unexpected leaves
-    and ``ValueError`` on a shape mismatch."""
-    L = cfg.n_layer
+def _by_port_name(np_tree: Mapping, n_layer: int) -> dict[str, np.ndarray]:
+    """The tree's leaves under the port's names, a scanned stack's leading
+    layer axis split per block."""
     out = {}
     for name, arr in _flatten(np_tree):
         head, _, rest = name.partition(".")
         if head == "h":                       # scanned stack: (L, ...) leaves
-            if arr.shape[:1] != (L,):
+            if arr.shape[:1] != (n_layer,):
                 raise ValueError(f"scanned leaf h.{rest} has shape {arr.shape}, "
-                                 f"expected a leading axis of {L} layers")
-            for i in range(L):
+                                 f"expected a leading axis of {n_layer} layers")
+            for i in range(n_layer):
                 out[f"h.{i}.{rest}"] = arr[i]
         elif head.startswith("h_") and head[2:].isdigit():
             out[f"h.{int(head[2:])}.{rest}"] = arr
         else:
             out[name] = arr
+    return out
 
+
+def _param_shapes(cfg: GPT2Config) -> dict[str, tuple]:
     with torch.device("meta"):
-        expected = {k: tuple(p.shape) for k, p in GPT2LMHeadModel(cfg).named_parameters()}
-    missing = sorted(expected.keys() - out.keys())
-    extra = sorted(out.keys() - expected.keys())
+        return {k: tuple(p.shape) for k, p in GPT2LMHeadModel(cfg).named_parameters()}
+
+
+def _check_names(got: Mapping, expected: Mapping, cfg: GPT2Config, what: str) -> None:
+    missing = sorted(expected.keys() - got.keys())
+    extra = sorted(got.keys() - expected.keys())
     if missing or extra:
-        raise KeyError(f"flax tree does not match GPT-2 {cfg.n_layer}x{cfg.n_embd}: "
+        raise KeyError(f"{what} does not match GPT-2 {cfg.n_layer}x{cfg.n_embd}: "
                        f"missing {missing[:5]}, unexpected {extra[:5]}")
+
+
+def gpt2_params_from_jax(np_tree: Mapping, cfg: GPT2Config) -> dict[str, torch.Tensor]:
+    """The port's state dict (CPU tensors, the tree's dtypes) for a flax
+    GPT-2 param tree. Raises ``KeyError`` on missing or unexpected leaves
+    and ``ValueError`` on a shape mismatch."""
+    out = _by_port_name(np_tree, cfg.n_layer)
+    expected = _param_shapes(cfg)
+    _check_names(out, expected, cfg, "flax tree")
     for k, shape in expected.items():
         if out[k].shape != shape:
             raise ValueError(f"{k}: flax shape {out[k].shape}, port expects {shape}")
     return {k: _tensor(out[k]) for k in expected}
+
+
+def adam8bit_state_from_jax(state, cfg: GPT2Config) -> dict:
+    """The port's ``Adam8bit.state_dict()`` layout for a JAX
+    ``Adam8bitState`` of a GPT-2 (any object with ``count``, ``m_codes``,
+    ``r_codes`` and ``scales``; leaves numpy arrays, either ``scan_layers``
+    layout): ``{"count", "m_codes", "r_codes", "scales"}`` keyed by the
+    port's parameter names, CPU tensors. Codes keep the parameter's shape
+    (int8 ``m``, uint8 ``r``); each scale keeps its ``(…, 1)`` row shape."""
+    shapes = _param_shapes(cfg)
+    codes = {}
+    for key, dtype in (("m_codes", np.int8), ("r_codes", np.uint8)):
+        tree = _by_port_name(getattr(state, key), cfg.n_layer)
+        _check_names(tree, shapes, cfg, key)
+        for k, shape in shapes.items():
+            if tree[k].shape != shape or tree[k].dtype != dtype:
+                raise ValueError(f"{key} {k}: {tree[k].dtype} {tree[k].shape}, port expects "
+                                 f"{np.dtype(dtype)} {shape}")
+        codes[key] = {k: _tensor(tree[k]) for k in shapes}
+    # each scale leaf is an {"m", "r"} dict: split the tree by its last key
+    halves = {}
+    for which in ("m", "r"):
+        flat = {n[:-2]: a for n, a in _flatten(state.scales) if n.endswith("." + which)}
+        tree = _by_port_name(_nest(flat), cfg.n_layer)
+        _check_names(tree, shapes, cfg, f"scales[{which!r}]")
+        for k, shape in shapes.items():
+            want = shape[:-1] + (1,) if shape else ()
+            if tree[k].shape != want:
+                raise ValueError(f"scale {which} of {k}: shape {tree[k].shape}, port expects "
+                                 f"{want}")
+        halves[which] = tree
+    scales = {k: {w: _tensor(halves[w][k].astype(np.float32)) for w in "mr"} for k in shapes}
+    return {"count": int(np.asarray(state.count)), **codes, "scales": scales}
+
+
+def _nest(flat: Mapping[str, np.ndarray]) -> dict:
+    """Dotted names back into a nested dict (the inverse of ``_flatten``)."""
+    tree: dict = {}
+    for name, arr in flat.items():
+        node = tree
+        *heads, leaf = name.split(".")
+        for h in heads:
+            node = node.setdefault(h, {})
+        node[leaf] = arr
+    return tree
 
 
 def _tensor(arr: np.ndarray) -> torch.Tensor:

@@ -9,10 +9,13 @@ flax tree without transposes; the scanned stack becomes an
 
 ``forward(ids, labels=...)`` is the training forward (flash attention,
 forward and backward, where the shape allows): with ``loss_chunk`` set the
-output holds only the chunked-head ``loss``, else ``logits`` and the dense
-``loss``. ``remat=True`` checkpoints each block (``remat_policy``
-``"nothing_saveable"``). Dropout, MoE, ``fused_mlp`` and ``loss_pallas``
-are not ported and raise. ``forward(ids, position_ids=..., cache=...)`` is
+output holds only the memory-bounded head's ``loss`` (the chunked head,
+or with ``loss_pallas`` the fused CE head kernels), else ``logits`` and the
+dense ``loss``. ``remat=True`` checkpoints each block under
+``remat_policy``: the JAX package's ``nothing_saveable``,
+``everything_saveable`` and dot-saving policies, each with ``+flash``
+(``models/common.resolve_remat_policy``). Dropout, MoE, ``fused_mlp`` and
+``+offload`` are not ported and raise. ``forward(ids, position_ids=..., cache=...)`` is
 the decode mode: K/V are appended to the cache, single-token ticks run the
 fused decode kernels when ``decode_fused_plan`` allows, and the rest runs
 the unfused chain over the cache. The cache is any layout of
@@ -33,7 +36,8 @@ from torch import nn
 from ..ops.attention import cached_decode_attention, dot_product_attention
 from ..ops.decode_layer import fused_norm_proj, fused_post_attn
 from .common import (ModelOutput, append_kv_cache, chunked_lm_loss, cross_entropy_loss,
-                     decode_fused_plan, layer_norm, resolve_remat_policy, shift_labels)
+                     decode_fused_plan, layer_norm, pallas_lm_loss, resolve_remat_policy,
+                     shift_labels)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -63,7 +67,10 @@ class GPT2Config:
     # chunked head backward: replay the logits saved in forward in the
     # compute dtype (True) or recompute them (False)
     loss_save_logits: bool = False
-    loss_pallas: bool = False             # the fused CE head kernel: not ported
+    # the fused CE head kernels (ops/fused_ce.py) for the loss_chunk head:
+    # the logits never reach device memory. Without loss_chunk the dense
+    # head runs, as in the JAX package.
+    loss_pallas: bool = False
 
     def __post_init__(self):
         todo = "is not ported to the PyTorch model yet"
@@ -74,9 +81,8 @@ class GPT2Config:
             raise NotImplementedError(f"moe {todo} (ROADMAP.md A9)")
         if self.fused_mlp:
             raise NotImplementedError(f"fused_mlp (the fused FFN kernel) {todo} (ROADMAP.md B8)")
-        if self.loss_pallas:
-            raise NotImplementedError(f"loss_pallas (the fused CE head kernel) {todo} "
-                                      "(ROADMAP.md B6)")
+        if self.remat:
+            resolve_remat_policy(self.remat_policy)   # unknown or unported: raise at build
 
     @property
     def padded_vocab_size(self) -> int:
@@ -287,11 +293,16 @@ class GPT2LMHeadModel(nn.Module):
         h = self.ln_f(h)
         tgt = None if labels is None else (shift_labels(labels) if shift else labels)
         if cfg.loss_chunk and tgt is not None:
-            # memory-bounded head: the logits never exist whole
+            # memory-bounded head: the logits never exist whole (the JAX
+            # package takes the fused head only on a TPU with a one-device
+            # plan; the port always has one device, and the kernels run
+            # wherever the tensors are on the card)
+            kw = dict(vocab_size=cfg.vocab_size, padded_vocab_size=cfg.padded_vocab_size,
+                      dtype=dt)
+            if cfg.loss_pallas:
+                return ModelOutput(loss=pallas_lm_loss(h, self.wte, tgt, **kw))
             return ModelOutput(loss=chunked_lm_loss(
-                h, self.wte, tgt, vocab_size=cfg.vocab_size,
-                padded_vocab_size=cfg.padded_vocab_size, chunk=cfg.loss_chunk, dtype=dt,
-                save_logits=cfg.loss_save_logits))
+                h, self.wte, tgt, chunk=cfg.loss_chunk, save_logits=cfg.loss_save_logits, **kw))
         logits = h @ self.wte.to(dt).T
         if cfg.padded_vocab_size != cfg.vocab_size:
             # padded vocab columns out of the softmax (in place on the

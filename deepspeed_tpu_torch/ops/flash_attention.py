@@ -9,8 +9,11 @@ header for the design and bound).
 Public shapes are the JAX package's, ``(B, S, H, D)``. The kernels keep
 ``lse`` and ``delta`` in the TPU kernels' ``(B·H, 1, S)`` fp32 layout;
 :func:`flash_attention_with_lse` returns ``lse`` as ``(B, S, H)`` like JAX.
-One ``autograd.Function`` serves both public functions on every device:
-its forward saves ``q, k, v, out, lse``; its backward forms
+The forward is one dispatcher op, ``ds_tpu_torch::flash_attention_fwd``
+(:func:`flash_attention_fwd_op`), so that activation checkpointing's
+policies can name and keep its outputs. One ``autograd.Function`` serves
+both public functions on every device: its forward calls the op and saves
+``q, k, v, out, lse``; its backward forms
 ``delta = rowsum(do·o)`` in fp32 (minus the lse cotangent, when the caller
 used ``lse``) and then runs :func:`flash_attention_bwd`, which dispatches
 on the backward mode as the JAX package does (``BWD_MODE``, overridden by
@@ -107,11 +110,19 @@ def _check_shapes(q, k, v) -> None:
         raise ValueError(f"flash_attention kernel: head dim {D} not in {HEAD_DIMS}")
 
 
-def _flash_fwd(q, k, v, causal: bool, scale: float):
+@torch.library.custom_op("ds_tpu_torch::flash_attention_fwd", mutates_args=())
+def flash_attention_fwd_op(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, causal: bool,
+                           scale: float) -> tuple[torch.Tensor, torch.Tensor]:
+    """The forward as one dispatcher op, ``(out, lse)``: the kernel on CUDA
+    tensors, :func:`flash_attention_plain` on CPU tensors. Being one op, it
+    is what activation checkpointing's policies see and can save (the JAX
+    package's ``flash_out`` / ``flash_lse`` names), on both devices alike:
+    the plain version's batched products stay inside it."""
     B, S, H, D = q.shape
     Sk = k.shape[1]
     if not q.is_cuda:
-        return flash_attention_plain(q, k, v, causal, scale)
+        out, lse = flash_attention_plain(q, k, v, causal, scale)
+        return out.contiguous(), lse.contiguous()
     q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
     check_operands(q, k, v)
     out = torch.empty_like(q)
@@ -120,6 +131,12 @@ def _flash_fwd(q, k, v, causal: bool, scale: float):
         KERNEL.launch(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), lse.data_ptr(),
                       B, S, Sk, H, D, scale, int(causal), dtype_code(q), stream_of(q))
     return out, lse
+
+
+@flash_attention_fwd_op.register_fake
+def _(q, k, v, causal, scale):
+    B, S, H, _ = q.shape
+    return q.new_empty(q.shape), q.new_empty((B * H, 1, S), dtype=torch.float32)
 
 
 def flash_attention_bwd(q, k, v, out, lse, do, causal: bool, scale: float,
@@ -167,7 +184,7 @@ class _FlashAttention(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, q, k, v, causal: bool, scale: float):
-        out, lse = _flash_fwd(q, k, v, causal, scale)
+        out, lse = flash_attention_fwd_op(q, k, v, causal, scale)
         ctx.save_for_backward(q, k, v, out, lse)
         ctx.causal, ctx.scale = causal, scale
         ctx.set_materialize_grads(False)

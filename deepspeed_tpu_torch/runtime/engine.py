@@ -10,9 +10,10 @@ the same user surface: ``initialize(model=..., config=...)``, then
 Where the JAX engine compiles one program per step, this one runs the step
 eagerly: a forward and ``torch.autograd.grad`` per micro-batch, the
 gradients accumulated in ``data_types.grad_accum_dtype`` buffers, then the
-unscale, the global norm, clipping and the Adam/AdamW update
-(``runtime/optimizers.py``) over fp32 master weights with ``torch._foreach``
-ops. The model computes in its config's dtype (bf16 by default): it casts
+unscale, the global norm, clipping and the update (``runtime/optimizers.py``:
+Adam/AdamW with ``torch._foreach`` ops, or the int8-moment ``adam8bit`` /
+``adamw8bit`` family, unfused or one fused kernel launch per leaf) over
+fp32 master weights. The model computes in its config's dtype (bf16 by default): it casts
 the fp32 masters at use, as the JAX models do. ``train_batch`` returns the
 mean loss as a 0-d tensor on the device and reads nothing back to the host,
 except under fp16, where the overflow flag of each step decides on the host
@@ -87,7 +88,10 @@ class Engine:
             model_parameters = model.state_dict()
         self._names, self._params = zip(*self.module.named_parameters())
         self._params = list(self._params)
-        self.optimizer = build_tx(self.config, self._params, self.lr_scheduler)
+        self.optimizer = build_tx(self.config, self._params, self.lr_scheduler, self._names)
+        # the fused int8-moment update, one kernel launch per leaf (the JAX
+        # engine's ``_fused_opt``): None when the step takes the unfused chain
+        self._fused_opt = self.optimizer if getattr(self.optimizer, "fused", False) else None
         self.loss_scale = precision.init_loss_scale(self.config.fp16)
 
         self.global_steps = 0
@@ -107,7 +111,7 @@ class Engine:
             (optimizer is not None, "a client optimizer", "A3"),
             (loss_fn is not None, "a custom loss_fn", "A3"),
             (c.activation_checkpointing.cpu_checkpointing,
-             "activation_checkpointing.cpu_checkpointing", "A3"),
+             "activation_checkpointing.cpu_checkpointing", "A11"),
             (training_data is not None, "training_data (the engine's dataloader)", "A7"),
             (mesh is not None, "an explicit mesh", "A9"),
             (bool(c.pipeline), "pipeline parallelism", "A9"),

@@ -420,8 +420,15 @@ def test_remat_gives_the_same_gradients(flax_params):
     assert float(l1) == float(l2)
     for x, y in zip(g1, g2):
         torch.testing.assert_close(x, y, rtol=1e-6, atol=1e-7)
-    with pytest.raises(NotImplementedError, match="A3"):
-        _port_engine(flax_params, {**GATE, "activation_checkpointing": {"policy": "dots_saveable"}})
+    dots = _port_engine(flax_params, {**GATE, "activation_checkpointing": {
+        "enabled": True, "policy": "dots_saveable+flash"}})
+    l3, g3 = dots._grads_of(mb)
+    assert float(l3) == float(l1)
+    for x, y in zip(g1, g3):
+        torch.testing.assert_close(x, y, rtol=1e-6, atol=1e-7)
+    with pytest.raises(NotImplementedError, match="A11"):
+        _port_engine(flax_params, {**GATE, "activation_checkpointing": {
+            "enabled": True, "policy": "dots_saveable+offload"}})
 
 
 def test_init_params_takes_a_state_dict_and_eval_matches(flax_params):
@@ -489,7 +496,7 @@ def test_initialize_stays_on_the_card(monkeypatch):
     {"quantize_training": {"enabled": True}},
     {"tensorboard": {"enabled": True}},
     {"activation_checkpointing": {"cpu_checkpointing": True}},
-    {"optimizer": {"type": "adamw8bit"}}, {"optimizer": {"type": "lamb"}},
+    {"optimizer": {"type": "onebitlamb"}}, {"optimizer": {"type": "lamb"}},
     {"optimizer": {"type": "sgd"}}, {"optimizer": {"type": "adagrad"}},
     {"optimizer": {"type": "lion"}}, {"optimizer": {"type": "zerooneadam"}},
 ])
@@ -507,7 +514,8 @@ def test_unported_arguments_raise(kw):
 
 @pytest.mark.parametrize("over", [dict(attn_pdrop=0.1), dict(embd_pdrop=0.1),
                                   dict(resid_pdrop=0.1), dict(moe={"num_experts": 2}),
-                                  dict(fused_mlp=True), dict(loss_pallas=True)])
+                                  dict(fused_mlp=True),
+                                  dict(remat=True, remat_policy="dots_saveable+offload")])
 def test_unported_model_options_raise(over):
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         gpt2_config("gpt2-tiny", **over)
