@@ -11,6 +11,15 @@ CUDA it raises unless the caller asks for ``device="cpu"``. On the card it
 turns TF32 off for fp32 matmuls and convolutions, so fp32 results are full
 fp32, and bf16 reductions in reduced precision off.
 
+``quant={"enabled": True}`` takes the JAX engine's two branches: with
+``bits`` (or ``qtype``) 8 and no ``fake``, W8A16 serving — each dense
+kernel is quantized at load (in fp32, before the cast to the serving dtype,
+``group_size`` rows per scale, default 128) and stored as int8 codes + fp32
+scales (``ops/w8.py``); a tree already quantized by the JAX engine is
+copied as it is. Otherwise every ≥ 2-D leaf of the given tree, embeddings
+included, is fake-quantized to ``bits`` in ``groups`` groups (default 64,
+one group where the size does not divide) and stored at the serving dtype.
+
 Options the JAX engine has and this slice does not port raise
 ``NotImplementedError`` (see ROADMAP.md) instead of being ignored.
 """
@@ -19,11 +28,14 @@ from __future__ import annotations
 import dataclasses
 from typing import Any, Mapping, Optional
 
+import numpy as np
 import torch
 
 from ..models.common import init_layer_cache
-from ..models.convert import gpt2_params_from_jax, is_flax_tree
+from ..models.convert import _tensor, gpt2_params_from_jax, is_flax_tree
 from ..models.gpt2 import GPT2LMHeadModel, LayerNorm
+from ..ops.quantizer import fake_quantize
+from ..ops.w8 import quantize_state_dict
 from ..utils.logging import logger
 
 
@@ -59,8 +71,6 @@ class InferenceConfig:
         todo = "is not ported to the PyTorch/CUDA engine yet (ROADMAP.md, queue A)"
         if self.mp_size > 1 or self.ep_size > 1:
             raise NotImplementedError(f"mp_size/ep_size > 1 (multi-card serving) {todo}")
-        if self.quant.get("enabled"):
-            raise NotImplementedError(f"quant (int8 / fake-quant weights) {todo}")
         for name in ("specdec", "checkpoint"):
             if getattr(self, name):
                 raise NotImplementedError(f"{name} {todo}")
@@ -101,6 +111,13 @@ class InferenceEngine:
         cfg = model.cfg
         dtype = self.config.dtype or torch.bfloat16
         over = {"dtype": dtype}
+        q = self.config.quant
+        bits = int(q.get("bits", q.get("qtype", 8)))
+        # W8A16 serving, or the fake-quant load branch (the JAX engine's rule)
+        self._w8 = bool(q.get("enabled")) and bits == 8 and not q.get("fake", False)
+        self._fake_bits = bits if q.get("enabled") and not self._w8 else None
+        if self._w8:
+            over.update(w8=True, w8_group=int(q.get("group_size", 128)))
         if self.config.decode_fused is not None:
             over["decode_fused"] = bool(self.config.decode_fused)
         self.model_cfg = dataclasses.replace(cfg, **over)
@@ -135,12 +152,17 @@ class InferenceEngine:
 
     @torch.no_grad()
     def load_params(self, params: Mapping) -> "InferenceEngine":
-        """Copy weights in at the serving dtype. LayerNorm parameters take
-        the serving dtype's values (as in the JAX engine, which stores every
-        float leaf at it) but stay fp32 tensors, which the fused kernels
-        read without a per-tick conversion."""
+        """Copy weights in at the serving dtype, after the ``quant`` option's
+        quantization. LayerNorm parameters take the serving dtype's values
+        (as in the JAX engine, which stores every float leaf at it) but stay
+        fp32 tensors, which the fused kernels read without a per-tick
+        conversion. W8A16 codes stay int8 and their scales fp32."""
+        if self._fake_bits is not None:   # on the tree as given, as JAX does
+            params = self._fake_quantize(params)
         if is_flax_tree(params):
             params = gpt2_params_from_jax(params, self.model_cfg)
+        if self._w8 and any(k.endswith("_kernel") for k in params):
+            params = quantize_state_dict(params, self.model_cfg.w8_group, device=self.device)
         own = dict(self.module.named_parameters())
         missing = sorted(own.keys() - params.keys())
         extra = sorted(params.keys() - own.keys())
@@ -150,14 +172,44 @@ class InferenceEngine:
                 if isinstance(mod, LayerNorm) for p, _ in mod.named_parameters()}
         dtype = self.model_cfg.dtype
         for name, p in own.items():
-            src = torch.as_tensor(params[name]).to(dtype)
-            if name in norm:
-                p.data = src.to(device=self.device, dtype=torch.float32)
-            else:
+            src = torch.as_tensor(params[name])
+            if p.dtype == torch.int8:           # W8A16 codes
+                if src.dtype != torch.int8:
+                    raise TypeError(f"load_params: {name} must be int8 codes, not {src.dtype}")
                 p.copy_(src)
+            elif name.endswith("_kernel_s"):    # W8A16 scales stay fp32
+                p.copy_(src.float())
+            elif name in norm:
+                p.data = src.to(dtype).to(device=self.device, dtype=torch.float32)
+            else:
+                p.copy_(src.to(dtype))
         n = sum(p.numel() for p in own.values())
-        logger.info(f"inference params loaded: {n / 1e6:.1f}M on {self.device}")
+        logger.info(f"inference params loaded: {n / 1e6:.1f}M on {self.device}"
+                    + (" (W8A16 dense kernels)" if self._w8 else ""))
         return self
+
+    def _fake_quantize(self, tree: Mapping, prefix: str = "") -> dict:
+        """Every ≥ 2-D leaf of a (nested or flat) param tree fake-quantized
+        in fp32 to ``bits`` in ``groups`` groups, on the engine's device; one
+        group, with a warning, where the size does not divide."""
+        groups = int(self.config.quant.get("groups", 64))
+        out = {}
+        for key, v in tree.items():
+            if isinstance(v, Mapping):
+                out[key] = self._fake_quantize(v, f"{prefix}{key}.")
+                continue
+            t = v if isinstance(v, torch.Tensor) else _tensor(np.asarray(v))
+            if t.ndim < 2:
+                out[key] = v
+                continue
+            g = groups
+            if t.numel() % groups:
+                g = 1
+                logger.warning(f"quantizing {prefix}{key} with ONE group (size {t.numel()} not "
+                               f"divisible by {groups}) — coarser than requested")
+            q = fake_quantize(t.to(self.device, torch.float32), self._fake_bits, g)
+            out[key] = q if isinstance(v, torch.Tensor) else q.cpu().numpy()   # a flax leaf
+        return out
 
     # ------------------------------------------------------------------
     def _ids(self, input_ids) -> torch.Tensor:

@@ -49,7 +49,7 @@ from __future__ import annotations
 
 import dataclasses
 import time
-from collections import deque
+from collections import Counter, deque
 from typing import Dict, List, Optional
 
 import numpy as np
@@ -174,6 +174,10 @@ class ContinuousBatcher:
         # single-token kernels)
         self.stats = dict(ticks=0, windows=0, decode_s=0.0, decode_tokens=0,
                           prefill_tokens=0, one_token_prefills=0)
+        # prefill forwards by (rows, chunk tokens): which kernels a chunk runs
+        # depends on its shape (one-token chunks take the single-token kernels,
+        # W8A16 chunks of 2..64 rows x tokens the w8 matmul)
+        self.prefill_chunks: Counter = Counter()
 
     # ------------------------------------------------------------------
     def submit(self, prompt, max_new_tokens: int = 32, temperature: float = 0.0,
@@ -209,6 +213,7 @@ class ContinuousBatcher:
             positions = np.arange(start + pos, start + pos + chunk)[None, :]
             logits, cache = self.engine.prefill(cache, ids[:, pos:pos + chunk], positions)
             self.stats["one_token_prefills"] += chunk == 1
+            self.prefill_chunks[(B, chunk)] += 1
             pos += chunk
         return logits, cache
 

@@ -39,6 +39,7 @@ from ..ops import flash_attention as _flash  # noqa: F401 (registers the flash f
 from ..ops.decode_layer import norm_proj_supported, post_attn_supported
 from ..ops.fused_ce import fused_ce_sum
 from ..ops.paged_attention import PagedKV
+from ..ops.w8 import w8_group_size
 
 KV_CACHE_LEAVES = ("cached_key", "cached_value")
 CACHE_INDEX_LEAF = "cache_index"
@@ -391,11 +392,19 @@ def decode_fused_enabled(cfg, device: torch.device) -> bool:
     return device.type == "cuda" if flag is None else bool(flag)
 
 
+def _w8_groups(cfg, k: int) -> int:
+    """Scale groups of a K-row dense panel under ``cfg.w8`` (1 without it)."""
+    if not getattr(cfg, "w8", False):
+        return 1
+    return k // w8_group_size(k, int(getattr(cfg, "w8_group", 128)))
+
+
 def decode_fused_plan(cfg, rows: int, e: int, proj_outs: tuple, f: int,
                       device: torch.device) -> bool:
     """Whether THIS tick takes the fused kernels: enabled, and the shape
-    predicates of both kernels hold (``decode_fused_plan`` of the JAX
-    package, without its mesh and W8A16 cases)."""
+    predicates of both kernels hold, W8A16 group rules included
+    (``decode_fused_plan`` of the JAX package, without its mesh case)."""
+    w8 = bool(getattr(cfg, "w8", False))
     return (decode_fused_enabled(cfg, device)
-            and all(norm_proj_supported(rows, e, n) for n in proj_outs)
-            and post_attn_supported(rows, e, f))
+            and all(norm_proj_supported(rows, e, n, w8, _w8_groups(cfg, e)) for n in proj_outs)
+            and post_attn_supported(rows, e, f, w8, _w8_groups(cfg, e), _w8_groups(cfg, f)))

@@ -17,6 +17,7 @@ it scales, and each row keeps its scale.
 """
 from __future__ import annotations
 
+import dataclasses
 from typing import Mapping
 
 import numpy as np
@@ -74,10 +75,14 @@ def _check_names(got: Mapping, expected: Mapping, cfg: GPT2Config, what: str) ->
 
 def gpt2_params_from_jax(np_tree: Mapping, cfg: GPT2Config) -> dict[str, torch.Tensor]:
     """The port's state dict (CPU tensors, the tree's dtypes) for a flax
-    GPT-2 param tree. Raises ``KeyError`` on missing or unexpected leaves
-    and ``ValueError`` on a shape mismatch."""
+    GPT-2 param tree: full width, or quantized by the JAX engine (W8A16
+    ``*_kernel_q`` int8 codes and ``*_kernel_s`` fp32 scales in place of
+    each dense ``*_kernel``, grouped by ``cfg.w8_group``). Raises
+    ``KeyError`` on missing or unexpected leaves and ``ValueError`` on a
+    shape mismatch."""
     out = _by_port_name(np_tree, cfg.n_layer)
-    expected = _param_shapes(cfg)
+    w8 = any(k.endswith("_kernel_q") for k in out)
+    expected = _param_shapes(dataclasses.replace(cfg, w8=w8))
     _check_names(out, expected, cfg, "flax tree")
     for k, shape in expected.items():
         if out[k].shape != shape:

@@ -23,6 +23,13 @@ the unfused chain over the cache. The cache is any layout of
 paged arena) and ``position_ids`` are per row, ``(B, S)`` or ``(1, S)``:
 ``cached_decode_attention`` dispatches on the layout, as in the JAX
 package.
+
+``w8=True`` (set by ``init_inference``'s ``quant`` option) stores the four
+dense kernels of each block as W8A16 pairs under the flax names
+``*_kernel_q`` (int8 codes) and ``*_kernel_s`` (fp32 scales per
+``w8_group`` rows), parameters that carry no gradient; the dense layers go
+through ``ops/w8.w8a16_matmul`` and the fused decode tick hands the pairs to
+the kernels. Embeddings, the tied head, norms and biases stay full width.
 """
 from __future__ import annotations
 
@@ -35,6 +42,7 @@ from torch import nn
 
 from ..ops.attention import cached_decode_attention, dot_product_attention
 from ..ops.decode_layer import fused_norm_proj, fused_post_attn
+from ..ops.w8 import w8_group_size, w8a16_matmul
 from .common import (ModelOutput, append_kv_cache, chunked_lm_loss, cross_entropy_loss,
                      decode_fused_plan, layer_norm, pallas_lm_loss, resolve_remat_policy,
                      shift_labels)
@@ -71,6 +79,10 @@ class GPT2Config:
     # the logits never reach device memory. Without loss_chunk the dense
     # head runs, as in the JAX package.
     loss_pallas: bool = False
+    # weight-only int8 serving (ops/w8.py): dense kernels stored as int8
+    # codes + grouped fp32 scales. Set by init_inference.
+    w8: bool = False
+    w8_group: int = 128
 
     def __post_init__(self):
         todo = "is not ported to the PyTorch model yet"
@@ -117,8 +129,31 @@ def _param(shape, device, dtype) -> nn.Parameter:
     return nn.Parameter(torch.empty(shape, device=device, dtype=dtype))
 
 
-def _dense(x, kernel, bias, dtype):
-    return x @ kernel.to(dtype) + bias.to(dtype)
+def _declare_dense(mod: nn.Module, name: str, k: int, n: int, cfg: GPT2Config, device, dtype):
+    """A dense layer's parameters under the flax names: ``name_kernel``
+    ``(k, n)``, or under ``cfg.w8`` the pair ``name_kernel_q`` (int8
+    ``(k, n)``) and ``name_kernel_s`` (fp32 ``(k/g, n)``); and ``name_bias``."""
+    if cfg.w8:
+        g = w8_group_size(k, cfg.w8_group)
+        for suffix, shape, dt in (("_kernel_q", (k, n), torch.int8),
+                                  ("_kernel_s", (k // g, n), torch.float32)):
+            setattr(mod, name + suffix, nn.Parameter(
+                torch.empty(shape, device=device, dtype=dt), requires_grad=False))
+    else:
+        setattr(mod, name + "_kernel", _param((k, n), device, dtype))
+    setattr(mod, name + "_bias", _param((n,), device, dtype))
+
+
+def _weight(mod: nn.Module, name: str, dtype):
+    """The dense kernel at the compute dtype, or its W8A16 (codes, scales) pair."""
+    if mod.cfg.w8:
+        return getattr(mod, name + "_kernel_q"), getattr(mod, name + "_kernel_s")
+    return getattr(mod, name + "_kernel").to(dtype)
+
+
+def _dense(x, weight, bias, dtype):
+    y = w8a16_matmul(x, *weight) if isinstance(weight, tuple) else x @ weight
+    return y + bias.to(dtype)
 
 
 class LayerNorm(nn.Module):
@@ -137,10 +172,8 @@ class SelfAttention(nn.Module):
         super().__init__()
         self.cfg = cfg
         E = cfg.n_embd
-        self.c_attn_kernel = _param((E, 3 * E), device, dtype)
-        self.c_attn_bias = _param((3 * E,), device, dtype)
-        self.c_proj_kernel = _param((E, E), device, dtype)
-        self.c_proj_bias = _param((E,), device, dtype)
+        _declare_dense(self, "c_attn", E, 3 * E, cfg, device, dtype)
+        _declare_dense(self, "c_proj", E, E, cfg, device, dtype)
 
     def _heads(self, qkv):
         B, S, _ = qkv.shape
@@ -161,8 +194,9 @@ class SelfAttention(nn.Module):
 
     def forward(self, x, mask, layer_cache=None):
         dt = self.cfg.dtype
-        y = self.mix(_dense(x, self.c_attn_kernel, self.c_attn_bias, dt), mask, layer_cache)
-        return _dense(y, self.c_proj_kernel, self.c_proj_bias, dt)
+        y = self.mix(_dense(x, _weight(self, "c_attn", dt), self.c_attn_bias, dt), mask,
+                     layer_cache)
+        return _dense(y, _weight(self, "c_proj", dt), self.c_proj_bias, dt)
 
 
 class MLP(nn.Module):
@@ -170,16 +204,14 @@ class MLP(nn.Module):
         super().__init__()
         self.cfg = cfg
         E, F = cfg.n_embd, 4 * cfg.n_embd
-        self.c_fc_kernel = _param((E, F), device, dtype)
-        self.c_fc_bias = _param((F,), device, dtype)
-        self.c_proj_kernel = _param((F, E), device, dtype)
-        self.c_proj_bias = _param((E,), device, dtype)
+        _declare_dense(self, "c_fc", E, F, cfg, device, dtype)
+        _declare_dense(self, "c_proj", F, E, cfg, device, dtype)
 
     def forward(self, x):
         dt = self.cfg.dtype
-        h = nn.functional.gelu(_dense(x, self.c_fc_kernel, self.c_fc_bias, dt),
+        h = nn.functional.gelu(_dense(x, _weight(self, "c_fc", dt), self.c_fc_bias, dt),
                                approximate="tanh")   # gelu_new
-        return _dense(h, self.c_proj_kernel, self.c_proj_bias, dt)
+        return _dense(h, _weight(self, "c_proj", dt), self.c_proj_bias, dt)
 
 
 class Block(nn.Module):
@@ -206,14 +238,14 @@ class Block(nn.Module):
         """A single-token tick through the two fused decode kernels around
         decode attention: LN→QKV, attention, o-proj→LN→MLP→residual."""
         cfg, dt, attn, mlp = self.cfg, self.cfg.dtype, self.attn, self.mlp
-        qkv = fused_norm_proj(x, self.ln_1.scale, self.ln_1.bias,
-                              attn.c_attn_kernel.to(dt), attn.c_attn_bias,
-                              eps=cfg.layer_norm_epsilon)
+        qkv = fused_norm_proj(x, self.ln_1.scale, self.ln_1.bias, _weight(attn, "c_attn", dt),
+                              attn.c_attn_bias, eps=cfg.layer_norm_epsilon)
         y = attn.mix(qkv, mask, layer_cache)
         return fused_post_attn(
-            y, x, attn.c_proj_kernel.to(dt), attn.c_proj_bias,
+            y, x, _weight(attn, "c_proj", dt), attn.c_proj_bias,
             self.ln_2.scale, self.ln_2.bias,
-            (mlp.c_fc_kernel.to(dt), mlp.c_fc_bias, mlp.c_proj_kernel.to(dt), mlp.c_proj_bias),
+            (_weight(mlp, "c_fc", dt), mlp.c_fc_bias, _weight(mlp, "c_proj", dt),
+             mlp.c_proj_bias),
             eps=cfg.layer_norm_epsilon)
 
 
@@ -241,15 +273,18 @@ class GPT2LMHeadModel(nn.Module):
     def init_weights(self, generator: torch.Generator) -> "GPT2LMHeadModel":
         """The flax initialisers: normal(0.02) for embeddings and input
         projections, normal(0.02 / sqrt(2 L)) for the two residual
-        projections, zero biases, unit LayerNorm scale. Draws happen on the
-        generator's device and are copied in, so a CPU generator gives the
-        same weights wherever the model lives."""
+        projections, zero biases, unit LayerNorm scale (and under ``w8`` the
+        flax initialisers of the pairs: zero codes, unit scales). Draws happen
+        on the generator's device and are copied in, so a CPU generator gives
+        the same weights wherever the model lives."""
         std = self.cfg.initializer_range
         proj_std = std / math.sqrt(2 * self.cfg.n_layer)
         for name, p in self.named_parameters():
             leaf = name.rsplit(".", 1)[-1]
-            if leaf == "scale":
+            if leaf == "scale" or leaf.endswith("_kernel_s"):
                 p.fill_(1.0)
+            elif leaf.endswith("_kernel_q"):
+                p.zero_()
             elif leaf.endswith("_bias") or leaf == "bias":
                 p.zero_()
             else:

@@ -153,14 +153,22 @@ def dtype_code(t: torch.Tensor) -> int:
     return DTYPE_CODES[t.dtype]
 
 
-def check_operands(*tensors: torch.Tensor) -> None:
-    """Device, dtype, contiguity and alignment checks before pointers reach C."""
-    dev, dt = tensors[0].device, tensors[0].dtype
-    for t in tensors:
+def check_operands(*tensors: torch.Tensor, dtypes=None) -> None:
+    """Device, dtype, contiguity and alignment checks before pointers reach C.
+
+    ``dtypes``: the dtype each operand must have, one per operand (a W8A16
+    launch mixes activations, int8 codes and fp32 scales); None: every
+    operand shares the first one's."""
+    dev = tensors[0].device
+    if dtypes is None:
+        dtypes = [tensors[0].dtype] * len(tensors)
+    if len(dtypes) != len(tensors):
+        raise ValueError(f"{len(tensors)} kernel operands, {len(dtypes)} dtypes")
+    for t, dt in zip(tensors, dtypes):
         if t.device != dev:
             raise ValueError(f"kernel operands on {t.device} and {dev}")
         if t.dtype != dt:
-            raise TypeError(f"kernel operands of dtype {t.dtype} and {dt}")
+            raise TypeError(f"kernel operand of dtype {t.dtype}, expected {dt}")
         if not t.is_contiguous():
             raise ValueError("kernel operands must be contiguous")
         if t.data_ptr() % 16:

@@ -1,0 +1,266 @@
+// The row-batched GEMV behind the decode-layer kernels (decode_layer.cu) and
+// the W8A16 matmul (w8_matmul.cu).
+//
+// out[m, n] = epilogue(sum_k a[m, k] * W[k, n]) for M <= 64 decode rows.
+// Bound on the H100: bytes. Each weight element read from memory feeds at
+// most 2 * M flops, so reading the weight panel once is the whole cost.
+//
+// A block owns 16 output columns and 8 rows. It stages its rows' operand in
+// shared memory in chunks of 1024 (normalising on the way in for the LN
+// modes, with statistics the block computes itself, as the TPU kernels
+// recompute them per N tile), then 128 groups of threads stride down K,
+// each reading one piece of a weight row per step: 16 bytes (8 columns) of
+// a bf16 row, 32 bytes of an fp32 row, or 8 bytes (8 columns) of an int8
+// code row. A warp's loads are 16 rows x 32 (or 16) contiguous bytes; every
+// weight byte is read once per 8 rows (row blocks beyond the first, M > 8,
+// read the panel again). Partial sums reduce through warp
+// shuffles and shared memory; the epilogue applies the bias, residual and
+// GELU in fp32.
+//
+// W8A16 (W = int8): K and the group size are multiples of 128 (or the
+// group is all of K). Codes upcast in registers to the activation's values
+// (exact: |c| <= 127). A thread loads its 8 code rows of a staged chunk up
+// front (8 bytes = 8 columns each), sums a * c over the rows of one scale
+// group in a partial, and folds it into its accumulator at the group's end
+// (acc += part * s[u][n]): the per-group "partial x scale" of the TPU
+// kernels' _qdot_any, within fp32 reordering of their order. A group cut by
+// a chunk boundary folds once per chunk (the scale distributes over its
+// partial sums, as the TPU kernel's streamed tiles of a single-group panel
+// do). 16 columns a thread would need 2 x 128 fp32 registers for acc and
+// part, so the int8 path keeps the bf16 layout with 8-byte loads: a warp
+// reads 16-byte halves of 32-byte sectors whose other halves the
+// neighbouring column block reads (from L2). The scales of the (at most 8)
+// groups a chunk touches are staged in shared memory.
+#pragma once
+
+#include <stdint.h>
+
+#include <type_traits>
+
+#include "common.cuh"
+
+namespace ds {
+namespace gemv {
+
+constexpr int kThreads = 256;
+constexpr int kWarps = kThreads / 32;
+constexpr int kRows = 8;                         // decode rows per block
+constexpr int kColGroups = 2;                    // 8-column groups per block
+constexpr int kCols = 8 * kColGroups;            // output columns per block
+constexpr int kKGroups = kThreads / kColGroups;  // threads striding down K
+constexpr int kChunk = 1024;                     // K elements staged per pass
+constexpr int kSteps = kChunk / kKGroups;        // rows a thread takes from a chunk
+
+constexpr float kSqrt2OverPi = 0.7978845608028654f;
+
+enum Mode : int { kNormProj, kOProjResidual, kNormUpGelu, kDownResidual, kMatmul };
+
+// T: activation dtype (bias, residual and output). S: dtype of the row
+// operand (T, or fp32 for the r1 scratch). W: weight storage (T, or int8
+// codes with fp32 scales).
+template <typename T, typename S, typename W>
+struct Args {
+  const S* src;           // (M, K) row operand
+  const float* ns;        // (K,) norm scale, norm modes
+  const float* nb;        // (K,) norm bias, norm modes
+  float eps;
+  const W* w;             // (K, N), row-major
+  const float* scale;     // (K / group, N) fp32, int8 weights
+  int group;              // rows per scale group (K for one group)
+  const T* bias;          // (N,)
+  const T* resid;         // (M, N) x, kOProjResidual
+  const float* resid_f;   // (M, N) r1, kDownResidual
+  void* out;              // (M, N): fp32 for kOProjResidual and kMatmul, else T
+  int M, K, N;
+};
+
+__device__ __forceinline__ float gelu_tanh(float u) {
+  // the same expression, in the same order, as _gelu_tanh
+  // (deepspeed_tpu/ops/pallas/fused_ops.py:165)
+  const float inner = kSqrt2OverPi * (u + 0.044715f * u * u * u);
+  return 0.5f * u * (1.f + tanhf(inner));
+}
+
+// Eight int8 codes (8 bytes, little-endian) as floats.
+__device__ __forceinline__ void unpack8(const uint2 raw, float (&o)[8]) {
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    o[i] = static_cast<float>(static_cast<int>(raw.x << (24 - 8 * i)) >> 24);
+    o[4 + i] = static_cast<float>(static_cast<int>(raw.y << (24 - 8 * i)) >> 24);
+  }
+}
+
+// acc[r][j] += a[r][kk] * w[k0 + kk][j]
+__device__ __forceinline__ void fma_rows(float (*a_sm)[kChunk], int kk, const float (&w8)[8],
+                                         float (&acc)[kRows][8]) {
+#pragma unroll
+  for (int r = 0; r < kRows; ++r) {
+    const float av = a_sm[r][kk];
+#pragma unroll
+    for (int j = 0; j < 8; ++j) acc[r][j] = fmaf(av, w8[j], acc[r][j]);
+  }
+}
+
+template <typename T, typename S, typename W, int MODE>
+__global__ void __launch_bounds__(kThreads) rows_gemv_kernel(const Args<T, S, W> a) {
+  constexpr bool kNorm = MODE == kNormProj || MODE == kNormUpGelu;
+  constexpr bool kQuant = std::is_same<W, int8_t>::value;
+  __shared__ float a_sm[kRows][kChunk];
+  __shared__ float mean_sm[kRows], rstd_sm[kRows];
+  __shared__ float red_sm[kWarps][kRows][kCols];
+  __shared__ float sc_sm[kSteps][kCols];
+  const int tid = threadIdx.x;
+  const int warp = tid / 32, lane = tid % 32;
+  const int n0 = blockIdx.x * kCols;
+  const int m0 = blockIdx.y * kRows;
+  const int rows = min(kRows, a.M - m0);
+
+  if (kNorm) {  // fp32 LayerNorm statistics, one warp per row
+    for (int r = warp; r < rows; r += kWarps) {
+      const S* xr = a.src + (size_t)(m0 + r) * a.K;
+      float s = 0.f;
+      for (int k = lane; k < a.K; k += 32) s += ds::to_float(xr[k]);
+      const float mean = ds::warp_sum(s) / a.K;
+      float v = 0.f;
+      for (int k = lane; k < a.K; k += 32) {
+        const float d = ds::to_float(xr[k]) - mean;
+        v += d * d;
+      }
+      const float var = ds::warp_sum(v) / a.K;
+      if (lane == 0) {
+        mean_sm[r] = mean;
+        rstd_sm[r] = rsqrtf(var + a.eps);
+      }
+    }
+    __syncthreads();
+  }
+
+  float acc[kRows][8];
+#pragma unroll
+  for (int r = 0; r < kRows; ++r)
+#pragma unroll
+    for (int j = 0; j < 8; ++j) acc[r][j] = 0.f;
+
+  const int cg = tid % kColGroups;
+  const int kg = tid / kColGroups;
+  const W* wcol = a.w + n0 + cg * 8;
+  for (int k0 = 0; k0 < a.K; k0 += kChunk) {
+    const int kc = min(kChunk, a.K - k0);
+    for (int r = 0; r < kRows; ++r) {
+      for (int kk = tid; kk < kc; kk += kThreads) {
+        float v = 0.f;
+        if (r < rows) {
+          v = ds::to_float(a.src[(size_t)(m0 + r) * a.K + k0 + kk]);
+          if (kNorm)  // normalised in fp32, then cast before the product
+            v = ds::round_to<T>((v - mean_sm[r]) * rstd_sm[r] * a.ns[k0 + kk] + a.nb[k0 + kk]);
+        }
+        a_sm[r][kk] = v;
+      }
+    }
+    int u0 = 0;
+    if constexpr (kQuant) {  // the scales of the groups this chunk touches
+      u0 = k0 / a.group;
+      const int nu = (k0 + kc - 1) / a.group - u0 + 1;
+      for (int i = tid; i < nu * kCols; i += kThreads)
+        sc_sm[i / kCols][i % kCols] = a.scale[(size_t)(u0 + i / kCols) * a.N + n0 + i % kCols];
+    }
+    __syncthreads();
+    if constexpr (kQuant) {
+      // this thread's code rows of the chunk, kg + t * kKGroups, all loaded
+      // up front (8 loads in flight). K and the group size are multiples of
+      // kKGroups, so the rows of one step t lie in one scale group for every
+      // thread, and a group ends after a step, or with the chunk.
+      const int steps = kc / kKGroups;
+      uint2 raw[kSteps];
+#pragma unroll
+      for (int t = 0; t < kSteps; ++t)
+        if (t < steps)
+          raw[t] = __ldg(reinterpret_cast<const uint2*>(
+              wcol + (size_t)(k0 + kg + t * kKGroups) * a.N));
+      float part[kRows][8] = {};
+#pragma unroll
+      for (int t = 0; t < kSteps; ++t) {
+        if (t < steps) {
+          float w8[8];
+          unpack8(raw[t], w8);
+          fma_rows(a_sm, kg + t * kKGroups, w8, part);
+          const int next = k0 + (t + 1) * kKGroups;
+          if (t + 1 == steps || next % a.group == 0) {  // fold: acc += part * s[u]
+            const float* s = sc_sm[(next - 1) / a.group - u0] + cg * 8;
+#pragma unroll
+            for (int r = 0; r < kRows; ++r)
+#pragma unroll
+              for (int j = 0; j < 8; ++j) {
+                acc[r][j] = fmaf(part[r][j], s[j], acc[r][j]);
+                part[r][j] = 0.f;
+              }
+          }
+        }
+      }
+    } else {
+#pragma unroll 4
+      for (int kk = kg; kk < kc; kk += kKGroups) {
+        float w8[8];
+        ds::load8(wcol + (size_t)(k0 + kk) * a.N, w8);
+        fma_rows(a_sm, kk, w8, acc);
+      }
+    }
+    __syncthreads();
+  }
+
+  // sum over the K groups: lanes of one warp differ in bits 1-4, warps via smem
+#pragma unroll
+  for (int r = 0; r < kRows; ++r)
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      float v = acc[r][j];
+#pragma unroll
+      for (int o = kColGroups; o < 32; o <<= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
+      acc[r][j] = v;
+    }
+  if (lane < kColGroups) {
+#pragma unroll
+    for (int r = 0; r < kRows; ++r)
+#pragma unroll
+      for (int j = 0; j < 8; ++j) red_sm[warp][r][lane * 8 + j] = acc[r][j];
+  }
+  __syncthreads();
+
+  if (tid < kRows * kCols) {
+    const int r = tid / kCols, c = tid % kCols;
+    if (r < rows) {
+      float v = 0.f;
+      for (int w = 0; w < kWarps; ++w) v += red_sm[w][r][c];
+      const int n = n0 + c;
+      const size_t o = (size_t)(m0 + r) * a.N + n;
+      if constexpr (MODE == kMatmul) {
+        static_cast<float*>(a.out)[o] = v;
+      } else {
+        const float bias = ds::to_float(a.bias[n]);
+        if constexpr (MODE == kNormProj) {
+          static_cast<T*>(a.out)[o] = ds::from_float<T>(v + bias);
+        } else if constexpr (MODE == kOProjResidual) {
+          static_cast<float*>(a.out)[o] = (ds::to_float(a.resid[o]) + v) + bias;
+        } else if constexpr (MODE == kNormUpGelu) {
+          static_cast<T*>(a.out)[o] = ds::from_float<T>(gelu_tanh(v + bias));
+        } else {
+          static_cast<T*>(a.out)[o] = ds::from_float<T>((a.resid_f[o] + v) + bias);
+        }
+      }
+    }
+  }
+}
+
+template <typename T, typename S, typename W, int MODE>
+cudaError_t launch(const Args<T, S, W>& a, cudaStream_t stream) {
+  if (a.N % kCols) return cudaErrorInvalidValue;
+  if (std::is_same<W, int8_t>::value &&
+      (a.K % kKGroups || a.group <= 0 || a.group % kKGroups || a.K % a.group))
+    return cudaErrorInvalidValue;
+  const dim3 grid(a.N / kCols, (a.M + kRows - 1) / kRows);
+  rows_gemv_kernel<T, S, W, MODE><<<grid, kThreads, 0, stream>>>(a);
+  return cudaGetLastError();
+}
+
+}  // namespace gemv
+}  // namespace ds

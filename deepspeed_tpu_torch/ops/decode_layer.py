@@ -1,11 +1,13 @@
 """Fused decode-row kernels: norm → projection, and o-proj → norm → MLP.
 
-Port of ``deepspeed_tpu/ops/pallas/decode_layer.py`` for the branch the
-GPT-2 decode tick runs: LayerNorm, weights in the activation dtype, the
-GELU-tanh MLP pair and a sequential residual. The TPU kernels
-``_norm_proj_kernel`` and ``_post_attn_kernel`` become
+Port of ``deepspeed_tpu/ops/pallas/decode_layer.py`` for the branches the
+GPT-2 decode tick runs: LayerNorm, the GELU-tanh MLP pair and a sequential
+residual, with weights in the activation dtype or as W8A16 pairs (int8
+codes ``(K, N)`` + fp32 scales ``(K/g, N)``, the ``ops/w8.py`` layout).
+The TPU kernels ``_norm_proj_kernel`` and ``_post_attn_kernel`` become
 ``csrc/decode_layer.cu`` (one launch, and three launches, respectively;
-see its header for the design and bound).
+see its header and ``csrc/rows_gemv.cuh`` for the design and bound), one
+C entry per weight kind.
 
 :func:`fused_norm_proj` and :func:`fused_post_attn` launch the kernels for
 CUDA tensors and run :func:`norm_proj_plain` / :func:`post_attn_plain`,
@@ -15,8 +17,9 @@ the unfused op chains the stock module path computes; in a low-precision
 dtype they round at other points than the fused kernels, so each path is
 held against its own JAX counterpart.
 
-Branches of the TPU kernels not ported yet raise ``NotImplementedError``
-naming their ROADMAP entry.
+Branches of the TPU kernels not ported yet (RMSNorm, SwiGLU, exact GELU,
+parallel residual) raise ``NotImplementedError`` naming their ROADMAP
+entry.
 """
 from __future__ import annotations
 
@@ -26,11 +29,17 @@ from typing import Optional
 import torch
 
 from ._build import FLOAT, INT, PTR, Kernel, check_operands, dtype_code, stream_of
+from .w8 import w8a16_matmul
 
 NORM_PROJ = Kernel("decode_layer", "norm_proj_fwd",
                    [PTR, PTR, PTR, PTR, PTR, PTR, INT, INT, INT, FLOAT, INT, PTR])
 POST_ATTN = Kernel("decode_layer", "post_attn_fwd",
                    [PTR] * 13 + [INT, INT, INT, FLOAT, INT, PTR])
+NORM_PROJ_W8 = Kernel("decode_layer", "norm_proj_w8_fwd",
+                      [PTR, PTR, PTR, PTR, PTR, INT, PTR, PTR, INT, INT, INT, FLOAT, INT, PTR])
+POST_ATTN_W8 = Kernel("decode_layer", "post_attn_w8_fwd",
+                      [PTR, PTR, PTR, PTR, INT] + [PTR] * 5 + [INT, PTR, PTR, PTR, INT]
+                      + [PTR] * 4 + [INT, INT, INT, FLOAT, INT, PTR])
 
 MAX_ROWS = 64      # the decode regime; prefill rows take the unfused chain
 _SQRT_2_OVER_PI = 0.7978845608028654
@@ -51,47 +60,93 @@ def _norm_rows(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
     return (x - mean) * torch.rsqrt(var + eps) * scale + bias
 
 
-def norm_proj_supported(m: int, e: int, n: int) -> bool:
-    """The JAX dispatch predicate: decode rows, 128-aligned widths."""
-    return m <= MAX_ROWS and e % 128 == 0 and n % 128 == 0
+def _w8_groups_ok(k: int, groups: int) -> bool:
+    """JAX's W8 group rule: one group, or 128-aligned groups that divide K."""
+    g = k // max(groups, 1)
+    return groups <= 1 or (g % 128 == 0 and k % g == 0)
 
 
-def post_attn_supported(m: int, e: int, f: int) -> bool:
-    return m <= MAX_ROWS and e % 128 == 0 and f % 128 == 0
+def norm_proj_supported(m: int, e: int, n: int, quant: bool = False, groups: int = 1) -> bool:
+    """The JAX dispatch predicate: decode rows, 128-aligned widths and,
+    under W8 (``quant``), aligned scale groups. JAX's TPU tile rules
+    (``_pick_bn``, ``_pick_bf``, the o-proj panel budget) are left out: the
+    CUDA kernels have none. They never bite at a GPT-2 preset with 128-row
+    groups; a down panel of 768-row groups (gpt2-125m, ``group_size``
+    768) takes the kernels here where ``_pick_bf``'s scale tile refuses it
+    on the TPU."""
+    if m > MAX_ROWS or e % 128 or n % 128:
+        return False
+    return not quant or _w8_groups_ok(e, groups)
 
 
-def _reject_deferred(rms=False, swiglu=False, exact_gelu=False,
-                     parallel_residual=False, weights=()):
+def post_attn_supported(m: int, e: int, f: int, quant: bool = False, groups_e: int = 1,
+                        groups_f: int = 1) -> bool:
+    """As :func:`norm_proj_supported`, for the o-proj/up (K = E) and down
+    (K = F) panels."""
+    if m > MAX_ROWS or e % 128 or f % 128:
+        return False
+    return not quant or (_w8_groups_ok(e, groups_e) and _w8_groups_ok(f, groups_f))
+
+
+def _reject_deferred(rms=False, swiglu=False, exact_gelu=False, parallel_residual=False):
     for flag, what in ((rms, "RMSNorm"), (swiglu, "SwiGLU MLP"),
                        (exact_gelu, "exact GELU"),
                        (parallel_residual, "parallel residual")):
         if flag:
             raise NotImplementedError(f"fused decode kernels: {what} {_DEFERRED}")
-    if any(isinstance(w, tuple) for w in weights):
-        raise NotImplementedError(f"fused decode kernels: W8A16 weights {_DEFERRED}")
+
+
+def _w8_kind(weights) -> bool:
+    """True when every weight is a W8A16 ``(codes, scales)`` pair, False when
+    none is; a mix raises."""
+    quant = [isinstance(w, tuple) for w in weights]
+    if any(quant) and not all(quant):
+        raise ValueError("fused decode kernels: weights must be all W8A16 pairs or none")
+    return all(quant)
+
+
+def _out_features(w) -> int:
+    return (w[0] if isinstance(w, tuple) else w).shape[1]
 
 
 # ---------------------------------------------------------------------------
 # The kernels' arithmetic in plain PyTorch
 # ---------------------------------------------------------------------------
 
+def _dot(a, w):
+    """``a @ W`` in fp32 for ``a`` in the activation dtype; a W8A16 pair
+    computes ``_qdot_any`` (``decode_layer.py:160``): codes upcast to a's
+    dtype, each group's fp32 partial times its scale, summed in group order."""
+    if not isinstance(w, tuple):
+        return a.float() @ w.float()
+    codes, scale = w
+    K, G = codes.shape[0], scale.shape[0]
+    g = K // G
+    af = a.float()
+    out = torch.zeros((a.shape[0], codes.shape[1]), dtype=torch.float32, device=a.device)
+    for u in range(G):
+        part = af[:, u * g:(u + 1) * g] @ codes[u * g:(u + 1) * g].to(a.dtype).float()
+        out = out + part * scale[u]
+    return out
+
+
 def norm_proj_plain(x, ns, nb, w, b, eps):
     """``cast(cast(LN(x)) @ W + b)``: LN in fp32, cast to x's dtype before
-    the product (``decode_layer.py:195``), fp32 product and bias."""
+    the product (``decode_layer.py:195``), fp32 product and bias. ``w``:
+    ``(E, N)`` or a W8A16 pair."""
     cdt = x.dtype
     xn = _norm_rows(x.float(), ns.float(), nb.float(), eps).to(cdt)
-    y = xn.float() @ w.float()
-    return (y + b.to(cdt).float()).to(cdt)
+    return (_dot(xn, w) + b.to(cdt).float()).to(cdt)
 
 
 def post_attn_plain(y, x, wo, bo, ns, nb, w1, b1, w2, b2, eps):
     """o-proj + residual → LN → GELU-tanh MLP → residual, with r1 kept in
     fp32 and casts where ``_post_attn_kernel`` casts (:382, :396)."""
     cdt = x.dtype
-    r1 = (x.float() + y.float() @ wo.float()) + bo.to(cdt).float()
+    r1 = (x.float() + _dot(y, wo)) + bo.to(cdt).float()
     hin = _norm_rows(r1, ns.float(), nb.float(), eps).to(cdt)
-    h = gelu_tanh(hin.float() @ w1.float() + b1.to(cdt).float()).to(cdt)
-    return ((r1 + h.float() @ w2.float()) + b2.to(cdt).float()).to(cdt)
+    h = gelu_tanh(_dot(hin, w1) + b1.to(cdt).float()).to(cdt)
+    return ((r1 + _dot(h, w2)) + b2.to(cdt).float()).to(cdt)
 
 
 # ---------------------------------------------------------------------------
@@ -99,7 +154,10 @@ def post_attn_plain(y, x, wo, bo, ns, nb, w1, b1, w2, b2, eps):
 # ---------------------------------------------------------------------------
 
 def _dense(a, w, b):
-    out = a @ w
+    if isinstance(w, tuple):
+        out = w8a16_matmul(a, *w)
+    else:
+        out = a @ w
     return out if b is None else out + b.to(out.dtype)
 
 
@@ -128,34 +186,54 @@ def _vec(t: Optional[torch.Tensor], n: int, like: torch.Tensor, dtype) -> torch.
     return t.to(dtype).reshape(n).contiguous()
 
 
+def _w8_args(w, dtypes: list) -> list:
+    """A W8A16 pair's C arguments (codes, scales, group size); their dtypes
+    go to ``dtypes`` for the operand check."""
+    codes, scale = w
+    dtypes += [torch.int8, torch.float32]
+    return [codes, scale, codes.shape[0] // scale.shape[0]]
+
+
 def fused_norm_proj(x: torch.Tensor, norm_scale: torch.Tensor,
                     norm_bias: Optional[torch.Tensor], weight, bias: Optional[torch.Tensor],
                     *, rms: bool = False, eps: float = 1e-5) -> torch.Tensor:
     """``norm(x) @ W + b`` in one kernel; returns ``(..., N)`` in x's dtype.
 
-    ``x``: ``(..., E)`` decode rows; ``weight``: ``(E, N)``."""
-    _reject_deferred(rms=rms, weights=(weight,))
+    ``x``: ``(..., E)`` decode rows; ``weight``: ``(E, N)`` in x's dtype, or
+    a W8A16 pair (codes int8 ``(E, N)``, scales fp32 ``(E/g, N)``)."""
+    _reject_deferred(rms=rms)
+    quant = _w8_kind((weight,))
     lead, E = x.shape[:-1], x.shape[-1]
-    N = weight.shape[1]
+    N = _out_features(weight)
     M = math.prod(lead)
-    if weight.shape[0] != E:
-        raise ValueError(f"fused_norm_proj: x width {E} vs weight {tuple(weight.shape)}")
+    K = (weight[0] if quant else weight).shape[0]
+    if K != E:
+        raise ValueError(f"fused_norm_proj: x width {E} vs weight rows {K}")
     x2 = x.reshape(M, E)
     ns = _vec(norm_scale, E, x, torch.float32)
     nb = _vec(norm_bias, E, x, torch.float32)
     b = _vec(bias, N, x, x.dtype)
     if not x.is_cuda:
         return norm_proj_plain(x2, ns, nb, weight, b, eps).reshape(*lead, N)
-    if not norm_proj_supported(M, E, N):
-        raise ValueError(f"fused_norm_proj kernel: unsupported shape M={M} E={E} N={N}")
+    groups = weight[1].shape[0] if quant else 1
+    if not norm_proj_supported(M, E, N, quant, groups):
+        raise ValueError(f"fused_norm_proj kernel: unsupported shape M={M} E={E} N={N} "
+                         f"groups={groups}")
     x2 = x2.contiguous()
-    check_operands(x2, weight, b)
-    check_operands(ns, nb)
     out = torch.empty((M, N), dtype=x.dtype, device=x.device)
+    if quant:
+        dtypes = [x.dtype]
+        wargs = _w8_args(weight, dtypes)
+        check_operands(x2, *wargs[:2], b, dtypes=dtypes + [x.dtype])
+    else:
+        wargs = [weight]
+        check_operands(x2, weight, b)
+    check_operands(ns, nb)
+    args = [x2.data_ptr(), ns.data_ptr(), nb.data_ptr(),
+            *(a.data_ptr() if isinstance(a, torch.Tensor) else a for a in wargs),
+            b.data_ptr(), out.data_ptr(), M, E, N, float(eps), dtype_code(x2), stream_of(x2)]
     with torch.cuda.device(x.device):
-        NORM_PROJ.launch(x2.data_ptr(), ns.data_ptr(), nb.data_ptr(), weight.data_ptr(),
-                         b.data_ptr(), out.data_ptr(), M, E, N, float(eps),
-                         dtype_code(x2), stream_of(x2))
+        (NORM_PROJ_W8 if quant else NORM_PROJ).launch(*args)
     return out.reshape(*lead, N)
 
 
@@ -168,14 +246,17 @@ def fused_post_attn(y: torch.Tensor, x: torch.Tensor, wo, bo: Optional[torch.Ten
     residual stream, shaped and typed like ``x``.
 
     ``y``: pre-o-proj attention output ``(..., E)``; ``mlp_weights``:
-    ``(w1 (E, F), b1, w2 (F, E), b2)``, biases may be None."""
+    ``(w1 (E, F), b1, w2 (F, E), b2)``, biases may be None. Each weight is a
+    tensor in x's dtype, or each is a W8A16 pair."""
     _reject_deferred(rms=rms, swiglu=swiglu, exact_gelu=exact_gelu,
-                     parallel_residual=parallel_residual, weights=(wo, *mlp_weights))
+                     parallel_residual=parallel_residual)
     w1, b1, w2, b2 = mlp_weights
+    quant = _w8_kind((wo, w1, w2))
     lead, E = x.shape[:-1], x.shape[-1]
-    F = w1.shape[1]
+    F = _out_features(w1)
     M = math.prod(lead)
-    if y.shape != x.shape or wo.shape != (E, E) or w1.shape != (E, F) or w2.shape != (F, E):
+    shape = (lambda w: tuple(w[0].shape)) if quant else (lambda w: tuple(w.shape))
+    if y.shape != x.shape or shape(wo) != (E, E) or shape(w1) != (E, F) or shape(w2) != (F, E):
         raise ValueError("fused_post_attn: operand shapes do not match")
     y2, x2 = y.reshape(M, E), x.reshape(M, E)
     ns = _vec(norm_scale, E, x, torch.float32)
@@ -184,17 +265,31 @@ def fused_post_attn(y: torch.Tensor, x: torch.Tensor, wo, bo: Optional[torch.Ten
     if not x.is_cuda:
         out = post_attn_plain(y2, x2, wo, bo, ns, nb, w1, b1, w2, b2, eps)
         return out.reshape(*lead, E)
-    if not post_attn_supported(M, E, F):
-        raise ValueError(f"fused_post_attn kernel: unsupported shape M={M} E={E} F={F}")
+    groups = (wo[1].shape[0], w2[1].shape[0]) if quant else (1, 1)
+    if quant and w1[1].shape[0] != groups[0]:
+        raise ValueError("fused_post_attn: o-proj and up-proj scale groups differ")
+    if not post_attn_supported(M, E, F, quant, *groups):
+        raise ValueError(f"fused_post_attn kernel: unsupported shape M={M} E={E} F={F} "
+                         f"groups={groups}")
     y2, x2 = y2.contiguous(), x2.contiguous()
-    check_operands(y2, x2, wo, bo, w1, b1, w2, b2)
-    check_operands(ns, nb)
     r1 = torch.empty((M, E), dtype=torch.float32, device=x.device)   # scratch
     h = torch.empty((M, F), dtype=x.dtype, device=x.device)          # scratch
     out = torch.empty((M, E), dtype=x.dtype, device=x.device)
+    act = x.dtype
+    if quant:
+        dtypes = [act, act]
+        ao, a1, a2 = _w8_args(wo, dtypes), _w8_args(w1, dtypes), _w8_args(w2, dtypes)
+        check_operands(y2, x2, *ao[:2], *a1[:2], *a2[:2], bo, b1, b2,
+                       dtypes=dtypes + [act] * 3)
+        wargs = [*ao, bo, ns, nb, *a1, b1, *a2, b2]
+    else:
+        check_operands(y2, x2, wo, bo, w1, b1, w2, b2)
+        wargs = [wo, bo, ns, nb, w1, b1, w2, b2]
+    check_operands(ns, nb)
+    args = [y2.data_ptr(), x2.data_ptr(),
+            *(a.data_ptr() if isinstance(a, torch.Tensor) else a for a in wargs),
+            r1.data_ptr(), h.data_ptr(), out.data_ptr(), M, E, F, float(eps),
+            dtype_code(x2), stream_of(x2)]
     with torch.cuda.device(x.device):
-        POST_ATTN.launch(y2.data_ptr(), x2.data_ptr(), wo.data_ptr(), bo.data_ptr(),
-                         ns.data_ptr(), nb.data_ptr(), w1.data_ptr(), b1.data_ptr(),
-                         w2.data_ptr(), b2.data_ptr(), r1.data_ptr(), h.data_ptr(),
-                         out.data_ptr(), M, E, F, float(eps), dtype_code(x2), stream_of(x2))
+        (POST_ATTN_W8 if quant else POST_ATTN).launch(*args)
     return out.reshape(*lead, E)

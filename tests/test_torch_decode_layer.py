@@ -16,6 +16,7 @@ import numpy as np
 import pytest
 import torch
 
+from deepspeed_tpu.ops import w8 as jw8
 from deepspeed_tpu.ops.pallas import decode_layer as jdl
 from deepspeed_tpu_torch.ops import decode_layer as dl
 
@@ -96,13 +97,15 @@ def test_reference_chains_match_jax_fp32():
 
 
 @pytest.mark.parametrize("kw", [dict(rms=True), dict(swiglu=True), dict(exact_gelu=True),
-                                dict(parallel_residual=True), dict(w8=True)])
+                                dict(parallel_residual=True), dict(w8=True, swiglu=True)])
 def test_deferred_branches_raise(kw):
+    # W8A16 weights are ported; under them the deferred branches still raise
     _, t = _both(_arrays(4), "float32")
-    wo = (t["wo"], t["bo"]) if kw.pop("w8", False) else t["wo"]
+    w8 = kw.pop("w8", False)
+    ws = [_q(t[k]) if w8 else t[k] for k in ("wo", "w1", "w2")]
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        dl.fused_post_attn(t["y"], t["x"], wo, t["bo"], t["ns"], t["nb"],
-                           (t["w1"], t["b1"], t["w2"], t["b2"]), **kw)
+        dl.fused_post_attn(t["y"], t["x"], ws[0], t["bo"], t["ns"], t["nb"],
+                           (ws[1], t["b1"], ws[2], t["b2"]), **kw)
 
 
 @pytest.mark.parametrize("m,e,n", [(8, 768, 2304), (64, 768, 3072), (65, 768, 2304),
@@ -110,3 +113,52 @@ def test_deferred_branches_raise(kw):
 def test_supported_predicates_match_jax(m, e, n):
     assert dl.norm_proj_supported(m, e, n) == jdl.norm_proj_supported(m, e, n, 2, False)
     assert dl.post_attn_supported(m, e, n) == jdl.post_attn_supported(m, e, n, 2, False)
+
+
+# ---------------------------------------------------------------------------
+# W8A16 pairs (int8 codes + fp32 scales per group of 128 rows, or one group)
+# ---------------------------------------------------------------------------
+
+def _q(w: torch.Tensor, group: int = 128):
+    codes, scale = jw8.quantize_weight(jnp.asarray(w.float().numpy()), group)
+    return torch.from_numpy(np.array(codes)), torch.from_numpy(np.array(scale))
+
+
+def _jq(pair):
+    return jnp.asarray(pair[0].numpy()), jnp.asarray(pair[1].numpy())
+
+
+@pytest.mark.parametrize("group", [128, 10 ** 9], ids=["g128", "one_group"])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_w8_plain_matches_pallas(group, dtype):
+    # E=256, F=1024: two scale groups on the E panels, eight on the down
+    # projection (g=128); or one group spanning each panel
+    rng = np.random.default_rng(5)
+    E8, F8 = 256, 1024
+    f = lambda *s, std=0.02: (rng.standard_normal(s) * std).astype(np.float32)  # noqa: E731
+    a = dict(x=f(M, E8, std=1.0), y=f(M, E8, std=1.0), ns=(1 + f(E8, std=0.1)), nb=f(E8, std=0.1),
+             w=f(E8, N), b=f(N), wo=f(E8, E8), bo=f(E8), w1=f(E8, F8), b1=f(F8), w2=f(F8, E8),
+             b2=f(E8))
+    j, t = _both(a, dtype)
+    q = {k: _q(torch.from_numpy(a[k]), group) for k in ("w", "wo", "w1", "w2")}
+    want = jdl.fused_norm_proj(j["x"], j["ns"], j["nb"], _jq(q["w"]), j["b"], interpret=True)
+    got = dl.fused_norm_proj(t["x"], t["ns"], t["nb"], q["w"], t["b"])
+    want2 = jdl.fused_post_attn(j["y"], j["x"], _jq(q["wo"]), j["bo"], j["ns"], j["nb"],
+                                (_jq(q["w1"]), j["b1"], _jq(q["w2"]), j["b2"]), interpret=True)
+    got2 = dl.fused_post_attn(t["y"], t["x"], q["wo"], t["bo"], t["ns"], t["nb"],
+                              (q["w1"], t["b1"], q["w2"], t["b2"]))
+    for w_, g_ in ((want, got), (want2, got2)):
+        w_, g_ = np.asarray(w_.astype(jnp.float32)), g_.float().numpy()
+        assert g_.dtype == np.float32 and g_.shape == w_.shape
+        diff = np.abs(g_ - w_)
+        if dtype == "float32":
+            assert diff.max() <= 1e-5 * max(1.0, np.abs(w_).max())
+        else:   # one cast of an fp32 value that two orders of summation may tip
+            assert diff.max() <= _ulp(np.abs(w_).max()) and (diff > 0).mean() <= 0.02
+
+
+def test_w8_mixed_weights_raise():
+    _, t = _both(_arrays(6), "float32")
+    with pytest.raises(ValueError, match="all W8A16 pairs or none"):
+        dl.fused_post_attn(t["y"], t["x"], _q(t["wo"]), t["bo"], t["ns"], t["nb"],
+                           (t["w1"], t["b1"], t["w2"], t["b2"]))

@@ -154,7 +154,7 @@ def test_entry_points_stay_on_the_card(monkeypatch):
     assert eng.device.type == "cpu" and eng(np.zeros((1, 4), np.int32)).device.type == "cpu"
 
 
-@pytest.mark.parametrize("kw", [dict(mp_size=2), dict(ep_size=2), dict(quant={"enabled": True}),
+@pytest.mark.parametrize("kw", [dict(mp_size=2), dict(ep_size=2),
                                 dict(prefix_cache=True, paged_decode=False), dict(specdec=True),
                                 dict(prefix_cache={"page_tokens": 8}, paged_decode=False),
                                 dict(checkpoint="ckpt")])
@@ -197,7 +197,8 @@ def test_port_imports_no_jax():
     assert len(imported) >= 19
     assert {f"deepspeed_tpu_torch.runtime.{m}" for m in (
         "config", "constants", "engine", "lr_schedules", "optimizers", "precision")} <= imported
-    assert {f"deepspeed_tpu_torch.ops.{m}" for m in ("adam8bit", "fused_ce")} <= imported
+    assert {f"deepspeed_tpu_torch.ops.{m}" for m in (
+        "adam8bit", "fused_ce", "w8", "w8_matmul", "quantizer")} <= imported
     src = (REPO / "chip_smoke.py").read_text()
     assert "import jax" not in src and "deepspeed_tpu." not in src.replace(
         "deepspeed_tpu_torch", "")
