@@ -42,6 +42,27 @@ Run from the root of the repository. Phases, each printing JSON lines:
             logits' relative RMS ≤ 0.1, no leaks. Then ``generate`` (B=8,
             prompt 256, 64 new) with the fused decode kernels on (their W8
             branches) and off (the w8 matmul carries the ticks).
+6c. serve_llama  llama-1b (E=2048, 22 layers, 32 query heads over 4 KV
+            heads, D=64, F=8192, vocab 32000; random weights from seed 1234)
+            through ``init_inference(max_tokens=512)`` in bf16 and in W8A16
+            from the same weights: the batcher with page-resident KV (16-token
+            pages, 8 slots) on the serve phase's 32 requests twice each, with
+            each path's latency, ticks, device ms per tick and launches (per
+            single-token forward and layer: 3 RMSNorm -> projection kernels,
+            one o-proj -> RMSNorm -> SwiGLU call, one paged attention; the w8
+            matmul as the prefill chunks imply); the sampling step on the card
+            against the CPU, u = 0 draws included; ``engine(ids)`` at B=2,
+            S=1024 (the flash forward at H=32); ``generate`` (B=8, prompt 256,
+            64 new) with the fused decode kernels on and off in both dtypes.
+            Gates: the forward (B=1, S=128) within 8 bf16 ulps of a CPU fp32
+            engine holding each card engine's own weights, the int8-vs-bf16
+            logits' relative RMS <= 0.1, the dense bytes (int8 / bf16 = 33/64
+            exactly), no leaks, seeded sampling repeats, and the greedy
+            streams teacher-forced through an fp32 engine on the card (itself
+            within 1e-3 of the CPU's): >= 99% within two bf16 ulps of its
+            maximum, and its argmax wherever its top two lie more than 16 ulps
+            apart (the strict share is printed: random-weight llama-1b logits
+            are too flat for any bf16 path to reach 95% strict).
 7. train    GPT-2-125M at full width and depth through ``initialize`` with
             the JAX package's flagship training config (S=1024, micro 24,
             gradient accumulation 4, adamw lr 1e-4 wd 0.1, clipping 1.0,
@@ -85,6 +106,14 @@ of these cases the forward kernel's output and lse, which the backward
 takes, are held against the plain forward first; at the train shape the
 forward is timed too (the ``at_train_shape`` entry of its ``kernels`` row).
 
+The kernels phase also holds the LLaMA branches (``kernels_llama``): the
+RMSNorm -> projection kernel at M=8, E=2048, N=2048 and 256, and the
+o-proj -> RMSNorm -> SwiGLU -> residual kernel at E=2048, F=8192, in bf16
+and W8A16 (128-row groups and one group), then in fp32 at a small shape;
+decode and paged attention at 8 query heads per KV head (H=32, KV=4, D=64),
+the flash forward at H=32 and the w8 matmul on llama-1b's four panels, each
+beside its library call where one exists.
+
 The kernels phase also holds the W8A16 kernels (``kernels_w8``): the w8
 matmul at M = 1, 8, 37, 64 on gpt2-760m's four dense panels and on one
 single-group panel, and the W8 branches of the two decode-layer kernels at
@@ -96,9 +125,12 @@ then in fp32.
 The ``kernels`` line gives each kernel's launches per path (``generate``,
 ``serve_paged``, ``serve_contiguous``, ``serve_w8_paged``,
 ``serve_w8_contiguous``, ``serve_bf16_760m``, ``generate_w8_fused``,
-``generate_w8_unfused``, ``train``, ``train_split``, ``train_1p5b``,
+``generate_w8_unfused``, ``serve_llama_paged``, ``serve_llama_w8_paged``,
+``forward_llama``, ``generate_llama{,_w8}_{fused,unfused}``, ``train``,
+``train_split``, ``train_1p5b``,
 ``train_1p5b_dots``, ``train_1p5b_pallas``: each zeroed before its run and
-read after it) and their sum.
+read after it) and their sum; the rows of kernels that llama-1b also runs
+carry ``at_llama_1b``.
 
 It exits non-zero, printing no result line, without CUDA or outside the
 repository; any failed phase makes it exit non-zero. The last line is
@@ -319,7 +351,7 @@ def kernel_cases(torch, F, peaks):
         source="deepspeed_tpu_torch/ops/csrc/decode_layer.cu", sets=sets,
         kernel=lambda y, x, wo, bo, ns, nb, w1, b1, w2, b2: dl.fused_post_attn(
             y, x, wo, bo, ns, nb, (w1, b1, w2, b2)),
-        plain=lambda *a: dl.post_attn_plain(*a, 1e-5),
+        plain=lambda *a: dl.post_attn_plain(*a[:6], a[6:], 1e-5),
         library=None, compare="bf16",
         bound=bound_ms((E * E + 2 * E * Fh) * 2 + 3 * M * E * 2 + (2 * E + Fh) * 2 + 2 * E * 4,
                        2 * M * (E * E + 2 * E * Fh), peaks)))
@@ -484,7 +516,7 @@ def run_fp32_shapes(torch):
         ("norm_qkv", f"M={M} E={E} N=384 fp32", dl.fused_norm_proj(x, ns, nb, w, b),
          dl.norm_proj_plain(x, ns, nb, w, b, 1e-5)),
         ("post_attn", f"M={M} E={E} F={F} fp32",
-         dl.fused_post_attn(*post[:6], post[6:]), dl.post_attn_plain(*post, 1e-5)),
+         dl.fused_post_attn(*post[:6], post[6:]), dl.post_attn_plain(*post[:6], post[6:], 1e-5)),
     ]
     ok = True
     for name, shape, got, ref in cases:
@@ -957,7 +989,10 @@ def counters():
             "flash_attention_bwd_dq": fa.BWD_DQ, "flash_attention_bwd_dkv": fa.BWD_DKV,
             "adam8bit_update": a8.KERNEL, "fused_ce_fwd": ce.FWD, "fused_ce_dh": ce.DH,
             "fused_ce_dw": ce.DW, "w8a16_matmul": wm.KERNEL,
-            "decode_norm_proj_w8": dl.NORM_PROJ_W8, "decode_post_attn_w8": dl.POST_ATTN_W8}
+            "decode_norm_proj_w8": dl.NORM_PROJ_W8, "decode_post_attn_w8": dl.POST_ATTN_W8,
+            "norm_proj_rms": dl.NORM_PROJ_RMS, "post_attn_swiglu": dl.POST_ATTN_SWIGLU,
+            "norm_proj_rms_w8": dl.NORM_PROJ_RMS_W8,
+            "post_attn_swiglu_w8": dl.POST_ATTN_SWIGLU_W8}
 
 
 # serving runs no backward, no optimizer and no loss head
@@ -1009,7 +1044,7 @@ def run_slice(torch):
     ticks = 2 * (new - 1)   # greedy + sampled; the max_new_tokens=1 run has no tick
     expected = {"flash_attention_fwd": 2 * L, "decode_attention": L * ticks,
                 "norm_qkv": L * ticks, "post_attn": L * ticks, "paged_attention": 0,
-                **NO_BACKWARD, **NO_W8}
+                **NO_BACKWARD, **NO_W8, **NO_LLAMA}
     ms_per_tick = (gen_ms - ttft_ms) / (new - 1)
     emit(dict(phase="slice", model="gpt2-125m", dtype="bfloat16", forward_shape=[2, 1024],
               forward_ms=fwd_ms, forward_again_ms=fwd_again_ms,
@@ -1174,7 +1209,7 @@ def run_serve(torch, delta_of, out_dir=None):
         other = "decode_attention" if mode == "paged" else "paged_attention"
         expected = {attn: L * singles, other: 0, "norm_qkv": L * singles,
                     "post_attn": L * singles, "flash_attention_fwd": 0, **NO_BACKWARD,
-                    **NO_W8}
+                    **NO_W8, **NO_LLAMA}
         checks = {"launch_counts": launches == expected,
                   "no_leaks": all(v == 0 for p in passes for v in p["leaks"].values()),
                   "shapes_and_vocab": all(len(o) == len(r["prompt"]) + r["max_new_tokens"]
@@ -1215,12 +1250,14 @@ def run_serve(torch, delta_of, out_dir=None):
     return by_mode, ok
 
 
-def sampling_check(torch, eng, reqs, outs, per_stream: int = 16):
+def sampling_check(torch, eng, reqs, outs, per_stream: int = 16, phase="serve_sampling"):
     """The batcher's per-row sampling step on the card against the same step
     on the CPU, over logits the traffic produces: the sampled streams of one
     pass teacher-forced through the card's forward, ``per_stream`` positions
     each. Rows alternate greedy and T=0.8/top-p 0.9 as the traffic does, and
     every fourth row also takes a repetition penalty of 1.3 over its prompt.
+    A quarter of the sampled rows draw u = 0 or the largest float32 below 1,
+    and no sampled pick may be a token the filters removed.
 
     Greedy rows must pick the same token. Random-weight logits are so flat
     (~2e-5 mass per token) that the two devices' fp32 cumsum rounding
@@ -1249,7 +1286,11 @@ def sampling_check(torch, eng, reqs, outs, per_stream: int = 16):
     temp = np.where(k % 2 == 1, 0.8, 0.0).astype(np.float32)
     top_p = np.where(k % 2 == 1, 0.9, 1.0).astype(np.float32)
     rep = np.where(k % 4 == 3, 1.3, 1.0).astype(np.float32)
-    u = torch.as_tensor(_uniforms(SEED, 1, n))
+    u = _uniforms(SEED, 1, n)
+    # the extreme draws: u = 0 must pick the first token the filters kept,
+    # not token 0 (ROADMAP C1), and the largest float32 below 1 the last
+    u[k % 8 == 1], u[k % 8 == 5] = 0.0, np.float32(1 - 2 ** -24)
+    u = torch.as_tensor(u)
 
     def pick(dev):
         t, p, r = (torch.as_tensor(a, device=dev) for a in (temp, top_p, rep))
@@ -1267,13 +1308,17 @@ def sampling_check(torch, eng, reqs, outs, per_stream: int = 16):
     lo = hi - probs.gather(1, card[:, None])[:, 0]
     cdf_tol = 2e-6
     on_cdf = (x >= lo - cdf_tol) & (x <= hi + cdf_tol)
+    kept = probs.gather(1, card[:, None])[:, 0] > 0
     res = dict(rows=n, greedy_rows=int(greedy.sum()), sampled_rows=int(sampled.sum()),
                greedy_equal=bool((card[greedy] == cpu[greedy]).all()),
                sampled_equal_share=float((card[sampled] == cpu[sampled]).float().mean()),
                sampled_on_cpu_cdf=bool(on_cdf[sampled].all()), cdf_tol=cdf_tol,
+               sampled_never_filtered=bool(kept[sampled].all()),
+               zero_uniform_rows=int((u[sampled] == 0).sum()),
                picks_below_vocab=bool((card < V).all()))
-    res["ok"] = res["greedy_equal"] and res["sampled_on_cpu_cdf"] and res["picks_below_vocab"]
-    emit(dict(phase="serve_sampling", **res))
+    res["ok"] = (res["greedy_equal"] and res["sampled_on_cpu_cdf"]
+                 and res["sampled_never_filtered"] and res["picks_below_vocab"])
+    emit(dict(phase=phase, **res))
     return res
 
 
@@ -1324,6 +1369,9 @@ def run_profile(torch, eng, prompt, out_dir):
 W8 = {"enabled": True, "bits": 8}
 W8_KERNELS = ("w8a16_matmul", "decode_norm_proj_w8", "decode_post_attn_w8")
 NO_W8 = {n: 0 for n in W8_KERNELS}
+# the LLaMA branches of the decode-layer kernels (RMSNorm, SwiGLU), bf16 and W8A16
+LLAMA_KERNELS = ("norm_proj_rms", "post_attn_swiglu", "norm_proj_rms_w8", "post_attn_swiglu_w8")
+NO_LLAMA = {n: 0 for n in LLAMA_KERNELS}
 # gpt2-760m's four dense panels (K, N): c_attn, attn c_proj, c_fc, mlp c_proj
 PANELS_760M = ((1536, 4608), (1536, 1536), (1536, 6144), (6144, 1536))
 
@@ -1513,7 +1561,7 @@ def run_kernels_w8(torch, peaks):
         args = pa_sets[0]
         y, x, wo, bo, ns, nb, w1, b1, w2, b2 = args
         got = dl.fused_post_attn(y, x, wo, bo, ns, nb, (w1, b1, w2, b2))
-        ref = dl.post_attn_plain(*args, 1e-5)
+        ref = dl.post_attn_plain(*args[:6], args[6:], 1e-5)
         torch.cuda.synchronize()
         r1 = (x.float() + dl._dot(y, wo)) + bo.float()
         hin = dl._norm_rows(r1, ns, nb, 1e-5).to(bf)
@@ -1523,7 +1571,8 @@ def run_kernels_w8(torch, peaks):
                + b2.float().abs())
         err, ratio, wide = w8_limits(torch, got, ref, mag, True)
         t = timed(lambda y, x, wo, bo, ns, nb, w1, b1, w2, b2: dl.fused_post_attn(
-            y, x, wo, bo, ns, nb, (w1, b1, w2, b2)), lambda *a: dl.post_attn_plain(*a, 1e-5),
+            y, x, wo, bo, ns, nb, (w1, b1, w2, b2)),
+            lambda *a: dl.post_attn_plain(*a[:6], a[6:], 1e-5),
             None, Rotation(pa_sets))
         Ge, Gf = E // grp(E), F // grp(F)
         nbytes = (E * E + 2 * E * F + (Ge * E + Ge * F + Gf * E) * 4 + 3 * M * E * 2
@@ -1572,7 +1621,7 @@ def run_kernels_w8(torch, peaks):
         fp32.append(dict(name="decode_norm_proj_w8", shape=shape, max_err=err,
                          err_over_limit=ratio, ok=ratio <= 1.0))
         got = dl.fused_post_attn(y, x, ws["wo"], bo, ns, nb, (ws["w1"], b1, ws["w2"], b2))
-        ref = dl.post_attn_plain(y, x, ws["wo"], bo, ns, nb, ws["w1"], b1, ws["w2"], b2, 1e-5)
+        ref = dl.post_attn_plain(y, x, ws["wo"], bo, ns, nb, (ws["w1"], b1, ws["w2"], b2), 1e-5)
         r1 = (x + dl._dot(y, ws["wo"])) + bo
         h = dl.gelu_tanh(dl._dot(dl._norm_rows(r1, ns, nb, 1e-5), ws["w1"]) + b1)
         mag = (x.abs() + y.abs() @ w8ops.dequantize_weight(*ws["wo"]).abs() + bo.abs()
@@ -1587,11 +1636,12 @@ def run_kernels_w8(torch, peaks):
     return rows, ok
 
 
-def chunk_launches(chunks, L: int) -> int:
-    """w8 matmul launches a batcher's prefill chunks imply: 4 dense layers
-    per block for each chunk of 2..64 rows x tokens (one-token chunks take
-    the fused tick, chunks past 64 the dequantized panel)."""
-    return sum(4 * L * n for (B, S), n in chunks.items() if S > 1 and B * S <= 64)
+def chunk_launches(chunks, dense_layers: int) -> int:
+    """w8 matmul launches a batcher's prefill chunks imply: every dense layer
+    of the stack (4 per GPT-2 block, 7 per LLaMA block) for each chunk of
+    2..64 rows x tokens (one-token chunks take the fused tick, chunks past
+    64 the dequantized panel)."""
+    return sum(dense_layers * n for (B, S), n in chunks.items() if S > 1 and B * S <= 64)
 
 
 def dense_weight_bytes(module) -> int:
@@ -1674,10 +1724,11 @@ def run_serve_w8(torch, out_dir=None):
         other = "decode_attention" if pc else "paged_attention"
         q = e is eng
         expected = {attn: L * singles, other: 0, "flash_attention_fwd": 0, **NO_BACKWARD,
-                    "norm_qkv": 0 if q else L * singles, "post_attn": 0 if q else L * singles,
+                    **NO_LLAMA, "norm_qkv": 0 if q else L * singles,
+                    "post_attn": 0 if q else L * singles,
                     "decode_norm_proj_w8": L * singles if q else 0,
                     "decode_post_attn_w8": L * singles if q else 0,
-                    "w8a16_matmul": chunk_launches(chunks, L) if q else 0}
+                    "w8a16_matmul": chunk_launches(chunks, 4 * L) if q else 0}
         prof = serve_profile(torch, batcher, reqs,
                              out_dir and os.path.join(out_dir, f"profile_{path}.txt"))
         run_checks = {
@@ -1781,6 +1832,554 @@ def run_serve_w8(torch, out_dir=None):
     del unfused, engines, eng, eng16
     torch.cuda.empty_cache()
     emit(dict(phase="serve_w8_summary", checks=checks))
+    return by_path, all(checks.values())
+
+
+# ---------------------------------------------------------------------------
+# LLaMA phases: kernels_llama, serve_llama, generate_llama
+# ---------------------------------------------------------------------------
+
+LLAMA_E, LLAMA_F, LLAMA_H, LLAMA_KV, LLAMA_D = 2048, 8192, 32, 4, 64
+# llama-1b's dense panels (K, N): q and o, k and v, gate and up, down
+PANELS_LLAMA_1B = ((2048, 2048), (2048, 256), (2048, 8192), (8192, 2048))
+LLAMA_DENSE_PER_LAYER = 7          # q, k, v, o, gate, up, down
+
+
+def one_ulp_errors(torch, got, ref):
+    """Largest |got - ref| and its largest ratio to one bf16 ulp of the
+    larger of the two at each element: two fp32 values that are cast once
+    land at most that far apart."""
+    d = (got.float() - ref.float()).abs()
+    ulp = bf16_ulp_t(torch, torch.maximum(got.float().abs(), ref.float().abs()))
+    return float(d.max()), float((d / ulp).max())
+
+
+def abs_panel(w):
+    """|W| in fp32: a dense panel, or a W8A16 pair dequantized."""
+    from deepspeed_tpu_torch.ops import w8 as w8ops
+
+    return (w8ops.dequantize_weight(*w) if isinstance(w, tuple) else w.float()).abs()
+
+
+def run_kernels_llama(torch, F, peaks):
+    """The kernels at llama-1b's shapes (M=8 decode rows, E=2048, F=8192,
+    H=32 over KV=4 heads, D=64): the RMSNorm and SwiGLU branches of the two
+    decode-layer kernels in bf16 and under W8A16 (g=128 and one group), each
+    element within its limit of the plain version (``w8_limits``), timed with
+    the plain version and the bound; their fp32 instantiations at a small
+    aligned shape (1e-5 of the fp32 addends' magnitudes per element); decode
+    and paged attention at 8 query heads per KV head (one bf16 ulp per
+    element) and the flash forward at H=32 (two at the output's scale, as
+    the kernels phase holds it), each with its library call; the w8 matmul
+    on llama-1b's four panels at M=8 and 64. Returns the new branches' rows,
+    the earlier kernels' rows at llama-1b's shapes, and whether all held."""
+    from deepspeed_tpu_torch.ops import decode_attention as da
+    from deepspeed_tpu_torch.ops import decode_layer as dl
+    from deepspeed_tpu_torch.ops import flash_attention as fa
+    from deepspeed_tpu_torch.ops import paged_attention as pa
+    from deepspeed_tpu_torch.ops import w8 as w8ops
+    from deepspeed_tpu_torch.ops import w8_matmul as wm
+
+    g = torch.Generator(device="cuda").manual_seed(SEED + 8)
+    bf = torch.bfloat16
+    M, E, Fh, H, KV, D = 8, LLAMA_E, LLAMA_F, LLAMA_H, LLAMA_KV, LLAMA_D
+    rows, at, ok = {}, {}, True
+
+    def rn(*shape, std=1.0, dtype=bf):
+        return (torch.randn(shape, generator=g, device="cuda") * std).to(dtype)
+
+    def timed(kernel, plain, library, rot, n=50):
+        """Device ms (None where the profiler saw no device activity) and,
+        under ``*_event``, CUDA-event ms of each callable."""
+        out = {}
+        for which, fn, k in (("kernel", kernel, n), ("plain", plain, 5), ("library", library, n)):
+            if fn is None:
+                out[which] = out[which + "_event"] = None
+                continue
+            call = lambda fn=fn: fn(*rot.next())  # noqa: E731
+            out[which] = device_ms(torch, call, k)
+            out[which + "_event"] = cuda_ms(torch, call, k)
+        return out
+
+    def row(name, shape, err, ratio, limit, t, bound, **extra):
+        b_ms, b_by = bound
+        res = dict(phase="kernels_llama", name=name, shape=shape, max_err=err,
+                   err_over_limit=ratio, limit=limit, ok=ratio <= 1.0, kernel_ms=t["kernel"],
+                   kernel_event_ms=t["kernel_event"], plain_ms=t["plain"],
+                   plain_event_ms=t["plain_event"], library_ms=t["library"],
+                   library_event_ms=t["library_event"], bound_us=b_ms * 1e3, bound_by=b_by,
+                   **extra)
+        emit(res)
+        return res
+
+    zE = torch.zeros(E, device="cuda")
+    lim_bf16 = ("per element: 1 bf16 ulp of the plain value + 1e-5 x the fp32 addends' "
+                "magnitudes + half a bf16 ulp of the row's largest output")
+
+    # the decode-layer branches: bf16 weights, W8A16 pairs (g=128, one group)
+    for group in (None, 128, "one"):
+        def panel(K, N, group=group):
+            if group is None:
+                return rn(K, N, std=0.02)
+            return w8_panels(torch, g, K, N, K if group == "one" else group, 1)[0]
+
+        def scale_bytes(K, N, group=group):
+            return 0 if group is None else (1 if group == "one" else K // group) * N * 4
+
+        wbytes = 2 if group is None else 1
+        suffix = "" if group is None else "_w8"
+        glabel = "" if group is None else f" g={'K (one group)' if group == 'one' else group}"
+        for N in (2048, 256):
+            nbytes = E * N * wbytes + scale_bytes(E, N) + M * E * 2 + M * N * 2 + E * 4
+            sets = [(rn(M, E), 1 + rn(E, std=0.1, dtype=torch.float32), panel(E, N))
+                    for _ in range(max(2, -(-60_000_000 // nbytes)))]
+            x, ns, w = sets[0]
+            zN = torch.zeros(N, dtype=bf, device="cuda")
+
+            def kern(x, ns, w):
+                return dl.fused_norm_proj(x, ns, None, w, None, rms=True)
+
+            def plain(x, ns, w, zN=zN):
+                return dl.norm_proj_plain(x, ns, zE, w, zN, 1e-5, rms=True)
+            got, ref = kern(x, ns, w), plain(x, ns, w)
+            torch.cuda.synchronize()
+            xn = dl._norm_rows(x.float(), ns, None, 1e-5, rms=True).to(bf)
+            err, ratio, wide = w8_limits(torch, got, ref, xn.float().abs() @ abs_panel(w), True)
+            res = row("norm_proj_rms" + suffix, f"M={M} E={E} N={N}{glabel}", err, ratio,
+                      lim_bf16, timed(kern, plain, None, Rotation(sets)),
+                      bound_ms(nbytes, 2 * M * E * N, peaks), limit_over_2ulp_share=wide)
+            ok &= res["ok"]
+            if N == 2048 and group in (None, 128):
+                rows["norm_proj_rms" + suffix] = res
+            del sets
+        # o-proj -> RMSNorm -> SwiGLU -> residual
+        nbytes = ((E * E + 3 * E * Fh) * wbytes + scale_bytes(E, E) + 2 * scale_bytes(E, Fh)
+                  + scale_bytes(Fh, E) + 3 * M * E * 2 + E * 4)
+        sets = [(rn(M, E), rn(M, E), panel(E, E), 1 + rn(E, std=0.1, dtype=torch.float32),
+                 panel(E, Fh), panel(E, Fh), panel(Fh, E))
+                for _ in range(max(2, -(-60_000_000 // nbytes)))]
+        y, x, wo, ns, wg, wu, wd = sets[0]
+
+        def kern(y, x, wo, ns, wg, wu, wd):
+            return dl.fused_post_attn(y, x, wo, None, ns, None, (wg, wu, wd), swiglu=True,
+                                      rms=True)
+
+        def plain(y, x, wo, ns, wg, wu, wd):
+            return dl.post_attn_plain(y, x, wo, zE.to(bf), ns, zE, (wg, wu, wd), 1e-5,
+                                      swiglu=True, rms=True)
+        got, ref = kern(*sets[0]), plain(*sets[0])
+        torch.cuda.synchronize()
+        r1 = x.float() + dl._dot(y, wo)
+        hin = dl._norm_rows(r1, ns, None, 1e-5, rms=True).to(bf)
+        gate = dl._dot(hin, wg)
+        h = (gate * torch.sigmoid(gate) * dl._dot(hin, wu)).to(bf)
+        mag = x.float().abs() + y.float().abs() @ abs_panel(wo) + h.float().abs() @ abs_panel(wd)
+        err, ratio, wide = w8_limits(torch, got, ref, mag, True)
+        res = row("post_attn_swiglu" + suffix, f"M={M} E={E} F={Fh}{glabel}", err, ratio,
+                  lim_bf16, timed(kern, plain, None, Rotation(sets), n=20),
+                  bound_ms(nbytes, 2 * M * (E * E + 3 * E * Fh), peaks),
+                  limit_over_2ulp_share=wide, launches_per_call=3)
+        ok &= res["ok"]
+        if group in (None, 128):
+            rows["post_attn_swiglu" + suffix] = res
+        del sets
+
+    # fp32 activations at a small aligned shape: per element within 1e-5 of
+    # the fp32 addends' magnitudes (fp32 weights; W8A16 with 128-row groups
+    # and with one group per panel, the down panel's spanning two chunks)
+    def rn32(*shape, std=1.0):
+        return torch.randn(shape, generator=g, device="cuda") * std
+
+    Es, Fs, Ms, Ns = 256, 1280, 3, 384
+    z = torch.zeros(Fs, device="cuda")
+    for group in (None, 128, "one"):
+        def pnl(K, N, group=group):
+            if group is None:
+                return rn32(K, N, std=0.02)
+            return w8_panels(torch, g, K, N, K if group == "one" else group, 1)[0]
+        x, y, ns = rn32(Ms, Es), rn32(Ms, Es), 1 + rn32(Es, std=0.1)
+        w, wo, wg, wu, wd = pnl(Es, Ns), pnl(Es, Es), pnl(Es, Fs), pnl(Es, Fs), pnl(Fs, Es)
+        shape = f"M={Ms} E={Es} N={Ns} F={Fs} fp32, " + (
+            "fp32 weights" if group is None else f"W8 g={'K' if group == 'one' else group}")
+        got = dl.fused_norm_proj(x, ns, None, w, None, rms=True)
+        ref = dl.norm_proj_plain(x, ns, z[:Es], w, z[:Ns], 1e-5, rms=True)
+        xn = dl._norm_rows(x, ns, None, 1e-5, rms=True)
+        found = [("norm_proj_rms", w8_limits(torch, got, ref, xn.abs() @ abs_panel(w), False))]
+        got = dl.fused_post_attn(y, x, wo, None, ns, None, (wg, wu, wd), swiglu=True, rms=True)
+        ref = dl.post_attn_plain(y, x, wo, z[:Es], ns, z[:Es], (wg, wu, wd), 1e-5, swiglu=True,
+                                 rms=True)
+        hin = dl._norm_rows(x + dl._dot(y, wo), ns, None, 1e-5, rms=True)
+        gate = dl._dot(hin, wg)
+        h = gate * torch.sigmoid(gate) * dl._dot(hin, wu)
+        mag = x.abs() + y.abs() @ abs_panel(wo) + h.abs() @ abs_panel(wd)
+        found.append(("post_attn_swiglu", w8_limits(torch, got, ref, mag, False)))
+        for name, (err, ratio, _) in found:
+            emit(dict(phase="kernels_llama_fp32", name=name, shape=shape, max_err=err,
+                      err_over_limit=ratio, ok=ratio <= 1.0,
+                      limit="1e-5 x the fp32 addends' magnitudes per element"))
+            ok &= ratio <= 1.0
+
+    # decode attention at 8 query heads per KV head (the kernels' MAX_GROUP)
+    B, S_max = 8, 512
+    lengths = torch.tensor([1, 512, 37, 100, 256, 300, 511, 64], dtype=torch.int32, device="cuda")
+    live = int(lengths.sum())
+    mask = (torch.arange(S_max, device="cuda")[None, :] < lengths[:, None])[:, None, None, :]
+    sets = [(rn(B, 1, H, D), rn(B, S_max, KV, D), rn(B, S_max, KV, D)) for _ in range(16)]
+    q, k, v = sets[0]
+    got = da.decode_attention(q, k, v, lengths)
+    ref = da.decode_attention_plain(q, k, v, lengths, D ** -0.5)
+    torch.cuda.synchronize()
+    err, ratio = one_ulp_errors(torch, got, ref)
+
+    def sdpa_gqa(q, k, v):
+        return F.scaled_dot_product_attention(q.transpose(1, 2), k.transpose(1, 2),
+                                              v.transpose(1, 2), attn_mask=mask,
+                                              enable_gqa=True)
+    t = timed(lambda q, k, v: da.decode_attention(q, k, v, lengths),
+              lambda q, k, v: da.decode_attention_plain(q, k, v, lengths, D ** -0.5),
+              sdpa_gqa, Rotation(sets), n=100)
+    at["decode_attention"] = row(
+        "decode_attention", f"B={B} S_max={S_max} H={H} KV={KV} D={D} lengths="
+        + ",".join(str(int(n)) for n in lengths), err, ratio, "1 bf16 ulp per element", t,
+        bound_ms(2 * live * KV * D * 2 + 2 * B * H * D * 2 + B * 4, 4 * live * H * D, peaks),
+        library="SDPA with enable_gqa (8 query heads share each KV head)")
+    ok &= at["decode_attention"]["ok"]
+    del sets
+
+    # paged attention at the same grouping (16-token pages, 32 table entries)
+    lens, pt, T = [1, 16, 17, 255, 256, 300, 511, 512], 16, 32
+    gp = torch.Generator(device="cuda").manual_seed(SEED + 9)
+    sets = [paged_arena(torch, gp, lens, B, H, KV, D, pt, T, bf) for _ in range(8)]
+    plen = torch.tensor(lens, dtype=torch.int32, device="cuda")
+    pmask = (torch.arange(T * pt, device="cuda")[None, :] < plen[:, None])[:, None, None, :]
+    q, kp, vp, table = sets[0]
+    got = pa.paged_decode_attention(q, kp, vp, table, plen)
+    ref = pa.paged_decode_attention_plain(q, kp, vp, table, plen, D ** -0.5)
+    torch.cuda.synchronize()
+    err, ratio = one_ulp_errors(torch, got, ref)
+
+    def gather_sdpa(q, kp, vp, table):
+        kk, vv = pa.gather_kv_pages(kp, table), pa.gather_kv_pages(vp, table)
+        return F.scaled_dot_product_attention(q.transpose(1, 2), kk.transpose(1, 2),
+                                              vv.transpose(1, 2), attn_mask=pmask,
+                                              enable_gqa=True)
+    t = timed(lambda q, kp, vp, tb: pa.paged_decode_attention(q, kp, vp, tb, plen),
+              lambda q, kp, vp, tb: pa.paged_decode_attention_plain(q, kp, vp, tb, plen,
+                                                                    D ** -0.5),
+              gather_sdpa, Rotation(sets), n=100)
+    plive = sum(lens)
+    at["paged_attention"] = row(
+        "paged_attention", f"B={B} H={H} KV={KV} D={D} pt={pt} T={T} lengths="
+        + ",".join(map(str, lens)), err, ratio, "1 bf16 ulp per element", t,
+        bound_ms(2 * plive * KV * D * 2 + 2 * B * H * D * 2 + B * T * 4 + B * 4,
+                 4 * plive * H * D, peaks),
+        library="gather_kv_pages + SDPA with enable_gqa on the gathered view")
+    ok &= at["paged_attention"]["ok"]
+    del sets
+
+    # the flash forward at H=32: engine(ids)'s prefill, the KV heads repeated
+    Bf, Sf = 2, 1024
+    q, k, v = (rn(Bf, Sf, H, D) for _ in range(3))
+    (o, lse), (ro, rlse) = (fa.flash_attention_with_lse(q, k, v, causal=True),
+                            fa.flash_attention_plain(q, k, v, True, D ** -0.5))
+    torch.cuda.synchronize()
+    rlse = rlse.reshape(Bf, H, Sf).transpose(1, 2)
+    err = float((o.float() - ro.float()).abs().max())
+    tol = 2 * bf16_ulp(float(ro.float().abs().max()))
+    lse_err = float((lse - rlse).abs().max())
+    lse_ok = lse_err <= 1e-4 * max(1.0, float(rlse.abs().max()))
+    qt, kt, vt = (x.transpose(1, 2).contiguous() for x in (q, k, v))
+    t = timed(lambda q, k, v: fa.flash_attention_with_lse(q, k, v, causal=True),
+              lambda q, k, v: fa.flash_attention_plain(q, k, v, True, D ** -0.5),
+              lambda *_: F.scaled_dot_product_attention(qt, kt, vt, is_causal=True),
+              Rotation([(q, k, v)]), n=20)
+    pairs = Sf * (Sf + 1) / 2
+    at["flash_attention_fwd"] = row(
+        "flash_attention_fwd", f"B={Bf} S={Sf} H={H} D={D} causal", err,
+        err / tol if lse_ok else float("inf"),
+        "2 bf16 ulps at the output's scale; lse within 1e-4", t,
+        bound_ms(4 * Bf * Sf * H * D * 2 + Bf * H * Sf * 4, 4 * Bf * H * D * pairs, peaks),
+        library="SDPA", lse_max_err=lse_err)
+    ok &= at["flash_attention_fwd"]["ok"]
+    del q, k, v, qt, kt, vt
+
+    # the w8 matmul on llama-1b's panels: decode rows (8) and a full chunk (64)
+    def pair(x, c, sc):   # dequantize + matmul: two calls, timed beside
+        return x @ w8ops.dequantize_weight(c, sc, bf)
+
+    at["w8a16_matmul"] = []
+    for K, N in PANELS_LLAMA_1B:
+        panels = w8_panels(torch, g, K, N, 128, -(-60_000_000 // (K * N)))
+        for Mw in (8, 64):
+            sets = [(rn(Mw, K), c, sc) for c, sc in panels]
+            x, c, sc = sets[0]
+            got, ref = wm.w8a16_matmul_kernel(x, c, sc), wm.w8a16_matmul_plain(x, c, sc)
+            torch.cuda.synchronize()
+            mag = x.float().abs() @ w8ops.dequantize_weight(c, sc).abs()
+            err, ratio, _ = w8_limits(torch, got, ref, mag, False)
+            t = timed(wm.w8a16_matmul_kernel, wm.w8a16_matmul_plain, None, Rotation(sets))
+            rot = Rotation(sets)
+            res = row("w8a16_matmul", f"M={Mw} K={K} N={N} g=128", err, ratio,
+                      "1e-5 x |x| @ |dequant W| per element", t,
+                      bound_ms(K * N + K // 128 * N * 4 + Mw * K * 2 + Mw * N * 4,
+                               2 * Mw * K * N, peaks),
+                      dequant_matmul_pair_ms=device_ms(torch, lambda: pair(*rot.next()), 50))
+            ok &= res["ok"]
+            if Mw == 8:
+                at["w8a16_matmul"].append(res)
+            del sets
+        del panels
+    torch.cuda.empty_cache()
+    return rows, at, ok
+
+
+def teacher_forced(torch, ref, streams, V):
+    """Greedy streams ``[(tokens, prompt_len), ...]`` teacher-forced through
+    the engine ``ref``: the strict share of picks that are its argmax, the
+    tie-aware share (within two bf16 ulps of its maximum), and, over the
+    positions where its top two logits lie more than 16 bf16 ulps apart (so
+    that no two errors within the forward's 8-ulp tolerance can swap them),
+    the strict share there and how many such positions there were; and the
+    share of positions whose top two lie under one bf16 ulp apart (how flat
+    the logits are)."""
+    strict = ties = decisive = agree_decisive = flat = n = 0
+    for seq, n0 in streams:
+        seq = torch.as_tensor(seq, dtype=torch.long, device=ref.device)
+        lg = ref(seq[None, :-1])[0, n0 - 1:, :V].float()
+        pick = seq[n0:]
+        ulp = bf16_ulp(float(lg.abs().max()))
+        top2 = lg.topk(2, dim=-1).values
+        margin = top2[:, 0] - top2[:, 1]
+        hit = lg.argmax(-1) == pick
+        strict += int(hit.sum())
+        ties += round(near_max_share(pick, lg, 2 * ulp) * len(pick))
+        big = margin > 16 * ulp
+        decisive += int(big.sum())
+        agree_decisive += int((hit & big).sum())
+        flat += int((margin < ulp).sum())
+        n += len(pick)
+    return dict(positions=n, strict=strict / n, within_2ulp=ties / n,
+                decisive_positions=decisive, decisive_strict=agree_decisive / max(decisive, 1),
+                top2_below_1ulp=flat / n)
+
+
+def run_serve_llama(torch, out_dir=None):
+    """llama-1b (E=2048, 22 layers, 32 heads over 4 KV heads, D=64, F=8192,
+    vocab 32000; full size, random weights from seed 1234) served through
+    ``init_inference(max_tokens=512)`` in bf16 and in W8A16 from the same
+    weights: the batcher with page-resident KV (16-token pages, 8 slots) on
+    the serve phase's 32 requests twice each; ``engine(ids)`` at B=2,
+    S=1024; ``generate`` (B=8, prompt 256, 64 new) with the fused decode
+    kernels on and off. Gates: exact launch counts, no leaks, the dense
+    bytes, the forward (B=1, S=128) within 8 bf16 ulps of a CPU fp32 engine
+    holding each card engine's own weights (bf16 values, int8 codes), the
+    int8-vs-bf16 logits, the sampling step on the card, seeded sampling, and
+    the batcher's greedy streams teacher-forced through an fp32 engine on
+    the card holding the same weights (checked against the CPU's): picks
+    within two bf16 ulps of its maximum at ≥ 99% of positions, and its
+    argmax wherever its top two lie more than 16 ulps apart. The strict
+    share is printed beside them, with the stock unfused path's on the
+    generate streams: random-weight llama-1b logits are flat (12–15% of top
+    two under one bf16 ulp apart) and the bf16 forward sits ~5 ulps from
+    fp32, so no bf16 path reaches 95% strict there."""
+    from collections import Counter
+
+    import deepspeed_tpu_torch as ds
+    from deepspeed_tpu_torch.models.llama import LlamaForCausalLM, llama_config
+
+    cfg = llama_config("llama-1b")
+    L, V = cfg.n_layer, cfg.vocab_size
+    t0 = time.perf_counter()
+    model = LlamaForCausalLM(cfg).init_weights(torch.Generator().manual_seed(SEED))
+    init_s = time.perf_counter() - t0
+    engines, resident, checks = {}, {}, {}
+    for label, kw in (("bf16", {}), ("w8", dict(quant=W8))):
+        torch.cuda.synchronize()
+        m0 = torch.cuda.memory_allocated()
+        engines[label] = ds.init_inference(model, dtype=torch.bfloat16, max_tokens=512, **kw)
+        torch.cuda.synchronize()
+        resident[label] = torch.cuda.memory_allocated() - m0
+    n_params = sum(p.numel() for p in model.parameters())
+    del model                    # the engines hold their own copies
+    dense8, dense16 = (dense_weight_bytes(engines[k].module) for k in ("w8", "bf16"))
+    E, F, HD, KVD = (cfg.hidden_size, cfg.intermediate_size, cfg.n_head * cfg.head_dim,
+                     cfg.kv_heads * cfg.head_dim)
+    n_dense = L * (2 * E * HD + 2 * E * KVD + 3 * E * F)     # q, o; k, v; gate, up, down
+    # int8 codes + one fp32 scale per 128 rows: (1 + 4/128) / 2 = 33/64 of bf16's bytes
+    checks["dense_bytes_ratio"] = dense16 == 2 * n_dense and 64 * dense8 == 33 * dense16
+    checks["rotary_cache_len"] = engines["bf16"].cache_len == engines["bf16"]._gen_limit == 512
+    emit(dict(phase="serve_llama_weights", model="llama-1b", init_s=init_s, params=n_params,
+              dense_elements=n_dense, dense_weight_bytes_w8=dense8,
+              dense_weight_bytes_bf16=dense16, dense_ratio=dense8 / dense16,
+              resident_bytes=resident, resident_ratio=resident["w8"] / resident["bf16"],
+              cache_len=engines["bf16"].cache_len))
+
+    reqs = serve_requests(V)
+    by_path, served = {}, {}
+    for label, e in engines.items():
+        q = label == "w8"
+        path = f"serve_llama{'_w8' if q else ''}_paged"
+        batcher = ds.ContinuousBatcher(e, n_slots=8, seed=SEED,
+                                       prefix_cache={"page_tokens": 16, "n_pages": 512})
+        zero_counts()
+        chunks0 = Counter(batcher.prefill_chunks)
+        outs, passes = [], []
+        for _ in range(2):
+            o, nums = serve_pass(torch, batcher, reqs)
+            outs.append(o)
+            passes.append(nums)
+        launches = read_counts()
+        by_path[path] = launches
+        chunks = batcher.prefill_chunks - chunks0
+        singles = sum(p["ticks"] + p["one_token_prefills"] for p in passes)
+        expected = {n: 0 for n in launches}
+        expected.update({"paged_attention": L * singles,
+                         "norm_proj_rms_w8" if q else "norm_proj_rms": 3 * L * singles,
+                         "post_attn_swiglu_w8" if q else "post_attn_swiglu": L * singles,
+                         "w8a16_matmul": chunk_launches(chunks, LLAMA_DENSE_PER_LAYER * L)
+                         if q else 0})
+        prof = serve_profile(torch, batcher, reqs,
+                             out_dir and os.path.join(out_dir, f"profile_{path}.txt"))
+        run_checks = {
+            "launch_counts": launches == expected,
+            "no_leaks": all(v == 0 for p in passes for v in p["leaks"].values())
+            and all(v == 0 for v in batcher.leak_counts().values()),
+            "shapes_and_vocab": all(len(o) == len(r["prompt"]) + r["max_new_tokens"]
+                                    and int(o.max()) < V for op in outs for o, r in zip(op, reqs)),
+            "pass2_hits": passes[1]["hit_tokens"] > 0}
+        samp = sampling_check(torch, e, reqs, outs[0], phase="serve_llama_sampling")
+        run_checks["sampling_card_vs_cpu"] = samp["ok"]
+        served[label] = [(o_pass[i], len(reqs[i]["prompt"]))
+                         for o_pass in outs for i in range(0, len(reqs), 2)]
+        emit(dict(phase="serve_llama", path=path, model="llama-1b", dtype="bfloat16",
+                  quant="int8 W8A16" if q else None, n_slots=8, requests=len(reqs),
+                  prefix_cache={"page_tokens": 16, "n_pages": 512}, passes=passes,
+                  profile=prof, resident_weight_bytes=resident[label],
+                  prefill_chunks={f"{B}x{S}": n for (B, S), n in sorted(chunks.items())},
+                  launches=launches, expected_launches=expected, checks=run_checks))
+        checks.update({f"{path}_{k}": v for k, v in run_checks.items()})
+        del batcher
+
+    # the forward against CPU fp32 engines holding each card engine's own
+    # weights (bf16 values, int8 codes) on a short prompt; the same weights
+    # in an fp32 engine on the card, held against the CPU's, are the
+    # reference the greedy streams are teacher-forced through
+    ids = torch.randint(0, V, (1, 128), generator=torch.Generator().manual_seed(SEED + 6))
+    with torch.device("meta"):
+        template = LlamaForCausalLM(cfg)
+    fp32_card, gates = {}, {}
+    for label, e in engines.items():
+        kw = dict(quant=W8) if label == "w8" else {}
+        state = {k: v.detach().cpu() for k, v in e.module.state_dict().items()}
+        cpu = ds.init_inference(template, params=state, dtype=torch.float32, max_tokens=512,
+                                device="cpu", **kw)
+        ref = cpu(ids)[..., :V].float()
+        del cpu
+        fp32_card[label] = ds.init_inference(template, params=state, dtype=torch.float32,
+                                             max_tokens=512, **kw)
+        del state
+        card = e(ids)[..., :V].float().cpu()
+        card32 = fp32_card[label](ids)[..., :V].float().cpu()
+        err = float((card - ref).abs().max())
+        tol = 8 * bf16_ulp(float(ref.abs().max()))
+        err32 = float((card32 - ref).abs().max())
+        top1 = float((card.argmax(-1) == ref.argmax(-1)).float().mean())
+        tf = teacher_forced(torch, fp32_card[label], served[label], V)
+        tf_self = teacher_forced(torch, e, served[label], V)
+        gates[label] = dict(forward_max_err=err, forward_tol=tol, forward_top1=top1,
+                            fp32_card_vs_cpu_max_err=err32,
+                            teacher_forced_vs_fp32=tf, teacher_forced_vs_own_bf16_forward=tf_self)
+        checks[f"forward_vs_cpu_fp32_{label}"] = err <= tol and bool(torch.isfinite(card).all())
+        # fp32 in other orders over 22 layers: far below a bf16 ulp (2^-8 relative)
+        checks[f"fp32_reference_vs_cpu_{label}"] = err32 <= 1e-3 * float(ref.abs().max())
+        checks[f"greedy_teacher_forced_{label}"] = (tf["within_2ulp"] >= 0.99
+                                                    and tf["decisive_strict"] == 1.0)
+    l8, l16 = (engines[k](ids)[..., :V].float() for k in ("w8", "bf16"))
+    rel_rms = float((l8 - l16).pow(2).mean().sqrt() / l16.pow(2).mean().sqrt())
+    checks["int8_vs_bf16_rel_rms"] = rel_rms <= 0.1
+    emit(dict(phase="serve_llama_checks", forward_shape=[1, 128], gates=gates,
+              int8_vs_bf16_logits_rel_rms=rel_rms))
+
+    # engine(ids) at B=2, S=1024: the flash forward at H=32
+    eng16 = engines["bf16"]
+    big = torch.randint(0, V, (2, 1024), generator=torch.Generator().manual_seed(SEED + 1))
+    eng16(big[:, :128])
+    fwd = {}
+    zero_counts()
+    for k in ("first", "again"):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = eng16(big)
+        torch.cuda.synchronize()
+        fwd[k] = (time.perf_counter() - t0) * 1e3
+    launches = read_counts()
+    by_path["forward_llama"] = launches
+    expected = {n: 0 for n in launches}
+    expected["flash_attention_fwd"] = 2 * L
+    checks["forward_launch_counts"] = launches == expected
+    checks["forward_finite"] = bool(torch.isfinite(out[..., :V]).all())
+    emit(dict(phase="forward_llama", shape=[2, 1024], forward_ms=fwd["first"],
+              forward_again_ms=fwd["again"], launches=launches, expected_launches=expected))
+    del out
+
+    # generate with the fused decode kernels on and off, bf16 and int8 (the
+    # unfused engines hold the same weights); each path's greedy streams
+    # teacher-forced through the fp32 reference, the stock unfused path's
+    # beside the fused kernels'
+    prompt = torch.randint(0, V, (8, 256), generator=torch.Generator().manual_seed(SEED + 7))
+    new, compare = 64, {}
+    for label, e in engines.items():
+        w8 = "_w8" if label == "w8" else ""
+        state = {k: v.detach() for k, v in e.module.state_dict().items()}
+        unfused = ds.init_inference(template, params=state, dtype=torch.bfloat16,
+                                    max_tokens=512, decode_fused=False,
+                                    **(dict(quant=W8) if w8 else {}))
+        del state
+        gen = {}
+        for fused, eg in ((True, e), (False, unfused)):
+            path = f"generate_llama{w8}_{'fused' if fused else 'unfused'}"
+            eg.generate(prompt[:, :32], max_new_tokens=4)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            eg.generate(prompt, max_new_tokens=1)
+            torch.cuda.synchronize()
+            ttft = (time.perf_counter() - t0) * 1e3
+            zero_counts()
+            t0 = time.perf_counter()
+            out = eg.generate(prompt, max_new_tokens=new)
+            torch.cuda.synchronize()
+            wall = (time.perf_counter() - t0) * 1e3
+            launches = read_counts()
+            by_path[path] = launches
+            ticks = new - 1
+            expected = {n: 0 for n in launches}
+            expected["decode_attention"] = L * ticks
+            if fused:
+                expected["norm_proj_rms" + w8] = 3 * L * ticks
+                expected["post_attn_swiglu" + w8] = L * ticks
+            elif w8:
+                expected["w8a16_matmul"] = LLAMA_DENSE_PER_LAYER * L * ticks
+            gen[fused] = out
+            ok_path = (launches == expected and tuple(out.shape) == (8, 256 + new)
+                       and int(out.max()) < V)
+            checks[f"{path}_launch_counts"] = ok_path
+            tf = teacher_forced(torch, fp32_card[label], [(s, 256) for s in out], V)
+            emit(dict(phase="generate_llama", path=path, shape=[8, 256, new], ttft_ms=ttft,
+                      generate_ms=wall, ms_per_tick=(wall - ttft) / ticks,
+                      decode_tokens_per_s=8 * ticks / ((wall - ttft) / 1e3), launches=launches,
+                      expected_launches=expected, teacher_forced_vs_fp32=tf, ok=ok_path))
+        compare[f"greedy_tokens_equal{w8}_fused_vs_unfused"] = float(
+            (gen[True][:, 256:] == gen[False][:, 256:]).float().mean())
+        del unfused, gen
+        torch.cuda.empty_cache()
+    # seeded sampling repeats through the fused ticks
+    s1 = eng16.generate(prompt[:, :64], max_new_tokens=32, temperature=0.8, top_p=0.9, seed=7)
+    s2 = eng16.generate(prompt[:, :64], max_new_tokens=32, temperature=0.8, top_p=0.9, seed=7)
+    checks["sampled_generate_repeats"] = bool(torch.equal(s1, s2)) and int(s1.max()) < V
+    emit(dict(phase="generate_llama_compare", **compare))
+    del engines, eng16, fp32_card
+    torch.cuda.empty_cache()
+    emit(dict(phase="serve_llama_summary", checks=checks))
     return by_path, all(checks.values())
 
 
@@ -2259,6 +2858,8 @@ def main() -> int:
     ok &= ce_ok
     w8_rows, w8_ok = run_kernels_w8(torch, peaks)
     ok &= w8_ok
+    llama_rows, llama_at, llama_kernels_ok = run_kernels_llama(torch, F, peaks)
+    ok &= llama_kernels_ok
     launches, slice_ok, eng, prompt = run_slice(torch)
     ok &= slice_ok
     run_profile(torch, eng, prompt, args.out)
@@ -2268,13 +2869,15 @@ def main() -> int:
     ok &= serve_ok
     w8_launches, w8_serve_ok = run_serve_w8(torch, args.out)
     ok &= w8_serve_ok
+    llama_launches, llama_ok = run_serve_llama(torch, args.out)
+    ok &= llama_ok
     train_launches, train_ok = run_train(torch, peaks, args.out)
     ok &= train_ok
     big_launches, opt_res, big_ok = run_train_1p5b(torch, peaks, args.out)
     ok &= big_ok
     # each path's counts were zeroed before it and read after it
-    by_path = {"generate": launches, **serve_launches, **w8_launches, **train_launches,
-               **big_launches}
+    by_path = {"generate": launches, **serve_launches, **w8_launches, **llama_launches,
+               **train_launches, **big_launches}
 
     # the kernels' rows at gpt2-760m's heads, which the serve_w8 and
     # generate_w8 paths run
@@ -2360,6 +2963,34 @@ def main() -> int:
             ("serve_w8_paged", "generate_w8_unfused") if kname == "w8a16_matmul" else
             ("serve_w8_paged", "serve_w8_contiguous", "generate_w8_fused")))
     ok &= all(k in w8_rows for k in w8_src)
+    # the LLaMA branches of the decode-layer kernels, each launched on the
+    # page-resident serve path and the fused generate path of its dtype
+    for kname in LLAMA_KERNELS:
+        r = llama_rows.get(kname)
+        if r is None:   # the kernels phase failed before timing it (already not ok)
+            continue
+        summary.append(dict(
+            name=kname, route="cuda", source="deepspeed_tpu_torch/ops/csrc/decode_layer.cu",
+            replaces="deepspeed_tpu/ops/pallas/decode_layer.py:"
+            + ("185" if kname.startswith("norm_proj") else "344"), **path_counts(kname),
+            max_abs_err=r["max_err"], ms=r["kernel_ms"], plain_ms=r["plain_ms"],
+            bound_ms=r["bound_us"] / 1e3, bound_by=r["bound_by"], library_ms=None,
+            shape=r["shape"]))
+        w8 = "_w8" if kname.endswith("_w8") else ""
+        ok &= all(by_path[p][kname] > 0 for p in (f"serve_llama{w8}_paged",
+                                                   f"generate_llama{w8}_fused"))
+    ok &= all(k in llama_rows for k in LLAMA_KERNELS)
+
+    # the earlier kernels' rows at llama-1b's shapes (H=32 over KV=4, the
+    # four dense panels)
+    def at_llama(r):
+        return dict(shape=r["shape"], max_abs_err=r["max_err"], ms=r["kernel_ms"],
+                    plain_ms=r["plain_ms"], library_ms=r["library_ms"],
+                    bound_ms=r["bound_us"] / 1e3, bound_by=r["bound_by"])
+    for row in summary:
+        r = llama_at.get(row["name"])
+        if r is not None:
+            row["at_llama_1b"] = [at_llama(x) for x in r] if isinstance(r, list) else at_llama(r)
     print(smi, flush=True)
     emit({"kernels": summary})
     if not ok:

@@ -1,10 +1,19 @@
 """Inference engine: ``engine(input_ids)`` forward and ``generate()``.
 
 Port of ``deepspeed_tpu/inference/engine.py`` for one card. The engine
-holds its own copy of the model's weights at the serving dtype on its
-device; ``forward`` runs the model, ``generate`` prefills a KV cache and
-then steps a plain Python tick loop (the JAX package's compiled
-``lax.scan`` loop; CUDA graphs for the tick are later work).
+builds a model of the family it is given (GPT-2 or LLaMA) and holds its own
+copy of the weights at the serving dtype on its device; ``forward`` runs the
+model, ``generate`` prefills a KV cache and then steps a plain Python tick
+loop (the JAX package's compiled ``lax.scan`` loop; CUDA graphs for the tick
+are later work).
+
+The generation limit and the KV cache length follow the JAX engine's rule.
+A model whose parameter shapes depend on its context field (GPT-2's learned
+position table, ``n_positions``) keeps that length: ``max_tokens`` below it
+shrinks the cache, above it is capped. A rotary model (LLaMA,
+``max_position_embeddings``) sizes its cache and limit from ``max_tokens``,
+below or above the trained context. A ``cache_len`` set on the model config
+caps both.
 
 The engine runs on the card: ``device=None`` means ``"cuda"``, and without
 CUDA it raises unless the caller asks for ``device="cpu"``. On the card it
@@ -32,8 +41,9 @@ import numpy as np
 import torch
 
 from ..models.common import init_layer_cache
-from ..models.convert import _tensor, gpt2_params_from_jax, is_flax_tree
-from ..models.gpt2 import GPT2LMHeadModel, LayerNorm
+from ..models.convert import _tensor, is_flax_tree, params_from_jax
+from ..models.gpt2 import LayerNorm
+from ..models.llama import RMSNorm
 from ..ops.quantizer import fake_quantize
 from ..ops.w8 import quantize_state_dict
 from ..utils.logging import logger
@@ -95,14 +105,31 @@ def resolve_device(device, entry: str = "init_inference") -> torch.device:
     return dev
 
 
+def _position_field(cfg) -> str:
+    """The config field naming a family's context length."""
+    return "n_positions" if hasattr(cfg, "n_positions") else "max_position_embeddings"
+
+
+def _params_depend_on(model_cls, cfg, field: str) -> bool:
+    """True when a parameter SHAPE is a function of ``field`` (a learned
+    position table sized by it): the JAX engine's ``_params_depend_on``,
+    with models built on the meta device."""
+    def shapes(c):
+        with torch.device("meta"):
+            return [tuple(p.shape) for p in model_cls(c).parameters()]
+
+    return shapes(cfg) != shapes(dataclasses.replace(cfg, **{field: 2 * getattr(cfg, field)}))
+
+
 class InferenceEngine:
-    """Serving wrapper around a :class:`GPT2LMHeadModel`.
+    """Serving wrapper around a port model (``GPT2LMHeadModel`` or
+    ``LlamaForCausalLM``): the engine builds its own of the same class.
 
-    ``params``: a state dict of the port, or a flax GPT-2 param tree of
-    numpy arrays (converted by ``models/convert.py``); None takes the
-    model's own weights."""
+    ``params``: a state dict of the port, or a flax param tree of the
+    model's family as numpy arrays (converted by ``models/convert.py``);
+    None takes the model's own weights."""
 
-    def __init__(self, model: GPT2LMHeadModel = None, config=None,
+    def __init__(self, model: torch.nn.Module = None, config=None,
                  params: Optional[Mapping] = None, device=None, **kwargs):
         merged = dict(config or {})
         merged.update(kwargs)
@@ -121,30 +148,32 @@ class InferenceEngine:
         if self.config.decode_fused is not None:
             over["decode_fused"] = bool(self.config.decode_fused)
         self.model_cfg = dataclasses.replace(cfg, **over)
+        self._pos_field = _position_field(cfg)
+        self._learned_positions = _params_depend_on(type(model), self.model_cfg, self._pos_field)
         self._gen_limit, self.cache_len = self._limits(self.model_cfg)
         # the decode model knows its cache length (the paged path slices its
         # gathered view to it), as the JAX engine's decode_cfg does
         self.model_cfg = dataclasses.replace(self.model_cfg, cache_len=self.cache_len)
-        self.module = GPT2LMHeadModel(self.model_cfg, device=self.device, dtype=dtype)
+        self.module = type(model)(self.model_cfg, device=self.device, dtype=dtype)
         self.module.requires_grad_(False)
         self.load_params(model.state_dict() if params is None else params)
 
     def _limits(self, cfg):
-        """Generation limit and KV-cache length: the learned-position rule of
-        the JAX engine. The position table keeps the model's length, so
-        ``max_tokens`` past it is capped; below it, the cache shrinks to
-        ``max_tokens`` (decode reads the whole cache every tick). A
+        """Generation limit and KV-cache length, the JAX engine's rule. A
+        learned position table keeps the model's length, so ``max_tokens``
+        past it is capped; below it, the cache shrinks to ``max_tokens``
+        (decode reads the whole cache every tick). A rotary model takes
+        ``max_tokens`` as it is, below or above its trained context. A
         ``cache_len`` set on the model config caps both."""
-        model_limit = cfg.n_positions
+        field = self._pos_field
+        model_limit = getattr(cfg, field)
         requested = self.config.max_tokens
-        gen_limit, cache_len = model_limit, model_limit
-        if requested and requested != model_limit:
-            gen_limit = min(requested, model_limit)
-            cache_len = gen_limit
-            if requested > model_limit:
-                logger.warning(f"max_tokens={requested} exceeds the learned position "
-                               f"table (n_positions={model_limit}); generation is "
-                               f"capped at {model_limit}")
+        gen_limit = cache_len = requested or model_limit
+        if self._learned_positions and requested and requested > model_limit:
+            gen_limit = cache_len = model_limit
+            logger.warning(f"max_tokens={requested} exceeds the learned position "
+                           f"table ({field}={model_limit}); generation is "
+                           f"capped at {model_limit}")
         if cfg.cache_len:
             gen_limit = min(gen_limit, cfg.cache_len)
             cache_len = min(cfg.cache_len, cache_len)
@@ -160,7 +189,7 @@ class InferenceEngine:
         if self._fake_bits is not None:   # on the tree as given, as JAX does
             params = self._fake_quantize(params)
         if is_flax_tree(params):
-            params = gpt2_params_from_jax(params, self.model_cfg)
+            params = params_from_jax(params, self.model_cfg)
         if self._w8 and any(k.endswith("_kernel") for k in params):
             params = quantize_state_dict(params, self.model_cfg.w8_group, device=self.device)
         own = dict(self.module.named_parameters())
@@ -169,7 +198,7 @@ class InferenceEngine:
         if missing or extra:
             raise KeyError(f"load_params: missing {missing[:5]}, unexpected {extra[:5]}")
         norm = {f"{m}.{p}" for m, mod in self.module.named_modules()
-                if isinstance(mod, LayerNorm) for p, _ in mod.named_parameters()}
+                if isinstance(mod, (LayerNorm, RMSNorm)) for p, _ in mod.named_parameters()}
         dtype = self.model_cfg.dtype
         for name, p in own.items():
             src = torch.as_tensor(params[name])
@@ -219,9 +248,10 @@ class InferenceEngine:
     def forward(self, input_ids) -> torch.Tensor:
         """Logits ``(B, S, padded_vocab)`` at the serving dtype."""
         ids = self._ids(input_ids)
-        if ids.shape[1] > self.model_cfg.n_positions:
+        limit = getattr(self.model_cfg, self._pos_field)
+        if self._learned_positions and ids.shape[1] > limit:
             raise ValueError(f"sequence of {ids.shape[1]} exceeds the position table "
-                             f"(n_positions={self.model_cfg.n_positions})")
+                             f"({self._pos_field}={limit})")
         return self.module(ids).logits
 
     __call__ = forward
@@ -231,7 +261,7 @@ class InferenceEngine:
         write head per row (``per_row=False``: one host ``int`` head, the
         static batch of ``generate`` and of a prefill)."""
         cfg = self.model_cfg
-        return [init_layer_cache(batch_size, self.cache_len, cfg.n_head, cfg.head_dim,
+        return [init_layer_cache(batch_size, self.cache_len, cfg.kv_heads, cfg.head_dim,
                                  cfg.dtype, self.device, per_row) for _ in range(cfg.n_layer)]
 
     @torch.no_grad()

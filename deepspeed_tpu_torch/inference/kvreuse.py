@@ -74,14 +74,14 @@ def _leaf_key(layer: int, name: str) -> str:
 
 def _derive_meta(engine, page_tokens: int) -> Dict[str, _LeafMeta]:
     """Per-KV-leaf page geometry from ``engine``'s model config: every
-    layer's K and V leaf is ``(B, cache_len, n_head, head_dim)``
-    (``init_layer_cache``), so a page is ``(1, page_tokens, n_head,
+    layer's K and V leaf is ``(B, cache_len, kv_heads, head_dim)``
+    (``init_layer_cache``), so a page is ``(1, page_tokens, kv_heads,
     head_dim)`` with the batch on axis 0 and the tokens on axis 1."""
     cfg = engine.model_cfg
     if engine.cache_len < page_tokens:
         raise ValueError(f"page_tokens={page_tokens} exceeds the cache length "
                          f"{engine.cache_len}")
-    page = (1, page_tokens, cfg.n_head, cfg.head_dim)
+    page = (1, page_tokens, cfg.kv_heads, cfg.head_dim)
     return {_leaf_key(i, name): _LeafMeta(0, 1, page, cfg.dtype)
             for i in range(cfg.n_layer) for name in model_common.KV_CACHE_LEAVES}
 
@@ -503,9 +503,9 @@ def resolve_paged_decode(engine, prefix_cache, n_slots: int, specdec=None,
         raise NotImplementedError("speculative decoding is not ported yet "
                                   "(ROADMAP.md, queue A: specdec)")
     m = engine.model_cfg
-    if not paged_decode_supported(prefix_cache.page_tokens, m.n_head, m.n_head, m.head_dim):
+    if not paged_decode_supported(prefix_cache.page_tokens, m.n_head, m.kv_heads, m.head_dim):
         raise NotImplementedError(
             f"the paged decode kernel has no build for page_tokens={prefix_cache.page_tokens} "
-            f"n_head={m.n_head} kv_heads={m.n_head} head_dim={m.head_dim}; a prefix cache "
+            f"n_head={m.n_head} kv_heads={m.kv_heads} head_dim={m.head_dim}; a prefix cache "
             f"on this geometry {_GATHER_TODO}")
     return PagedServingState(prefix_cache, engine, n_slots)

@@ -107,7 +107,9 @@ def sample_rows(logits: torch.Tensor, greedy_pool: bool, temp: torch.Tensor,
     probs = torch.softmax(_filtered_logits(logits, temp, top_k, top_p), dim=-1)
     cdf = torch.cumsum(probs, dim=-1)
     x = uniforms.to(cdf.device)[:, None] * cdf[:, -1:]
-    sampled = torch.searchsorted(cdf, x).clamp_(max=logits.shape[-1] - 1)[:, 0]
+    # the first token whose CDF exceeds x: it has positive mass, since x <
+    # cdf[-1] for u < 1 (the left side would give u = 0 to token 0, kept or not)
+    sampled = torch.searchsorted(cdf, x, right=True).clamp_(max=logits.shape[-1] - 1)[:, 0]
     return torch.where(temp <= 0.0, greedy, sampled)
 
 

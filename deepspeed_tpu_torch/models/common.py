@@ -1,5 +1,6 @@
-"""Shared model plumbing: LayerNorm math, model outputs, the losses, the
-remat policies, the KV-cache contract and the fused decode-tick dispatch.
+"""Shared model plumbing: LayerNorm and RMSNorm math, model outputs, the
+losses, the remat policies, the KV-cache contract and the fused decode-tick
+dispatch.
 
 Port of ``deepspeed_tpu/models/common.py``. The losses are
 :func:`cross_entropy_loss` (dense logits), :func:`chunked_lm_loss`, the
@@ -16,7 +17,8 @@ the JAX donation/``adopt`` dance has no counterpart here).
 
 Three layouts share :func:`append_kv_cache`:
 
-- contiguous, one write head: K/V ``(B, cache_len, H, D)``, ``cache_index``
+- contiguous, one write head: K/V ``(B, cache_len, KV, D)`` (the KV heads:
+  ``n_head`` without grouped-query attention), ``cache_index``
   a host ``int`` (``engine.generate``, prefill caches), so slicing needs no
   device round trip;
 - contiguous, per-row heads: the same buffers with ``cache_index`` a
@@ -58,6 +60,44 @@ def layer_norm(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
     var = ((xf - mean) ** 2).mean(-1, keepdim=True)
     y = (xf - mean) * torch.rsqrt(var + eps)
     return (y * scale.float() + bias.float()).to(x.dtype)
+
+
+def rms_norm(x: torch.Tensor, scale: torch.Tensor, eps: float) -> torch.Tensor:
+    """fp32 RMSNorm (LLaMA) over the last dim, cast back to x's dtype (the
+    JAX package's ``rms_norm``)."""
+    xf = x.float()
+    var = (xf * xf).mean(-1, keepdim=True)
+    return (xf * torch.rsqrt(var + eps) * scale.float()).to(x.dtype)
+
+
+def new_param(shape, device, dtype) -> torch.nn.Parameter:
+    """An uninitialised parameter (``torch.empty``)."""
+    return torch.nn.Parameter(torch.empty(shape, device=device, dtype=dtype))
+
+
+def declare_dense(mod: torch.nn.Module, name: str, k: int, n: int, cfg, device, dtype,
+                  bias: bool = True) -> None:
+    """A dense layer's parameters under the flax names: ``name_kernel``
+    ``(k, n)``, or under ``cfg.w8`` the pair ``name_kernel_q`` (int8
+    ``(k, n)``) and ``name_kernel_s`` (fp32 ``(k/g, n)``), parameters that
+    carry no gradient; and with ``bias`` ``name_bias``."""
+    if cfg.w8:
+        g = w8_group_size(k, cfg.w8_group)
+        for suffix, shape, dt in (("_kernel_q", (k, n), torch.int8),
+                                  ("_kernel_s", (k // g, n), torch.float32)):
+            setattr(mod, name + suffix, torch.nn.Parameter(
+                torch.empty(shape, device=device, dtype=dt), requires_grad=False))
+    else:
+        setattr(mod, name + "_kernel", new_param((k, n), device, dtype))
+    if bias:
+        setattr(mod, name + "_bias", new_param((n,), device, dtype))
+
+
+def dense_weight(mod: torch.nn.Module, name: str, dtype):
+    """The dense kernel at the compute dtype, or its W8A16 (codes, scales) pair."""
+    if mod.cfg.w8:
+        return getattr(mod, name + "_kernel_q"), getattr(mod, name + "_kernel_s")
+    return getattr(mod, name + "_kernel").to(dtype)
 
 
 class ModelOutput(dict):
@@ -400,10 +440,14 @@ def _w8_groups(cfg, k: int) -> int:
 
 
 def decode_fused_plan(cfg, rows: int, e: int, proj_outs: tuple, f: int,
-                      device: torch.device) -> bool:
+                      device: torch.device, swiglu: bool = False) -> bool:
     """Whether THIS tick takes the fused kernels: enabled, and the shape
     predicates of both kernels hold, W8A16 group rules included
-    (``decode_fused_plan`` of the JAX package, without its mesh case)."""
+    (``decode_fused_plan`` of the JAX package, without its mesh case).
+    ``proj_outs``: the attention projection widths (one fused panel, or
+    q/k/v under GQA); ``swiglu``: the three-panel MLP, which the JAX package
+    passes for its TPU tile budget. The CUDA kernels have no tile budget,
+    so it changes no predicate here."""
     w8 = bool(getattr(cfg, "w8", False))
     return (decode_fused_enabled(cfg, device)
             and all(norm_proj_supported(rows, e, n, w8, _w8_groups(cfg, e)) for n in proj_outs)

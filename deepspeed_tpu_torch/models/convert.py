@@ -1,11 +1,12 @@
-"""Carry weights and optimizer state across: a flax GPT-2 param tree → the
-port's state dict, and the JAX ``Adam8bitState`` → the port's
+"""Carry weights and optimizer state across: a flax GPT-2 or LLaMA param
+tree → the port's state dict, and the JAX ``Adam8bitState`` → the port's
 ``Adam8bit`` state.
 
 The port keeps the flax names and ``(in, out)`` kernel layouts, so each
 leaf maps to one state-dict key with no transpose. Both flax layouts are
-taken: ``scan_layers=True`` stacks the blocks under ``h`` with a leading
-layer axis, ``scan_layers=False`` names them ``h_0 … h_{L-1}``. Leaves
+taken: ``scan_layers=True`` stacks the blocks under one name (``h`` for
+GPT-2, ``layers`` for LLaMA) with a leading layer axis,
+``scan_layers=False`` names them ``h_0 … h_{L-1}`` (``layers_0 …``). Leaves
 arrive as numpy arrays (``np.asarray`` works on JAX arrays too, without
 this package importing JAX); partition boxes must be unwrapped first.
 
@@ -24,6 +25,7 @@ import numpy as np
 import torch
 
 from .gpt2 import GPT2Config, GPT2LMHeadModel
+from .llama import LlamaConfig, LlamaForCausalLM
 
 
 def _flatten(tree: Mapping, prefix: str = ""):
@@ -35,52 +37,59 @@ def _flatten(tree: Mapping, prefix: str = ""):
             yield name, np.asarray(val)
 
 
+# each family's model class and the name of its block stack
+_FAMILIES = {GPT2Config: (GPT2LMHeadModel, "h"), LlamaConfig: (LlamaForCausalLM, "layers")}
+
+
 def is_flax_tree(params: Mapping) -> bool:
-    """A flax GPT-2 tree nests its leaves (``ln_f`` is a dict); a state dict
-    is flat."""
-    return isinstance(params.get("ln_f"), Mapping)
+    """A flax tree nests its leaves (GPT-2's ``ln_f``, LLaMA's ``norm`` and
+    the blocks are dicts); a state dict is flat."""
+    return any(isinstance(v, Mapping) for v in params.values())
 
 
-def _by_port_name(np_tree: Mapping, n_layer: int) -> dict[str, np.ndarray]:
+def _by_port_name(np_tree: Mapping, n_layer: int, stack: str = "h") -> dict[str, np.ndarray]:
     """The tree's leaves under the port's names, a scanned stack's leading
     layer axis split per block."""
     out = {}
     for name, arr in _flatten(np_tree):
         head, _, rest = name.partition(".")
-        if head == "h":                       # scanned stack: (L, ...) leaves
+        index = head[len(stack) + 1:]
+        if head == stack:                     # scanned stack: (L, ...) leaves
             if arr.shape[:1] != (n_layer,):
-                raise ValueError(f"scanned leaf h.{rest} has shape {arr.shape}, "
+                raise ValueError(f"scanned leaf {stack}.{rest} has shape {arr.shape}, "
                                  f"expected a leading axis of {n_layer} layers")
             for i in range(n_layer):
-                out[f"h.{i}.{rest}"] = arr[i]
-        elif head.startswith("h_") and head[2:].isdigit():
-            out[f"h.{int(head[2:])}.{rest}"] = arr
+                out[f"{stack}.{i}.{rest}"] = arr[i]
+        elif head.startswith(stack + "_") and index.isdigit():
+            out[f"{stack}.{int(index)}.{rest}"] = arr
         else:
             out[name] = arr
     return out
 
 
-def _param_shapes(cfg: GPT2Config) -> dict[str, tuple]:
+def _param_shapes(cfg) -> dict[str, tuple]:
+    model_cls, _ = _FAMILIES[type(cfg)]
     with torch.device("meta"):
-        return {k: tuple(p.shape) for k, p in GPT2LMHeadModel(cfg).named_parameters()}
+        return {k: tuple(p.shape) for k, p in model_cls(cfg).named_parameters()}
 
 
-def _check_names(got: Mapping, expected: Mapping, cfg: GPT2Config, what: str) -> None:
+def _check_names(got: Mapping, expected: Mapping, cfg, what: str) -> None:
     missing = sorted(expected.keys() - got.keys())
     extra = sorted(got.keys() - expected.keys())
     if missing or extra:
-        raise KeyError(f"{what} does not match GPT-2 {cfg.n_layer}x{cfg.n_embd}: "
+        family = _FAMILIES[type(cfg)][0].__name__
+        raise KeyError(f"{what} does not match {family} with {cfg.n_layer} layers: "
                        f"missing {missing[:5]}, unexpected {extra[:5]}")
 
 
-def gpt2_params_from_jax(np_tree: Mapping, cfg: GPT2Config) -> dict[str, torch.Tensor]:
+def params_from_jax(np_tree: Mapping, cfg) -> dict[str, torch.Tensor]:
     """The port's state dict (CPU tensors, the tree's dtypes) for a flax
-    GPT-2 param tree: full width, or quantized by the JAX engine (W8A16
-    ``*_kernel_q`` int8 codes and ``*_kernel_s`` fp32 scales in place of
-    each dense ``*_kernel``, grouped by ``cfg.w8_group``). Raises
-    ``KeyError`` on missing or unexpected leaves and ``ValueError`` on a
-    shape mismatch."""
-    out = _by_port_name(np_tree, cfg.n_layer)
+    param tree of ``cfg``'s family (GPT-2 or LLaMA), scanned or not: full
+    width, or quantized by the JAX engine (W8A16 ``*_kernel_q`` int8 codes
+    and ``*_kernel_s`` fp32 scales in place of each dense ``*_kernel``,
+    grouped by ``cfg.w8_group``). Raises ``KeyError`` on missing or
+    unexpected leaves and ``ValueError`` on a shape mismatch."""
+    out = _by_port_name(np_tree, cfg.n_layer, _FAMILIES[type(cfg)][1])
     w8 = any(k.endswith("_kernel_q") for k in out)
     expected = _param_shapes(dataclasses.replace(cfg, w8=w8))
     _check_names(out, expected, cfg, "flax tree")
@@ -88,6 +97,17 @@ def gpt2_params_from_jax(np_tree: Mapping, cfg: GPT2Config) -> dict[str, torch.T
         if out[k].shape != shape:
             raise ValueError(f"{k}: flax shape {out[k].shape}, port expects {shape}")
     return {k: _tensor(out[k]) for k in expected}
+
+
+def gpt2_params_from_jax(np_tree: Mapping, cfg: GPT2Config) -> dict[str, torch.Tensor]:
+    """:func:`params_from_jax` for a GPT-2 tree."""
+    return params_from_jax(np_tree, cfg)
+
+
+def llama_params_from_jax(np_tree: Mapping, cfg: LlamaConfig) -> dict[str, torch.Tensor]:
+    """:func:`params_from_jax` for a LLaMA tree (``embed_tokens``, the
+    ``layers`` stack, ``norm``, the untied ``lm_head``)."""
+    return params_from_jax(np_tree, cfg)
 
 
 def adam8bit_state_from_jax(state, cfg: GPT2Config) -> dict:

@@ -42,10 +42,10 @@ from torch import nn
 
 from ..ops.attention import cached_decode_attention, dot_product_attention
 from ..ops.decode_layer import fused_norm_proj, fused_post_attn
-from ..ops.w8 import w8_group_size, w8a16_matmul
+from ..ops.w8 import w8a16_matmul
 from .common import (ModelOutput, append_kv_cache, chunked_lm_loss, cross_entropy_loss,
-                     decode_fused_plan, layer_norm, pallas_lm_loss, resolve_remat_policy,
-                     shift_labels)
+                     declare_dense, decode_fused_plan, dense_weight, layer_norm, new_param,
+                     pallas_lm_loss, resolve_remat_policy, shift_labels)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -107,6 +107,11 @@ class GPT2Config:
             raise ValueError(f"n_embd {self.n_embd} is not a multiple of n_head {self.n_head}")
         return self.n_embd // self.n_head
 
+    @property
+    def kv_heads(self) -> int:
+        """KV heads of the cache (the batcher's family-blind name): GPT-2 is MHA."""
+        return self.n_head
+
 
 # the JAX package's presets
 PRESETS = {
@@ -125,32 +130,6 @@ def gpt2_config(preset: str = "gpt2-125m", **overrides) -> GPT2Config:
     return GPT2Config(**{**PRESETS[preset], **overrides})
 
 
-def _param(shape, device, dtype) -> nn.Parameter:
-    return nn.Parameter(torch.empty(shape, device=device, dtype=dtype))
-
-
-def _declare_dense(mod: nn.Module, name: str, k: int, n: int, cfg: GPT2Config, device, dtype):
-    """A dense layer's parameters under the flax names: ``name_kernel``
-    ``(k, n)``, or under ``cfg.w8`` the pair ``name_kernel_q`` (int8
-    ``(k, n)``) and ``name_kernel_s`` (fp32 ``(k/g, n)``); and ``name_bias``."""
-    if cfg.w8:
-        g = w8_group_size(k, cfg.w8_group)
-        for suffix, shape, dt in (("_kernel_q", (k, n), torch.int8),
-                                  ("_kernel_s", (k // g, n), torch.float32)):
-            setattr(mod, name + suffix, nn.Parameter(
-                torch.empty(shape, device=device, dtype=dt), requires_grad=False))
-    else:
-        setattr(mod, name + "_kernel", _param((k, n), device, dtype))
-    setattr(mod, name + "_bias", _param((n,), device, dtype))
-
-
-def _weight(mod: nn.Module, name: str, dtype):
-    """The dense kernel at the compute dtype, or its W8A16 (codes, scales) pair."""
-    if mod.cfg.w8:
-        return getattr(mod, name + "_kernel_q"), getattr(mod, name + "_kernel_s")
-    return getattr(mod, name + "_kernel").to(dtype)
-
-
 def _dense(x, weight, bias, dtype):
     y = w8a16_matmul(x, *weight) if isinstance(weight, tuple) else x @ weight
     return y + bias.to(dtype)
@@ -160,8 +139,8 @@ class LayerNorm(nn.Module):
     def __init__(self, cfg: GPT2Config, device=None, dtype=torch.float32):
         super().__init__()
         self.eps = cfg.layer_norm_epsilon
-        self.scale = _param((cfg.n_embd,), device, dtype)
-        self.bias = _param((cfg.n_embd,), device, dtype)
+        self.scale = new_param((cfg.n_embd,), device, dtype)
+        self.bias = new_param((cfg.n_embd,), device, dtype)
 
     def forward(self, x):
         return layer_norm(x, self.scale, self.bias, self.eps)
@@ -172,8 +151,8 @@ class SelfAttention(nn.Module):
         super().__init__()
         self.cfg = cfg
         E = cfg.n_embd
-        _declare_dense(self, "c_attn", E, 3 * E, cfg, device, dtype)
-        _declare_dense(self, "c_proj", E, E, cfg, device, dtype)
+        declare_dense(self, "c_attn", E, 3 * E, cfg, device, dtype)
+        declare_dense(self, "c_proj", E, E, cfg, device, dtype)
 
     def _heads(self, qkv):
         B, S, _ = qkv.shape
@@ -194,9 +173,9 @@ class SelfAttention(nn.Module):
 
     def forward(self, x, mask, layer_cache=None):
         dt = self.cfg.dtype
-        y = self.mix(_dense(x, _weight(self, "c_attn", dt), self.c_attn_bias, dt), mask,
+        y = self.mix(_dense(x, dense_weight(self, "c_attn", dt), self.c_attn_bias, dt), mask,
                      layer_cache)
-        return _dense(y, _weight(self, "c_proj", dt), self.c_proj_bias, dt)
+        return _dense(y, dense_weight(self, "c_proj", dt), self.c_proj_bias, dt)
 
 
 class MLP(nn.Module):
@@ -204,14 +183,14 @@ class MLP(nn.Module):
         super().__init__()
         self.cfg = cfg
         E, F = cfg.n_embd, 4 * cfg.n_embd
-        _declare_dense(self, "c_fc", E, F, cfg, device, dtype)
-        _declare_dense(self, "c_proj", F, E, cfg, device, dtype)
+        declare_dense(self, "c_fc", E, F, cfg, device, dtype)
+        declare_dense(self, "c_proj", F, E, cfg, device, dtype)
 
     def forward(self, x):
         dt = self.cfg.dtype
-        h = nn.functional.gelu(_dense(x, _weight(self, "c_fc", dt), self.c_fc_bias, dt),
+        h = nn.functional.gelu(_dense(x, dense_weight(self, "c_fc", dt), self.c_fc_bias, dt),
                                approximate="tanh")   # gelu_new
-        return _dense(h, _weight(self, "c_proj", dt), self.c_proj_bias, dt)
+        return _dense(h, dense_weight(self, "c_proj", dt), self.c_proj_bias, dt)
 
 
 class Block(nn.Module):
@@ -238,13 +217,13 @@ class Block(nn.Module):
         """A single-token tick through the two fused decode kernels around
         decode attention: LN→QKV, attention, o-proj→LN→MLP→residual."""
         cfg, dt, attn, mlp = self.cfg, self.cfg.dtype, self.attn, self.mlp
-        qkv = fused_norm_proj(x, self.ln_1.scale, self.ln_1.bias, _weight(attn, "c_attn", dt),
+        qkv = fused_norm_proj(x, self.ln_1.scale, self.ln_1.bias, dense_weight(attn, "c_attn", dt),
                               attn.c_attn_bias, eps=cfg.layer_norm_epsilon)
         y = attn.mix(qkv, mask, layer_cache)
         return fused_post_attn(
-            y, x, _weight(attn, "c_proj", dt), attn.c_proj_bias,
+            y, x, dense_weight(attn, "c_proj", dt), attn.c_proj_bias,
             self.ln_2.scale, self.ln_2.bias,
-            (_weight(mlp, "c_fc", dt), mlp.c_fc_bias, _weight(mlp, "c_proj", dt),
+            (dense_weight(mlp, "c_fc", dt), mlp.c_fc_bias, dense_weight(mlp, "c_proj", dt),
              mlp.c_proj_bias),
             eps=cfg.layer_norm_epsilon)
 
@@ -264,8 +243,8 @@ class GPT2LMHeadModel(nn.Module):
         self.cfg = cfg
         self.has_values = False
         E = cfg.n_embd
-        self.wte = _param((cfg.padded_vocab_size, E), device, dtype)
-        self.wpe = _param((cfg.n_positions, E), device, dtype)
+        self.wte = new_param((cfg.padded_vocab_size, E), device, dtype)
+        self.wpe = new_param((cfg.n_positions, E), device, dtype)
         self.h = nn.ModuleList(Block(cfg, device, dtype) for _ in range(cfg.n_layer))
         self.ln_f = LayerNorm(cfg, device, dtype)
 

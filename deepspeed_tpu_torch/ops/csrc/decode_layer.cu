@@ -1,28 +1,40 @@
-// The two fused decode-layer kernels of a GPT-2 decode tick, with weights in
-// the activation dtype or as W8A16 pairs (int8 codes + grouped fp32 scales).
+// The two fused decode-layer kernels of a decode tick, with weights in the
+// activation dtype or as W8A16 pairs (int8 codes + grouped fp32 scales), for
+// GPT-2 (LayerNorm, GELU-tanh pair) and LLaMA (RMSNorm, SwiGLU).
 //
 // norm_proj_fwd / norm_proj_w8_fwd replace _norm_proj_kernel
 // (deepspeed_tpu/ops/pallas/decode_layer.py:185):
-//   out = cast(cast(LN(x)) @ W + b)        LN in fp32, product and bias in fp32
+//   out = cast(cast(norm(x)) @ W + b)      norm in fp32, product and bias in fp32
+// norm is LayerNorm, or with rms set RMSNorm, x * rsqrt(mean(x^2) + eps) *
+// scale (no mean, no bias; the same fp32 reduction order as the LayerNorm
+// variance).
 // post_attn_fwd / post_attn_w8_fwd replace _post_attn_kernel
-// (decode_layer.py:344), GELU-tanh pair, LayerNorm, sequential residual:
+// (decode_layer.py:344), GELU-tanh pair, sequential residual:
 //   r1  = x + y @ Wo + bo                  fp32, kept in fp32
-//   hin = cast(LN(r1))
+//   hin = cast(norm(r1))
 //   h   = cast(gelu_tanh(hin @ W1 + b1))
 //   out = cast(r1 + h @ W2 + b2)
+// post_attn_swiglu_fwd / post_attn_swiglu_w8_fwd replace its SwiGLU branch
+// (decode_layer.py:385-392), three MLP panels and no MLP biases:
+//   r1  = x + y @ Wo + bo                  (bo zeros for LLaMA, as the JAX wrapper passes)
+//   hin = cast(norm(r1))
+//   h   = cast(silu(hin @ Wg) * (hin @ Wu))  gate and up fp32 products, h in fp32
+//   out = cast(r1 + h @ Wd)
 // "cast" is the activation dtype; the cast points are the TPU kernel's. In
 // the W8 entries each "@ W" is the TPU kernels' _qdot_any (decode_layer.py
 // :160): codes upcast to the activation's values, per-group fp32 partials
-// times the group's scale.
+// times the group's scale; gate and up share the group size over E, the
+// down panel has its own over F.
 //
 // Bound on the H100: bytes (rows_gemv.cuh). Every product is the
 // row-batched GEMV of rows_gemv.cuh. The TPU kernel carried r1, hin and the
 // accumulator across a sequential grid; Hopper blocks run in no order, so
 // post_attn makes three launches with a grid-wide step between them: o-proj
-// + residual into an fp32 scratch r1, then norm + up-proj + GELU into a
+// + residual into an fp32 scratch r1, then norm + up-proj + GELU (or norm +
+// gate/up + SwiGLU, both panels in one pass over the staged rows) into a
 // scratch h, then down-proj + residual. The down projection's K is F; its
-// scale groups (g = 128 at every GPT-2 preset, or one group of F) fold at
-// each group's end and at each 1024-row chunk's end (rows_gemv.cuh).
+// scale groups (g = 128, or one group of F) fold at each group's end and at
+// each 1024-row chunk's end (rows_gemv.cuh).
 #include "rows_gemv.cuh"
 
 namespace {
@@ -39,13 +51,14 @@ struct Weight {
 
 template <typename T, typename W>
 cudaError_t norm_proj(const void* x, const float* ns, const float* nb, Weight<W> w,
-                      const void* b, void* out, int M, int E, int N, float eps,
+                      const void* b, void* out, int M, int E, int N, float eps, int rms,
                       cudaStream_t stream) {
   gv::Args<T, T, W> a{};
   a.src = static_cast<const T*>(x);
   a.ns = ns;
   a.nb = nb;
   a.eps = eps;
+  a.rms = rms;
   a.w = w.w;
   a.scale = w.scale;
   a.group = w.group;
@@ -57,12 +70,11 @@ cudaError_t norm_proj(const void* x, const float* ns, const float* nb, Weight<W>
   return gv::launch<T, T, W, gv::kNormProj>(a, stream);
 }
 
+// r1 = x + y @ Wo + bo, the first of post_attn's three launches.
 template <typename T, typename W>
-cudaError_t post_attn(const void* y, const void* x, Weight<W> wo, const void* bo,
-                      const float* ns, const float* nb, Weight<W> w1, const void* b1,
-                      Weight<W> w2, const void* b2, float* r1, void* h, void* out,
-                      int M, int E, int F, float eps, cudaStream_t stream) {
-  gv::Args<T, T, W> o{};  // r1 = x + y @ Wo + bo
+cudaError_t oproj_residual(const void* y, const void* x, Weight<W> wo, const void* bo,
+                           float* r1, int M, int E, cudaStream_t stream) {
+  gv::Args<T, T, W> o{};
   o.src = static_cast<const T*>(y);
   o.w = wo.w;
   o.scale = wo.scale;
@@ -73,26 +85,14 @@ cudaError_t post_attn(const void* y, const void* x, Weight<W> wo, const void* bo
   o.M = M;
   o.K = E;
   o.N = E;
-  cudaError_t err = gv::launch<T, T, W, gv::kOProjResidual>(o, stream);
-  if (err != cudaSuccess) return err;
+  return gv::launch<T, T, W, gv::kOProjResidual>(o, stream);
+}
 
-  gv::Args<T, float, W> u{};  // h = gelu(LN(r1) @ W1 + b1)
-  u.src = r1;
-  u.ns = ns;
-  u.nb = nb;
-  u.eps = eps;
-  u.w = w1.w;
-  u.scale = w1.scale;
-  u.group = w1.group;
-  u.bias = static_cast<const T*>(b1);
-  u.out = h;
-  u.M = M;
-  u.K = E;
-  u.N = F;
-  err = gv::launch<T, float, W, gv::kNormUpGelu>(u, stream);
-  if (err != cudaSuccess) return err;
-
-  gv::Args<T, T, W> d{};  // out = r1 + h @ W2 + b2
+// out = r1 + h @ W2 (+ b2 where given), the last of post_attn's launches.
+template <typename T, typename W>
+cudaError_t down_residual(const void* h, Weight<W> w2, const void* b2, const float* r1,
+                          void* out, int M, int E, int F, cudaStream_t stream) {
+  gv::Args<T, T, W> d{};
   d.src = static_cast<const T*>(h);
   d.w = w2.w;
   d.scale = w2.scale;
@@ -104,6 +104,56 @@ cudaError_t post_attn(const void* y, const void* x, Weight<W> wo, const void* bo
   d.K = F;
   d.N = E;
   return gv::launch<T, T, W, gv::kDownResidual>(d, stream);
+}
+
+// The middle launch's norm over the fp32 r1 scratch.
+template <typename T, typename W>
+gv::Args<T, float, W> norm_up_args(const float* r1, const float* ns, const float* nb, float eps,
+                                   int rms, Weight<W> w1, void* h, int M, int E, int F) {
+  gv::Args<T, float, W> u{};
+  u.src = r1;
+  u.ns = ns;
+  u.nb = nb;
+  u.eps = eps;
+  u.rms = rms;
+  u.w = w1.w;
+  u.scale = w1.scale;
+  u.group = w1.group;
+  u.out = h;
+  u.M = M;
+  u.K = E;
+  u.N = F;
+  return u;
+}
+
+template <typename T, typename W>
+cudaError_t post_attn(const void* y, const void* x, Weight<W> wo, const void* bo,
+                      const float* ns, const float* nb, Weight<W> w1, const void* b1,
+                      Weight<W> w2, const void* b2, float* r1, void* h, void* out,
+                      int M, int E, int F, float eps, int rms, cudaStream_t stream) {
+  cudaError_t err = oproj_residual<T>(y, x, wo, bo, r1, M, E, stream);
+  if (err != cudaSuccess) return err;
+  gv::Args<T, float, W> u = norm_up_args<T>(r1, ns, nb, eps, rms, w1, h, M, E, F);
+  u.bias = static_cast<const T*>(b1);  // h = gelu(norm(r1) @ W1 + b1)
+  err = gv::launch<T, float, W, gv::kNormUpGelu>(u, stream);
+  if (err != cudaSuccess) return err;
+  return down_residual<T>(h, w2, b2, r1, out, M, E, F, stream);
+}
+
+template <typename T, typename W>
+cudaError_t post_attn_swiglu(const void* y, const void* x, Weight<W> wo, const void* bo,
+                             const float* ns, const float* nb, Weight<W> wg, Weight<W> wu,
+                             Weight<W> wd, float* r1, void* h, void* out, int M, int E, int F,
+                             float eps, int rms, cudaStream_t stream) {
+  if (wg.group != wu.group) return cudaErrorInvalidValue;
+  cudaError_t err = oproj_residual<T>(y, x, wo, bo, r1, M, E, stream);
+  if (err != cudaSuccess) return err;
+  gv::Args<T, float, W> u = norm_up_args<T>(r1, ns, nb, eps, rms, wg, h, M, E, F);
+  u.w2 = wu.w;  // h = silu(norm(r1) @ Wg) * (norm(r1) @ Wu)
+  u.scale2 = wu.scale;
+  err = gv::launch<T, float, W, gv::kNormGateUp>(u, stream);
+  if (err != cudaSuccess) return err;
+  return down_residual<T>(h, wd, nullptr, r1, out, M, E, F, stream);
 }
 
 template <typename T>
@@ -119,18 +169,19 @@ Weight<int8_t> w8(const void* codes, const void* scale, int group) {
 
 DS_DEFINE_ERROR_STRING
 
-// x (M, E); ns, nb (E,) fp32; w (E, N); b (N,); out (M, N). x, w, b and out
-// share one dtype. Returns the cudaGetLastError() of the launch.
+// x (M, E); ns, nb (E,) fp32 (nb unread under rms); w (E, N); b (N,); out
+// (M, N). x, w, b and out share one dtype. rms: RMSNorm instead of
+// LayerNorm. Returns the cudaGetLastError() of the launch.
 DS_EXPORT int norm_proj_fwd(const void* x, const void* ns, const void* nb, const void* w,
-                            const void* b, void* out, int M, int E, int N, float eps,
+                            const void* b, void* out, int M, int E, int N, float eps, int rms,
                             int dtype, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const float* nsf = static_cast<const float*>(ns);
   const float* nbf = static_cast<const float*>(nb);
   if (dtype == ds::kBFloat16)
-    return norm_proj<ds::bf16>(x, nsf, nbf, dense<ds::bf16>(w), b, out, M, E, N, eps, st);
+    return norm_proj<ds::bf16>(x, nsf, nbf, dense<ds::bf16>(w), b, out, M, E, N, eps, rms, st);
   if (dtype == ds::kFloat32)
-    return norm_proj<float>(x, nsf, nbf, dense<float>(w), b, out, M, E, N, eps, st);
+    return norm_proj<float>(x, nsf, nbf, dense<float>(w), b, out, M, E, N, eps, rms, st);
   return cudaErrorInvalidValue;
 }
 
@@ -138,15 +189,16 @@ DS_EXPORT int norm_proj_fwd(const void* x, const void* ns, const void* nb, const
 // (E / g, N), g the group size (E for one group).
 DS_EXPORT int norm_proj_w8_fwd(const void* x, const void* ns, const void* nb,
                                const void* codes, const void* scale, int g, const void* b,
-                               void* out, int M, int E, int N, float eps, int dtype,
+                               void* out, int M, int E, int N, float eps, int rms, int dtype,
                                void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const float* nsf = static_cast<const float*>(ns);
   const float* nbf = static_cast<const float*>(nb);
   if (dtype == ds::kBFloat16)
-    return norm_proj<ds::bf16>(x, nsf, nbf, w8(codes, scale, g), b, out, M, E, N, eps, st);
+    return norm_proj<ds::bf16>(x, nsf, nbf, w8(codes, scale, g), b, out, M, E, N, eps, rms,
+                               st);
   if (dtype == ds::kFloat32)
-    return norm_proj<float>(x, nsf, nbf, w8(codes, scale, g), b, out, M, E, N, eps, st);
+    return norm_proj<float>(x, nsf, nbf, w8(codes, scale, g), b, out, M, E, N, eps, rms, st);
   return cudaErrorInvalidValue;
 }
 
@@ -156,17 +208,17 @@ DS_EXPORT int norm_proj_w8_fwd(const void* x, const void* ns, const void* nb,
 DS_EXPORT int post_attn_fwd(const void* y, const void* x, const void* wo, const void* bo,
                             const void* ns, const void* nb, const void* w1, const void* b1,
                             const void* w2, const void* b2, void* r1, void* h, void* out,
-                            int M, int E, int F, float eps, int dtype, void* stream) {
+                            int M, int E, int F, float eps, int rms, int dtype, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const float* nsf = static_cast<const float*>(ns);
   const float* nbf = static_cast<const float*>(nb);
   float* r1f = static_cast<float*>(r1);
   if (dtype == ds::kBFloat16)
     return post_attn<ds::bf16>(y, x, dense<ds::bf16>(wo), bo, nsf, nbf, dense<ds::bf16>(w1),
-                               b1, dense<ds::bf16>(w2), b2, r1f, h, out, M, E, F, eps, st);
+                               b1, dense<ds::bf16>(w2), b2, r1f, h, out, M, E, F, eps, rms, st);
   if (dtype == ds::kFloat32)
     return post_attn<float>(y, x, dense<float>(wo), bo, nsf, nbf, dense<float>(w1), b1,
-                            dense<float>(w2), b2, r1f, h, out, M, E, F, eps, st);
+                            dense<float>(w2), b2, r1f, h, out, M, E, F, eps, rms, st);
   return cudaErrorInvalidValue;
 }
 
@@ -177,16 +229,63 @@ DS_EXPORT int post_attn_w8_fwd(const void* y, const void* x, const void* co, con
                                const void* c1, const void* s1, int g1, const void* b1,
                                const void* c2, const void* s2, int g2, const void* b2,
                                void* r1, void* h, void* out, int M, int E, int F, float eps,
-                               int dtype, void* stream) {
+                               int rms, int dtype, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const float* nsf = static_cast<const float*>(ns);
   const float* nbf = static_cast<const float*>(nb);
   float* r1f = static_cast<float*>(r1);
   if (dtype == ds::kBFloat16)
     return post_attn<ds::bf16>(y, x, w8(co, so, go), bo, nsf, nbf, w8(c1, s1, g1), b1,
-                               w8(c2, s2, g2), b2, r1f, h, out, M, E, F, eps, st);
+                               w8(c2, s2, g2), b2, r1f, h, out, M, E, F, eps, rms, st);
   if (dtype == ds::kFloat32)
     return post_attn<float>(y, x, w8(co, so, go), bo, nsf, nbf, w8(c1, s1, g1), b1,
-                            w8(c2, s2, g2), b2, r1f, h, out, M, E, F, eps, st);
+                            w8(c2, s2, g2), b2, r1f, h, out, M, E, F, eps, rms, st);
+  return cudaErrorInvalidValue;
+}
+
+// The SwiGLU branch: y, x (M, E); wo (E, E); bo (E,); ns, nb (E,) fp32 (nb
+// unread under rms); wg, wu (E, F); wd (F, E); scratch r1 (M, E) fp32 and h
+// (M, F); out (M, E). No MLP biases. Three launches, as post_attn_fwd.
+DS_EXPORT int post_attn_swiglu_fwd(const void* y, const void* x, const void* wo, const void* bo,
+                                   const void* ns, const void* nb, const void* wg,
+                                   const void* wu, const void* wd, void* r1, void* h, void* out,
+                                   int M, int E, int F, float eps, int rms, int dtype,
+                                   void* stream) {
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const float* nsf = static_cast<const float*>(ns);
+  const float* nbf = static_cast<const float*>(nb);
+  float* r1f = static_cast<float*>(r1);
+  if (dtype == ds::kBFloat16)
+    return post_attn_swiglu<ds::bf16>(y, x, dense<ds::bf16>(wo), bo, nsf, nbf,
+                                      dense<ds::bf16>(wg), dense<ds::bf16>(wu),
+                                      dense<ds::bf16>(wd), r1f, h, out, M, E, F, eps, rms, st);
+  if (dtype == ds::kFloat32)
+    return post_attn_swiglu<float>(y, x, dense<float>(wo), bo, nsf, nbf, dense<float>(wg),
+                                   dense<float>(wu), dense<float>(wd), r1f, h, out, M, E, F,
+                                   eps, rms, st);
+  return cudaErrorInvalidValue;
+}
+
+// As post_attn_swiglu_fwd with W8A16 weights: codes + scales + group size
+// for each of wo, wg, wu (groups over E, gate and up equal) and wd (over F).
+DS_EXPORT int post_attn_swiglu_w8_fwd(const void* y, const void* x, const void* co,
+                                      const void* so, int go, const void* bo, const void* ns,
+                                      const void* nb, const void* cg, const void* sg, int gg,
+                                      const void* cu, const void* su, int gu, const void* cd,
+                                      const void* sd, int gd, void* r1, void* h, void* out,
+                                      int M, int E, int F, float eps, int rms, int dtype,
+                                      void* stream) {
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const float* nsf = static_cast<const float*>(ns);
+  const float* nbf = static_cast<const float*>(nb);
+  float* r1f = static_cast<float*>(r1);
+  if (dtype == ds::kBFloat16)
+    return post_attn_swiglu<ds::bf16>(y, x, w8(co, so, go), bo, nsf, nbf, w8(cg, sg, gg),
+                                      w8(cu, su, gu), w8(cd, sd, gd), r1f, h, out, M, E, F,
+                                      eps, rms, st);
+  if (dtype == ds::kFloat32)
+    return post_attn_swiglu<float>(y, x, w8(co, so, go), bo, nsf, nbf, w8(cg, sg, gg),
+                                   w8(cu, su, gu), w8(cd, sd, gd), r1f, h, out, M, E, F, eps,
+                                   rms, st);
   return cudaErrorInvalidValue;
 }

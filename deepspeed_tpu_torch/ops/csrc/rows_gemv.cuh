@@ -6,9 +6,10 @@
 // most 2 * M flops, so reading the weight panel once is the whole cost.
 //
 // A block owns 16 output columns and 8 rows. It stages its rows' operand in
-// shared memory in chunks of 1024 (normalising on the way in for the LN
-// modes, with statistics the block computes itself, as the TPU kernels
-// recompute them per N tile), then 128 groups of threads stride down K,
+// shared memory in chunks of 1024 (normalising on the way in for the norm
+// modes, LayerNorm or RMSNorm, with statistics the block computes itself, as
+// the TPU kernels recompute them per N tile), then 128 groups of threads
+// stride down K,
 // each reading one piece of a weight row per step: 16 bytes (8 columns) of
 // a bf16 row, 32 bytes of an fp32 row, or 8 bytes (8 columns) of an int8
 // code row. A warp's loads are 16 rows x 32 (or 16) contiguous bytes; every
@@ -16,6 +17,11 @@
 // read the panel again). Partial sums reduce through warp
 // shuffles and shared memory; the epilogue applies the bias, residual and
 // GELU in fp32.
+//
+// SwiGLU (kNormGateUp) pairs two panels of one width, gate and up: a block
+// owns 8 columns of each, its even threads reading the gate panel and its
+// odd ones the up panel, so the staged rows feed both products in one pass
+// and the epilogue writes cast(silu(g) * u) for its 8 columns.
 //
 // W8A16 (W = int8): K and the group size are multiples of 128 (or the
 // group is all of K). Codes upcast in registers to the activation's values
@@ -53,7 +59,10 @@ constexpr int kSteps = kChunk / kKGroups;        // rows a thread takes from a c
 
 constexpr float kSqrt2OverPi = 0.7978845608028654f;
 
-enum Mode : int { kNormProj, kOProjResidual, kNormUpGelu, kDownResidual, kMatmul };
+enum Mode : int { kNormProj, kOProjResidual, kNormUpGelu, kDownResidual, kMatmul, kNormGateUp };
+
+// Output columns a block writes: kNormGateUp spends its 16 on 8 of each panel.
+__host__ __device__ constexpr int block_cols(int mode) { return mode == kNormGateUp ? 8 : kCols; }
 
 // T: activation dtype (bias, residual and output). S: dtype of the row
 // operand (T, or fp32 for the r1 scratch). W: weight storage (T, or int8
@@ -62,12 +71,15 @@ template <typename T, typename S, typename W>
 struct Args {
   const S* src;           // (M, K) row operand
   const float* ns;        // (K,) norm scale, norm modes
-  const float* nb;        // (K,) norm bias, norm modes
+  const float* nb;        // (K,) norm bias, LayerNorm modes
   float eps;
-  const W* w;             // (K, N), row-major
+  int rms;                // norm modes: RMSNorm (no mean, no bias) instead of LayerNorm
+  const W* w;             // (K, N), row-major; the gate panel in kNormGateUp
   const float* scale;     // (K / group, N) fp32, int8 weights
   int group;              // rows per scale group (K for one group)
-  const T* bias;          // (N,)
+  const W* w2;            // (K, N) up panel, kNormGateUp
+  const float* scale2;    // its scales (same group), int8 weights
+  const T* bias;          // (N,); may be null in kDownResidual (no bias)
   const T* resid;         // (M, N) x, kOProjResidual
   const float* resid_f;   // (M, N) r1, kDownResidual
   void* out;              // (M, N): fp32 for kOProjResidual and kMatmul, else T
@@ -79,6 +91,11 @@ __device__ __forceinline__ float gelu_tanh(float u) {
   // (deepspeed_tpu/ops/pallas/fused_ops.py:165)
   const float inner = kSqrt2OverPi * (u + 0.044715f * u * u * u);
   return 0.5f * u * (1.f + tanhf(inner));
+}
+
+__device__ __forceinline__ float swiglu(float g, float u) {
+  // (gate * sigmoid(gate)) * up, as _post_attn_kernel computes h
+  return (g * (1.f / (1.f + expf(-g)))) * u;
 }
 
 // Eight int8 codes (8 bytes, little-endian) as floats.
@@ -103,24 +120,28 @@ __device__ __forceinline__ void fma_rows(float (*a_sm)[kChunk], int kk, const fl
 
 template <typename T, typename S, typename W, int MODE>
 __global__ void __launch_bounds__(kThreads) rows_gemv_kernel(const Args<T, S, W> a) {
-  constexpr bool kNorm = MODE == kNormProj || MODE == kNormUpGelu;
+  constexpr bool kNorm = MODE == kNormProj || MODE == kNormUpGelu || MODE == kNormGateUp;
   constexpr bool kQuant = std::is_same<W, int8_t>::value;
+  constexpr bool kPair = MODE == kNormGateUp;
   __shared__ float a_sm[kRows][kChunk];
   __shared__ float mean_sm[kRows], rstd_sm[kRows];
   __shared__ float red_sm[kWarps][kRows][kCols];
   __shared__ float sc_sm[kSteps][kCols];
   const int tid = threadIdx.x;
   const int warp = tid / 32, lane = tid % 32;
-  const int n0 = blockIdx.x * kCols;
+  const int n0 = blockIdx.x * block_cols(MODE);
   const int m0 = blockIdx.y * kRows;
   const int rows = min(kRows, a.M - m0);
 
-  if (kNorm) {  // fp32 LayerNorm statistics, one warp per row
+  if (kNorm) {  // fp32 norm statistics, one warp per row
     for (int r = warp; r < rows; r += kWarps) {
       const S* xr = a.src + (size_t)(m0 + r) * a.K;
-      float s = 0.f;
-      for (int k = lane; k < a.K; k += 32) s += ds::to_float(xr[k]);
-      const float mean = ds::warp_sum(s) / a.K;
+      float mean = 0.f;  // RMSNorm: mean(x^2), in the same order as the variance
+      if (!a.rms) {
+        float s = 0.f;
+        for (int k = lane; k < a.K; k += 32) s += ds::to_float(xr[k]);
+        mean = ds::warp_sum(s) / a.K;
+      }
       float v = 0.f;
       for (int k = lane; k < a.K; k += 32) {
         const float d = ds::to_float(xr[k]) - mean;
@@ -143,7 +164,9 @@ __global__ void __launch_bounds__(kThreads) rows_gemv_kernel(const Args<T, S, W>
 
   const int cg = tid % kColGroups;
   const int kg = tid / kColGroups;
-  const W* wcol = a.w + n0 + cg * 8;
+  // kNormGateUp: column group 0 reads the gate panel, 1 the up panel, at
+  // the same 8 columns
+  const W* wcol = kPair ? (cg ? a.w2 : a.w) + n0 : a.w + n0 + cg * 8;
   for (int k0 = 0; k0 < a.K; k0 += kChunk) {
     const int kc = min(kChunk, a.K - k0);
     for (int r = 0; r < kRows; ++r) {
@@ -152,7 +175,9 @@ __global__ void __launch_bounds__(kThreads) rows_gemv_kernel(const Args<T, S, W>
         if (r < rows) {
           v = ds::to_float(a.src[(size_t)(m0 + r) * a.K + k0 + kk]);
           if (kNorm)  // normalised in fp32, then cast before the product
-            v = ds::round_to<T>((v - mean_sm[r]) * rstd_sm[r] * a.ns[k0 + kk] + a.nb[k0 + kk]);
+            v = ds::round_to<T>(a.rms ? v * rstd_sm[r] * a.ns[k0 + kk]
+                                      : (v - mean_sm[r]) * rstd_sm[r] * a.ns[k0 + kk] +
+                                            a.nb[k0 + kk]);
         }
         a_sm[r][kk] = v;
       }
@@ -161,8 +186,11 @@ __global__ void __launch_bounds__(kThreads) rows_gemv_kernel(const Args<T, S, W>
     if constexpr (kQuant) {  // the scales of the groups this chunk touches
       u0 = k0 / a.group;
       const int nu = (k0 + kc - 1) / a.group - u0 + 1;
-      for (int i = tid; i < nu * kCols; i += kThreads)
-        sc_sm[i / kCols][i % kCols] = a.scale[(size_t)(u0 + i / kCols) * a.N + n0 + i % kCols];
+      for (int i = tid; i < nu * kCols; i += kThreads) {
+        const int u = u0 + i / kCols, c = i % kCols;
+        sc_sm[i / kCols][c] = kPair ? (c < 8 ? a.scale : a.scale2)[(size_t)u * a.N + n0 + c % 8]
+                                    : a.scale[(size_t)u * a.N + n0 + c];
+      }
     }
     __syncthreads();
     if constexpr (kQuant) {
@@ -226,7 +254,19 @@ __global__ void __launch_bounds__(kThreads) rows_gemv_kernel(const Args<T, S, W>
   }
   __syncthreads();
 
-  if (tid < kRows * kCols) {
+  if constexpr (kPair) {  // h = cast(silu(g) * u): gate sums in 0-7, up in 8-15
+    if (tid < kRows * 8) {
+      const int r = tid / 8, c = tid % 8;
+      if (r < rows) {
+        float g = 0.f, u = 0.f;
+        for (int w = 0; w < kWarps; ++w) {
+          g += red_sm[w][r][c];
+          u += red_sm[w][r][8 + c];
+        }
+        static_cast<T*>(a.out)[(size_t)(m0 + r) * a.N + n0 + c] = ds::from_float<T>(swiglu(g, u));
+      }
+    }
+  } else if (tid < kRows * kCols) {
     const int r = tid / kCols, c = tid % kCols;
     if (r < rows) {
       float v = 0.f;
@@ -235,16 +275,18 @@ __global__ void __launch_bounds__(kThreads) rows_gemv_kernel(const Args<T, S, W>
       const size_t o = (size_t)(m0 + r) * a.N + n;
       if constexpr (MODE == kMatmul) {
         static_cast<float*>(a.out)[o] = v;
+      } else if constexpr (MODE == kDownResidual) {
+        float out = a.resid_f[o] + v;
+        if (a.bias) out += ds::to_float(a.bias[n]);
+        static_cast<T*>(a.out)[o] = ds::from_float<T>(out);
       } else {
         const float bias = ds::to_float(a.bias[n]);
         if constexpr (MODE == kNormProj) {
           static_cast<T*>(a.out)[o] = ds::from_float<T>(v + bias);
         } else if constexpr (MODE == kOProjResidual) {
           static_cast<float*>(a.out)[o] = (ds::to_float(a.resid[o]) + v) + bias;
-        } else if constexpr (MODE == kNormUpGelu) {
-          static_cast<T*>(a.out)[o] = ds::from_float<T>(gelu_tanh(v + bias));
         } else {
-          static_cast<T*>(a.out)[o] = ds::from_float<T>((a.resid_f[o] + v) + bias);
+          static_cast<T*>(a.out)[o] = ds::from_float<T>(gelu_tanh(v + bias));
         }
       }
     }
@@ -253,11 +295,11 @@ __global__ void __launch_bounds__(kThreads) rows_gemv_kernel(const Args<T, S, W>
 
 template <typename T, typename S, typename W, int MODE>
 cudaError_t launch(const Args<T, S, W>& a, cudaStream_t stream) {
-  if (a.N % kCols) return cudaErrorInvalidValue;
+  if (a.N % block_cols(MODE)) return cudaErrorInvalidValue;
   if (std::is_same<W, int8_t>::value &&
       (a.K % kKGroups || a.group <= 0 || a.group % kKGroups || a.K % a.group))
     return cudaErrorInvalidValue;
-  const dim3 grid(a.N / kCols, (a.M + kRows - 1) / kRows);
+  const dim3 grid(a.N / block_cols(MODE), (a.M + kRows - 1) / kRows);
   rows_gemv_kernel<T, S, W, MODE><<<grid, kThreads, 0, stream>>>(a);
   return cudaGetLastError();
 }

@@ -1,13 +1,16 @@
 """Fused decode-row kernels: norm → projection, and o-proj → norm → MLP.
 
 Port of ``deepspeed_tpu/ops/pallas/decode_layer.py`` for the branches the
-GPT-2 decode tick runs: LayerNorm, the GELU-tanh MLP pair and a sequential
-residual, with weights in the activation dtype or as W8A16 pairs (int8
-codes ``(K, N)`` + fp32 scales ``(K/g, N)``, the ``ops/w8.py`` layout).
-The TPU kernels ``_norm_proj_kernel`` and ``_post_attn_kernel`` become
-``csrc/decode_layer.cu`` (one launch, and three launches, respectively;
-see its header and ``csrc/rows_gemv.cuh`` for the design and bound), one
-C entry per weight kind.
+GPT-2 and LLaMA decode ticks run: LayerNorm or RMSNorm (``rms``), the
+GELU-tanh MLP pair or the three-panel SwiGLU MLP (``swiglu``), and a
+sequential residual, with weights in the activation dtype or as W8A16 pairs
+(int8 codes ``(K, N)`` + fp32 scales ``(K/g, N)``, the ``ops/w8.py``
+layout). The TPU kernels ``_norm_proj_kernel`` and ``_post_attn_kernel``
+become ``csrc/decode_layer.cu`` (one launch, and three launches,
+respectively; see its header and ``csrc/rows_gemv.cuh`` for the design and
+bound), one C entry per MLP and weight kind, the norm a flag. Each branch
+has its own launch count (``NORM_PROJ_RMS``, ``POST_ATTN_SWIGLU`` and their
+W8 twins beside GPT-2's).
 
 :func:`fused_norm_proj` and :func:`fused_post_attn` launch the kernels for
 CUDA tensors and run :func:`norm_proj_plain` / :func:`post_attn_plain`,
@@ -17,8 +20,8 @@ the unfused op chains the stock module path computes; in a low-precision
 dtype they round at other points than the fused kernels, so each path is
 held against its own JAX counterpart.
 
-Branches of the TPU kernels not ported yet (RMSNorm, SwiGLU, exact GELU,
-parallel residual) raise ``NotImplementedError`` naming their ROADMAP
+Branches of the TPU kernels not ported yet (exact GELU and the parallel
+residual, GPT-NeoX's) raise ``NotImplementedError`` naming their ROADMAP
 entry.
 """
 from __future__ import annotations
@@ -31,15 +34,23 @@ import torch
 from ._build import FLOAT, INT, PTR, Kernel, check_operands, dtype_code, stream_of
 from .w8 import w8a16_matmul
 
-NORM_PROJ = Kernel("decode_layer", "norm_proj_fwd",
-                   [PTR, PTR, PTR, PTR, PTR, PTR, INT, INT, INT, FLOAT, INT, PTR])
-POST_ATTN = Kernel("decode_layer", "post_attn_fwd",
-                   [PTR] * 13 + [INT, INT, INT, FLOAT, INT, PTR])
-NORM_PROJ_W8 = Kernel("decode_layer", "norm_proj_w8_fwd",
-                      [PTR, PTR, PTR, PTR, PTR, INT, PTR, PTR, INT, INT, INT, FLOAT, INT, PTR])
+_TAIL = [INT, INT, INT, FLOAT, INT, INT, PTR]   # M, K/E, N/F, eps, rms, dtype, stream
+_NORM_PROJ_ARGS = [PTR] * 6 + _TAIL
+_NORM_PROJ_W8_ARGS = [PTR, PTR, PTR, PTR, PTR, INT, PTR, PTR] + _TAIL
+# the LayerNorm (GPT-2) and RMSNorm (LLaMA) branches share a C entry and
+# keep separate launch counts
+NORM_PROJ = Kernel("decode_layer", "norm_proj_fwd", _NORM_PROJ_ARGS)
+NORM_PROJ_RMS = Kernel("decode_layer", "norm_proj_fwd", _NORM_PROJ_ARGS)
+NORM_PROJ_W8 = Kernel("decode_layer", "norm_proj_w8_fwd", _NORM_PROJ_W8_ARGS)
+NORM_PROJ_RMS_W8 = Kernel("decode_layer", "norm_proj_w8_fwd", _NORM_PROJ_W8_ARGS)
+POST_ATTN = Kernel("decode_layer", "post_attn_fwd", [PTR] * 13 + _TAIL)
 POST_ATTN_W8 = Kernel("decode_layer", "post_attn_w8_fwd",
                       [PTR, PTR, PTR, PTR, INT] + [PTR] * 5 + [INT, PTR, PTR, PTR, INT]
-                      + [PTR] * 4 + [INT, INT, INT, FLOAT, INT, PTR])
+                      + [PTR] * 4 + _TAIL)
+POST_ATTN_SWIGLU = Kernel("decode_layer", "post_attn_swiglu_fwd", [PTR] * 12 + _TAIL)
+POST_ATTN_SWIGLU_W8 = Kernel("decode_layer", "post_attn_swiglu_w8_fwd",
+                             [PTR, PTR, PTR, PTR, INT, PTR, PTR, PTR]
+                             + [PTR, PTR, INT] * 3 + [PTR] * 3 + _TAIL)
 
 MAX_ROWS = 64      # the decode regime; prefill rows take the unfused chain
 _SQRT_2_OVER_PI = 0.7978845608028654
@@ -52,9 +63,13 @@ def gelu_tanh(u: torch.Tensor) -> torch.Tensor:
     return 0.5 * u * (1.0 + torch.tanh(inner))
 
 
-def _norm_rows(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
-               eps: float) -> torch.Tensor:
-    """fp32 LayerNorm over the last dim (``_norm_rows`` of the TPU module)."""
+def _norm_rows(x: torch.Tensor, scale: torch.Tensor, bias: Optional[torch.Tensor],
+               eps: float, rms: bool = False) -> torch.Tensor:
+    """fp32 LayerNorm, or RMSNorm (no mean, no bias), over the last dim
+    (``_norm_rows`` of the TPU module)."""
+    if rms:
+        var = (x * x).mean(-1, keepdim=True)
+        return x * torch.rsqrt(var + eps) * scale
     mean = x.mean(-1, keepdim=True)
     var = ((x - mean) ** 2).mean(-1, keepdim=True)
     return (x - mean) * torch.rsqrt(var + eps) * scale + bias
@@ -88,10 +103,8 @@ def post_attn_supported(m: int, e: int, f: int, quant: bool = False, groups_e: i
     return not quant or (_w8_groups_ok(e, groups_e) and _w8_groups_ok(f, groups_f))
 
 
-def _reject_deferred(rms=False, swiglu=False, exact_gelu=False, parallel_residual=False):
-    for flag, what in ((rms, "RMSNorm"), (swiglu, "SwiGLU MLP"),
-                       (exact_gelu, "exact GELU"),
-                       (parallel_residual, "parallel residual")):
+def _reject_deferred(exact_gelu=False, parallel_residual=False):
+    for flag, what in ((exact_gelu, "exact GELU"), (parallel_residual, "parallel residual")):
         if flag:
             raise NotImplementedError(f"fused decode kernels: {what} {_DEFERRED}")
 
@@ -130,21 +143,31 @@ def _dot(a, w):
     return out
 
 
-def norm_proj_plain(x, ns, nb, w, b, eps):
-    """``cast(cast(LN(x)) @ W + b)``: LN in fp32, cast to x's dtype before
-    the product (``decode_layer.py:195``), fp32 product and bias. ``w``:
+def norm_proj_plain(x, ns, nb, w, b, eps, rms=False):
+    """``cast(cast(norm(x)) @ W + b)``: the norm (LayerNorm, or RMSNorm with
+    ``rms``, which reads no ``nb``) in fp32, cast to x's dtype before the
+    product (``decode_layer.py:195``), fp32 product and bias. ``w``:
     ``(E, N)`` or a W8A16 pair."""
     cdt = x.dtype
-    xn = _norm_rows(x.float(), ns.float(), nb.float(), eps).to(cdt)
+    xn = _norm_rows(x.float(), ns.float(), nb.float(), eps, rms).to(cdt)
     return (_dot(xn, w) + b.to(cdt).float()).to(cdt)
 
 
-def post_attn_plain(y, x, wo, bo, ns, nb, w1, b1, w2, b2, eps):
-    """o-proj + residual → LN → GELU-tanh MLP → residual, with r1 kept in
-    fp32 and casts where ``_post_attn_kernel`` casts (:382, :396)."""
+def post_attn_plain(y, x, wo, bo, ns, nb, mlp_weights, eps, swiglu=False, rms=False):
+    """o-proj + residual → norm → MLP → residual, with r1 kept in fp32 and
+    casts where ``_post_attn_kernel`` casts (:382, :396). ``mlp_weights``:
+    ``(w1, b1, w2, b2)`` for the GELU-tanh pair, ``(wg, wu, wd)`` with
+    ``swiglu`` (gate and up fp32 products, ``silu(gate)·up`` in fp32 and cast
+    before the down product, no MLP biases)."""
     cdt = x.dtype
     r1 = (x.float() + _dot(y, wo)) + bo.to(cdt).float()
-    hin = _norm_rows(r1, ns.float(), nb.float(), eps).to(cdt)
+    hin = _norm_rows(r1, ns.float(), nb.float(), eps, rms).to(cdt)
+    if swiglu:
+        wg, wu, wd = mlp_weights
+        gate, up = _dot(hin, wg), _dot(hin, wu)
+        h = ((gate * torch.sigmoid(gate)) * up).to(cdt)
+        return (r1 + _dot(h, wd)).to(cdt)
+    w1, b1, w2, b2 = mlp_weights
     h = gelu_tanh(_dot(hin, w1) + b1.to(cdt).float()).to(cdt)
     return ((r1 + _dot(h, w2)) + b2.to(cdt).float()).to(cdt)
 
@@ -161,17 +184,27 @@ def _dense(a, w, b):
     return out if b is None else out + b.to(out.dtype)
 
 
-def reference_norm_proj(x, norm_scale, norm_bias, weight, bias, *, eps=1e-5):
+def _norm_apply(x, scale, bias, rms, eps):
+    return _norm_rows(x.float(), scale.float(), 0.0 if bias is None else bias.float(), eps,
+                      rms).to(x.dtype)
+
+
+def reference_norm_proj(x, norm_scale, norm_bias, weight, bias, *, rms=False, eps=1e-5):
     """Unfused ``norm(x) @ W + b`` in x's dtype."""
-    xn = _norm_rows(x.float(), norm_scale.float(), norm_bias.float(), eps).to(x.dtype)
-    return _dense(xn, weight, bias)
+    return _dense(_norm_apply(x, norm_scale, norm_bias, rms, eps), weight, bias)
 
 
-def reference_post_attn(y, x, wo, bo, norm_scale, norm_bias, mlp_weights, *, eps=1e-5):
-    """Unfused o-proj + residual → norm → GELU-tanh MLP → residual."""
-    w1, b1, w2, b2 = mlp_weights
+def reference_post_attn(y, x, wo, bo, norm_scale, norm_bias, mlp_weights, *, swiglu=False,
+                        rms=False, eps=1e-5):
+    """Unfused o-proj + residual → norm → MLP (GELU-tanh pair or SwiGLU) →
+    residual."""
     r1 = x + _dense(y, wo, bo)
-    h = _norm_rows(r1.float(), norm_scale.float(), norm_bias.float(), eps).to(x.dtype)
+    h = _norm_apply(r1, norm_scale, norm_bias, rms, eps)
+    if swiglu:
+        wg, wu, wd = mlp_weights
+        gate = _dense(h, wg, None)
+        return r1 + _dense(torch.nn.functional.silu(gate) * _dense(h, wu, None), wd, None)
+    w1, b1, w2, b2 = mlp_weights
     h1 = torch.nn.functional.gelu(_dense(h, w1, b1), approximate="tanh")
     return r1 + _dense(h1, w2, b2)
 
@@ -194,14 +227,19 @@ def _w8_args(w, dtypes: list) -> list:
     return [codes, scale, codes.shape[0] // scale.shape[0]]
 
 
+def _ptrs(items) -> list:
+    return [a.data_ptr() if isinstance(a, torch.Tensor) else a for a in items]
+
+
 def fused_norm_proj(x: torch.Tensor, norm_scale: torch.Tensor,
                     norm_bias: Optional[torch.Tensor], weight, bias: Optional[torch.Tensor],
                     *, rms: bool = False, eps: float = 1e-5) -> torch.Tensor:
     """``norm(x) @ W + b`` in one kernel; returns ``(..., N)`` in x's dtype.
 
     ``x``: ``(..., E)`` decode rows; ``weight``: ``(E, N)`` in x's dtype, or
-    a W8A16 pair (codes int8 ``(E, N)``, scales fp32 ``(E/g, N)``)."""
-    _reject_deferred(rms=rms)
+    a W8A16 pair (codes int8 ``(E, N)``, scales fp32 ``(E/g, N)``). The norm
+    is LayerNorm, or RMSNorm with ``rms`` (``norm_bias`` unread); biases may
+    be None (zeros, as the JAX wrapper passes)."""
     quant = _w8_kind((weight,))
     lead, E = x.shape[:-1], x.shape[-1]
     N = _out_features(weight)
@@ -214,7 +252,7 @@ def fused_norm_proj(x: torch.Tensor, norm_scale: torch.Tensor,
     nb = _vec(norm_bias, E, x, torch.float32)
     b = _vec(bias, N, x, x.dtype)
     if not x.is_cuda:
-        return norm_proj_plain(x2, ns, nb, weight, b, eps).reshape(*lead, N)
+        return norm_proj_plain(x2, ns, nb, weight, b, eps, rms).reshape(*lead, N)
     groups = weight[1].shape[0] if quant else 1
     if not norm_proj_supported(M, E, N, quant, groups):
         raise ValueError(f"fused_norm_proj kernel: unsupported shape M={M} E={E} N={N} "
@@ -225,15 +263,16 @@ def fused_norm_proj(x: torch.Tensor, norm_scale: torch.Tensor,
         dtypes = [x.dtype]
         wargs = _w8_args(weight, dtypes)
         check_operands(x2, *wargs[:2], b, dtypes=dtypes + [x.dtype])
+        kernel = NORM_PROJ_RMS_W8 if rms else NORM_PROJ_W8
     else:
         wargs = [weight]
         check_operands(x2, weight, b)
+        kernel = NORM_PROJ_RMS if rms else NORM_PROJ
     check_operands(ns, nb)
-    args = [x2.data_ptr(), ns.data_ptr(), nb.data_ptr(),
-            *(a.data_ptr() if isinstance(a, torch.Tensor) else a for a in wargs),
-            b.data_ptr(), out.data_ptr(), M, E, N, float(eps), dtype_code(x2), stream_of(x2)]
+    args = _ptrs([x2, ns, nb, *wargs, b, out]) + [M, E, N, float(eps), int(rms),
+                                                 dtype_code(x2), stream_of(x2)]
     with torch.cuda.device(x.device):
-        (NORM_PROJ_W8 if quant else NORM_PROJ).launch(*args)
+        kernel.launch(*args)
     return out.reshape(*lead, N)
 
 
@@ -242,31 +281,43 @@ def fused_post_attn(y: torch.Tensor, x: torch.Tensor, wo, bo: Optional[torch.Ten
                     mlp_weights: tuple, *, swiglu: bool = False, rms: bool = False,
                     eps: float = 1e-5, exact_gelu: bool = False,
                     parallel_residual: bool = False) -> torch.Tensor:
-    """``x + y@Wo + bo`` → LN → GELU-tanh MLP → residual; returns the new
-    residual stream, shaped and typed like ``x``.
+    """``x + y@Wo + bo`` → norm → MLP → residual; returns the new residual
+    stream, shaped and typed like ``x``.
 
     ``y``: pre-o-proj attention output ``(..., E)``; ``mlp_weights``:
-    ``(w1 (E, F), b1, w2 (F, E), b2)``, biases may be None. Each weight is a
-    tensor in x's dtype, or each is a W8A16 pair."""
-    _reject_deferred(rms=rms, swiglu=swiglu, exact_gelu=exact_gelu,
-                     parallel_residual=parallel_residual)
-    w1, b1, w2, b2 = mlp_weights
-    quant = _w8_kind((wo, w1, w2))
+    ``(w1 (E, F), b1, w2 (F, E), b2)`` for the GELU-tanh pair (biases may be
+    None), or ``(w_gate (E, F), w_up (E, F), w_down (F, E))`` with
+    ``swiglu``. Each weight is a tensor in x's dtype, or each is a W8A16
+    pair (gate and up grouped alike). The norm is LayerNorm, or RMSNorm with
+    ``rms``."""
+    _reject_deferred(exact_gelu=exact_gelu, parallel_residual=parallel_residual)
+    if swiglu:
+        w1, wu, w2 = mlp_weights
+        b1 = b2 = None
+        panels = (wo, w1, wu, w2)
+    else:
+        w1, b1, w2, b2 = mlp_weights
+        panels = (wo, w1, w2)
+    quant = _w8_kind(panels)
     lead, E = x.shape[:-1], x.shape[-1]
     F = _out_features(w1)
     M = math.prod(lead)
     shape = (lambda w: tuple(w[0].shape)) if quant else (lambda w: tuple(w.shape))
-    if y.shape != x.shape or shape(wo) != (E, E) or shape(w1) != (E, F) or shape(w2) != (F, E):
+    want = [(E, E), (E, F), (E, F), (F, E)] if swiglu else [(E, E), (E, F), (F, E)]
+    if y.shape != x.shape or [shape(w) for w in panels] != want:
         raise ValueError("fused_post_attn: operand shapes do not match")
     y2, x2 = y.reshape(M, E), x.reshape(M, E)
     ns = _vec(norm_scale, E, x, torch.float32)
     nb = _vec(norm_bias, E, x, torch.float32)
-    bo, b1, b2 = (_vec(bo, E, x, x.dtype), _vec(b1, F, x, x.dtype), _vec(b2, E, x, x.dtype))
+    bo = _vec(bo, E, x, x.dtype)
+    if not swiglu:
+        b1, b2 = _vec(b1, F, x, x.dtype), _vec(b2, E, x, x.dtype)
+    mlp = (w1, wu, w2) if swiglu else (w1, b1, w2, b2)
     if not x.is_cuda:
-        out = post_attn_plain(y2, x2, wo, bo, ns, nb, w1, b1, w2, b2, eps)
+        out = post_attn_plain(y2, x2, wo, bo, ns, nb, mlp, eps, swiglu, rms)
         return out.reshape(*lead, E)
     groups = (wo[1].shape[0], w2[1].shape[0]) if quant else (1, 1)
-    if quant and w1[1].shape[0] != groups[0]:
+    if quant and any(w[1].shape[0] != groups[0] for w in panels[1:-1]):
         raise ValueError("fused_post_attn: o-proj and up-proj scale groups differ")
     if not post_attn_supported(M, E, F, quant, *groups):
         raise ValueError(f"fused_post_attn kernel: unsupported shape M={M} E={E} F={F} "
@@ -278,18 +329,27 @@ def fused_post_attn(y: torch.Tensor, x: torch.Tensor, wo, bo: Optional[torch.Ten
     act = x.dtype
     if quant:
         dtypes = [act, act]
-        ao, a1, a2 = _w8_args(wo, dtypes), _w8_args(w1, dtypes), _w8_args(w2, dtypes)
-        check_operands(y2, x2, *ao[:2], *a1[:2], *a2[:2], bo, b1, b2,
-                       dtypes=dtypes + [act] * 3)
-        wargs = [*ao, bo, ns, nb, *a1, b1, *a2, b2]
+        pairs = [_w8_args(w, dtypes) for w in panels]
+        tensors = [t for p in pairs for t in p[:2]]
+        biases = [bo] if swiglu else [bo, b1, b2]
+        check_operands(y2, x2, *tensors, *biases, dtypes=dtypes + [act] * len(biases))
+        ao, *rest = pairs
+        if swiglu:
+            wargs = [*ao, bo, ns, nb, *rest[0], *rest[1], *rest[2]]
+        else:
+            wargs = [*ao, bo, ns, nb, *rest[0], b1, *rest[1], b2]
     else:
-        check_operands(y2, x2, wo, bo, w1, b1, w2, b2)
-        wargs = [wo, bo, ns, nb, w1, b1, w2, b2]
+        if swiglu:
+            check_operands(y2, x2, wo, bo, w1, wu, w2)
+            wargs = [wo, bo, ns, nb, w1, wu, w2]
+        else:
+            check_operands(y2, x2, wo, bo, w1, b1, w2, b2)
+            wargs = [wo, bo, ns, nb, w1, b1, w2, b2]
     check_operands(ns, nb)
-    args = [y2.data_ptr(), x2.data_ptr(),
-            *(a.data_ptr() if isinstance(a, torch.Tensor) else a for a in wargs),
-            r1.data_ptr(), h.data_ptr(), out.data_ptr(), M, E, F, float(eps),
-            dtype_code(x2), stream_of(x2)]
+    kernel = ((POST_ATTN_SWIGLU_W8 if quant else POST_ATTN_SWIGLU) if swiglu
+              else (POST_ATTN_W8 if quant else POST_ATTN))
+    args = _ptrs([y2, x2, *wargs, r1, h, out]) + [M, E, F, float(eps), int(rms),
+                                                 dtype_code(x2), stream_of(x2)]
     with torch.cuda.device(x.device):
-        (POST_ATTN_W8 if quant else POST_ATTN).launch(*args)
+        kernel.launch(*args)
     return out.reshape(*lead, E)

@@ -96,10 +96,13 @@ def test_reference_chains_match_jax_fp32():
     np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=1e-5, rtol=0)
 
 
-@pytest.mark.parametrize("kw", [dict(rms=True), dict(swiglu=True), dict(exact_gelu=True),
-                                dict(parallel_residual=True), dict(w8=True, swiglu=True)])
+@pytest.mark.parametrize("kw", [dict(exact_gelu=True), dict(parallel_residual=True),
+                                dict(exact_gelu=True, rms=True),
+                                dict(parallel_residual=True, rms=True),
+                                dict(w8=True, exact_gelu=True)])
 def test_deferred_branches_raise(kw):
-    # W8A16 weights are ported; under them the deferred branches still raise
+    # RMSNorm, SwiGLU and W8A16 weights are ported; exact GELU and the
+    # parallel residual (GPT-NeoX) still raise, under them too
     _, t = _both(_arrays(4), "float32")
     w8 = kw.pop("w8", False)
     ws = [_q(t[k]) if w8 else t[k] for k in ("wo", "w1", "w2")]
@@ -162,3 +165,97 @@ def test_w8_mixed_weights_raise():
     with pytest.raises(ValueError, match="all W8A16 pairs or none"):
         dl.fused_post_attn(t["y"], t["x"], _q(t["wo"]), t["bo"], t["ns"], t["nb"],
                            (t["w1"], t["b1"], t["w2"], t["b2"]))
+
+
+# ---------------------------------------------------------------------------
+# The LLaMA branches: RMSNorm and the three-panel SwiGLU MLP
+# ---------------------------------------------------------------------------
+
+def _llama_arrays(seed, e=128, f=512):
+    rng = np.random.default_rng(seed)
+    f32 = lambda *s, std=0.02: (rng.standard_normal(s) * std).astype(np.float32)  # noqa: E731
+    return dict(x=f32(M, e, std=1.0), y=f32(M, e, std=1.0),
+                ns=(1 + rng.standard_normal(e) * 0.1).astype(np.float32),
+                w=f32(e, N), wo=f32(e, e), wg=f32(e, f), wu=f32(e, f), wd=f32(f, e))
+
+
+def _rms_norm_proj(j, t, q=None):
+    w = (q["w"], _jq(q["w"])) if q else (t["w"], j["w"])
+    want = jdl.fused_norm_proj(j["x"], j["ns"], None, w[1], None, rms=True, interpret=True)
+    got = dl.fused_norm_proj(t["x"], t["ns"], None, w[0], None, rms=True)
+    return np.asarray(want.astype(jnp.float32)), got.float().numpy()
+
+
+def _swiglu_post_attn(j, t, q=None):
+    names = ("wo", "wg", "wu", "wd")
+    tw = [q[k] for k in names] if q else [t[k] for k in names]
+    jw = [_jq(q[k]) for k in names] if q else [j[k] for k in names]
+    want = jdl.fused_post_attn(j["y"], j["x"], jw[0], None, j["ns"], None, tuple(jw[1:]),
+                               swiglu=True, rms=True, interpret=True)
+    got = dl.fused_post_attn(t["y"], t["x"], tw[0], None, t["ns"], None, tuple(tw[1:]),
+                             swiglu=True, rms=True)
+    return np.asarray(want.astype(jnp.float32)), got.float().numpy()
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("op", [_rms_norm_proj, _swiglu_post_attn])
+def test_llama_branches_match_pallas(op, dtype):
+    # fp32: 1e-5 of the output's scale (fp32 sums in another order); bf16:
+    # the cast points (normalised rows, h, the output) are the kernel's, so
+    # at most one bf16 ulp on at most 2% of the elements
+    want, got = op(*_both(_llama_arrays(7), dtype))
+    diff = np.abs(got - want)
+    if dtype == "float32":
+        assert diff.max() <= 1e-5 * max(1.0, np.abs(want).max())
+    else:
+        assert diff.max() <= _ulp(np.abs(want).max()) and (diff > 0).mean() <= 0.02
+
+
+@pytest.mark.parametrize("group", [128, 10 ** 9], ids=["g128", "one_group"])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("op", [_rms_norm_proj, _swiglu_post_attn])
+def test_llama_w8_branches_match_pallas(op, dtype, group):
+    # E=256, F=1024: two scale groups over E (o-proj, gate, up) and eight
+    # over F (down) at g=128, or one group spanning each panel
+    a = _llama_arrays(8, e=256, f=1024)
+    j, t = _both(a, dtype)
+    q = {k: _q(torch.from_numpy(a[k]), group) for k in ("w", "wo", "wg", "wu", "wd")}
+    want, got = op(j, t, q)
+    diff = np.abs(got - want)
+    if dtype == "float32":
+        assert diff.max() <= 1e-5 * max(1.0, np.abs(want).max())
+    else:
+        assert diff.max() <= _ulp(np.abs(want).max()) and (diff > 0).mean() <= 0.02
+
+
+@pytest.mark.parametrize("swiglu", [False, True])
+def test_llama_reference_chains_match_jax_fp32(swiglu):
+    j, t = _both(_llama_arrays(9), "float32")
+    want = jdl.reference_norm_proj(j["x"], j["ns"], None, j["w"], None, rms=True)
+    got = dl.reference_norm_proj(t["x"], t["ns"], None, t["w"], None, rms=True)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=1e-5, rtol=0)
+    if swiglu:
+        jm, tm = (j["wg"], j["wu"], j["wd"]), (t["wg"], t["wu"], t["wd"])
+    else:   # RMSNorm under the GELU pair: a combination no model runs, ported all the same
+        jm = (j["wg"], None, j["wd"], None)
+        tm = (t["wg"], None, t["wd"], None)
+    want = jdl.reference_post_attn(j["y"], j["x"], j["wo"], None, j["ns"], None, jm,
+                                   swiglu=swiglu, rms=True)
+    got = dl.reference_post_attn(t["y"], t["x"], t["wo"], None, t["ns"], None, tm,
+                                 swiglu=swiglu, rms=True)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=1e-5, rtol=0)
+    want = jdl.fused_post_attn(j["y"], j["x"], j["wo"], None, j["ns"], None, jm, swiglu=swiglu,
+                               rms=True, interpret=True)
+    got = dl.fused_post_attn(t["y"], t["x"], t["wo"], None, t["ns"], None, tm, swiglu=swiglu,
+                             rms=True)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=1e-5, rtol=0)
+
+
+def test_swiglu_panels_must_agree():
+    _, t = _both(_llama_arrays(10), "float32")
+    with pytest.raises(ValueError, match="shapes"):
+        dl.fused_post_attn(t["y"], t["x"], t["wo"], None, t["ns"], None,
+                           (t["wg"], t["wu"][:, :256], t["wd"]), swiglu=True, rms=True)
+    with pytest.raises(ValueError, match="all W8A16 pairs or none"):
+        dl.fused_post_attn(t["y"], t["x"], t["wo"], None, t["ns"], None,
+                           (_q(t["wg"]), t["wu"], t["wd"]), swiglu=True, rms=True)

@@ -198,7 +198,8 @@ def test_port_imports_no_jax():
     assert {f"deepspeed_tpu_torch.runtime.{m}" for m in (
         "config", "constants", "engine", "lr_schedules", "optimizers", "precision")} <= imported
     assert {f"deepspeed_tpu_torch.ops.{m}" for m in (
-        "adam8bit", "fused_ce", "w8", "w8_matmul", "quantizer")} <= imported
+        "adam8bit", "fused_ce", "w8", "w8_matmul", "quantizer", "rotary")} <= imported
+    assert "deepspeed_tpu_torch.models.llama" in imported
     src = (REPO / "chip_smoke.py").read_text()
     assert "import jax" not in src and "deepspeed_tpu." not in src.replace(
         "deepspeed_tpu_torch", "")

@@ -216,3 +216,21 @@ def test_admission_failure_rolls_back_pins_and_pages(flax_params):
     assert pg.pool.free_pages == free0 and pg._slot_pages_n == 0
     outs = _serve(b, [np.arange(1, 12, dtype=np.int32)], max_new_tokens=4)
     assert len(outs[0]) == 11 + 4
+
+
+@pytest.mark.parametrize("u", [0.0, 2.0 ** -24, 0.5, 1.0 - 2.0 ** -24])
+def test_sample_rows_never_picks_a_filtered_token(u):
+    """The inverse-CDF pick takes the first token whose CDF exceeds u · mass:
+    u = 0.0 must not land on token 0 when top-k has removed it (the left
+    side of the search did, for one draw in 2^24)."""
+    from deepspeed_tpu_torch.inference.serving import sample_rows
+
+    V = 16
+    logits = torch.full((2, V), -1.0)
+    logits[:, 7], logits[:, 9] = 3.0, 2.5            # top-k=2 keeps tokens 7 and 9
+    ones = torch.ones(2)
+    pick = sample_rows(logits, False, torch.tensor([0.8, 0.8]), ones, ones,
+                       torch.zeros((2, V), dtype=torch.bool), torch.tensor([u, u]), top_k=2)
+    assert set(pick.tolist()) <= {7, 9}
+    if u < 0.5:
+        assert pick.tolist() == [7, 7]
