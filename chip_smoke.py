@@ -63,6 +63,20 @@ Run from the root of the repository. Phases, each printing JSON lines:
             maximum, and its argmax wherever its top two lie more than 16 ulps
             apart (the strict share is printed: random-weight llama-1b logits
             are too flat for any bf16 path to reach 95% strict).
+6d. serve_neox  pythia-1b (E=2048, 16 layers, 8 heads, D=256, F=8192,
+            rotary_pct 0.25, vocab 50432, untied head; 1,012,305,920
+            parameters, random weights from seed 1234) through
+            ``init_inference(max_tokens=512)`` in bf16 and in W8A16 from the
+            same weights, as serve_llama runs llama-1b: the batcher (page-
+            resident, 8 slots, the 32 requests twice; per single-token
+            forward and layer one LayerNorm -> qkv kernel, one exact-GELU
+            parallel-residual post_attn call, one paged attention at D=256),
+            ``engine(ids)`` at B=2, S=1024 (the flash forward at D=256),
+            ``generate`` fused on and off (decode attention at D=256), and the
+            sequential-residual variant at 2 layers (one fused ``generate``
+            per dtype: the exact-GELU sequential branches). The same gates
+            as serve_llama, every greedy stream teacher-forced through an fp32
+            engine on the card holding the same weights.
 7. train    GPT-2-125M at full width and depth through ``initialize`` with
             the JAX package's flagship training config (S=1024, micro 24,
             gradient accumulation 4, adamw lr 1e-4 wd 0.1, clipping 1.0,
@@ -114,6 +128,18 @@ decode and paged attention at 8 query heads per KV head (H=32, KV=4, D=64),
 the flash forward at H=32 and the w8 matmul on llama-1b's four panels, each
 beside its library call where one exists.
 
+The kernels phase also holds the GPT-NeoX branches (``kernels_neox``): every
+branch of the o-proj -> norm -> MLP -> residual kernel beside GPT-2's and
+LLaMA's (the exact GELU and the parallel residual with either GELU form,
+under LayerNorm and RMSNorm, and SwiGLU under the parallel residual) at
+M=8, E=2048, F=8192 in bf16 and W8A16, the four LayerNorm GELU branches
+timed; each in fp32 at a small shape; each GELU branch again where the
+exact and the tanh forms part by more than the limit, held against its
+plain version and, as a control that must miss, against the other form's
+(``kernels_neox_gelu_probe``); the LayerNorm -> qkv kernel at N=6144;
+decode, paged and flash attention at H=KV=8, D=256 beside SDPA; the w8
+matmul on pythia-1b's four panels.
+
 The kernels phase also holds the W8A16 kernels (``kernels_w8``): the w8
 matmul at M = 1, 8, 37, 64 on gpt2-760m's four dense panels and on one
 single-group panel, and the W8 branches of the two decode-layer kernels at
@@ -126,11 +152,13 @@ The ``kernels`` line gives each kernel's launches per path (``generate``,
 ``serve_paged``, ``serve_contiguous``, ``serve_w8_paged``,
 ``serve_w8_contiguous``, ``serve_bf16_760m``, ``generate_w8_fused``,
 ``generate_w8_unfused``, ``serve_llama_paged``, ``serve_llama_w8_paged``,
-``forward_llama``, ``generate_llama{,_w8}_{fused,unfused}``, ``train``,
+``forward_llama``, ``generate_llama{,_w8}_{fused,unfused}``,
+``serve_neox{,_w8}_paged``, ``forward_neox``,
+``generate_neox{,_w8}_{fused,unfused}``, ``generate_neox_seq{,_w8}_fused``, ``train``,
 ``train_split``, ``train_1p5b``,
 ``train_1p5b_dots``, ``train_1p5b_pallas``: each zeroed before its run and
-read after it) and their sum; the rows of kernels that llama-1b also runs
-carry ``at_llama_1b``.
+read after it) and their sum; the rows of kernels that llama-1b and
+pythia-1b also run carry ``at_llama_1b`` and ``at_pythia_1b``.
 
 It exits non-zero, printing no result line, without CUDA or outside the
 repository; any failed phase makes it exit non-zero. The last line is
@@ -992,7 +1020,15 @@ def counters():
             "decode_norm_proj_w8": dl.NORM_PROJ_W8, "decode_post_attn_w8": dl.POST_ATTN_W8,
             "norm_proj_rms": dl.NORM_PROJ_RMS, "post_attn_swiglu": dl.POST_ATTN_SWIGLU,
             "norm_proj_rms_w8": dl.NORM_PROJ_RMS_W8,
-            "post_attn_swiglu_w8": dl.POST_ATTN_SWIGLU_W8}
+            "post_attn_swiglu_w8": dl.POST_ATTN_SWIGLU_W8,
+            "post_attn_erf_par": dl.POST_ATTN_ERF_PAR,
+            "post_attn_erf_par_w8": dl.POST_ATTN_ERF_PAR_W8,
+            "post_attn_erf": dl.POST_ATTN_ERF, "post_attn_erf_w8": dl.POST_ATTN_ERF_W8,
+            "post_attn_par": dl.post_attn_handle(parallel_residual=True),
+            "post_attn_par_w8": dl.post_attn_handle(parallel_residual=True, quant=True),
+            "post_attn_swiglu_par": dl.post_attn_handle(swiglu=True, parallel_residual=True),
+            "post_attn_swiglu_par_w8": dl.post_attn_handle(swiglu=True, parallel_residual=True,
+                                                           quant=True)}
 
 
 # serving runs no backward, no optimizer and no loss head
@@ -1044,7 +1080,7 @@ def run_slice(torch):
     ticks = 2 * (new - 1)   # greedy + sampled; the max_new_tokens=1 run has no tick
     expected = {"flash_attention_fwd": 2 * L, "decode_attention": L * ticks,
                 "norm_qkv": L * ticks, "post_attn": L * ticks, "paged_attention": 0,
-                **NO_BACKWARD, **NO_W8, **NO_LLAMA}
+                **NO_BACKWARD, **NO_W8, **NO_LLAMA, **NO_NEOX}
     ms_per_tick = (gen_ms - ttft_ms) / (new - 1)
     emit(dict(phase="slice", model="gpt2-125m", dtype="bfloat16", forward_shape=[2, 1024],
               forward_ms=fwd_ms, forward_again_ms=fwd_again_ms,
@@ -1209,7 +1245,7 @@ def run_serve(torch, delta_of, out_dir=None):
         other = "decode_attention" if mode == "paged" else "paged_attention"
         expected = {attn: L * singles, other: 0, "norm_qkv": L * singles,
                     "post_attn": L * singles, "flash_attention_fwd": 0, **NO_BACKWARD,
-                    **NO_W8, **NO_LLAMA}
+                    **NO_W8, **NO_LLAMA, **NO_NEOX}
         checks = {"launch_counts": launches == expected,
                   "no_leaks": all(v == 0 for p in passes for v in p["leaks"].values()),
                   "shapes_and_vocab": all(len(o) == len(r["prompt"]) + r["max_new_tokens"]
@@ -1724,7 +1760,7 @@ def run_serve_w8(torch, out_dir=None):
         other = "decode_attention" if pc else "paged_attention"
         q = e is eng
         expected = {attn: L * singles, other: 0, "flash_attention_fwd": 0, **NO_BACKWARD,
-                    **NO_LLAMA, "norm_qkv": 0 if q else L * singles,
+                    **NO_LLAMA, **NO_NEOX, "norm_qkv": 0 if q else L * singles,
                     "post_attn": 0 if q else L * singles,
                     "decode_norm_proj_w8": L * singles if q else 0,
                     "decode_post_attn_w8": L * singles if q else 0,
@@ -1845,20 +1881,191 @@ PANELS_LLAMA_1B = ((2048, 2048), (2048, 256), (2048, 8192), (8192, 2048))
 LLAMA_DENSE_PER_LAYER = 7          # q, k, v, o, gate, up, down
 
 
-def one_ulp_errors(torch, got, ref):
-    """Largest |got - ref| and its largest ratio to one bf16 ulp of the
-    larger of the two at each element: two fp32 values that are cast once
-    land at most that far apart."""
-    d = (got.float() - ref.float()).abs()
-    ulp = bf16_ulp_t(torch, torch.maximum(got.float().abs(), ref.float().abs()))
-    return float(d.max()), float((d / ulp).max())
-
-
 def abs_panel(w):
     """|W| in fp32: a dense panel, or a W8A16 pair dequantized."""
     from deepspeed_tpu_torch.ops import w8 as w8ops
 
     return (w8ops.dequantize_weight(*w) if isinstance(w, tuple) else w.float()).abs()
+
+
+def timed_calls(torch, kernel, plain, library, rot, n=50):
+    """Device ms of each callable on inputs cycled by ``rot`` (None where
+    the profiler saw no device activity) and, under ``*_event``, its
+    CUDA-event ms; the plain version takes 5 calls."""
+    out = {}
+    for which, fn, k in (("kernel", kernel, n), ("plain", plain, 5), ("library", library, n)):
+        if fn is None:
+            out[which] = out[which + "_event"] = None
+            continue
+        call = lambda fn=fn: fn(*rot.next())  # noqa: E731
+        out[which] = device_ms(torch, call, k)
+        out[which + "_event"] = cuda_ms(torch, call, k)
+    return out
+
+
+def kernel_row(phase, name, shape, err, ratio, limit, t, bound, **extra):
+    """One held and timed case as a JSON line (ok: the error within its
+    limit, and an fp64 anchor that ``extra`` carries held); returns the row."""
+    b_ms, b_by = bound
+    res = dict(phase=phase, name=name, shape=shape, max_err=err, err_over_limit=ratio,
+               limit=limit, ok=ratio <= 1.0 and extra.get("fp64_anchor_ok", True),
+               kernel_ms=t["kernel"],
+               kernel_event_ms=t["kernel_event"], plain_ms=t["plain"],
+               plain_event_ms=t["plain_event"], library_ms=t["library"],
+               library_event_ms=t["library_event"], bound_us=b_ms * 1e3, bound_by=b_by,
+               **extra)
+    emit(res)
+    return res
+
+
+def attention_errors(torch, got, ref, q, k, v, lengths, scale):
+    """Decode attention's output against its plain version, element by
+    element: within one bf16 ulp of the larger of the two plus 1e-5 of the
+    sum of its addends' magnitudes, sum_i p_i |v_i| / l (fp32 sums over up
+    to 512 positions in two orders: where the addends cancel, an output near
+    zero is exact to a bf16 ulp of itself in neither). ``k``/``v``:
+    contiguous ``(B, S, KV, D)`` caches (a paged arena gathered). Returns
+    the largest error, its largest ratio to that limit, and a witness: the
+    ratio to the bare one-ulp limit, and the kernel and the plain version
+    each against the same arithmetic in fp64, in units of the limit, and
+    whether the kernel lies within max(1, the plain version's) of it."""
+    B, _, H, D = q.shape
+    S, KV = k.shape[1], k.shape[2]
+    live = torch.arange(S, device=q.device)[None, :] < lengths.to(q.device)[:, None]
+    s = torch.einsum("bkgd,bskd->bkgs", q.double().reshape(B, KV, H // KV, D) * scale,
+                     k.double()).masked_fill(~live[:, None, None, :], float("-inf"))
+    m = s.amax(-1, keepdim=True)
+    p = torch.exp(s - torch.where(torch.isinf(m), torch.zeros_like(m), m))
+    l = p.sum(-1, keepdim=True).clamp(min=1e-300)
+    vd = v.double().masked_fill(~live[:, :, None, None], 0.0)
+    exact = (torch.einsum("bkgs,bskd->bkgd", p, vd) / l).reshape(B, 1, H, D)
+    mag = (torch.einsum("bkgs,bskd->bkgd", p, vd.abs()) / l).reshape(B, 1, H, D)
+    ulp = bf16_ulp_t(torch, torch.maximum(got.float().abs(), ref.float().abs())).double()
+    lim = ulp + 1e-5 * mag
+    d = (got.double() - ref.double()).abs()
+    lim_x = bf16_ulp_t(torch, exact).double() + 1e-5 * mag
+    witness = dict(err_over_1ulp_limit=float((d / ulp).max()),
+                   kernel_vs_fp64_over_limit=float(((got.double() - exact).abs() / lim_x).max()),
+                   plain_vs_fp64_over_limit=float(((ref.double() - exact).abs() / lim_x).max()))
+    # an anchor that does not lean on the plain version: the kernel within
+    # the limit of the fp64 value, or no further from it than the plain one
+    witness["fp64_anchor_ok"] = (witness["kernel_vs_fp64_over_limit"]
+                                 <= max(1.0, witness["plain_vs_fp64_over_limit"]))
+    return float(d.max()), float((d / lim).max()), witness
+
+
+def attention_rows(torch, F, peaks, g, H, KV, D, phase):
+    """Decode attention (B=8, S_max 512, ragged lengths), paged attention
+    (16-token pages in shuffled order, 32 table entries) and the flash
+    forward (B=2, S=1024, causal) at one head geometry in bf16: decode and
+    paged within their plain versions' limits (:func:`attention_errors`),
+    flash
+    within two at the output's scale (its lse within 1e-4), each timed
+    beside SDPA (with ``enable_gqa`` where KV < H: the query heads share KV
+    heads; flash takes the KV heads repeated, as the full-sequence path
+    does). Returns the three rows by kernel name."""
+    from deepspeed_tpu_torch.ops import decode_attention as da
+    from deepspeed_tpu_torch.ops import flash_attention as fa
+    from deepspeed_tpu_torch.ops import paged_attention as pa
+
+    bf, gqa = torch.bfloat16, KV < H
+    lib = (f"SDPA with enable_gqa ({H // KV} query heads share each KV head)" if gqa
+           else "SDPA, masked")
+    rows = {}
+
+    def rn(*shape):
+        return torch.randn(shape, generator=g, device="cuda").to(bf)
+
+    def timed(*a, **k):
+        return timed_calls(torch, *a, **k)
+
+    # decode attention over contiguous caches: enough copies to pass the L2
+    B, S_max = 8, 512
+    lengths = torch.tensor([1, 512, 37, 100, 256, 300, 511, 64], dtype=torch.int32, device="cuda")
+    live = int(lengths.sum())
+    mask = (torch.arange(S_max, device="cuda")[None, :] < lengths[:, None])[:, None, None, :]
+    n_sets = max(2, -(-64_000_000 // (4 * B * S_max * KV * D)))
+    sets = [(rn(B, 1, H, D), rn(B, S_max, KV, D), rn(B, S_max, KV, D)) for _ in range(n_sets)]
+    q, k, v = sets[0]
+    got = da.decode_attention(q, k, v, lengths)
+    ref = da.decode_attention_plain(q, k, v, lengths, D ** -0.5)
+    torch.cuda.synchronize()
+    err, ratio, witness = attention_errors(torch, got, ref, q, k, v, lengths, D ** -0.5)
+    lim = ("per element: 1 bf16 ulp + 1e-5 x the sum of the addends' magnitudes "
+           "(sum_i p_i |v_i| / l); and against the fp64 value within max(1, the plain "
+           "version's ratio)")
+
+    def sdpa(q, k, v):
+        return F.scaled_dot_product_attention(q.transpose(1, 2), k.transpose(1, 2),
+                                              v.transpose(1, 2), attn_mask=mask,
+                                              enable_gqa=gqa)
+    t = timed(lambda q, k, v: da.decode_attention(q, k, v, lengths),
+              lambda q, k, v: da.decode_attention_plain(q, k, v, lengths, D ** -0.5),
+              sdpa, Rotation(sets), n=100)
+    rows["decode_attention"] = kernel_row(
+        phase, "decode_attention", f"B={B} S_max={S_max} H={H} KV={KV} D={D} lengths="
+        + ",".join(str(int(n)) for n in lengths), err, ratio, lim, t,
+        bound_ms(2 * live * KV * D * 2 + 2 * B * H * D * 2 + B * 4, 4 * live * H * D, peaks),
+        library=lib, **witness)
+    del sets
+
+    # paged attention at the same heads (16-token pages, 32 table entries)
+    lens, pt, T = [1, 16, 17, 255, 256, 300, 511, 512], 16, 32
+    gp = torch.Generator(device="cuda").manual_seed(SEED + 9)
+    n_sets = max(2, -(-64_000_000 // (4 * (B * T + 1) * pt * KV * D)))
+    sets = [paged_arena(torch, gp, lens, B, H, KV, D, pt, T, bf) for _ in range(n_sets)]
+    plen = torch.tensor(lens, dtype=torch.int32, device="cuda")
+    pmask = (torch.arange(T * pt, device="cuda")[None, :] < plen[:, None])[:, None, None, :]
+    q, kp, vp, table = sets[0]
+    got = pa.paged_decode_attention(q, kp, vp, table, plen)
+    ref = pa.paged_decode_attention_plain(q, kp, vp, table, plen, D ** -0.5)
+    torch.cuda.synchronize()
+    err, ratio, witness = attention_errors(torch, got, ref, q, pa.gather_kv_pages(kp, table),
+                                           pa.gather_kv_pages(vp, table), plen, D ** -0.5)
+
+    def gather_sdpa(q, kp, vp, table):
+        kk, vv = pa.gather_kv_pages(kp, table), pa.gather_kv_pages(vp, table)
+        return F.scaled_dot_product_attention(q.transpose(1, 2), kk.transpose(1, 2),
+                                              vv.transpose(1, 2), attn_mask=pmask,
+                                              enable_gqa=gqa)
+    t = timed(lambda q, kp, vp, tb: pa.paged_decode_attention(q, kp, vp, tb, plen),
+              lambda q, kp, vp, tb: pa.paged_decode_attention_plain(q, kp, vp, tb, plen,
+                                                                    D ** -0.5),
+              gather_sdpa, Rotation(sets), n=100)
+    plive = sum(lens)
+    rows["paged_attention"] = kernel_row(
+        phase, "paged_attention", f"B={B} H={H} KV={KV} D={D} pt={pt} T={T} lengths="
+        + ",".join(map(str, lens)), err, ratio, lim, t,
+        bound_ms(2 * plive * KV * D * 2 + 2 * B * H * D * 2 + B * T * 4 + B * 4,
+                 4 * plive * H * D, peaks),
+        library="gather_kv_pages + " + lib + " on the gathered view", **witness)
+    del sets
+
+    # the flash forward: engine(ids)'s prefill (the KV heads repeated)
+    Bf, Sf = 2, 1024
+    q, k, v = (rn(Bf, Sf, H, D) for _ in range(3))
+    (o, lse), (ro, rlse) = (fa.flash_attention_with_lse(q, k, v, causal=True),
+                            fa.flash_attention_plain(q, k, v, True, D ** -0.5))
+    torch.cuda.synchronize()
+    rlse = rlse.reshape(Bf, H, Sf).transpose(1, 2)
+    err = float((o.float() - ro.float()).abs().max())
+    tol = 2 * bf16_ulp(float(ro.float().abs().max()))
+    lse_err = float((lse - rlse).abs().max())
+    lse_ok = lse_err <= 1e-4 * max(1.0, float(rlse.abs().max()))
+    qt, kt, vt = (x.transpose(1, 2).contiguous() for x in (q, k, v))
+    t = timed(lambda q, k, v: fa.flash_attention_with_lse(q, k, v, causal=True),
+              lambda q, k, v: fa.flash_attention_plain(q, k, v, True, D ** -0.5),
+              lambda *_: F.scaled_dot_product_attention(qt, kt, vt, is_causal=True),
+              Rotation([(q, k, v)]), n=20)
+    pairs = Sf * (Sf + 1) / 2
+    rows["flash_attention_fwd"] = kernel_row(
+        phase, "flash_attention_fwd", f"B={Bf} S={Sf} H={H} D={D} causal", err,
+        err / tol if lse_ok else float("inf"),
+        "2 bf16 ulps at the output's scale; lse within 1e-4", t,
+        bound_ms(4 * Bf * Sf * H * D * 2 + Bf * H * Sf * 4, 4 * Bf * H * D * pairs, peaks),
+        library="SDPA", lse_max_err=lse_err)
+    torch.cuda.empty_cache()
+    return rows
 
 
 def run_kernels_llama(torch, F, peaks):
@@ -1867,16 +2074,12 @@ def run_kernels_llama(torch, F, peaks):
     decode-layer kernels in bf16 and under W8A16 (g=128 and one group), each
     element within its limit of the plain version (``w8_limits``), timed with
     the plain version and the bound; their fp32 instantiations at a small
-    aligned shape (1e-5 of the fp32 addends' magnitudes per element); decode
-    and paged attention at 8 query heads per KV head (one bf16 ulp per
-    element) and the flash forward at H=32 (two at the output's scale, as
-    the kernels phase holds it), each with its library call; the w8 matmul
-    on llama-1b's four panels at M=8 and 64. Returns the new branches' rows,
-    the earlier kernels' rows at llama-1b's shapes, and whether all held."""
-    from deepspeed_tpu_torch.ops import decode_attention as da
+    aligned shape (1e-5 of the fp32 addends' magnitudes per element); decode,
+    paged and flash attention at 8 query heads per KV head
+    (:func:`attention_rows`); the w8 matmul on llama-1b's four panels at M=8
+    and 64. Returns the new branches' rows, the earlier kernels' rows at
+    llama-1b's shapes, and whether all held."""
     from deepspeed_tpu_torch.ops import decode_layer as dl
-    from deepspeed_tpu_torch.ops import flash_attention as fa
-    from deepspeed_tpu_torch.ops import paged_attention as pa
     from deepspeed_tpu_torch.ops import w8 as w8ops
     from deepspeed_tpu_torch.ops import w8_matmul as wm
 
@@ -1888,29 +2091,11 @@ def run_kernels_llama(torch, F, peaks):
     def rn(*shape, std=1.0, dtype=bf):
         return (torch.randn(shape, generator=g, device="cuda") * std).to(dtype)
 
-    def timed(kernel, plain, library, rot, n=50):
-        """Device ms (None where the profiler saw no device activity) and,
-        under ``*_event``, CUDA-event ms of each callable."""
-        out = {}
-        for which, fn, k in (("kernel", kernel, n), ("plain", plain, 5), ("library", library, n)):
-            if fn is None:
-                out[which] = out[which + "_event"] = None
-                continue
-            call = lambda fn=fn: fn(*rot.next())  # noqa: E731
-            out[which] = device_ms(torch, call, k)
-            out[which + "_event"] = cuda_ms(torch, call, k)
-        return out
+    def timed(*a, **k):
+        return timed_calls(torch, *a, **k)
 
-    def row(name, shape, err, ratio, limit, t, bound, **extra):
-        b_ms, b_by = bound
-        res = dict(phase="kernels_llama", name=name, shape=shape, max_err=err,
-                   err_over_limit=ratio, limit=limit, ok=ratio <= 1.0, kernel_ms=t["kernel"],
-                   kernel_event_ms=t["kernel_event"], plain_ms=t["plain"],
-                   plain_event_ms=t["plain_event"], library_ms=t["library"],
-                   library_event_ms=t["library_event"], bound_us=b_ms * 1e3, bound_by=b_by,
-                   **extra)
-        emit(res)
-        return res
+    def row(*a, **k):
+        return kernel_row("kernels_llama", *a, **k)
 
     zE = torch.zeros(E, device="cuda")
     lim_bf16 = ("per element: 1 bf16 ulp of the plain value + 1e-5 x the fp32 addends' "
@@ -2019,89 +2204,10 @@ def run_kernels_llama(torch, F, peaks):
                       limit="1e-5 x the fp32 addends' magnitudes per element"))
             ok &= ratio <= 1.0
 
-    # decode attention at 8 query heads per KV head (the kernels' MAX_GROUP)
-    B, S_max = 8, 512
-    lengths = torch.tensor([1, 512, 37, 100, 256, 300, 511, 64], dtype=torch.int32, device="cuda")
-    live = int(lengths.sum())
-    mask = (torch.arange(S_max, device="cuda")[None, :] < lengths[:, None])[:, None, None, :]
-    sets = [(rn(B, 1, H, D), rn(B, S_max, KV, D), rn(B, S_max, KV, D)) for _ in range(16)]
-    q, k, v = sets[0]
-    got = da.decode_attention(q, k, v, lengths)
-    ref = da.decode_attention_plain(q, k, v, lengths, D ** -0.5)
-    torch.cuda.synchronize()
-    err, ratio = one_ulp_errors(torch, got, ref)
-
-    def sdpa_gqa(q, k, v):
-        return F.scaled_dot_product_attention(q.transpose(1, 2), k.transpose(1, 2),
-                                              v.transpose(1, 2), attn_mask=mask,
-                                              enable_gqa=True)
-    t = timed(lambda q, k, v: da.decode_attention(q, k, v, lengths),
-              lambda q, k, v: da.decode_attention_plain(q, k, v, lengths, D ** -0.5),
-              sdpa_gqa, Rotation(sets), n=100)
-    at["decode_attention"] = row(
-        "decode_attention", f"B={B} S_max={S_max} H={H} KV={KV} D={D} lengths="
-        + ",".join(str(int(n)) for n in lengths), err, ratio, "1 bf16 ulp per element", t,
-        bound_ms(2 * live * KV * D * 2 + 2 * B * H * D * 2 + B * 4, 4 * live * H * D, peaks),
-        library="SDPA with enable_gqa (8 query heads share each KV head)")
-    ok &= at["decode_attention"]["ok"]
-    del sets
-
-    # paged attention at the same grouping (16-token pages, 32 table entries)
-    lens, pt, T = [1, 16, 17, 255, 256, 300, 511, 512], 16, 32
-    gp = torch.Generator(device="cuda").manual_seed(SEED + 9)
-    sets = [paged_arena(torch, gp, lens, B, H, KV, D, pt, T, bf) for _ in range(8)]
-    plen = torch.tensor(lens, dtype=torch.int32, device="cuda")
-    pmask = (torch.arange(T * pt, device="cuda")[None, :] < plen[:, None])[:, None, None, :]
-    q, kp, vp, table = sets[0]
-    got = pa.paged_decode_attention(q, kp, vp, table, plen)
-    ref = pa.paged_decode_attention_plain(q, kp, vp, table, plen, D ** -0.5)
-    torch.cuda.synchronize()
-    err, ratio = one_ulp_errors(torch, got, ref)
-
-    def gather_sdpa(q, kp, vp, table):
-        kk, vv = pa.gather_kv_pages(kp, table), pa.gather_kv_pages(vp, table)
-        return F.scaled_dot_product_attention(q.transpose(1, 2), kk.transpose(1, 2),
-                                              vv.transpose(1, 2), attn_mask=pmask,
-                                              enable_gqa=True)
-    t = timed(lambda q, kp, vp, tb: pa.paged_decode_attention(q, kp, vp, tb, plen),
-              lambda q, kp, vp, tb: pa.paged_decode_attention_plain(q, kp, vp, tb, plen,
-                                                                    D ** -0.5),
-              gather_sdpa, Rotation(sets), n=100)
-    plive = sum(lens)
-    at["paged_attention"] = row(
-        "paged_attention", f"B={B} H={H} KV={KV} D={D} pt={pt} T={T} lengths="
-        + ",".join(map(str, lens)), err, ratio, "1 bf16 ulp per element", t,
-        bound_ms(2 * plive * KV * D * 2 + 2 * B * H * D * 2 + B * T * 4 + B * 4,
-                 4 * plive * H * D, peaks),
-        library="gather_kv_pages + SDPA with enable_gqa on the gathered view")
-    ok &= at["paged_attention"]["ok"]
-    del sets
-
-    # the flash forward at H=32: engine(ids)'s prefill, the KV heads repeated
-    Bf, Sf = 2, 1024
-    q, k, v = (rn(Bf, Sf, H, D) for _ in range(3))
-    (o, lse), (ro, rlse) = (fa.flash_attention_with_lse(q, k, v, causal=True),
-                            fa.flash_attention_plain(q, k, v, True, D ** -0.5))
-    torch.cuda.synchronize()
-    rlse = rlse.reshape(Bf, H, Sf).transpose(1, 2)
-    err = float((o.float() - ro.float()).abs().max())
-    tol = 2 * bf16_ulp(float(ro.float().abs().max()))
-    lse_err = float((lse - rlse).abs().max())
-    lse_ok = lse_err <= 1e-4 * max(1.0, float(rlse.abs().max()))
-    qt, kt, vt = (x.transpose(1, 2).contiguous() for x in (q, k, v))
-    t = timed(lambda q, k, v: fa.flash_attention_with_lse(q, k, v, causal=True),
-              lambda q, k, v: fa.flash_attention_plain(q, k, v, True, D ** -0.5),
-              lambda *_: F.scaled_dot_product_attention(qt, kt, vt, is_causal=True),
-              Rotation([(q, k, v)]), n=20)
-    pairs = Sf * (Sf + 1) / 2
-    at["flash_attention_fwd"] = row(
-        "flash_attention_fwd", f"B={Bf} S={Sf} H={H} D={D} causal", err,
-        err / tol if lse_ok else float("inf"),
-        "2 bf16 ulps at the output's scale; lse within 1e-4", t,
-        bound_ms(4 * Bf * Sf * H * D * 2 + Bf * H * Sf * 4, 4 * Bf * H * D * pairs, peaks),
-        library="SDPA", lse_max_err=lse_err)
-    ok &= at["flash_attention_fwd"]["ok"]
-    del q, k, v, qt, kt, vt
+    # decode, paged and flash attention at 8 query heads per KV head (the
+    # kernels' MAX_GROUP)
+    at.update(attention_rows(torch, F, peaks, g, H, KV, D, "kernels_llama"))
+    ok &= all(r["ok"] for r in at.values())
 
     # the w8 matmul on llama-1b's panels: decode rows (8) and a full chunk (64)
     def pair(x, c, sc):   # dequantize + matmul: two calls, timed beside
@@ -2380,6 +2486,567 @@ def run_serve_llama(torch, out_dir=None):
     del engines, eng16, fp32_card
     torch.cuda.empty_cache()
     emit(dict(phase="serve_llama_summary", checks=checks))
+    return by_path, all(checks.values())
+
+
+# ---------------------------------------------------------------------------
+# GPT-NeoX (pythia-1b): kernels_neox, serve_neox
+# ---------------------------------------------------------------------------
+
+NEOX_E, NEOX_F, NEOX_H, NEOX_D = 2048, 8192, 8, 256
+# pythia-1b's dense panels (K, N): qkv, dense (the o-proj), h_to_4h, 4h_to_h
+PANELS_PYTHIA_1B = ((2048, 6144), (2048, 2048), (2048, 8192), (8192, 2048))
+NEOX_DENSE_PER_LAYER = 4
+# the branches of post_attn beside GPT-2's (tanh, sequential) and LLaMA's
+# (SwiGLU, sequential): the GPT-NeoX ones, which its paths run (the
+# parallel residual by default, the sequential one under
+# use_parallel_residual=False), and the other combinations of the flags,
+# which no model's path runs and the kernels phase holds
+NEOX_KERNELS = ("post_attn_erf_par", "post_attn_erf_par_w8", "post_attn_erf", "post_attn_erf_w8")
+OFF_PATH_BRANCHES = ("post_attn_par", "post_attn_par_w8", "post_attn_swiglu_par",
+                     "post_attn_swiglu_par_w8")
+NO_NEOX = {n: 0 for n in NEOX_KERNELS + OFF_PATH_BRANCHES}
+# each held branch of post_attn: its launch-count name and flags
+POST_ATTN_BRANCHES = (
+    ("post_attn_erf_par", dict(exact_gelu=True, parallel_residual=True)),
+    ("post_attn_erf", dict(exact_gelu=True)),
+    ("post_attn_par", dict(parallel_residual=True)),
+    ("post_attn", {}),
+    ("post_attn_erf_par", dict(exact_gelu=True, parallel_residual=True, rms=True)),
+    ("post_attn_erf", dict(exact_gelu=True, rms=True)),
+    ("post_attn_par", dict(parallel_residual=True, rms=True)),
+    ("post_attn_swiglu_par", dict(swiglu=True, parallel_residual=True, rms=True)),
+    ("post_attn_swiglu_par", dict(swiglu=True, parallel_residual=True)),
+)
+
+
+def branch_label(name, kw):
+    return name + ("_rms" if kw.get("rms") else "")
+
+
+def post_attn_operands(make, panel, M, E, Fh, kw):
+    """One set of post_attn operands (y, x, wo, bo, ns, nb, mlp weights) for
+    a branch's flags: ``make(*shape, std=, dtype=)`` draws activations and
+    vectors, ``panel(K, N)`` weights (full width or W8A16 pairs); no norm
+    bias under RMSNorm, no MLP biases under SwiGLU."""
+    y, x = make(M, E), make(M, E)
+    wo, bo = panel(E, E), make(E, std=0.02)
+    ns = 1 + make(E, std=0.1, dtype="fp32")
+    nb = None if kw.get("rms") else make(E, std=0.1, dtype="fp32")
+    if kw.get("swiglu"):
+        mlp = (panel(E, Fh), panel(E, Fh), panel(Fh, E))
+    else:
+        mlp = (panel(E, Fh), make(Fh, std=0.02), panel(Fh, E), make(E, std=0.02))
+    return y, x, wo, bo, ns, nb, mlp
+
+
+def post_attn_mag(torch, args, kw):
+    """The sum of the magnitudes of each output's fp32 addends: |x| + |bo|
+    + |y| @ |Wo| + |h| @ |W2| (+ |b2|), h the branch's MLP activation as the
+    plain version casts it."""
+    from deepspeed_tpu_torch.ops import decode_layer as dl
+
+    y, x, wo, bo, ns, nb, mlp = args
+    cdt = x.dtype
+    r1 = x.float() + dl._dot(y, wo) + bo.float()
+    src = x.float() if kw.get("parallel_residual") else r1
+    hin = dl._norm_rows(src, ns, 0.0 if nb is None else nb, 1e-5, kw.get("rms", False)).to(cdt)
+    if kw.get("swiglu"):
+        wg, wu, w2 = mlp
+        gate = dl._dot(hin, wg)
+        h, b2 = (gate * torch.sigmoid(gate) * dl._dot(hin, wu)).to(cdt), 0.0
+    else:
+        w1, b1, w2, b2 = mlp
+        gelu = dl.gelu_exact if kw.get("exact_gelu") else dl.gelu_tanh
+        h, b2 = gelu(dl._dot(hin, w1) + b1.float()).to(cdt), b2.float().abs()
+    return (x.float().abs() + bo.float().abs() + y.float().abs() @ abs_panel(wo)
+            + h.float().abs() @ abs_panel(w2) + b2)
+
+
+def branch_plain(args, kw):
+    """The plain version of one branch on one operand set (a zero norm bias
+    under RMSNorm, which it does not read)."""
+    from deepspeed_tpu_torch.ops import decode_layer as dl
+
+    y, x, wo, bo, ns, nb, mlp = args
+    return dl.post_attn_plain(y, x, wo, bo, ns, 0 * ns if nb is None else nb, mlp, 1e-5,
+                              kw.get("swiglu", False), kw.get("rms", False),
+                              kw.get("exact_gelu", False), kw.get("parallel_residual", False))
+
+
+def gelu_probe(torch, g, M, E, Fh, dtype, group, band, dev="cuda"):
+    """The GELU form of each GELU branch of post_attn, held where the exact
+    and the tanh forms part by more than the limit. A random model's MLP
+    input sits within about one of zero, where the two forms differ by
+    ~1e-4, below the bf16 and fp32 limits of the other cases. Here x = y =
+    0 and zero biases bo, b2, so the normalised row is the norm's bias (0
+    under RMSNorm) and u = nb @ W1 + b1, with b1 spread over ``band``; W2
+    copies one h column into each output channel (exactly: a unit panel,
+    or W8 codes 64 with scales 1/64), so each output is one h value. fp32
+    takes u in about [2.3, 3.2] (the forms part by ~1.5e-4 of the value,
+    the limit is 1e-5 of it); bf16 takes [-3.2, -2.6], where h is small
+    and the forms part by several percent of it, many bf16 ulps. Each
+    branch is held against its plain version (ratio <= 1), and against the
+    plain version of the other GELU form, which must miss (ratio > 1).
+    Returns whether every branch held and every control missed."""
+    from deepspeed_tpu_torch.ops import decode_layer as dl
+
+    def make(*shape, std=1.0, dtype=None):
+        t = torch.randn(shape, generator=g, device=dev) * std
+        return t if dtype == "fp32" else t.to(dtype)
+
+    def panel(K, N):
+        if group is None:
+            return make(K, N, std=0.02, dtype=dtype)
+        codes = torch.randint(-127, 128, (K, N), generator=g, device=dev, dtype=torch.int8)
+        return codes, torch.full((K // group, N), 0.02 / 127, device=dev)
+
+    stride = Fh // E
+    pick = torch.arange(E, device=dev) * stride
+    if group is None:
+        w2 = torch.zeros(Fh, E, device=dev, dtype=dtype)
+        w2[pick, torch.arange(E, device=dev)] = 1
+    else:
+        codes = torch.zeros(Fh, E, device=dev, dtype=torch.int8)
+        codes[pick, torch.arange(E, device=dev)] = 64
+        w2 = codes, torch.full((Fh // group, E), 1 / 64, device=dev)
+    zero = torch.zeros(M, E, device=dev, dtype=dtype)
+    ok, bf16 = True, dtype == torch.bfloat16
+    wlabel = "full width" if group is None else f"W8 g={group}"
+    for name, kw in POST_ATTN_BRANCHES:
+        if kw.get("swiglu"):
+            continue
+        ns = 1 + make(E, std=0.1, dtype="fp32")
+        nb = None if kw.get("rms") else make(E, std=0.1, dtype="fp32")
+        b1 = torch.linspace(band[0], band[1], Fh, device=dev).to(dtype)
+        args = (zero, zero, panel(E, E), torch.zeros(E, device=dev, dtype=dtype), ns, nb,
+                (panel(E, Fh), b1, w2, torch.zeros(E, device=dev, dtype=dtype)))
+        got = dl.fused_post_attn(*args, **kw)
+        ratios = []
+        for exact in (kw.get("exact_gelu", False), not kw.get("exact_gelu", False)):
+            kw_ref = {**kw, "exact_gelu": exact}
+            _, ratio, _ = w8_limits(torch, got, branch_plain(args, kw_ref),
+                                    post_attn_mag(torch, args, kw_ref), bf16)
+            ratios.append(ratio)
+        held = ratios[0] <= 1.0 < ratios[1]
+        emit(dict(phase="kernels_neox_gelu_probe", name=branch_label(name, kw),
+                  shape=f"M={M} E={E} F={Fh} {wlabel} {str(dtype)[6:]} u in {list(band)}",
+                  err_over_limit=ratios[0], other_form_err_over_limit=ratios[1], ok=held,
+                  limit="w8_limits (bf16 or fp32); the other form must exceed it"))
+        ok &= held
+    return ok
+
+
+def run_kernels_neox(torch, F, peaks):
+    """The kernels at pythia-1b's shapes (M=8 decode rows, E=2048, F=8192,
+    H=KV=8, D=256). Every branch of post_attn beside GPT-2's and LLaMA's —
+    the exact GELU and the parallel residual in all four combinations with
+    the GELU form, under LayerNorm and RMSNorm, and SwiGLU under the
+    parallel residual — in bf16 and W8A16 (g=128), each element within its
+    limit of the plain version (``w8_limits``); the four GELU combinations
+    under LayerNorm timed with the plain version and the bound. Then every
+    branch in fp32 at a small aligned shape (1e-5 of the fp32 addends'
+    magnitudes per element; fp32 weights, W8 g=128 and one group). The
+    LayerNorm -> qkv kernel at N=6144, bf16 and W8; decode, paged and flash
+    attention at D=256 (:func:`attention_rows`); the w8 matmul on
+    pythia-1b's four panels at M=8. Returns the path branches' rows, the
+    earlier kernels' rows at pythia-1b's shapes, and whether all held."""
+    from deepspeed_tpu_torch.ops import decode_layer as dl
+    from deepspeed_tpu_torch.ops import w8 as w8ops
+    from deepspeed_tpu_torch.ops import w8_matmul as wm
+
+    g = torch.Generator(device="cuda").manual_seed(SEED + 10)
+    bf = torch.bfloat16
+    M, E, Fh = 8, NEOX_E, NEOX_F
+    rows, at, ok = {}, {}, True
+
+    def make(*shape, std=1.0, dtype="bf16"):
+        t = torch.randn(shape, generator=g, device="cuda") * std
+        return t if dtype == "fp32" else t.to(bf)
+
+    def timed(*a, **k):
+        return timed_calls(torch, *a, **k)
+
+    def row(*a, **k):
+        return kernel_row("kernels_neox", *a, **k)
+
+    lim_bf16 = ("per element: 1 bf16 ulp of the plain value + 1e-5 x the fp32 addends' "
+                "magnitudes + half a bf16 ulp of the row's largest output")
+    for group in (None, 128):
+        def panel(K, N, group=group):
+            if group is None:
+                return make(K, N, std=0.02)
+            return w8_panels(torch, g, K, N, group, 1)[0]
+
+        def scale_bytes(K, N, group=group):
+            return 0 if group is None else K // group * N * 4
+
+        wbytes = 2 if group is None else 1
+        suffix = "" if group is None else "_w8"
+        glabel = "" if group is None else f" g={group}"
+
+        # LayerNorm -> qkv at N=6144 (norm_qkv, decode_norm_proj_w8 at pythia-1b)
+        N = 3 * E
+        nbytes = E * N * wbytes + scale_bytes(E, N) + M * E * 2 + M * N * 2 + N * 2 + 2 * E * 4
+        sets = [(make(M, E), 1 + make(E, std=0.1, dtype="fp32"), make(E, std=0.1, dtype="fp32"),
+                 panel(E, N), make(N, std=0.02)) for _ in range(max(2, -(-60_000_000 // nbytes)))]
+        x, ns, nb, w, b = sets[0]
+        got, ref = dl.fused_norm_proj(x, ns, nb, w, b), dl.norm_proj_plain(x, ns, nb, w, b, 1e-5)
+        torch.cuda.synchronize()
+        xn = dl._norm_rows(x.float(), ns, nb, 1e-5).to(bf)
+        err, ratio, wide = w8_limits(torch, got, ref, xn.float().abs() @ abs_panel(w)
+                                     + b.float().abs(), True)
+        name = "decode_norm_proj_w8" if group else "norm_qkv"
+        at[name] = row(name, f"M={M} E={E} N={N}{glabel}", err, ratio, lim_bf16,
+                       timed(lambda x, ns, nb, w, b: dl.fused_norm_proj(x, ns, nb, w, b),
+                             lambda x, ns, nb, w, b: dl.norm_proj_plain(x, ns, nb, w, b, 1e-5),
+                             None, Rotation(sets)),
+                       bound_ms(nbytes, 2 * M * E * N, peaks), limit_over_2ulp_share=wide)
+        ok &= at[name]["ok"]
+        del sets
+
+        # post_attn: every branch held, the four GELU combinations under
+        # LayerNorm timed (the pythia-1b branches among them)
+        for name, kw in POST_ATTN_BRANCHES:
+            label = branch_label(name, kw) + suffix
+            n_up = 2 if kw.get("swiglu") else 1
+            nbytes = ((E * E + (n_up + 1) * E * Fh) * wbytes + scale_bytes(E, E)
+                      + n_up * scale_bytes(E, Fh) + scale_bytes(Fh, E) + 3 * M * E * 2
+                      + 2 * E * 4 + E * 2 + (0 if kw.get("swiglu") else (Fh + E) * 2))
+            timed_case = not kw.get("rms") and not kw.get("swiglu")
+            n_sets = max(2, -(-60_000_000 // nbytes)) if timed_case else 1
+            sets = [post_attn_operands(make, panel, M, E, Fh, kw) for _ in range(n_sets)]
+            got, ref = dl.fused_post_attn(*sets[0], **kw), branch_plain(sets[0], kw)
+            torch.cuda.synchronize()
+            err, ratio, wide = w8_limits(torch, got, ref, post_attn_mag(torch, sets[0], kw), True)
+            shape = (f"M={M} E={E} F={Fh}{glabel} " + ("RMSNorm" if kw.get("rms") else "LN")
+                     + (" SwiGLU" if kw.get("swiglu") else
+                        " exact GELU" if kw.get("exact_gelu") else " tanh GELU")
+                     + (" parallel" if kw.get("parallel_residual") else " sequential"))
+            if timed_case:
+                t = timed(lambda *a, kw=kw: dl.fused_post_attn(*a, **kw),
+                          lambda *a, kw=kw: branch_plain(a, kw), None, Rotation(sets), n=20)
+            else:
+                t = dict.fromkeys(("kernel", "kernel_event", "plain", "plain_event", "library",
+                                   "library_event"))
+            res = row(label, shape, err, ratio, lim_bf16, t,
+                      bound_ms(nbytes, 2 * M * (E * E + (n_up + 1) * E * Fh), peaks),
+                      limit_over_2ulp_share=wide, launches_per_call=3)
+            ok &= res["ok"]
+            if label in NEOX_KERNELS:
+                rows[label] = res
+            del sets
+        torch.cuda.empty_cache()
+
+    # fp32 activations at a small aligned shape: per element within 1e-5 of
+    # the fp32 addends' magnitudes (fp32 weights; W8A16 with 128-row groups
+    # and with one group per panel, the down panel's spanning two chunks)
+    Es, Fs = 256, 1280
+    for group in (None, 128, "one"):
+        def pnl(K, N, group=group):
+            if group is None:
+                return make(K, N, std=0.02, dtype="fp32")
+            return w8_panels(torch, g, K, N, K if group == "one" else group, 1)[0]
+
+        def make32(*shape, std=1.0, dtype=None):
+            return make(*shape, std=std, dtype="fp32")
+
+        wlabel = "fp32 weights" if group is None else f"W8 g={'K' if group == 'one' else group}"
+        for name, kw in POST_ATTN_BRANCHES:
+            args = post_attn_operands(make32, pnl, 3, Es, Fs, kw)
+            got, ref = dl.fused_post_attn(*args, **kw), branch_plain(args, kw)
+            err, ratio, _ = w8_limits(torch, got, ref, post_attn_mag(torch, args, kw), False)
+            emit(dict(phase="kernels_neox_fp32", name=branch_label(name, kw),
+                      shape=f"M=3 E={Es} F={Fs} fp32, {wlabel}", max_err=err,
+                      err_over_limit=ratio, ok=ratio <= 1.0,
+                      limit="1e-5 x the fp32 addends' magnitudes per element"))
+            ok &= ratio <= 1.0
+
+    # the GELU form where the two forms part: bf16 at pythia-1b's shape,
+    # fp32 at the small one, full width and W8
+    for group in (None, 128):
+        ok &= gelu_probe(torch, g, M, E, Fh, bf, group, (-3.2, -2.6))
+        ok &= gelu_probe(torch, g, 3, Es, Fs, torch.float32, group, (2.3, 3.2))
+
+    # decode, paged and flash attention at D=256 (H = KV = 8)
+    at.update(attention_rows(torch, F, peaks, g, NEOX_H, NEOX_H, NEOX_D, "kernels_neox"))
+    ok &= all(at[k]["ok"] for k in ("decode_attention", "paged_attention",
+                                    "flash_attention_fwd"))
+
+    # the w8 matmul on pythia-1b's panels at M=8 (the int8 unfused ticks)
+    at["w8a16_matmul"] = []
+    for K, N in PANELS_PYTHIA_1B:
+        panels = w8_panels(torch, g, K, N, 128, -(-60_000_000 // (K * N)))
+        sets = [(make(M, K), c, sc) for c, sc in panels]
+        x, c, sc = sets[0]
+        got, ref = wm.w8a16_matmul_kernel(x, c, sc), wm.w8a16_matmul_plain(x, c, sc)
+        torch.cuda.synchronize()
+        mag = x.float().abs() @ w8ops.dequantize_weight(c, sc).abs()
+        err, ratio, _ = w8_limits(torch, got, ref, mag, False)
+        res = row("w8a16_matmul", f"M={M} K={K} N={N} g=128", err, ratio,
+                  "1e-5 x |x| @ |dequant W| per element",
+                  timed(wm.w8a16_matmul_kernel, wm.w8a16_matmul_plain, None, Rotation(sets)),
+                  bound_ms(K * N + K // 128 * N * 4 + M * K * 2 + M * N * 4, 2 * M * K * N,
+                           peaks))
+        ok &= res["ok"]
+        at["w8a16_matmul"].append(res)
+        del sets, panels
+    torch.cuda.empty_cache()
+    return rows, at, ok
+
+
+def run_serve_neox(torch, out_dir=None):
+    """pythia-1b (E=2048, 16 layers, 8 heads, D=256, F=8192, rotary_pct
+    0.25, vocab 50432, untied head; full size, random weights from seed
+    1234) served through ``init_inference(max_tokens=512)`` in bf16 and in
+    W8A16 from the same weights: the batcher with page-resident KV (16-token
+    pages, 8 slots) on the serve phase's 32 requests twice each;
+    ``engine(ids)`` at B=2, S=1024 (the flash forward at D=256); ``generate``
+    (B=8, prompt 256, 64 new) with the fused decode kernels on and off
+    (decode attention at D=256); then the sequential-residual variant at
+    pythia-1b's widths and 2 layers, one fused ``generate`` in each dtype.
+    Gates: exact launch counts (per single-token forward and layer: one
+    LayerNorm -> qkv kernel, one exact-GELU parallel post_attn call, one
+    paged attention; the w8 matmul as the prefill chunks imply), no leaks,
+    the dense bytes (int8 / bf16 = 33/64), the forward (B=1, S=128) within 8
+    bf16 ulps of a CPU fp32 engine holding each card engine's own weights,
+    the int8-vs-bf16 logits' relative RMS <= 0.1, the sampling step on the
+    card, seeded sampling, and every greedy stream teacher-forced through an
+    fp32 engine on the card holding the same weights (tie-aware >= 99%, the
+    argmax wherever its top two lie more than 16 ulps apart; the strict
+    share printed), as ``run_serve_llama`` gates them."""
+    from collections import Counter
+
+    import deepspeed_tpu_torch as ds
+    from deepspeed_tpu_torch.models.gptneox import GPTNeoXForCausalLM, gptneox_config
+
+    cfg = gptneox_config("pythia-1b")
+    L, V = cfg.n_layer, cfg.vocab_size
+    t0 = time.perf_counter()
+    model = GPTNeoXForCausalLM(cfg).init_weights(torch.Generator().manual_seed(SEED))
+    init_s = time.perf_counter() - t0
+    engines, resident, checks = {}, {}, {}
+    for label, kw in (("bf16", {}), ("w8", dict(quant=W8))):
+        torch.cuda.synchronize()
+        m0 = torch.cuda.memory_allocated()
+        engines[label] = ds.init_inference(model, dtype=torch.bfloat16, max_tokens=512, **kw)
+        torch.cuda.synchronize()
+        resident[label] = torch.cuda.memory_allocated() - m0
+    n_params = sum(p.numel() for p in model.parameters())
+    del model                    # the engines hold their own copies
+    dense8, dense16 = (dense_weight_bytes(engines[k].module) for k in ("w8", "bf16"))
+    E, F = cfg.hidden_size, cfg.intermediate_size
+    n_dense = L * (4 * E * E + 2 * E * F)     # qkv (E, 3E), dense (E, E), h_to_4h, 4h_to_h
+    # int8 codes + one fp32 scale per 128 rows: (1 + 4/128) / 2 = 33/64 of bf16's bytes
+    checks["dense_bytes_ratio"] = dense16 == 2 * n_dense and 64 * dense8 == 33 * dense16
+    checks["rotary_cache_len"] = engines["bf16"].cache_len == engines["bf16"]._gen_limit == 512
+    checks["params"] = n_params == 1_012_305_920
+    norms = [p for n, p in engines["bf16"].module.named_parameters() if "_ln." in n]
+    checks["norms_fp32"] = all(p.dtype == torch.float32 for p in norms)
+    emit(dict(phase="serve_neox_weights", model="pythia-1b", init_s=init_s, params=n_params,
+              dense_elements=n_dense, dense_weight_bytes_w8=dense8,
+              dense_weight_bytes_bf16=dense16, dense_ratio=dense8 / dense16,
+              resident_bytes=resident, resident_ratio=resident["w8"] / resident["bf16"],
+              cache_len=engines["bf16"].cache_len, head_dim=cfg.head_dim,
+              rotary_dim=cfg.rotary_dim))
+
+    reqs = serve_requests(V)
+    by_path, served = {}, {}
+    for label, e in engines.items():
+        q = label == "w8"
+        w8 = "_w8" if q else ""
+        path = f"serve_neox{w8}_paged"
+        batcher = ds.ContinuousBatcher(e, n_slots=8, seed=SEED,
+                                       prefix_cache={"page_tokens": 16, "n_pages": 512})
+        zero_counts()
+        chunks0 = Counter(batcher.prefill_chunks)
+        outs, passes = [], []
+        for _ in range(2):
+            o, nums = serve_pass(torch, batcher, reqs)
+            outs.append(o)
+            passes.append(nums)
+        launches = read_counts()
+        by_path[path] = launches
+        chunks = batcher.prefill_chunks - chunks0
+        singles = sum(p["ticks"] + p["one_token_prefills"] for p in passes)
+        expected = {n: 0 for n in launches}
+        expected.update({"paged_attention": L * singles,
+                         "decode_norm_proj_w8" if q else "norm_qkv": L * singles,
+                         "post_attn_erf_par" + w8: L * singles,
+                         "w8a16_matmul": chunk_launches(chunks, NEOX_DENSE_PER_LAYER * L)
+                         if q else 0})
+        prof = serve_profile(torch, batcher, reqs,
+                             out_dir and os.path.join(out_dir, f"profile_{path}.txt"))
+        run_checks = {
+            "launch_counts": launches == expected,
+            "no_leaks": all(v == 0 for p in passes for v in p["leaks"].values())
+            and all(v == 0 for v in batcher.leak_counts().values()),
+            "shapes_and_vocab": all(len(o) == len(r["prompt"]) + r["max_new_tokens"]
+                                    and int(o.max()) < V for op in outs for o, r in zip(op, reqs)),
+            "pass2_hits": passes[1]["hit_tokens"] > 0}
+        samp = sampling_check(torch, e, reqs, outs[0], phase="serve_neox_sampling")
+        run_checks["sampling_card_vs_cpu"] = samp["ok"]
+        served[label] = [(o_pass[i], len(reqs[i]["prompt"]))
+                         for o_pass in outs for i in range(0, len(reqs), 2)]
+        emit(dict(phase="serve_neox", path=path, model="pythia-1b", dtype="bfloat16",
+                  quant="int8 W8A16" if q else None, n_slots=8, requests=len(reqs),
+                  prefix_cache={"page_tokens": 16, "n_pages": 512}, passes=passes,
+                  profile=prof, resident_weight_bytes=resident[label],
+                  prefill_chunks={f"{B}x{S}": n for (B, S), n in sorted(chunks.items())},
+                  launches=launches, expected_launches=expected, checks=run_checks))
+        checks.update({f"{path}_{k}": v for k, v in run_checks.items()})
+        del batcher
+
+    # the forward against CPU fp32 engines holding each card engine's own
+    # weights (bf16 values, int8 codes); the same weights in an fp32 engine
+    # on the card, held against the CPU's, are the reference the greedy
+    # streams are teacher-forced through
+    ids = torch.randint(0, V, (1, 128), generator=torch.Generator().manual_seed(SEED + 6))
+    with torch.device("meta"):
+        template = GPTNeoXForCausalLM(cfg)
+    fp32_card, gates = {}, {}
+    for label, e in engines.items():
+        kw = dict(quant=W8) if label == "w8" else {}
+        state = {k: v.detach().cpu() for k, v in e.module.state_dict().items()}
+        cpu = ds.init_inference(template, params=state, dtype=torch.float32, max_tokens=512,
+                                device="cpu", **kw)
+        ref = cpu(ids)[..., :V].float()
+        del cpu
+        fp32_card[label] = ds.init_inference(template, params=state, dtype=torch.float32,
+                                             max_tokens=512, **kw)
+        del state
+        card = e(ids)[..., :V].float().cpu()
+        card32 = fp32_card[label](ids)[..., :V].float().cpu()
+        err = float((card - ref).abs().max())
+        tol = 8 * bf16_ulp(float(ref.abs().max()))
+        err32 = float((card32 - ref).abs().max())
+        top1 = float((card.argmax(-1) == ref.argmax(-1)).float().mean())
+        tf = teacher_forced(torch, fp32_card[label], served[label], V)
+        tf_self = teacher_forced(torch, e, served[label], V)
+        gates[label] = dict(forward_max_err=err, forward_tol=tol, forward_top1=top1,
+                            fp32_card_vs_cpu_max_err=err32,
+                            teacher_forced_vs_fp32=tf, teacher_forced_vs_own_bf16_forward=tf_self)
+        checks[f"forward_vs_cpu_fp32_{label}"] = err <= tol and bool(torch.isfinite(card).all())
+        # fp32 in other orders over 16 layers: far below a bf16 ulp (2^-8 relative)
+        checks[f"fp32_reference_vs_cpu_{label}"] = err32 <= 1e-3 * float(ref.abs().max())
+        checks[f"greedy_teacher_forced_{label}"] = (tf["within_2ulp"] >= 0.99
+                                                    and tf["decisive_strict"] == 1.0)
+    l8, l16 = (engines[k](ids)[..., :V].float() for k in ("w8", "bf16"))
+    rel_rms = float((l8 - l16).pow(2).mean().sqrt() / l16.pow(2).mean().sqrt())
+    checks["int8_vs_bf16_rel_rms"] = rel_rms <= 0.1
+    emit(dict(phase="serve_neox_checks", forward_shape=[1, 128], gates=gates,
+              int8_vs_bf16_logits_rel_rms=rel_rms))
+
+    # engine(ids) at B=2, S=1024: the flash forward at H=8, D=256
+    eng16 = engines["bf16"]
+    big = torch.randint(0, V, (2, 1024), generator=torch.Generator().manual_seed(SEED + 1))
+    eng16(big[:, :128])
+    fwd = {}
+    zero_counts()
+    for k in ("first", "again"):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = eng16(big)
+        torch.cuda.synchronize()
+        fwd[k] = (time.perf_counter() - t0) * 1e3
+    launches = read_counts()
+    by_path["forward_neox"] = launches
+    expected = {n: 0 for n in launches}
+    expected["flash_attention_fwd"] = 2 * L
+    checks["forward_launch_counts"] = launches == expected
+    checks["forward_finite"] = bool(torch.isfinite(out[..., :V]).all())
+    emit(dict(phase="forward_neox", shape=[2, 1024], forward_ms=fwd["first"],
+              forward_again_ms=fwd["again"], launches=launches, expected_launches=expected))
+    del out
+
+    def run_generate(path, eg, prompt, new, ref, fused, w8, layers, post):
+        """One timed greedy ``generate`` with its launches held against the
+        ticks and its streams teacher-forced through ``ref``."""
+        eg.generate(prompt[:, :32], max_new_tokens=4)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        eg.generate(prompt, max_new_tokens=1)
+        torch.cuda.synchronize()
+        ttft = (time.perf_counter() - t0) * 1e3
+        zero_counts()
+        t0 = time.perf_counter()
+        out = eg.generate(prompt, max_new_tokens=new)
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+        launches = read_counts()
+        by_path[path] = launches
+        ticks = new - 1
+        expected = {n: 0 for n in launches}
+        expected["decode_attention"] = layers * ticks
+        if fused:
+            expected["decode_norm_proj_w8" if w8 else "norm_qkv"] = layers * ticks
+            expected[post + w8] = layers * ticks
+        elif w8:
+            expected["w8a16_matmul"] = NEOX_DENSE_PER_LAYER * layers * ticks
+        n0 = prompt.shape[1]
+        ok_path = (launches == expected and tuple(out.shape) == (prompt.shape[0], n0 + new)
+                   and int(out.max()) < V)
+        tf = teacher_forced(torch, ref, [(s, n0) for s in out], V)
+        checks[f"{path}_launch_counts"] = ok_path
+        emit(dict(phase="generate_neox", path=path, shape=[prompt.shape[0], n0, new],
+                  ttft_ms=ttft, generate_ms=wall, ms_per_tick=(wall - ttft) / ticks,
+                  decode_tokens_per_s=prompt.shape[0] * ticks / ((wall - ttft) / 1e3),
+                  launches=launches, expected_launches=expected, teacher_forced_vs_fp32=tf,
+                  ok=ok_path))
+        return out, tf
+
+    # generate with the fused decode kernels on and off, bf16 and int8 (the
+    # unfused engines hold the same weights); each path's greedy streams
+    # teacher-forced through the fp32 reference
+    prompt = torch.randint(0, V, (8, 256), generator=torch.Generator().manual_seed(SEED + 7))
+    new, compare = 64, {}
+    for label, e in engines.items():
+        w8 = "_w8" if label == "w8" else ""
+        state = {k: v.detach() for k, v in e.module.state_dict().items()}
+        unfused = ds.init_inference(template, params=state, dtype=torch.bfloat16,
+                                    max_tokens=512, decode_fused=False,
+                                    **(dict(quant=W8) if w8 else {}))
+        del state
+        gen = {}
+        for fused, eg in ((True, e), (False, unfused)):
+            path = f"generate_neox{w8}_{'fused' if fused else 'unfused'}"
+            gen[fused], _ = run_generate(path, eg, prompt, new, fp32_card[label], fused, w8, L,
+                                         "post_attn_erf_par")
+        compare[f"greedy_tokens_equal{w8}_fused_vs_unfused"] = float(
+            (gen[True][:, 256:] == gen[False][:, 256:]).float().mean())
+        del unfused, gen
+        torch.cuda.empty_cache()
+    # seeded sampling repeats through the fused ticks
+    s1 = eng16.generate(prompt[:, :64], max_new_tokens=32, temperature=0.8, top_p=0.9, seed=7)
+    s2 = eng16.generate(prompt[:, :64], max_new_tokens=32, temperature=0.8, top_p=0.9, seed=7)
+    checks["sampled_generate_repeats"] = bool(torch.equal(s1, s2)) and int(s1.max()) < V
+    emit(dict(phase="generate_neox_compare", **compare))
+    del engines, eng16, fp32_card
+    torch.cuda.empty_cache()
+
+    # the sequential residual (use_parallel_residual=False) at pythia-1b's
+    # widths, depth cut to 2: one fused generate per dtype launches the
+    # exact-GELU sequential branches on a path
+    seq_cfg = gptneox_config("pythia-1b", use_parallel_residual=False, num_hidden_layers=2)
+    seq_model = GPTNeoXForCausalLM(seq_cfg).init_weights(torch.Generator().manual_seed(SEED))
+    with torch.device("meta"):
+        seq_template = GPTNeoXForCausalLM(seq_cfg)
+    for label, kw in (("bf16", {}), ("w8", dict(quant=W8))):
+        w8 = "_w8" if kw else ""
+        eg = ds.init_inference(seq_model, dtype=torch.bfloat16, max_tokens=512, **kw)
+        # the fp32 reference holds the engine's own weights (bf16 values, int8 codes)
+        state = {k: v.detach() for k, v in eg.module.state_dict().items()}
+        ref = ds.init_inference(seq_template, params=state, dtype=torch.float32, max_tokens=512,
+                                **kw)
+        del state
+        _, tf = run_generate(f"generate_neox_seq{w8}_fused", eg, prompt[:, :128], 32, ref, True,
+                             w8, seq_cfg.n_layer, "post_attn_erf")
+        checks[f"generate_neox_seq{w8}_teacher_forced"] = (tf["within_2ulp"] >= 0.99
+                                                           and tf["decisive_strict"] == 1.0)
+        del eg, ref
+    del seq_model
+    torch.cuda.empty_cache()
+    emit(dict(phase="serve_neox_summary", checks=checks))
     return by_path, all(checks.values())
 
 
@@ -2860,6 +3527,8 @@ def main() -> int:
     ok &= w8_ok
     llama_rows, llama_at, llama_kernels_ok = run_kernels_llama(torch, F, peaks)
     ok &= llama_kernels_ok
+    neox_rows, neox_at, neox_kernels_ok = run_kernels_neox(torch, F, peaks)
+    ok &= neox_kernels_ok
     launches, slice_ok, eng, prompt = run_slice(torch)
     ok &= slice_ok
     run_profile(torch, eng, prompt, args.out)
@@ -2871,13 +3540,15 @@ def main() -> int:
     ok &= w8_serve_ok
     llama_launches, llama_ok = run_serve_llama(torch, args.out)
     ok &= llama_ok
+    neox_launches, neox_ok = run_serve_neox(torch, args.out)
+    ok &= neox_ok
     train_launches, train_ok = run_train(torch, peaks, args.out)
     ok &= train_ok
     big_launches, opt_res, big_ok = run_train_1p5b(torch, peaks, args.out)
     ok &= big_ok
     # each path's counts were zeroed before it and read after it
     by_path = {"generate": launches, **serve_launches, **w8_launches, **llama_launches,
-               **train_launches, **big_launches}
+               **neox_launches, **train_launches, **big_launches}
 
     # the kernels' rows at gpt2-760m's heads, which the serve_w8 and
     # generate_w8 paths run
@@ -2981,16 +3652,36 @@ def main() -> int:
                                                    f"generate_llama{w8}_fused"))
     ok &= all(k in llama_rows for k in LLAMA_KERNELS)
 
+    # the GPT-NeoX branches of post_attn, each launched on the paths that run it
+    neox_paths = {"post_attn_erf_par": ("serve_neox_paged", "generate_neox_fused"),
+                  "post_attn_erf_par_w8": ("serve_neox_w8_paged", "generate_neox_w8_fused"),
+                  "post_attn_erf": ("generate_neox_seq_fused",),
+                  "post_attn_erf_w8": ("generate_neox_seq_w8_fused",)}
+    for kname, paths in neox_paths.items():
+        r = neox_rows.get(kname)
+        if r is None:   # the kernels phase failed before timing it (already not ok)
+            continue
+        summary.append(dict(
+            name=kname, route="cuda", source="deepspeed_tpu_torch/ops/csrc/decode_layer.cu",
+            replaces="deepspeed_tpu/ops/pallas/decode_layer.py:344", **path_counts(kname),
+            max_abs_err=r["max_err"], ms=r["kernel_ms"], plain_ms=r["plain_ms"],
+            bound_ms=r["bound_us"] / 1e3, bound_by=r["bound_by"], library_ms=None,
+            shape=r["shape"]))
+        ok &= all(by_path[p][kname] > 0 for p in paths)
+    ok &= all(k in neox_rows for k in neox_paths)
+
     # the earlier kernels' rows at llama-1b's shapes (H=32 over KV=4, the
+    # four dense panels) and at pythia-1b's (H=KV=8, D=256; qkv N=6144, the
     # four dense panels)
-    def at_llama(r):
+    def at_shape(r):
         return dict(shape=r["shape"], max_abs_err=r["max_err"], ms=r["kernel_ms"],
                     plain_ms=r["plain_ms"], library_ms=r["library_ms"],
                     bound_ms=r["bound_us"] / 1e3, bound_by=r["bound_by"])
     for row in summary:
-        r = llama_at.get(row["name"])
-        if r is not None:
-            row["at_llama_1b"] = [at_llama(x) for x in r] if isinstance(r, list) else at_llama(r)
+        for key, table in (("at_llama_1b", llama_at), ("at_pythia_1b", neox_at)):
+            r = table.get(row["name"])
+            if r is not None:
+                row[key] = [at_shape(x) for x in r] if isinstance(r, list) else at_shape(r)
     print(smi, flush=True)
     emit({"kernels": summary})
     if not ok:

@@ -15,7 +15,8 @@ Top-level API (the JAX package's ``initialize`` and ``init_inference``):
   ``backward`` / ``step``)
 - ``init_inference(model, params=..., dtype=..., max_tokens=..., device=None)``
   → :class:`~deepspeed_tpu_torch.inference.engine.InferenceEngine`, for a
-  ``GPT2LMHeadModel`` or a ``LlamaForCausalLM`` (``deepspeed_tpu_torch.models``)
+  ``GPT2LMHeadModel``, a ``LlamaForCausalLM`` or a ``GPTNeoXForCausalLM``
+  (``deepspeed_tpu_torch.models``)
 - ``ContinuousBatcher(engine, n_slots, prefix_cache=...)`` — the slot-pool
   server over an engine, contiguous or page-resident
   (:mod:`~deepspeed_tpu_torch.inference.serving`)

@@ -1,7 +1,7 @@
 """Inference engine: ``engine(input_ids)`` forward and ``generate()``.
 
 Port of ``deepspeed_tpu/inference/engine.py`` for one card. The engine
-builds a model of the family it is given (GPT-2 or LLaMA) and holds its own
+builds a model of the family it is given (GPT-2, LLaMA or GPT-NeoX) and holds its own
 copy of the weights at the serving dtype on its device; ``forward`` runs the
 model, ``generate`` prefills a KV cache and then steps a plain Python tick
 loop (the JAX package's compiled ``lax.scan`` loop; CUDA graphs for the tick
@@ -10,7 +10,7 @@ are later work).
 The generation limit and the KV cache length follow the JAX engine's rule.
 A model whose parameter shapes depend on its context field (GPT-2's learned
 position table, ``n_positions``) keeps that length: ``max_tokens`` below it
-shrinks the cache, above it is capped. A rotary model (LLaMA,
+shrinks the cache, above it is capped. A rotary model (LLaMA, GPT-NeoX;
 ``max_position_embeddings``) sizes its cache and limit from ``max_tokens``,
 below or above the trained context. A ``cache_len`` set on the model config
 caps both.
@@ -40,10 +40,8 @@ from typing import Any, Mapping, Optional
 import numpy as np
 import torch
 
-from ..models.common import init_layer_cache
+from ..models.common import LayerNorm, RMSNorm, init_layer_cache
 from ..models.convert import _tensor, is_flax_tree, params_from_jax
-from ..models.gpt2 import LayerNorm
-from ..models.llama import RMSNorm
 from ..ops.quantizer import fake_quantize
 from ..ops.w8 import quantize_state_dict
 from ..utils.logging import logger
@@ -122,8 +120,9 @@ def _params_depend_on(model_cls, cfg, field: str) -> bool:
 
 
 class InferenceEngine:
-    """Serving wrapper around a port model (``GPT2LMHeadModel`` or
-    ``LlamaForCausalLM``): the engine builds its own of the same class.
+    """Serving wrapper around a port model (``GPT2LMHeadModel``,
+    ``LlamaForCausalLM`` or ``GPTNeoXForCausalLM``): the engine builds its
+    own of the same class.
 
     ``params``: a state dict of the port, or a flax param tree of the
     model's family as numpy arrays (converted by ``models/convert.py``);

@@ -1,4 +1,5 @@
-"""Shared model plumbing: LayerNorm and RMSNorm math, model outputs, the
+"""Shared model plumbing: LayerNorm and RMSNorm math and modules, the dense
+layer (full width or W8A16), model outputs, the
 losses, the remat policies, the KV-cache contract and the fused decode-tick
 dispatch.
 
@@ -41,7 +42,7 @@ from ..ops import flash_attention as _flash  # noqa: F401 (registers the flash f
 from ..ops.decode_layer import norm_proj_supported, post_attn_supported
 from ..ops.fused_ce import fused_ce_sum
 from ..ops.paged_attention import PagedKV
-from ..ops.w8 import w8_group_size
+from ..ops.w8 import w8_group_size, w8a16_matmul
 
 KV_CACHE_LEAVES = ("cached_key", "cached_value")
 CACHE_INDEX_LEAF = "cache_index"
@@ -75,6 +76,33 @@ def new_param(shape, device, dtype) -> torch.nn.Parameter:
     return torch.nn.Parameter(torch.empty(shape, device=device, dtype=dtype))
 
 
+class LayerNorm(torch.nn.Module):
+    """LayerNorm of ``width`` channels (``scale``, ``bias``), every family's:
+    the inference engine keeps the parameters of this class and of
+    :class:`RMSNorm` fp32, which the fused decode kernels read."""
+
+    def __init__(self, width: int, eps: float, device=None, dtype=torch.float32):
+        super().__init__()
+        self.eps = eps
+        self.scale = new_param((width,), device, dtype)
+        self.bias = new_param((width,), device, dtype)
+
+    def forward(self, x):
+        return layer_norm(x, self.scale, self.bias, self.eps)
+
+
+class RMSNorm(torch.nn.Module):
+    """RMSNorm of ``width`` channels (``scale`` only)."""
+
+    def __init__(self, width: int, eps: float, device=None, dtype=torch.float32):
+        super().__init__()
+        self.eps = eps
+        self.scale = new_param((width,), device, dtype)
+
+    def forward(self, x):
+        return rms_norm(x, self.scale, self.eps)
+
+
 def declare_dense(mod: torch.nn.Module, name: str, k: int, n: int, cfg, device, dtype,
                   bias: bool = True) -> None:
     """A dense layer's parameters under the flax names: ``name_kernel``
@@ -98,6 +126,13 @@ def dense_weight(mod: torch.nn.Module, name: str, dtype):
     if mod.cfg.w8:
         return getattr(mod, name + "_kernel_q"), getattr(mod, name + "_kernel_s")
     return getattr(mod, name + "_kernel").to(dtype)
+
+
+def dense(x: torch.Tensor, weight, bias: Optional[torch.Tensor] = None, dtype=None):
+    """``x @ W (+ b)``: ``weight`` a full-width kernel or a W8A16 pair
+    (:func:`dense_weight`); the bias is cast to ``dtype``."""
+    y = w8a16_matmul(x, *weight) if isinstance(weight, tuple) else x @ weight
+    return y if bias is None else y + bias.to(dtype)
 
 
 class ModelOutput(dict):

@@ -1,11 +1,11 @@
-"""Carry weights and optimizer state across: a flax GPT-2 or LLaMA param
-tree → the port's state dict, and the JAX ``Adam8bitState`` → the port's
+"""Carry weights and optimizer state across: a flax GPT-2, LLaMA or GPT-NeoX
+param tree → the port's state dict, and the JAX ``Adam8bitState`` → the port's
 ``Adam8bit`` state.
 
 The port keeps the flax names and ``(in, out)`` kernel layouts, so each
 leaf maps to one state-dict key with no transpose. Both flax layouts are
 taken: ``scan_layers=True`` stacks the blocks under one name (``h`` for
-GPT-2, ``layers`` for LLaMA) with a leading layer axis,
+GPT-2, ``layers`` for LLaMA and GPT-NeoX) with a leading layer axis,
 ``scan_layers=False`` names them ``h_0 … h_{L-1}`` (``layers_0 …``). Leaves
 arrive as numpy arrays (``np.asarray`` works on JAX arrays too, without
 this package importing JAX); partition boxes must be unwrapped first.
@@ -25,6 +25,7 @@ import numpy as np
 import torch
 
 from .gpt2 import GPT2Config, GPT2LMHeadModel
+from .gptneox import GPTNeoXConfig, GPTNeoXForCausalLM
 from .llama import LlamaConfig, LlamaForCausalLM
 
 
@@ -38,12 +39,13 @@ def _flatten(tree: Mapping, prefix: str = ""):
 
 
 # each family's model class and the name of its block stack
-_FAMILIES = {GPT2Config: (GPT2LMHeadModel, "h"), LlamaConfig: (LlamaForCausalLM, "layers")}
+_FAMILIES = {GPT2Config: (GPT2LMHeadModel, "h"), LlamaConfig: (LlamaForCausalLM, "layers"),
+             GPTNeoXConfig: (GPTNeoXForCausalLM, "layers")}
 
 
 def is_flax_tree(params: Mapping) -> bool:
-    """A flax tree nests its leaves (GPT-2's ``ln_f``, LLaMA's ``norm`` and
-    the blocks are dicts); a state dict is flat."""
+    """A flax tree nests its leaves (GPT-2's ``ln_f``, LLaMA's ``norm``,
+    GPT-NeoX's ``final_ln`` and the blocks are dicts); a state dict is flat."""
     return any(isinstance(v, Mapping) for v in params.values())
 
 
@@ -84,7 +86,7 @@ def _check_names(got: Mapping, expected: Mapping, cfg, what: str) -> None:
 
 def params_from_jax(np_tree: Mapping, cfg) -> dict[str, torch.Tensor]:
     """The port's state dict (CPU tensors, the tree's dtypes) for a flax
-    param tree of ``cfg``'s family (GPT-2 or LLaMA), scanned or not: full
+    param tree of ``cfg``'s family (GPT-2, LLaMA or GPT-NeoX), scanned or not: full
     width, or quantized by the JAX engine (W8A16 ``*_kernel_q`` int8 codes
     and ``*_kernel_s`` fp32 scales in place of each dense ``*_kernel``,
     grouped by ``cfg.w8_group``). Raises ``KeyError`` on missing or
@@ -107,6 +109,13 @@ def gpt2_params_from_jax(np_tree: Mapping, cfg: GPT2Config) -> dict[str, torch.T
 def llama_params_from_jax(np_tree: Mapping, cfg: LlamaConfig) -> dict[str, torch.Tensor]:
     """:func:`params_from_jax` for a LLaMA tree (``embed_tokens``, the
     ``layers`` stack, ``norm``, the untied ``lm_head``)."""
+    return params_from_jax(np_tree, cfg)
+
+
+def gptneox_params_from_jax(np_tree: Mapping, cfg: GPTNeoXConfig) -> dict[str, torch.Tensor]:
+    """:func:`params_from_jax` for a GPT-NeoX tree (``embed_in``, the
+    ``layers`` stack with the interleaved ``attention.qkv`` panel,
+    ``final_ln``, the untied ``embed_out``)."""
     return params_from_jax(np_tree, cfg)
 
 

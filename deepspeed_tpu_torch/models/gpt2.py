@@ -42,10 +42,9 @@ from torch import nn
 
 from ..ops.attention import cached_decode_attention, dot_product_attention
 from ..ops.decode_layer import fused_norm_proj, fused_post_attn
-from ..ops.w8 import w8a16_matmul
-from .common import (ModelOutput, append_kv_cache, chunked_lm_loss, cross_entropy_loss,
-                     declare_dense, decode_fused_plan, dense_weight, layer_norm, new_param,
-                     pallas_lm_loss, resolve_remat_policy, shift_labels)
+from .common import (LayerNorm, ModelOutput, append_kv_cache, chunked_lm_loss,
+                     cross_entropy_loss, declare_dense, decode_fused_plan, dense, dense_weight,
+                     new_param, pallas_lm_loss, resolve_remat_policy, shift_labels)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -130,22 +129,6 @@ def gpt2_config(preset: str = "gpt2-125m", **overrides) -> GPT2Config:
     return GPT2Config(**{**PRESETS[preset], **overrides})
 
 
-def _dense(x, weight, bias, dtype):
-    y = w8a16_matmul(x, *weight) if isinstance(weight, tuple) else x @ weight
-    return y + bias.to(dtype)
-
-
-class LayerNorm(nn.Module):
-    def __init__(self, cfg: GPT2Config, device=None, dtype=torch.float32):
-        super().__init__()
-        self.eps = cfg.layer_norm_epsilon
-        self.scale = new_param((cfg.n_embd,), device, dtype)
-        self.bias = new_param((cfg.n_embd,), device, dtype)
-
-    def forward(self, x):
-        return layer_norm(x, self.scale, self.bias, self.eps)
-
-
 class SelfAttention(nn.Module):
     def __init__(self, cfg: GPT2Config, device=None, dtype=torch.float32):
         super().__init__()
@@ -173,9 +156,9 @@ class SelfAttention(nn.Module):
 
     def forward(self, x, mask, layer_cache=None):
         dt = self.cfg.dtype
-        y = self.mix(_dense(x, dense_weight(self, "c_attn", dt), self.c_attn_bias, dt), mask,
+        y = self.mix(dense(x, dense_weight(self, "c_attn", dt), self.c_attn_bias, dt), mask,
                      layer_cache)
-        return _dense(y, dense_weight(self, "c_proj", dt), self.c_proj_bias, dt)
+        return dense(y, dense_weight(self, "c_proj", dt), self.c_proj_bias, dt)
 
 
 class MLP(nn.Module):
@@ -188,9 +171,9 @@ class MLP(nn.Module):
 
     def forward(self, x):
         dt = self.cfg.dtype
-        h = nn.functional.gelu(_dense(x, dense_weight(self, "c_fc", dt), self.c_fc_bias, dt),
+        h = nn.functional.gelu(dense(x, dense_weight(self, "c_fc", dt), self.c_fc_bias, dt),
                                approximate="tanh")   # gelu_new
-        return _dense(h, dense_weight(self, "c_proj", dt), self.c_proj_bias, dt)
+        return dense(h, dense_weight(self, "c_proj", dt), self.c_proj_bias, dt)
 
 
 class Block(nn.Module):
@@ -199,9 +182,9 @@ class Block(nn.Module):
     def __init__(self, cfg: GPT2Config, device=None, dtype=torch.float32):
         super().__init__()
         self.cfg = cfg
-        self.ln_1 = LayerNorm(cfg, device, dtype)
+        self.ln_1 = LayerNorm(cfg.n_embd, cfg.layer_norm_epsilon, device, dtype)
         self.attn = SelfAttention(cfg, device, dtype)
-        self.ln_2 = LayerNorm(cfg, device, dtype)
+        self.ln_2 = LayerNorm(cfg.n_embd, cfg.layer_norm_epsilon, device, dtype)
         self.mlp = MLP(cfg, device, dtype)
 
     def forward(self, x, mask=None, layer_cache=None):
@@ -246,7 +229,7 @@ class GPT2LMHeadModel(nn.Module):
         self.wte = new_param((cfg.padded_vocab_size, E), device, dtype)
         self.wpe = new_param((cfg.n_positions, E), device, dtype)
         self.h = nn.ModuleList(Block(cfg, device, dtype) for _ in range(cfg.n_layer))
-        self.ln_f = LayerNorm(cfg, device, dtype)
+        self.ln_f = LayerNorm(cfg.n_embd, cfg.layer_norm_epsilon, device, dtype)
 
     @torch.no_grad()
     def init_weights(self, generator: torch.Generator) -> "GPT2LMHeadModel":

@@ -34,9 +34,8 @@ from torch import nn
 from ..ops.attention import cached_decode_attention, dot_product_attention
 from ..ops.decode_layer import fused_norm_proj, fused_post_attn
 from ..ops.rotary import apply_rotary_pos_emb
-from ..ops.w8 import w8a16_matmul
-from .common import (ModelOutput, append_kv_cache, cross_entropy_loss, declare_dense,
-                     decode_fused_plan, dense_weight, new_param, rms_norm, shift_labels)
+from .common import (ModelOutput, RMSNorm, append_kv_cache, cross_entropy_loss, declare_dense,
+                     decode_fused_plan, dense, dense_weight, new_param, shift_labels)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -112,20 +111,6 @@ def llama_config(preset: str = "llama-tiny", **overrides) -> LlamaConfig:
     return LlamaConfig(**{**PRESETS[preset], **overrides})
 
 
-def _dense(x, weight):
-    return w8a16_matmul(x, *weight) if isinstance(weight, tuple) else x @ weight
-
-
-class RMSNorm(nn.Module):
-    def __init__(self, cfg: LlamaConfig, device=None, dtype=torch.float32):
-        super().__init__()
-        self.eps = cfg.rms_norm_eps
-        self.scale = new_param((cfg.hidden_size,), device, dtype)
-
-    def forward(self, x):
-        return rms_norm(x, self.scale, self.eps)
-
-
 class LlamaAttention(nn.Module):
     def __init__(self, cfg: LlamaConfig, device=None, dtype=torch.float32):
         super().__init__()
@@ -156,9 +141,9 @@ class LlamaAttention(nn.Module):
 
     def forward(self, x, position_ids, mask, layer_cache=None):
         dt = self.cfg.dtype
-        q, k, v = (_dense(x, dense_weight(self, n, dt)) for n in ("q_proj", "k_proj", "v_proj"))
+        q, k, v = (dense(x, dense_weight(self, n, dt)) for n in ("q_proj", "k_proj", "v_proj"))
         y = self.mix(q, k, v, position_ids, mask, layer_cache)
-        return _dense(y, dense_weight(self, "o_proj", dt))
+        return dense(y, dense_weight(self, "o_proj", dt))
 
 
 class LlamaBlock(nn.Module):
@@ -169,9 +154,9 @@ class LlamaBlock(nn.Module):
         super().__init__()
         self.cfg = cfg
         E, F = cfg.hidden_size, cfg.intermediate_size
-        self.input_norm = RMSNorm(cfg, device, dtype)
+        self.input_norm = RMSNorm(cfg.hidden_size, cfg.rms_norm_eps, device, dtype)
         self.self_attn = LlamaAttention(cfg, device, dtype)
-        self.post_attention_norm = RMSNorm(cfg, device, dtype)
+        self.post_attention_norm = RMSNorm(cfg.hidden_size, cfg.rms_norm_eps, device, dtype)
         for name, k, n in (("gate_proj", E, F), ("up_proj", E, F), ("down_proj", F, E)):
             declare_dense(self, name, k, n, cfg, device, dtype, bias=False)
 
@@ -185,9 +170,9 @@ class LlamaBlock(nn.Module):
             return self._fused_tick(x, position_ids, mask, layer_cache)
         x = x + self.self_attn(self.input_norm(x), position_ids, mask, layer_cache)
         h = self.post_attention_norm(x)
-        gate = _dense(h, dense_weight(self, "gate_proj", dt))
-        up = _dense(h, dense_weight(self, "up_proj", dt))
-        return x + _dense(nn.functional.silu(gate) * up, dense_weight(self, "down_proj", dt))
+        gate = dense(h, dense_weight(self, "gate_proj", dt))
+        up = dense(h, dense_weight(self, "up_proj", dt))
+        return x + dense(nn.functional.silu(gate) * up, dense_weight(self, "down_proj", dt))
 
     def _fused_tick(self, x, position_ids, mask, layer_cache):
         """A single-token tick through the fused decode kernels: RMSNorm → q,
@@ -222,7 +207,7 @@ class LlamaForCausalLM(nn.Module):
         self.embed_tokens = new_param((Vp, E), device, dtype)
         self.layers = nn.ModuleList(LlamaBlock(cfg, device, dtype)
                                     for _ in range(cfg.num_hidden_layers))
-        self.norm = RMSNorm(cfg, device, dtype)
+        self.norm = RMSNorm(cfg.hidden_size, cfg.rms_norm_eps, device, dtype)
         self.lm_head = new_param((E, Vp), device, dtype)
 
     @torch.no_grad()

@@ -1,6 +1,7 @@
 // The two fused decode-layer kernels of a decode tick, with weights in the
 // activation dtype or as W8A16 pairs (int8 codes + grouped fp32 scales), for
-// GPT-2 (LayerNorm, GELU-tanh pair) and LLaMA (RMSNorm, SwiGLU).
+// GPT-2 (LayerNorm, GELU-tanh pair), LLaMA (RMSNorm, SwiGLU) and GPT-NeoX
+// (LayerNorm, exact-GELU pair, parallel residual).
 //
 // norm_proj_fwd / norm_proj_w8_fwd replace _norm_proj_kernel
 // (deepspeed_tpu/ops/pallas/decode_layer.py:185):
@@ -9,22 +10,24 @@
 // scale (no mean, no bias; the same fp32 reduction order as the LayerNorm
 // variance).
 // post_attn_fwd / post_attn_w8_fwd replace _post_attn_kernel
-// (decode_layer.py:344), GELU-tanh pair, sequential residual:
+// (decode_layer.py:344), GELU pair:
 //   r1  = x + y @ Wo + bo                  fp32, kept in fp32
-//   hin = cast(norm(r1))
-//   h   = cast(gelu_tanh(hin @ W1 + b1))
+//   hin = cast(norm(r1)), or cast(norm(x)) under the parallel residual
+//   h   = cast(gelu(hin @ W1 + b1))        gelu_tanh, or with exact_gelu the erf form
 //   out = cast(r1 + h @ W2 + b2)
 // post_attn_swiglu_fwd / post_attn_swiglu_w8_fwd replace its SwiGLU branch
 // (decode_layer.py:385-392), three MLP panels and no MLP biases:
 //   r1  = x + y @ Wo + bo                  (bo zeros for LLaMA, as the JAX wrapper passes)
-//   hin = cast(norm(r1))
+//   hin = cast(norm(r1)), or cast(norm(x)) under the parallel residual
 //   h   = cast(silu(hin @ Wg) * (hin @ Wu))  gate and up fp32 products, h in fp32
 //   out = cast(r1 + h @ Wd)
 // "cast" is the activation dtype; the cast points are the TPU kernel's. In
 // the W8 entries each "@ W" is the TPU kernels' _qdot_any (decode_layer.py
 // :160): codes upcast to the activation's values, per-group fp32 partials
 // times the group's scale; gate and up share the group size over E, the
-// down panel has its own over F.
+// down panel has its own over F. The parallel residual (decode_layer.py
+// :376) normalises the block input x, upcast to fp32, instead of r1; the
+// output still adds r1, so it is x + attn + mlp.
 //
 // Bound on the H100: bytes (rows_gemv.cuh). Every product is the
 // row-batched GEMV of rows_gemv.cuh. The TPU kernel carried r1, hin and the
@@ -32,9 +35,12 @@
 // post_attn makes three launches with a grid-wide step between them: o-proj
 // + residual into an fp32 scratch r1, then norm + up-proj + GELU (or norm +
 // gate/up + SwiGLU, both panels in one pass over the staged rows) into a
-// scratch h, then down-proj + residual. The down projection's K is F; its
-// scale groups (g = 128, or one group of F) fold at each group's end and at
-// each 1024-row chunk's end (rows_gemv.cuh).
+// scratch h, then down-proj + residual. Under the parallel residual the
+// middle launch reads x (an Args<T, T, W> instantiation, the operand type
+// norm_proj stages) and no longer depends on the first; the three launches
+// stay in order on one stream. The down projection's K is F; its scale
+// groups (g = 128, or one group of F) fold at each group's end and at each
+// 1024-row chunk's end (rows_gemv.cuh).
 #include "rows_gemv.cuh"
 
 namespace {
@@ -106,36 +112,56 @@ cudaError_t down_residual(const void* h, Weight<W> w2, const void* b2, const flo
   return gv::launch<T, T, W, gv::kDownResidual>(d, stream);
 }
 
-// The middle launch's norm over the fp32 r1 scratch.
-template <typename T, typename W>
-gv::Args<T, float, W> norm_up_args(const float* r1, const float* ns, const float* nb, float eps,
-                                   int rms, Weight<W> w1, void* h, int M, int E, int F) {
-  gv::Args<T, float, W> u{};
-  u.src = r1;
+// The middle launch: norm over src (the fp32 r1 scratch, or x under the
+// parallel residual), then the up panel with GELU (kNormUpGelu, w2 unused)
+// or the gate and up panels with SwiGLU (kNormGateUp, no b1).
+template <typename T, typename S, typename W, int MODE>
+cudaError_t norm_up(const S* src, const float* ns, const float* nb, float eps, int rms,
+                    Weight<W> w1, Weight<W> w2, const void* b1, int exact_gelu, void* h, int M,
+                    int E, int F, cudaStream_t stream) {
+  gv::Args<T, S, W> u{};
+  u.src = src;
   u.ns = ns;
   u.nb = nb;
   u.eps = eps;
   u.rms = rms;
+  u.exact_gelu = exact_gelu;
   u.w = w1.w;
   u.scale = w1.scale;
   u.group = w1.group;
+  u.w2 = w2.w;
+  u.scale2 = w2.scale;
+  u.bias = static_cast<const T*>(b1);
   u.out = h;
   u.M = M;
   u.K = E;
   u.N = F;
-  return u;
+  return gv::launch<T, S, W, MODE>(u, stream);
+}
+
+template <typename T, typename W, int MODE>
+cudaError_t norm_up_from(int parallel, const void* x, const float* r1, const float* ns,
+                         const float* nb, float eps, int rms, Weight<W> w1, Weight<W> w2,
+                         const void* b1, int exact_gelu, void* h, int M, int E, int F,
+                         cudaStream_t stream) {
+  if (parallel)
+    return norm_up<T, T, W, MODE>(static_cast<const T*>(x), ns, nb, eps, rms, w1, w2, b1,
+                                  exact_gelu, h, M, E, F, stream);
+  return norm_up<T, float, W, MODE>(r1, ns, nb, eps, rms, w1, w2, b1, exact_gelu, h, M, E, F,
+                                    stream);
 }
 
 template <typename T, typename W>
 cudaError_t post_attn(const void* y, const void* x, Weight<W> wo, const void* bo,
                       const float* ns, const float* nb, Weight<W> w1, const void* b1,
                       Weight<W> w2, const void* b2, float* r1, void* h, void* out,
-                      int M, int E, int F, float eps, int rms, cudaStream_t stream) {
+                      int M, int E, int F, float eps, int rms, int exact_gelu, int parallel,
+                      cudaStream_t stream) {
   cudaError_t err = oproj_residual<T>(y, x, wo, bo, r1, M, E, stream);
   if (err != cudaSuccess) return err;
-  gv::Args<T, float, W> u = norm_up_args<T>(r1, ns, nb, eps, rms, w1, h, M, E, F);
-  u.bias = static_cast<const T*>(b1);  // h = gelu(norm(r1) @ W1 + b1)
-  err = gv::launch<T, float, W, gv::kNormUpGelu>(u, stream);
+  // h = gelu(norm(src) @ W1 + b1)
+  err = norm_up_from<T, W, gv::kNormUpGelu>(parallel, x, r1, ns, nb, eps, rms, w1, Weight<W>{},
+                                            b1, exact_gelu, h, M, E, F, stream);
   if (err != cudaSuccess) return err;
   return down_residual<T>(h, w2, b2, r1, out, M, E, F, stream);
 }
@@ -144,14 +170,13 @@ template <typename T, typename W>
 cudaError_t post_attn_swiglu(const void* y, const void* x, Weight<W> wo, const void* bo,
                              const float* ns, const float* nb, Weight<W> wg, Weight<W> wu,
                              Weight<W> wd, float* r1, void* h, void* out, int M, int E, int F,
-                             float eps, int rms, cudaStream_t stream) {
+                             float eps, int rms, int parallel, cudaStream_t stream) {
   if (wg.group != wu.group) return cudaErrorInvalidValue;
   cudaError_t err = oproj_residual<T>(y, x, wo, bo, r1, M, E, stream);
   if (err != cudaSuccess) return err;
-  gv::Args<T, float, W> u = norm_up_args<T>(r1, ns, nb, eps, rms, wg, h, M, E, F);
-  u.w2 = wu.w;  // h = silu(norm(r1) @ Wg) * (norm(r1) @ Wu)
-  u.scale2 = wu.scale;
-  err = gv::launch<T, float, W, gv::kNormGateUp>(u, stream);
+  // h = silu(norm(src) @ Wg) * (norm(src) @ Wu)
+  err = norm_up_from<T, W, gv::kNormGateUp>(parallel, x, r1, ns, nb, eps, rms, wg, wu, nullptr,
+                                            0, h, M, E, F, stream);
   if (err != cudaSuccess) return err;
   return down_residual<T>(h, wd, nullptr, r1, out, M, E, F, stream);
 }
@@ -204,21 +229,26 @@ DS_EXPORT int norm_proj_w8_fwd(const void* x, const void* ns, const void* nb,
 
 // y, x (M, E); wo (E, E); bo (E,); ns, nb (E,) fp32; w1 (E, F); b1 (F,);
 // w2 (F, E); b2 (E,); scratch r1 (M, E) fp32 and h (M, F); out (M, E).
-// Three launches; returns the first non-zero cudaGetLastError(), else 0.
+// exact_gelu: the erf GELU (GPT-NeoX) instead of gelu_tanh; parallel: the
+// MLP's norm reads x instead of r1. Three launches; returns the first
+// non-zero cudaGetLastError(), else 0.
 DS_EXPORT int post_attn_fwd(const void* y, const void* x, const void* wo, const void* bo,
                             const void* ns, const void* nb, const void* w1, const void* b1,
                             const void* w2, const void* b2, void* r1, void* h, void* out,
-                            int M, int E, int F, float eps, int rms, int dtype, void* stream) {
+                            int M, int E, int F, float eps, int rms, int exact_gelu,
+                            int parallel, int dtype, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const float* nsf = static_cast<const float*>(ns);
   const float* nbf = static_cast<const float*>(nb);
   float* r1f = static_cast<float*>(r1);
   if (dtype == ds::kBFloat16)
     return post_attn<ds::bf16>(y, x, dense<ds::bf16>(wo), bo, nsf, nbf, dense<ds::bf16>(w1),
-                               b1, dense<ds::bf16>(w2), b2, r1f, h, out, M, E, F, eps, rms, st);
+                               b1, dense<ds::bf16>(w2), b2, r1f, h, out, M, E, F, eps, rms,
+                               exact_gelu, parallel, st);
   if (dtype == ds::kFloat32)
     return post_attn<float>(y, x, dense<float>(wo), bo, nsf, nbf, dense<float>(w1), b1,
-                            dense<float>(w2), b2, r1f, h, out, M, E, F, eps, rms, st);
+                            dense<float>(w2), b2, r1f, h, out, M, E, F, eps, rms, exact_gelu,
+                            parallel, st);
   return cudaErrorInvalidValue;
 }
 
@@ -229,28 +259,31 @@ DS_EXPORT int post_attn_w8_fwd(const void* y, const void* x, const void* co, con
                                const void* c1, const void* s1, int g1, const void* b1,
                                const void* c2, const void* s2, int g2, const void* b2,
                                void* r1, void* h, void* out, int M, int E, int F, float eps,
-                               int rms, int dtype, void* stream) {
+                               int rms, int exact_gelu, int parallel, int dtype, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const float* nsf = static_cast<const float*>(ns);
   const float* nbf = static_cast<const float*>(nb);
   float* r1f = static_cast<float*>(r1);
   if (dtype == ds::kBFloat16)
     return post_attn<ds::bf16>(y, x, w8(co, so, go), bo, nsf, nbf, w8(c1, s1, g1), b1,
-                               w8(c2, s2, g2), b2, r1f, h, out, M, E, F, eps, rms, st);
+                               w8(c2, s2, g2), b2, r1f, h, out, M, E, F, eps, rms, exact_gelu,
+                               parallel, st);
   if (dtype == ds::kFloat32)
     return post_attn<float>(y, x, w8(co, so, go), bo, nsf, nbf, w8(c1, s1, g1), b1,
-                            w8(c2, s2, g2), b2, r1f, h, out, M, E, F, eps, rms, st);
+                            w8(c2, s2, g2), b2, r1f, h, out, M, E, F, eps, rms, exact_gelu,
+                            parallel, st);
   return cudaErrorInvalidValue;
 }
 
 // The SwiGLU branch: y, x (M, E); wo (E, E); bo (E,); ns, nb (E,) fp32 (nb
 // unread under rms); wg, wu (E, F); wd (F, E); scratch r1 (M, E) fp32 and h
-// (M, F); out (M, E). No MLP biases. Three launches, as post_attn_fwd.
+// (M, F); out (M, E). No MLP biases. parallel: the norm reads x instead of
+// r1. Three launches, as post_attn_fwd.
 DS_EXPORT int post_attn_swiglu_fwd(const void* y, const void* x, const void* wo, const void* bo,
                                    const void* ns, const void* nb, const void* wg,
                                    const void* wu, const void* wd, void* r1, void* h, void* out,
-                                   int M, int E, int F, float eps, int rms, int dtype,
-                                   void* stream) {
+                                   int M, int E, int F, float eps, int rms, int parallel,
+                                   int dtype, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const float* nsf = static_cast<const float*>(ns);
   const float* nbf = static_cast<const float*>(nb);
@@ -258,11 +291,12 @@ DS_EXPORT int post_attn_swiglu_fwd(const void* y, const void* x, const void* wo,
   if (dtype == ds::kBFloat16)
     return post_attn_swiglu<ds::bf16>(y, x, dense<ds::bf16>(wo), bo, nsf, nbf,
                                       dense<ds::bf16>(wg), dense<ds::bf16>(wu),
-                                      dense<ds::bf16>(wd), r1f, h, out, M, E, F, eps, rms, st);
+                                      dense<ds::bf16>(wd), r1f, h, out, M, E, F, eps, rms,
+                                      parallel, st);
   if (dtype == ds::kFloat32)
     return post_attn_swiglu<float>(y, x, dense<float>(wo), bo, nsf, nbf, dense<float>(wg),
                                    dense<float>(wu), dense<float>(wd), r1f, h, out, M, E, F,
-                                   eps, rms, st);
+                                   eps, rms, parallel, st);
   return cudaErrorInvalidValue;
 }
 
@@ -273,8 +307,8 @@ DS_EXPORT int post_attn_swiglu_w8_fwd(const void* y, const void* x, const void* 
                                       const void* nb, const void* cg, const void* sg, int gg,
                                       const void* cu, const void* su, int gu, const void* cd,
                                       const void* sd, int gd, void* r1, void* h, void* out,
-                                      int M, int E, int F, float eps, int rms, int dtype,
-                                      void* stream) {
+                                      int M, int E, int F, float eps, int rms, int parallel,
+                                      int dtype, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const float* nsf = static_cast<const float*>(ns);
   const float* nbf = static_cast<const float*>(nb);
@@ -282,10 +316,10 @@ DS_EXPORT int post_attn_swiglu_w8_fwd(const void* y, const void* x, const void* 
   if (dtype == ds::kBFloat16)
     return post_attn_swiglu<ds::bf16>(y, x, w8(co, so, go), bo, nsf, nbf, w8(cg, sg, gg),
                                       w8(cu, su, gu), w8(cd, sd, gd), r1f, h, out, M, E, F,
-                                      eps, rms, st);
+                                      eps, rms, parallel, st);
   if (dtype == ds::kFloat32)
     return post_attn_swiglu<float>(y, x, w8(co, so, go), bo, nsf, nbf, w8(cg, sg, gg),
                                    w8(cu, su, gu), w8(cd, sd, gd), r1f, h, out, M, E, F, eps,
-                                   rms, st);
+                                   rms, parallel, st);
   return cudaErrorInvalidValue;
 }

@@ -16,7 +16,7 @@
 // weight byte is read once per 8 rows (row blocks beyond the first, M > 8,
 // read the panel again). Partial sums reduce through warp
 // shuffles and shared memory; the epilogue applies the bias, residual and
-// GELU in fp32.
+// GELU (tanh, or with exact_gelu the erf form) in fp32.
 //
 // SwiGLU (kNormGateUp) pairs two panels of one width, gate and up: a block
 // owns 8 columns of each, its even threads reading the gate panel and its
@@ -65,8 +65,9 @@ enum Mode : int { kNormProj, kOProjResidual, kNormUpGelu, kDownResidual, kMatmul
 __host__ __device__ constexpr int block_cols(int mode) { return mode == kNormGateUp ? 8 : kCols; }
 
 // T: activation dtype (bias, residual and output). S: dtype of the row
-// operand (T, or fp32 for the r1 scratch). W: weight storage (T, or int8
-// codes with fp32 scales).
+// operand (T, or fp32 for the r1 scratch; the norm modes of post_attn read
+// the block input x, type T, under the parallel residual). W: weight
+// storage (T, or int8 codes with fp32 scales).
 template <typename T, typename S, typename W>
 struct Args {
   const S* src;           // (M, K) row operand
@@ -74,6 +75,7 @@ struct Args {
   const float* nb;        // (K,) norm bias, LayerNorm modes
   float eps;
   int rms;                // norm modes: RMSNorm (no mean, no bias) instead of LayerNorm
+  int exact_gelu;         // kNormUpGelu: the erf GELU instead of the tanh one
   const W* w;             // (K, N), row-major; the gate panel in kNormGateUp
   const float* scale;     // (K / group, N) fp32, int8 weights
   int group;              // rows per scale group (K for one group)
@@ -91,6 +93,13 @@ __device__ __forceinline__ float gelu_tanh(float u) {
   // (deepspeed_tpu/ops/pallas/fused_ops.py:165)
   const float inner = kSqrt2OverPi * (u + 0.044715f * u * u * u);
   return 0.5f * u * (1.f + tanhf(inner));
+}
+
+__device__ __forceinline__ float gelu_erf(float u) {
+  // _gelu_exact (deepspeed_tpu/ops/pallas/decode_layer.py:98-100), the same
+  // expression in the same order: 0.5 * u * (1 + erf(u * 2^-0.5)). erff is
+  // the full-precision libdevice erf (no --use_fast_math in the build).
+  return 0.5f * u * (1.f + erff(u * 0.70710678f));
 }
 
 __device__ __forceinline__ float swiglu(float g, float u) {
@@ -286,7 +295,8 @@ __global__ void __launch_bounds__(kThreads) rows_gemv_kernel(const Args<T, S, W>
         } else if constexpr (MODE == kOProjResidual) {
           static_cast<float*>(a.out)[o] = (ds::to_float(a.resid[o]) + v) + bias;
         } else {
-          static_cast<T*>(a.out)[o] = ds::from_float<T>(gelu_tanh(v + bias));
+          const float u = v + bias;
+          static_cast<T*>(a.out)[o] = ds::from_float<T>(a.exact_gelu ? gelu_erf(u) : gelu_tanh(u));
         }
       }
     }

@@ -1,16 +1,21 @@
 """Fused decode-row kernels: norm → projection, and o-proj → norm → MLP.
 
-Port of ``deepspeed_tpu/ops/pallas/decode_layer.py`` for the branches the
-GPT-2 and LLaMA decode ticks run: LayerNorm or RMSNorm (``rms``), the
-GELU-tanh MLP pair or the three-panel SwiGLU MLP (``swiglu``), and a
-sequential residual, with weights in the activation dtype or as W8A16 pairs
-(int8 codes ``(K, N)`` + fp32 scales ``(K/g, N)``, the ``ops/w8.py``
-layout). The TPU kernels ``_norm_proj_kernel`` and ``_post_attn_kernel``
-become ``csrc/decode_layer.cu`` (one launch, and three launches,
-respectively; see its header and ``csrc/rows_gemv.cuh`` for the design and
-bound), one C entry per MLP and weight kind, the norm a flag. Each branch
-has its own launch count (``NORM_PROJ_RMS``, ``POST_ATTN_SWIGLU`` and their
-W8 twins beside GPT-2's).
+Port of ``deepspeed_tpu/ops/pallas/decode_layer.py``, every branch of it:
+LayerNorm or RMSNorm (``rms``); the GELU MLP pair, tanh (GPT-2) or exact
+erf (``exact_gelu``, GPT-NeoX), or the three-panel SwiGLU MLP (``swiglu``,
+LLaMA); a sequential residual or the parallel one (``parallel_residual``,
+GPT-NeoX: the MLP's norm reads the block input ``x``); weights in the
+activation dtype or as W8A16 pairs (int8 codes ``(K, N)`` + fp32 scales
+``(K/g, N)``, the ``ops/w8.py`` layout). The TPU kernels
+``_norm_proj_kernel`` and ``_post_attn_kernel`` become
+``csrc/decode_layer.cu`` (one launch, and three launches, respectively; see
+its header and ``csrc/rows_gemv.cuh`` for the design and bound), one C
+entry per MLP and weight kind, the norm, the GELU form and the residual
+flags. Each branch has its own launch count: ``NORM_PROJ_RMS`` beside
+``NORM_PROJ``, and one handle per MLP kind (tanh, exact GELU, SwiGLU) ×
+residual × weight kind (:func:`post_attn_handle`; GPT-2's, LLaMA's and
+GPT-NeoX's named ``POST_ATTN``, ``POST_ATTN_SWIGLU``, ``POST_ATTN_ERF``,
+``POST_ATTN_ERF_PAR`` and their ``_W8`` twins).
 
 :func:`fused_norm_proj` and :func:`fused_post_attn` launch the kernels for
 CUDA tensors and run :func:`norm_proj_plain` / :func:`post_attn_plain`,
@@ -19,10 +24,6 @@ tensors. :func:`reference_norm_proj` and :func:`reference_post_attn` are
 the unfused op chains the stock module path computes; in a low-precision
 dtype they round at other points than the fused kernels, so each path is
 held against its own JAX counterpart.
-
-Branches of the TPU kernels not ported yet (exact GELU and the parallel
-residual, GPT-NeoX's) raise ``NotImplementedError`` naming their ROADMAP
-entry.
 """
 from __future__ import annotations
 
@@ -35,32 +36,68 @@ from ._build import FLOAT, INT, PTR, Kernel, check_operands, dtype_code, stream_
 from .w8 import w8a16_matmul
 
 _TAIL = [INT, INT, INT, FLOAT, INT, INT, PTR]   # M, K/E, N/F, eps, rms, dtype, stream
+# post_attn: M, E, F, eps, rms, [exact_gelu,] parallel, dtype, stream
+_GELU_TAIL = [INT, INT, INT, FLOAT, INT, INT, INT, INT, PTR]
+_SWIGLU_TAIL = [INT, INT, INT, FLOAT, INT, INT, INT, PTR]
 _NORM_PROJ_ARGS = [PTR] * 6 + _TAIL
 _NORM_PROJ_W8_ARGS = [PTR, PTR, PTR, PTR, PTR, INT, PTR, PTR] + _TAIL
-# the LayerNorm (GPT-2) and RMSNorm (LLaMA) branches share a C entry and
-# keep separate launch counts
+# the LayerNorm (GPT-2, GPT-NeoX) and RMSNorm (LLaMA) branches share a C
+# entry and keep separate launch counts
 NORM_PROJ = Kernel("decode_layer", "norm_proj_fwd", _NORM_PROJ_ARGS)
 NORM_PROJ_RMS = Kernel("decode_layer", "norm_proj_fwd", _NORM_PROJ_ARGS)
 NORM_PROJ_W8 = Kernel("decode_layer", "norm_proj_w8_fwd", _NORM_PROJ_W8_ARGS)
 NORM_PROJ_RMS_W8 = Kernel("decode_layer", "norm_proj_w8_fwd", _NORM_PROJ_W8_ARGS)
-POST_ATTN = Kernel("decode_layer", "post_attn_fwd", [PTR] * 13 + _TAIL)
-POST_ATTN_W8 = Kernel("decode_layer", "post_attn_w8_fwd",
-                      [PTR, PTR, PTR, PTR, INT] + [PTR] * 5 + [INT, PTR, PTR, PTR, INT]
-                      + [PTR] * 4 + _TAIL)
-POST_ATTN_SWIGLU = Kernel("decode_layer", "post_attn_swiglu_fwd", [PTR] * 12 + _TAIL)
-POST_ATTN_SWIGLU_W8 = Kernel("decode_layer", "post_attn_swiglu_w8_fwd",
-                             [PTR, PTR, PTR, PTR, INT, PTR, PTR, PTR]
-                             + [PTR, PTR, INT] * 3 + [PTR] * 3 + _TAIL)
+
+# the four post_attn C entries, by (swiglu, W8A16)
+_POST_ATTN_ENTRIES = {
+    (False, False): ("post_attn_fwd", [PTR] * 13 + _GELU_TAIL),
+    (False, True): ("post_attn_w8_fwd", [PTR, PTR, PTR, PTR, INT] + [PTR] * 5
+                    + [INT, PTR, PTR, PTR, INT] + [PTR] * 4 + _GELU_TAIL),
+    (True, False): ("post_attn_swiglu_fwd", [PTR] * 12 + _SWIGLU_TAIL),
+    (True, True): ("post_attn_swiglu_w8_fwd", [PTR, PTR, PTR, PTR, INT, PTR, PTR, PTR]
+                   + [PTR, PTR, INT] * 3 + [PTR] * 3 + _SWIGLU_TAIL),
+}
+
+# one launch count per branch of _post_attn_kernel: MLP kind (tanh GELU,
+# exact-erf GELU, SwiGLU) x residual (sequential, parallel) x weights
+# (activation dtype, W8A16); the norm flag shares them
+_POST_ATTN_HANDLES = {(mlp, par, quant): Kernel("decode_layer",
+                                                 *_POST_ATTN_ENTRIES[(mlp == "swiglu", quant)])
+                      for mlp in ("tanh", "erf", "swiglu") for par in (False, True)
+                      for quant in (False, True)}
+
+
+def post_attn_handle(swiglu: bool = False, exact_gelu: bool = False,
+                     parallel_residual: bool = False, quant: bool = False) -> Kernel:
+    """The launch-count handle of one branch of :func:`fused_post_attn`
+    (``exact_gelu`` is unread under ``swiglu``, as in the JAX kernel)."""
+    mlp = "swiglu" if swiglu else ("erf" if exact_gelu else "tanh")
+    return _POST_ATTN_HANDLES[(mlp, bool(parallel_residual), bool(quant))]
+
+
+POST_ATTN, POST_ATTN_W8 = post_attn_handle(), post_attn_handle(quant=True)
+POST_ATTN_SWIGLU = post_attn_handle(swiglu=True)
+POST_ATTN_SWIGLU_W8 = post_attn_handle(swiglu=True, quant=True)
+POST_ATTN_ERF = post_attn_handle(exact_gelu=True)                 # GPT-NeoX, sequential
+POST_ATTN_ERF_W8 = post_attn_handle(exact_gelu=True, quant=True)
+POST_ATTN_ERF_PAR = post_attn_handle(exact_gelu=True, parallel_residual=True)   # GPT-NeoX
+POST_ATTN_ERF_PAR_W8 = post_attn_handle(exact_gelu=True, parallel_residual=True, quant=True)
 
 MAX_ROWS = 64      # the decode regime; prefill rows take the unfused chain
 _SQRT_2_OVER_PI = 0.7978845608028654
-_DEFERRED = "not ported yet (ROADMAP.md, queue B, deferred branches of the decode-layer kernels)"
+_SQRT_HALF = 2.0 ** -0.5
 
 
 def gelu_tanh(u: torch.Tensor) -> torch.Tensor:
     """``_gelu_tanh`` of ``ops/pallas/fused_ops.py``, term for term."""
     inner = _SQRT_2_OVER_PI * (u + 0.044715 * u * u * u)
     return 0.5 * u * (1.0 + torch.tanh(inner))
+
+
+def gelu_exact(u: torch.Tensor) -> torch.Tensor:
+    """``_gelu_exact`` of the TPU module (``decode_layer.py:98-100``), term
+    for term: ``0.5·u·(1 + erf(u·2^-0.5))``."""
+    return 0.5 * u * (1.0 + torch.erf(u * _SQRT_HALF))
 
 
 def _norm_rows(x: torch.Tensor, scale: torch.Tensor, bias: Optional[torch.Tensor],
@@ -101,12 +138,6 @@ def post_attn_supported(m: int, e: int, f: int, quant: bool = False, groups_e: i
     if m > MAX_ROWS or e % 128 or f % 128:
         return False
     return not quant or (_w8_groups_ok(e, groups_e) and _w8_groups_ok(f, groups_f))
-
-
-def _reject_deferred(exact_gelu=False, parallel_residual=False):
-    for flag, what in ((exact_gelu, "exact GELU"), (parallel_residual, "parallel residual")):
-        if flag:
-            raise NotImplementedError(f"fused decode kernels: {what} {_DEFERRED}")
 
 
 def _w8_kind(weights) -> bool:
@@ -153,22 +184,27 @@ def norm_proj_plain(x, ns, nb, w, b, eps, rms=False):
     return (_dot(xn, w) + b.to(cdt).float()).to(cdt)
 
 
-def post_attn_plain(y, x, wo, bo, ns, nb, mlp_weights, eps, swiglu=False, rms=False):
+def post_attn_plain(y, x, wo, bo, ns, nb, mlp_weights, eps, swiglu=False, rms=False,
+                    exact_gelu=False, parallel_residual=False):
     """o-proj + residual → norm → MLP → residual, with r1 kept in fp32 and
     casts where ``_post_attn_kernel`` casts (:382, :396). ``mlp_weights``:
-    ``(w1, b1, w2, b2)`` for the GELU-tanh pair, ``(wg, wu, wd)`` with
-    ``swiglu`` (gate and up fp32 products, ``silu(gate)·up`` in fp32 and cast
-    before the down product, no MLP biases)."""
+    ``(w1, b1, w2, b2)`` for the GELU pair (tanh, or the erf form with
+    ``exact_gelu``, in fp32), ``(wg, wu, wd)`` with ``swiglu`` (gate and up
+    fp32 products, ``silu(gate)·up`` in fp32 and cast before the down
+    product, no MLP biases). ``parallel_residual``: the norm reads ``x``
+    upcast to fp32 instead of r1 (:376); the output still adds r1."""
     cdt = x.dtype
     r1 = (x.float() + _dot(y, wo)) + bo.to(cdt).float()
-    hin = _norm_rows(r1, ns.float(), nb.float(), eps, rms).to(cdt)
+    src = x.float() if parallel_residual else r1
+    hin = _norm_rows(src, ns.float(), nb.float(), eps, rms).to(cdt)
     if swiglu:
         wg, wu, wd = mlp_weights
         gate, up = _dot(hin, wg), _dot(hin, wu)
         h = ((gate * torch.sigmoid(gate)) * up).to(cdt)
         return (r1 + _dot(h, wd)).to(cdt)
     w1, b1, w2, b2 = mlp_weights
-    h = gelu_tanh(_dot(hin, w1) + b1.to(cdt).float()).to(cdt)
+    gelu = gelu_exact if exact_gelu else gelu_tanh
+    h = gelu(_dot(hin, w1) + b1.to(cdt).float()).to(cdt)
     return ((r1 + _dot(h, w2)) + b2.to(cdt).float()).to(cdt)
 
 
@@ -195,17 +231,17 @@ def reference_norm_proj(x, norm_scale, norm_bias, weight, bias, *, rms=False, ep
 
 
 def reference_post_attn(y, x, wo, bo, norm_scale, norm_bias, mlp_weights, *, swiglu=False,
-                        rms=False, eps=1e-5):
-    """Unfused o-proj + residual → norm → MLP (GELU-tanh pair or SwiGLU) →
-    residual."""
+                        rms=False, eps=1e-5, exact_gelu=False, parallel_residual=False):
+    """Unfused o-proj + residual → norm (of ``x`` under ``parallel_residual``)
+    → MLP (GELU pair, tanh or exact, or SwiGLU) → residual."""
     r1 = x + _dense(y, wo, bo)
-    h = _norm_apply(r1, norm_scale, norm_bias, rms, eps)
+    h = _norm_apply(x if parallel_residual else r1, norm_scale, norm_bias, rms, eps)
     if swiglu:
         wg, wu, wd = mlp_weights
         gate = _dense(h, wg, None)
         return r1 + _dense(torch.nn.functional.silu(gate) * _dense(h, wu, None), wd, None)
     w1, b1, w2, b2 = mlp_weights
-    h1 = torch.nn.functional.gelu(_dense(h, w1, b1), approximate="tanh")
+    h1 = torch.nn.functional.gelu(_dense(h, w1, b1), approximate="none" if exact_gelu else "tanh")
     return r1 + _dense(h1, w2, b2)
 
 
@@ -285,12 +321,14 @@ def fused_post_attn(y: torch.Tensor, x: torch.Tensor, wo, bo: Optional[torch.Ten
     stream, shaped and typed like ``x``.
 
     ``y``: pre-o-proj attention output ``(..., E)``; ``mlp_weights``:
-    ``(w1 (E, F), b1, w2 (F, E), b2)`` for the GELU-tanh pair (biases may be
+    ``(w1 (E, F), b1, w2 (F, E), b2)`` for the GELU pair (biases may be
     None), or ``(w_gate (E, F), w_up (E, F), w_down (F, E))`` with
     ``swiglu``. Each weight is a tensor in x's dtype, or each is a W8A16
     pair (gate and up grouped alike). The norm is LayerNorm, or RMSNorm with
-    ``rms``."""
-    _reject_deferred(exact_gelu=exact_gelu, parallel_residual=parallel_residual)
+    ``rms``. ``exact_gelu``: the erf GELU (the GELU pair only; unread under
+    ``swiglu``, as in the JAX kernel); ``parallel_residual``: the MLP's norm
+    reads ``x`` instead of ``x + y@Wo + bo`` (GPT-NeoX), the output is still
+    ``x + attn + mlp``."""
     if swiglu:
         w1, wu, w2 = mlp_weights
         b1 = b2 = None
@@ -314,7 +352,8 @@ def fused_post_attn(y: torch.Tensor, x: torch.Tensor, wo, bo: Optional[torch.Ten
         b1, b2 = _vec(b1, F, x, x.dtype), _vec(b2, E, x, x.dtype)
     mlp = (w1, wu, w2) if swiglu else (w1, b1, w2, b2)
     if not x.is_cuda:
-        out = post_attn_plain(y2, x2, wo, bo, ns, nb, mlp, eps, swiglu, rms)
+        out = post_attn_plain(y2, x2, wo, bo, ns, nb, mlp, eps, swiglu, rms,
+                              exact_gelu and not swiglu, parallel_residual)
         return out.reshape(*lead, E)
     groups = (wo[1].shape[0], w2[1].shape[0]) if quant else (1, 1)
     if quant and any(w[1].shape[0] != groups[0] for w in panels[1:-1]):
@@ -346,9 +385,9 @@ def fused_post_attn(y: torch.Tensor, x: torch.Tensor, wo, bo: Optional[torch.Ten
             check_operands(y2, x2, wo, bo, w1, b1, w2, b2)
             wargs = [wo, bo, ns, nb, w1, b1, w2, b2]
     check_operands(ns, nb)
-    kernel = ((POST_ATTN_SWIGLU_W8 if quant else POST_ATTN_SWIGLU) if swiglu
-              else (POST_ATTN_W8 if quant else POST_ATTN))
-    args = _ptrs([y2, x2, *wargs, r1, h, out]) + [M, E, F, float(eps), int(rms),
+    kernel = post_attn_handle(swiglu, exact_gelu, parallel_residual, quant)
+    flags = [int(parallel_residual)] if swiglu else [int(exact_gelu), int(parallel_residual)]
+    args = _ptrs([y2, x2, *wargs, r1, h, out]) + [M, E, F, float(eps), int(rms), *flags,
                                                  dtype_code(x2), stream_of(x2)]
     with torch.cuda.device(x.device):
         kernel.launch(*args)

@@ -62,6 +62,10 @@ class Engine:
         self.config = Config.load(config)
         self._refuse_unported(optimizer, training_data, mesh, loss_fn)
         self.device = resolve_device(device, "initialize")
+        todo = getattr(model, "training_todo", None)   # the ROADMAP item of unported training
+        if todo:
+            raise NotImplementedError(
+                f"training {type(model).__name__} {TODO} (ROADMAP.md {todo})")
         cfg = model.cfg
         if self.config.model_overrides:
             cfg = dataclasses.replace(cfg, **self.config.model_overrides)

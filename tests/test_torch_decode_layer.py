@@ -1,13 +1,18 @@
 """Fused decode-layer kernels: the port's plain versions (the arithmetic its
 CUDA kernels are held against on the card) against the JAX Pallas kernels in
-interpret mode, at M=3, E=128, N=384, F=512.
+interpret mode, at M=3, E=128, N=384, F=512 (E=256, F=1024 for W8A16 and
+the GPT-NeoX branches), every branch: LayerNorm or RMSNorm, GELU tanh or
+exact (erf), SwiGLU, sequential or parallel residual, full-width or W8A16
+weights.
 
 fp32: atol 1e-5 (fp32 sums in different orders). bf16: the kernels cast at
 fixed points (the normalised rows before each product, the GELU output,
 the final result) and keep r1 in fp32; a port that cast elsewhere would
 disagree on many elements, so the bf16 check allows at most one bf16 ulp
 at the output's scale and on at most 2% of the elements (an fp32 order
-difference can tip a rounding).
+difference can tip a rounding). The exact GELU needs no wider bound:
+``torch.erf`` and XLA's CPU erf are both fp32-accurate, a few fp32 ulps
+apart at the GELU input, inside the fp32 bound and the bf16 allowance.
 """
 import math
 
@@ -94,21 +99,6 @@ def test_reference_chains_match_jax_fp32():
     got = dl.reference_post_attn(t["y"], t["x"], t["wo"], t["bo"], t["ns"], t["nb"],
                                  (t["w1"], t["b1"], t["w2"], t["b2"]))
     np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=1e-5, rtol=0)
-
-
-@pytest.mark.parametrize("kw", [dict(exact_gelu=True), dict(parallel_residual=True),
-                                dict(exact_gelu=True, rms=True),
-                                dict(parallel_residual=True, rms=True),
-                                dict(w8=True, exact_gelu=True)])
-def test_deferred_branches_raise(kw):
-    # RMSNorm, SwiGLU and W8A16 weights are ported; exact GELU and the
-    # parallel residual (GPT-NeoX) still raise, under them too
-    _, t = _both(_arrays(4), "float32")
-    w8 = kw.pop("w8", False)
-    ws = [_q(t[k]) if w8 else t[k] for k in ("wo", "w1", "w2")]
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        dl.fused_post_attn(t["y"], t["x"], ws[0], t["bo"], t["ns"], t["nb"],
-                           (ws[1], t["b1"], ws[2], t["b2"]), **kw)
 
 
 @pytest.mark.parametrize("m,e,n", [(8, 768, 2304), (64, 768, 3072), (65, 768, 2304),
@@ -259,3 +249,99 @@ def test_swiglu_panels_must_agree():
     with pytest.raises(ValueError, match="all W8A16 pairs or none"):
         dl.fused_post_attn(t["y"], t["x"], t["wo"], None, t["ns"], None,
                            (_q(t["wg"]), t["wu"], t["wd"]), swiglu=True, rms=True)
+
+
+# ---------------------------------------------------------------------------
+# The GPT-NeoX branches: exact GELU and the parallel residual (and the other
+# combinations the JAX kernel accepts: tanh GELU and SwiGLU under the
+# parallel residual, RMSNorm under each)
+# ---------------------------------------------------------------------------
+
+_NEOX_BRANCHES = {
+    "erf_seq_ln": dict(exact_gelu=True),
+    "erf_par_ln": dict(exact_gelu=True, parallel_residual=True),
+    "tanh_par_ln": dict(parallel_residual=True),
+    "erf_seq_rms": dict(exact_gelu=True, rms=True),
+    "erf_par_rms": dict(exact_gelu=True, parallel_residual=True, rms=True),
+    "tanh_par_rms": dict(parallel_residual=True, rms=True),
+    "swiglu_par_rms": dict(swiglu=True, parallel_residual=True, rms=True),
+    "swiglu_par_ln": dict(swiglu=True, parallel_residual=True),
+}
+
+
+def _neox_arrays(seed, e=256, f=1024):
+    rng = np.random.default_rng(seed)
+    f32 = lambda *s, std=0.02: (rng.standard_normal(s) * std).astype(np.float32)  # noqa: E731
+    return dict(x=f32(M, e, std=1.0), y=f32(M, e, std=1.0),
+                ns=(1 + rng.standard_normal(e) * 0.1).astype(np.float32), nb=f32(e, std=0.1),
+                wo=f32(e, e), bo=f32(e), w1=f32(e, f), b1=f32(f), w2=f32(f, e), b2=f32(e),
+                wg=f32(e, f), wu=f32(e, f), wd=f32(f, e))
+
+
+def _branch_operands(a, kw, dtype, w8):
+    """(jax operands, port operands) of one branch: o-proj, its bias, the
+    norm (no bias under RMSNorm), the MLP weights (W8A16 pairs with 128-row
+    groups when ``w8``)."""
+    j, t = _both(a, dtype)
+    names = ("wd", "wg", "wu") if kw.get("swiglu") else ("w1", "w2")
+    q = {k: _q(torch.from_numpy(a[k])) for k in ("wo",) + names} if w8 else {}
+
+    def side(d, wrap):
+        w = {k: wrap(q[k]) if w8 else d[k] for k in ("wo",) + names}
+        mlp = ((w["wg"], w["wu"], w["wd"]) if kw.get("swiglu")
+               else (w["w1"], d["b1"], w["w2"], d["b2"]))
+        return (d["y"], d["x"], w["wo"], d["bo"], d["ns"], None if kw.get("rms") else d["nb"],
+                mlp)
+    return side(j, _jq), side(t, lambda p: p)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("w8", [False, True], ids=["full", "w8"])
+@pytest.mark.parametrize("branch", list(_NEOX_BRANCHES))
+def test_neox_branches_match_pallas(branch, w8, dtype):
+    """``fused_post_attn`` (its plain version on the CPU) against the Pallas
+    kernel in interpret mode, each branch at full width and W8A16 (two
+    scale groups over E, eight over F)."""
+    kw = _NEOX_BRANCHES[branch]
+    jargs, targs = _branch_operands(_neox_arrays(12), kw, dtype, w8)
+    want = np.asarray(jdl.fused_post_attn(*jargs, **kw, interpret=True).astype(jnp.float32))
+    got = dl.fused_post_attn(*targs, **kw).float().numpy()
+    diff = np.abs(got - want)
+    if dtype == "float32":
+        assert diff.max() <= 1e-5 * max(1.0, np.abs(want).max())
+    else:
+        assert diff.max() <= _ulp(np.abs(want).max()) and (diff > 0).mean() <= 0.02
+
+
+@pytest.mark.parametrize("w8", [False, True], ids=["full", "w8"])
+@pytest.mark.parametrize("branch", list(_NEOX_BRANCHES))
+def test_neox_reference_chains_match_jax_fp32(branch, w8):
+    """The unfused chain (``reference_post_attn``) against JAX's, and the
+    branch's flags really change the result: the parallel residual against
+    the sequential one, the exact GELU against tanh."""
+    kw = _NEOX_BRANCHES[branch]
+    jargs, targs = _branch_operands(_neox_arrays(13), kw, "float32", w8)
+    want = np.asarray(jdl.reference_post_attn(*jargs, **kw))
+    got = dl.reference_post_attn(*targs, **kw).numpy()
+    np.testing.assert_allclose(got, want, atol=1e-5 * max(1.0, np.abs(want).max()), rtol=0)
+    other = dl.fused_post_attn(*targs, **dict(kw, parallel_residual=not kw.get(
+        "parallel_residual", False)))
+    fused = dl.fused_post_attn(*targs, **kw)
+    assert not torch.allclose(other, fused, atol=1e-4)
+    if not kw.get("swiglu"):
+        tanh = dl.fused_post_attn(*targs, **dict(kw, exact_gelu=not kw.get("exact_gelu")))
+        assert not torch.allclose(tanh, fused, atol=1e-6)
+
+
+def test_branch_handles_are_distinct():
+    """Each branch counts its own launches: twelve handles, one per MLP kind
+    x residual x weight kind; the norm shares them; SwiGLU ignores the GELU
+    flag, as the JAX kernel does."""
+    combos = [(s, e, p, q) for s in (False, True) for e in (False, True)
+              for p in (False, True) for q in (False, True) if not (s and e)]
+    handles = {id(dl.post_attn_handle(*c)) for c in combos}
+    assert len(handles) == 12
+    assert dl.post_attn_handle(True, True, True) is dl.post_attn_handle(True, False, True)
+    assert dl.post_attn_handle(False, True, True, True) is dl.POST_ATTN_ERF_PAR_W8
+    assert dl.post_attn_handle(swiglu=True) is dl.POST_ATTN_SWIGLU
+    assert dl.post_attn_handle() is dl.POST_ATTN

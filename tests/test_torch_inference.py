@@ -199,7 +199,7 @@ def test_port_imports_no_jax():
         "config", "constants", "engine", "lr_schedules", "optimizers", "precision")} <= imported
     assert {f"deepspeed_tpu_torch.ops.{m}" for m in (
         "adam8bit", "fused_ce", "w8", "w8_matmul", "quantizer", "rotary")} <= imported
-    assert "deepspeed_tpu_torch.models.llama" in imported
+    assert {"deepspeed_tpu_torch.models.llama", "deepspeed_tpu_torch.models.gptneox"} <= imported
     src = (REPO / "chip_smoke.py").read_text()
     assert "import jax" not in src and "deepspeed_tpu." not in src.replace(
         "deepspeed_tpu_torch", "")
