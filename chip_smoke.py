@@ -77,6 +77,14 @@ Run from the root of the repository. Phases, each printing JSON lines:
             per dtype: the exact-GELU sequential branches). The same gates
             as serve_llama, every greedy stream teacher-forced through an fp32
             engine on the card holding the same weights.
+6e. slice_fused_mlp  GPT-2-125M with ``fused_mlp=True`` (random weights
+            from seed 1234) through ``init_inference``: ``engine(ids)`` at
+            B=2, S=1024 against the unfused engine and an fp32 engine on the
+            card, ``generate`` (B=8, prompt 256, 128 new) with fused decode
+            ticks and with every tick through the fused FFN, and one
+            page-resident batcher pass of the serve phase's requests, each
+            with its exact launch counts and greedy streams teacher-forced
+            through the fp32 engine.
 7. train    GPT-2-125M at full width and depth through ``initialize`` with
             the JAX package's flagship training config (S=1024, micro 24,
             gradient accumulation 4, adamw lr 1e-4 wd 0.1, clipping 1.0,
@@ -94,6 +102,12 @@ Run from the root of the repository. Phases, each printing JSON lines:
             launches per step), one profiled step (device busy share, top
             device ops) and one step with ``DS_TPU_FLASH_BWD=split``
             (12 × 4 launches of each split kernel).
+7b. train_fused_mlp  the train phase's model and config with
+            ``fused_mlp=True``: a gradient gate at micro 2 (the bf16 fused
+            engine against the fp32 and the bf16 unfused engines), 2 warm-up
+            and 4 timed steps (12 × 4 launches of each fused FFN kernel per
+            step, peak memory beside the train phase's), a profiled step,
+            and one step under ``dots_saveable`` from the same weights.
 8. train_1p5b  GPT-2-1.5B at full width and depth through ``initialize``
             with the JAX package's north-star recipe (S=1024, micro 2,
             adamw8bit lr 1e-4 wd 0.1 with the fused update kernel, ZeRO
@@ -140,6 +154,14 @@ plain version and, as a control that must miss, against the other form's
 decode, paged and flash attention at H=KV=8, D=256 beside SDPA; the w8
 matmul on pythia-1b's four panels.
 
+The kernels phase also holds the fused FFN's three kernels
+(``kernels_fused_mlp``): forward, dx and dw at E=768, F=3072 in bf16 for
+R = 24576 (the flagship micro-batch), 2048, 8 and 1000 rows against their
+plain versions, timed beside the unfused torch pair (forward, and its
+autograd backward beside dx and dw) and the bound; in fp32 at small
+shapes; and a GELU probe (``kernels_fused_mlp_gelu_probe``) whose control,
+the plain versions with the erf GELU, must miss.
+
 The kernels phase also holds the W8A16 kernels (``kernels_w8``): the w8
 matmul at M = 1, 8, 37, 64 on gpt2-760m's four dense panels and on one
 single-group panel, and the W8 branches of the two decode-layer kernels at
@@ -154,7 +176,9 @@ The ``kernels`` line gives each kernel's launches per path (``generate``,
 ``generate_w8_unfused``, ``serve_llama_paged``, ``serve_llama_w8_paged``,
 ``forward_llama``, ``generate_llama{,_w8}_{fused,unfused}``,
 ``serve_neox{,_w8}_paged``, ``forward_neox``,
-``generate_neox{,_w8}_{fused,unfused}``, ``generate_neox_seq{,_w8}_fused``, ``train``,
+``generate_neox{,_w8}_{fused,unfused}``, ``generate_neox_seq{,_w8}_fused``,
+``forward_fused_mlp``, ``generate_fused_mlp{,_unfused_ticks}``,
+``serve_fused_mlp_paged``, ``train``, ``train_fused_mlp{,_remat}``,
 ``train_split``, ``train_1p5b``,
 ``train_1p5b_dots``, ``train_1p5b_pallas``: each zeroed before its run and
 read after it) and their sum; the rows of kernels that llama-1b and
@@ -1009,6 +1033,7 @@ def counters():
 
     from deepspeed_tpu_torch.ops import adam8bit as a8
     from deepspeed_tpu_torch.ops import fused_ce as ce
+    from deepspeed_tpu_torch.ops import fused_mlp as fm
     from deepspeed_tpu_torch.ops import w8_matmul as wm
 
     return {"flash_attention_fwd": fa.KERNEL, "decode_attention": da.KERNEL,
@@ -1028,7 +1053,8 @@ def counters():
             "post_attn_par_w8": dl.post_attn_handle(parallel_residual=True, quant=True),
             "post_attn_swiglu_par": dl.post_attn_handle(swiglu=True, parallel_residual=True),
             "post_attn_swiglu_par_w8": dl.post_attn_handle(swiglu=True, parallel_residual=True,
-                                                           quant=True)}
+                                                           quant=True),
+            "fused_mlp_fwd": fm.FWD, "fused_mlp_bwd_dx": fm.DX, "fused_mlp_bwd_dw": fm.DW}
 
 
 # serving runs no backward, no optimizer and no loss head
@@ -1080,7 +1106,7 @@ def run_slice(torch):
     ticks = 2 * (new - 1)   # greedy + sampled; the max_new_tokens=1 run has no tick
     expected = {"flash_attention_fwd": 2 * L, "decode_attention": L * ticks,
                 "norm_qkv": L * ticks, "post_attn": L * ticks, "paged_attention": 0,
-                **NO_BACKWARD, **NO_W8, **NO_LLAMA, **NO_NEOX}
+                **NO_BACKWARD, **NO_W8, **NO_LLAMA, **NO_NEOX, **NO_FUSED_MLP}
     ms_per_tick = (gen_ms - ttft_ms) / (new - 1)
     emit(dict(phase="slice", model="gpt2-125m", dtype="bfloat16", forward_shape=[2, 1024],
               forward_ms=fwd_ms, forward_again_ms=fwd_again_ms,
@@ -1245,7 +1271,7 @@ def run_serve(torch, delta_of, out_dir=None):
         other = "decode_attention" if mode == "paged" else "paged_attention"
         expected = {attn: L * singles, other: 0, "norm_qkv": L * singles,
                     "post_attn": L * singles, "flash_attention_fwd": 0, **NO_BACKWARD,
-                    **NO_W8, **NO_LLAMA, **NO_NEOX}
+                    **NO_W8, **NO_LLAMA, **NO_NEOX, **NO_FUSED_MLP}
         checks = {"launch_counts": launches == expected,
                   "no_leaks": all(v == 0 for p in passes for v in p["leaks"].values()),
                   "shapes_and_vocab": all(len(o) == len(r["prompt"]) + r["max_new_tokens"]
@@ -1760,7 +1786,7 @@ def run_serve_w8(torch, out_dir=None):
         other = "decode_attention" if pc else "paged_attention"
         q = e is eng
         expected = {attn: L * singles, other: 0, "flash_attention_fwd": 0, **NO_BACKWARD,
-                    **NO_LLAMA, **NO_NEOX, "norm_qkv": 0 if q else L * singles,
+                    **NO_LLAMA, **NO_NEOX, **NO_FUSED_MLP, "norm_qkv": 0 if q else L * singles,
                     "post_attn": 0 if q else L * singles,
                     "decode_norm_proj_w8": L * singles if q else 0,
                     "decode_post_attn_w8": L * singles if q else 0,
@@ -3260,7 +3286,8 @@ def run_train(torch, peaks, out_dir=None):
               checks=checks))
     del eng, opt
     torch.cuda.empty_cache()
-    return {"train": launches, "train_split": split_launches}, all(checks.values())
+    return ({"train": launches, "train_split": split_launches}, peak_mem / 2 ** 30,
+            all(checks.values()))
 
 
 # ---------------------------------------------------------------------------
@@ -3478,6 +3505,538 @@ def run_train_1p5b(torch, peaks, out_dir=None):
     return ({"train_1p5b": launches, **var_launches}, opt_res, all(checks.values()))
 
 
+# ---------------------------------------------------------------------------
+# the fused FFN (GPT-2 fused_mlp=True): kernels, serving, training
+# ---------------------------------------------------------------------------
+
+FUSED_MLP_KERNELS = ("fused_mlp_fwd", "fused_mlp_bwd_dx", "fused_mlp_bwd_dw")
+NO_FUSED_MLP = {n: 0 for n in FUSED_MLP_KERNELS}
+FUSED_MLP_LINES = {"fused_mlp_fwd": ":31", "fused_mlp_bwd_dx": ":45", "fused_mlp_bwd_dw": ":72"}
+# gpt2-125m's FFN (the widest the JAX rule fuses in bf16) at the flagship
+# micro-batch (24 x 1024 rows), B=2 x 1024 (the forward and a prefill), an
+# unfused decode tick (8 rows) and a ragged count
+MLP_SHAPES = ((24576, 768, 3072), (2048, 768, 3072), (8, 768, 3072), (1000, 768, 3072))
+MLP_FP32_SHAPES = ((37, 64, 256), (130, 128, 512), (300, 384, 1536))
+
+
+def mlp_operands(torch, g, R, E, F, dtype, dev="cuda"):
+    """x ~ N(0, 1) (a LayerNorm's output), w1, w2, b1 ~ N(0, 0.02) (GPT-2's
+    initializer range) in ``dtype``, b2 ~ N(0, 0.02) fp32 (the kernels'),
+    dy ~ N(0, 1e-3) in ``dtype``."""
+    def r(*shape, s=1.0):
+        return torch.randn(shape, generator=g, device=dev) * s
+    return (r(R, E).to(dtype), r(E, F, s=0.02).to(dtype), r(F, s=0.02).to(dtype),
+            r(F, E, s=0.02).to(dtype), r(E, s=0.02), r(R, E, s=1e-3).to(dtype))
+
+
+def mlp_mags(torch, fm, x, w1, b1, w2, b2, dy):
+    """Per output, the summed magnitudes of its fp32 addends, with the fp32
+    error of u (its own addends' magnitudes) carried through the GELU
+    (|gelu''| < 1): two correct fp32 orders of the same sums differ by far
+    less than 1e-5 of these."""
+    xf, w1f, w2f, dyf = x.float(), w1.float(), w2.float(), dy.float()
+    u = xf @ w1f + b1.float()
+    u_mag = xf.abs() @ w1f.abs() + b1.float().abs()
+    h_mag = fm.gelu_tanh(u).abs() + fm.gelu_tanh_grad(u).abs() * u_mag
+    du_mag = (dyf.abs() @ w2f.abs().T) * (fm.gelu_tanh_grad(u).abs() + u_mag)
+    return dict(y=h_mag @ w2f.abs() + b2.float().abs(), dx=du_mag @ w1f.abs().T,
+                dw1=xf.abs().T @ du_mag, db1=du_mag.sum(0), dw2=h_mag.T @ dyf.abs(),
+                db2=dyf.abs().sum(0))
+
+
+def mlp_limit(torch, got, ref, mag, cast_row: bool):
+    """Element by element: within 1e-5 of ``mag`` (``mlp_mags``); a bf16
+    output also within one bf16 ulp of the plain value and, where the
+    function casts an intermediate to bf16 (h in the forward, du in dx:
+    ``cast_row``), half a bf16 ulp of its row's largest output, as
+    ``w8_limits`` allows for (an fp32 value the two orders round apart there
+    moves the whole row). Returns (max error, max error / limit)."""
+    lim = 1e-5 * mag.float()
+    if ref.dtype == torch.bfloat16:
+        lim = lim + bf16_ulp_t(torch, ref)
+        if cast_row:
+            lim = lim + bf16_ulp_t(torch, ref.float().abs().amax(-1, keepdim=True)) / 2
+    d = (got.float() - ref.float()).abs()
+    return float(d.max()), float((d / lim.clamp(min=1e-30)).max())
+
+
+def mlp_outputs(fm, args, kernels: bool):
+    """``{y, dx, dw1, db1, dw2, db2}`` of the three wrappers or their plain versions."""
+    x, w1, b1, w2, b2, dy = args
+    if kernels:
+        y = fm.fused_mlp_fwd_op(x, w1, b1, w2, b2)
+        dx = fm.fused_mlp_bwd_dx(x, w1, b1, w2, dy)
+        dw = fm.fused_mlp_bwd_dw(x, w1, b1, w2, dy)
+    else:
+        y = fm.fused_mlp_plain(x, w1, b1, w2, b2)
+        dx = fm.fused_mlp_bwd_dx_plain(x, w1, b1, w2, dy)
+        dw = fm.fused_mlp_bwd_dw_plain(x, w1, b1, w2, dy)
+    return dict(y=y, dx=dx, **dict(zip(("dw1", "db1", "dw2", "db2"), dw)))
+
+
+# which kernel produces each output, and whether a bf16 cast sits inside it
+MLP_OUTPUTS = {"y": ("fused_mlp_fwd", True), "dx": ("fused_mlp_bwd_dx", True),
+               "dw1": ("fused_mlp_bwd_dw", False), "db1": ("fused_mlp_bwd_dw", False),
+               "dw2": ("fused_mlp_bwd_dw", False), "db2": ("fused_mlp_bwd_dw", False)}
+
+
+def mlp_held(torch, fm, args):
+    """Each kernel's outputs against its plain version: per kernel the
+    largest error, the largest error / limit (over its outputs) and ok."""
+    got, ref = mlp_outputs(fm, args, True), mlp_outputs(fm, args, False)
+    torch.cuda.synchronize()
+    mags = mlp_mags(torch, fm, *args)
+    per = {k: dict(max_err=0.0, err_over_limit=0.0, outputs={}) for k in FUSED_MLP_KERNELS}
+    for out, (kname, cast_row) in MLP_OUTPUTS.items():
+        err, ratio = mlp_limit(torch, got[out], ref[out], mags[out], cast_row)
+        finite = bool(torch.isfinite(got[out].float()).all())
+        p = per[kname]
+        p["outputs"][out] = dict(max_err=err, err_over_limit=ratio, finite=finite,
+                                 dtype=str(got[out].dtype)[6:],
+                                 dtype_ok=got[out].dtype == ref[out].dtype)
+        p["max_err"], p["err_over_limit"] = max(p["max_err"], err), max(p["err_over_limit"], ratio)
+    for p in per.values():
+        p["ok"] = all(o["finite"] and o["dtype_ok"] and o["err_over_limit"] <= 1.0
+                      for o in p["outputs"].values())
+    return per
+
+
+def erf_gelu_grad(torch, u):
+    """d/du of the exact GELU 0.5·u·(1 + erf(u/√2))."""
+    return 0.5 * (1.0 + torch.erf(u * 2 ** -0.5)) + u * torch.exp(-0.5 * u * u) * (
+        2 * math.pi) ** -0.5
+
+
+def fused_mlp_gelu_probe(torch, fm, R, E, F, dtype, band, dev="cuda"):
+    """x = 0, unit selections w1[e, e] = w2[e, e] = 1 (zero elsewhere), b1
+    spread over ``band`` (where the tanh and erf GELUs part) and repeated
+    along F, b2 = 0, dy = 1: y[r, e] = gelu(b1[e]) and dx[r, e] =
+    gelu'(b1[e]) (cast), dw2[f, e] = R·gelu(b1[f]), db1[f] = R·gelu'(b1[f])
+    for f < E (0 past E, where w2's rows are 0). Those four outputs against the plain versions (must hold) and,
+    as a control that must miss, against the plain versions with the erf
+    forms of GELU and its derivative."""
+    from deepspeed_tpu_torch.ops.decode_layer import gelu_exact
+
+    x = torch.zeros((R, E), dtype=dtype, device=dev)
+    w1 = torch.zeros((E, F), device=dev)
+    w1[:, :E] = torch.eye(E, device=dev)
+    b1 = torch.linspace(band[0], band[1], E, device=dev).repeat(F // E).to(dtype)
+    args = (x, w1.to(dtype), b1, w1.T.contiguous().to(dtype), torch.zeros(E, device=dev),
+            torch.ones((R, E), dtype=dtype, device=dev))
+    got, ref = mlp_outputs(fm, args, True), mlp_outputs(fm, args, False)
+    saved = fm.gelu_tanh, fm.gelu_tanh_grad
+    fm.gelu_tanh, fm.gelu_tanh_grad = gelu_exact, lambda u: erf_gelu_grad(torch, u)
+    try:
+        ctrl = mlp_outputs(fm, args, False)
+    finally:
+        fm.gelu_tanh, fm.gelu_tanh_grad = saved
+    torch.cuda.synchronize()
+    mags = mlp_mags(torch, fm, *args)
+    rows = {}
+    for out in ("y", "dx", "dw2", "db1"):
+        cast_row = MLP_OUTPUTS[out][1]
+        _, ratio = mlp_limit(torch, got[out], ref[out], mags[out], cast_row)
+        _, control = mlp_limit(torch, got[out], ctrl[out], mags[out], cast_row)
+        rows[out] = dict(err_over_limit=ratio, control_err_over_limit=control,
+                         ok=ratio <= 1.0 and control > 1.0)
+    return rows
+
+
+def mlp_bounds(R, E, F, item, peaks, fp32):
+    """Bound per kernel: each input read once and each output written once
+    (x, w1, b1, w2 and b2 or dy; y, dx, or dw1, db1, dw2 and the fp32 db2),
+    against 2, 3 and 4 products of 2·R·E·F flops."""
+    w = 2 * E * F * item + F * item
+    flops = 2.0 * R * E * F
+    return {"fused_mlp_fwd": bound_ms(2 * R * E * item + w + 4 * E, 2 * flops, peaks, fp32),
+            "fused_mlp_bwd_dx": bound_ms(3 * R * E * item + w, 3 * flops, peaks, fp32),
+            "fused_mlp_bwd_dw": bound_ms(2 * R * E * item + 2 * w + 4 * E, 4 * flops, peaks,
+                                         fp32)}
+
+
+def run_kernels_fused_mlp(torch, F_, peaks):
+    """The three fused FFN kernels against their plain versions on the card:
+    bf16 at ``MLP_SHAPES`` (each kernel's device time, its plain version's,
+    the library's and the bound), fp32 at ``MLP_FP32_SHAPES`` (checked, not
+    timed), then ``fused_mlp_gelu_probe`` in bf16 and fp32. Library: the
+    unfused torch pair ``F.linear`` → tanh GELU → ``F.linear`` (forward), and
+    that pair's autograd backward (all five gradients) beside dx and dw (no
+    one call computes the fused function). Returns ({kernel: row at the
+    flagship shape, with the other shapes under ``at_shapes``}, ok)."""
+    from deepspeed_tpu_torch.ops import fused_mlp as fm
+
+    g = torch.Generator(device="cuda").manual_seed(SEED + 20)
+    rows, ok = {}, True
+    for R, E, F in MLP_SHAPES:
+        args = mlp_operands(torch, g, R, E, F, torch.bfloat16)
+        x, w1, b1, w2, b2, dy = args
+        held = mlp_held(torch, fm, args)
+        w1t, w2t, b2b = w1.T.contiguous(), w2.T.contiguous(), b2.to(torch.bfloat16)
+        lib_in = [t.clone().requires_grad_() for t in (x, w1t, b1, w2t, b2b)]
+
+        def lib_fwd(a=lib_in):
+            return F_.linear(F_.gelu(F_.linear(a[0], a[1], a[2]), approximate="tanh"), a[3], a[4])
+
+        def lib_fwd_bwd():
+            return torch.autograd.grad(lib_fwd(), lib_in, dy)
+
+        iters = 5 if R >= 2048 else 20
+        lib_f = device_ms(torch, lib_fwd, iters)
+        lib_fb = device_ms(torch, lib_fwd_bwd, iters)
+        lib_b = lib_fb - lib_f if lib_fb and lib_f else None
+        timing = {
+            "fused_mlp_fwd": (lambda: fm.fused_mlp_fwd_op(x, w1, b1, w2, b2),
+                              lambda: fm.fused_mlp_plain(x, w1, b1, w2, b2), lib_f),
+            "fused_mlp_bwd_dx": (lambda: fm.fused_mlp_bwd_dx(x, w1, b1, w2, dy),
+                                 lambda: fm.fused_mlp_bwd_dx_plain(x, w1, b1, w2, dy), lib_b),
+            "fused_mlp_bwd_dw": (lambda: fm.fused_mlp_bwd_dw(x, w1, b1, w2, dy),
+                                 lambda: fm.fused_mlp_bwd_dw_plain(x, w1, b1, w2, dy), lib_b)}
+        bounds = mlp_bounds(R, E, F, 2, peaks, False)
+        for name, (kern, plain, lib) in timing.items():
+            b_ms, b_by = bounds[name]
+            row = dict(phase="kernels_fused_mlp", name=name, shape=f"R={R} E={E} F={F} bfloat16",
+                       **held[name], limit="mlp_limit: 1e-5 of the fp32 addends' magnitudes + "
+                       "one bf16 ulp (+ half an ulp of the row's largest output in y and dx)",
+                       kernel_ms=device_ms(torch, kern, iters),
+                       kernel_event_ms=cuda_ms(torch, kern, iters),
+                       plain_ms=device_ms(torch, plain, 3), library_ms=lib,
+                       library="unfused pair F.linear -> gelu(tanh) -> F.linear" + (
+                           " forward" if name == "fused_mlp_fwd" else
+                           ", autograd backward (all five gradients)"),
+                       bound_ms=b_ms, bound_by=b_by)
+            row["ok"] = row["ok"] and row["kernel_ms"] is not None
+            emit(row)
+            ok &= row["ok"]
+            if R == MLP_SHAPES[0][0]:
+                rows[name] = dict(row, at_shapes=[])
+            else:
+                rows[name]["at_shapes"].append({k: row[k] for k in (
+                    "shape", "max_err", "err_over_limit", "kernel_ms", "plain_ms", "library_ms",
+                    "bound_ms", "bound_by")})
+        del args, x, w1, b1, w2, b2, dy, lib_in, held
+        torch.cuda.empty_cache()
+    for R, E, F in MLP_FP32_SHAPES:
+        held = mlp_held(torch, fm, mlp_operands(torch, g, R, E, F, torch.float32))
+        for name, h in held.items():
+            emit(dict(phase="kernels_fused_mlp_fp32", name=name, shape=f"R={R} E={E} F={F}", **h,
+                      limit="mlp_limit: 1e-5 of the fp32 addends' magnitudes"))
+            ok &= h["ok"]
+    for dt, R, E, F, band in ((torch.bfloat16, 8, 768, 3072, (-3.2, -2.6)),
+                              (torch.float32, 3, 64, 256, (2.3, 3.2))):
+        probe = fused_mlp_gelu_probe(torch, fm, R, E, F, dt, band)
+        row_ok = all(p["ok"] for p in probe.values())
+        emit(dict(phase="kernels_fused_mlp_gelu_probe", shape=f"R={R} E={E} F={F} {str(dt)[6:]}",
+                  b1_band=band, outputs=probe, ok=row_ok))
+        ok &= row_ok
+    return rows, ok
+
+
+def run_slice_fused_mlp(torch, out_dir=None):
+    """gpt2-125m with ``fused_mlp=True`` (random weights from seed 1234)
+    through ``init_inference(max_tokens=512)`` in bf16: ``engine(ids)`` at
+    B=2, S=1024 held against the unfused bf16 engine with the same weights
+    and both against an fp32 engine on the card (which the rule leaves
+    unfused: fits_vmem fails at fp32); ``generate`` (B=8, prompt 256, 128
+    new) with the fused decode ticks and with ``decode_fused=False`` (every
+    tick through the fused FFN); one page-resident ``ContinuousBatcher``
+    pass of the serve phase's 32 requests. Gates: exact launch counts on
+    every path (``fused_mlp_fwd``: one per layer and multi-token forward,
+    and per unfused tick), the fused forward no farther from the fp32
+    engine's logits than the unfused bf16 one (RMS, within 10%) and within
+    8 bf16 ulps of it at the logits' largest magnitude, and every greedy
+    stream teacher-forced through the fp32 engine (tie-aware ≥ 99%, the
+    argmax wherever its top two lie more than 16 ulps apart)."""
+    from collections import Counter
+
+    import deepspeed_tpu_torch as ds
+    from deepspeed_tpu_torch.models.gpt2 import GPT2LMHeadModel, gpt2_config
+
+    cfg = gpt2_config("gpt2-125m", fused_mlp=True)
+    L, V = cfg.n_layer, cfg.vocab_size
+    model = GPT2LMHeadModel(cfg).init_weights(torch.Generator().manual_seed(SEED))
+    eng = ds.init_inference(model, dtype=torch.bfloat16, max_tokens=512)
+    state = {k: v.detach() for k, v in model.state_dict().items()}
+    with torch.device("meta"):
+        plain_template = GPT2LMHeadModel(gpt2_config("gpt2-125m"))
+    unfused = ds.init_inference(plain_template, params=state, dtype=torch.bfloat16,
+                                max_tokens=512)
+    ref32 = ds.init_inference(model, dtype=torch.float32, max_tokens=512)
+    del model, state
+    checks = {"rule": all(b.mlp.use_fused() for b in eng.module.h)
+              and not any(b.mlp.use_fused() for b in unfused.module.h)
+              and not any(b.mlp.use_fused() for b in ref32.module.h)}
+    by_path = {}
+
+    # engine(ids) at B=2, S=1024 against the unfused engine and the fp32 one
+    ids = torch.randint(0, V, (2, 1024), generator=torch.Generator().manual_seed(SEED + 1))
+    eng(ids[:, :128])
+    unfused(ids[:, :128])
+    zero_counts()
+    fwd = {}
+    for k in ("first", "again"):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        logits = eng(ids)
+        torch.cuda.synchronize()
+        fwd[k] = (time.perf_counter() - t0) * 1e3
+    launches = read_counts()
+    by_path["forward_fused_mlp"] = launches
+    expected = {n: 0 for n in launches}
+    expected.update({"flash_attention_fwd": 2 * L, "fused_mlp_fwd": 2 * L})
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    lu = unfused(ids)
+    torch.cuda.synchronize()
+    unfused_ms = (time.perf_counter() - t0) * 1e3
+    lf, lu, l32 = logits[..., :V].float(), lu[..., :V].float(), ref32(ids)[..., :V].float()
+    del logits
+
+    def rel_rms(a, b):
+        return float((a - b).pow(2).mean().sqrt() / b.pow(2).mean().sqrt())
+
+    ulp = bf16_ulp(float(l32.abs().max()))
+    fwd_res = dict(fused_vs_fp32_rel_rms=rel_rms(lf, l32), unfused_vs_fp32_rel_rms=rel_rms(lu, l32),
+                   fused_vs_fp32_max_err=float((lf - l32).abs().max()),
+                   unfused_vs_fp32_max_err=float((lu - l32).abs().max()),
+                   tol_8ulp=8 * ulp, fused_vs_unfused_max_err=float((lf - lu).abs().max()),
+                   fused_vs_unfused_top1=float((lf.argmax(-1) == lu.argmax(-1)).float().mean()),
+                   fused_top1_within_2ulp_of_fp32=near_max_share(lf.argmax(-1), l32, 2 * ulp))
+    del lf, lu, l32
+    checks["forward_launch_counts"] = launches == expected
+    checks["forward_vs_fp32"] = (fwd_res["fused_vs_fp32_rel_rms"]
+                                 <= 1.1 * fwd_res["unfused_vs_fp32_rel_rms"]
+                                 and fwd_res["fused_vs_fp32_max_err"] <= 8 * ulp
+                                 and fwd_res["fused_top1_within_2ulp_of_fp32"] >= 0.99)
+    emit(dict(phase="slice_fused_mlp_forward", model="gpt2-125m", shape=[2, 1024],
+              forward_ms=fwd["first"], forward_again_ms=fwd["again"],
+              unfused_forward_ms=unfused_ms, launches=launches, expected_launches=expected,
+              **fwd_res))
+
+    # generate with fused decode ticks, and with every tick unfused
+    prompt = torch.randint(0, V, (8, 256), generator=torch.Generator().manual_seed(SEED + 2))
+    new = 128
+    nofuse = ds.init_inference(GPT2LMHeadModel(cfg, device="meta"),
+                               params={k: v.detach() for k, v in eng.module.state_dict().items()},
+                               dtype=torch.bfloat16, max_tokens=512, decode_fused=False)
+    for path, eg, fused in (("generate_fused_mlp", eng, True),
+                            ("generate_fused_mlp_unfused_ticks", nofuse, False)):
+        eg.generate(prompt[:, :32], max_new_tokens=4)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        eg.generate(prompt, max_new_tokens=1)
+        torch.cuda.synchronize()
+        ttft = (time.perf_counter() - t0) * 1e3
+        zero_counts()
+        t0 = time.perf_counter()
+        out = eg.generate(prompt, max_new_tokens=new)
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+        launches = read_counts()
+        by_path[path] = launches
+        ticks = new - 1
+        expected = {n: 0 for n in launches}
+        expected.update({"decode_attention": L * ticks,
+                         "fused_mlp_fwd": L * (1 + (0 if fused else ticks))})
+        if fused:
+            expected.update({"norm_qkv": L * ticks, "post_attn": L * ticks})
+        tf = teacher_forced(torch, ref32, [(s, 256) for s in out], V)
+        checks[f"{path}_launch_counts"] = launches == expected
+        checks[f"{path}_teacher_forced"] = tf["within_2ulp"] >= 0.99 and tf["decisive_strict"] == 1.0
+        checks[f"{path}_shape"] = tuple(out.shape) == (8, 256 + new) and int(out.max()) < V
+        emit(dict(phase="slice_fused_mlp_generate", path=path, shape=[8, 256, new],
+                  ttft_ms=ttft, generate_ms=wall, ms_per_tick=(wall - ttft) / ticks,
+                  decode_tokens_per_s=8 * ticks / ((wall - ttft) / 1e3), launches=launches,
+                  expected_launches=expected, teacher_forced_vs_fp32=tf))
+    del nofuse
+
+    # one page-resident batcher pass of the serve phase's requests
+    reqs = serve_requests(V)
+    batcher = ds.ContinuousBatcher(eng, n_slots=8, seed=SEED,
+                                   prefix_cache={"page_tokens": 16, "n_pages": 512})
+    chunks0 = Counter(batcher.prefill_chunks)
+    zero_counts()
+    outs, nums = serve_pass(torch, batcher, reqs)
+    launches = read_counts()
+    by_path["serve_fused_mlp_paged"] = launches
+    chunks = batcher.prefill_chunks - chunks0
+    singles = nums["ticks"] + nums["one_token_prefills"]
+    multi = sum(n for (B, S), n in chunks.items() if S > 1)
+    expected = {n: 0 for n in launches}
+    expected.update({"paged_attention": L * singles, "norm_qkv": L * singles,
+                     "post_attn": L * singles, "fused_mlp_fwd": L * multi})
+    tf = teacher_forced(torch, ref32, [(outs[i], len(reqs[i]["prompt"]))
+                                       for i in range(0, len(reqs), 2)], V)
+    checks["serve_launch_counts"] = launches == expected and multi > 0
+    checks["serve_no_leaks"] = (all(v == 0 for v in nums["leaks"].values())
+                                and all(v == 0 for v in batcher.leak_counts().values()))
+    checks["serve_teacher_forced"] = tf["within_2ulp"] >= 0.99 and tf["decisive_strict"] == 1.0
+    checks["serve_shapes"] = all(len(o) == len(r["prompt"]) + r["max_new_tokens"]
+                                 and int(o.max()) < V for o, r in zip(outs, reqs))
+    emit(dict(phase="slice_fused_mlp_serve", path="serve_fused_mlp_paged", n_slots=8,
+              requests=len(reqs), pass_=nums,
+              prefill_chunks={f"{B}x{S}": n for (B, S), n in sorted(chunks.items())},
+              launches=launches, expected_launches=expected, teacher_forced_vs_fp32=tf))
+    emit(dict(phase="slice_fused_mlp", model="gpt2-125m", fused_mlp=True, checks=checks))
+    del batcher, eng, unfused, ref32
+    torch.cuda.empty_cache()
+    return by_path, all(checks.values())
+
+
+def run_train_fused_mlp(torch, peaks, unfused_peak_gb, out_dir=None):
+    """gpt2-125m with ``fused_mlp=True`` at the flagship config (S=1024,
+    micro 24, gas 4, ZeRO 1; ``train_config``): a gradient gate on one 2 x
+    1024 micro-batch (the bf16 fused engine against the fp32 engine, which
+    the rule leaves unfused, and against the bf16 unfused engine: per leaf,
+    cosine with fp32 ≥ 0.99, and a relative L2 distance from fp32 at most
+    twice the unfused bf16 engine's plus 1e-3), 2 warm-up and 4 timed
+    steps (losses finite and falling; exactly 12 × 4 launches per step of
+    each fused FFN kernel and of the flash forward and merged backward; peak
+    memory beside the unfused train phase's), one profiled step, and one
+    step of an engine under ``remat_policy="dots_saveable"`` from the same
+    weights (its loss within 1e-3 of the non-remat engine's at those
+    weights; the recompute reruns the fused forward and the flash forward:
+    2 × 12 × 4 launches of each, 12 × 4 of each backward kernel)."""
+    import dataclasses
+
+    import numpy as np
+    from torch.profiler import ProfilerActivity, profile
+
+    import deepspeed_tpu_torch as ds
+    from deepspeed_tpu_torch.models.gpt2 import GPT2LMHeadModel, gpt2_config
+
+    cfg = gpt2_config("gpt2-125m", n_positions=1024, loss_chunk=1 << 30, fused_mlp=True)
+    L = cfg.n_layer
+    ids2 = text_like_ids(np.random.default_rng(SEED + 7), 2, 1024, cfg.vocab_size)
+
+    def grads(dtype, fused):
+        model = GPT2LMHeadModel(dataclasses.replace(cfg, dtype=dtype, fused_mlp=fused),
+                                device="meta")
+        eng, *_ = ds.initialize(model=model, config=train_config(2, 1, "fp32"))
+        eng.init_params()
+        zero_counts()
+        _, g = eng._grads_of(eng._to_device({"input_ids": ids2, "labels": ids2}))
+        torch.cuda.synchronize()
+        counts = read_counts()
+        out = {n: x.float() for n, x in zip(eng._names, g)}
+        del eng, g
+        torch.cuda.empty_cache()
+        return out, counts
+
+    g32, c32 = grads(torch.float32, True)
+    gf, cf = grads(torch.bfloat16, True)
+    gu, cu = grads(torch.bfloat16, False)
+
+    def rel(a, b):
+        return float((a - b).norm() / b.norm().clamp(min=1e-30))
+
+    leaves = {}
+    for n in g32:
+        if g32[n].abs().max() == 0:
+            continue
+        cos = float(torch.nn.functional.cosine_similarity(gf[n].flatten(), g32[n].flatten(),
+                                                          dim=0))
+        leaves[n] = dict(cos_fused_fp32=cos, rel_fused_fp32=rel(gf[n], g32[n]),
+                         rel_unfused_fp32=rel(gu[n], g32[n]), rel_fused_unfused=rel(gf[n], gu[n]))
+    del g32, gf, gu
+    gate_ok = all(v["cos_fused_fp32"] >= 0.99
+                  and v["rel_fused_fp32"] <= 2 * v["rel_unfused_fp32"] + 1e-3
+                  for v in leaves.values())
+    worst = max(leaves, key=lambda n: leaves[n]["rel_fused_fp32"] / max(
+        leaves[n]["rel_unfused_fp32"], 1e-12))
+    one = {"fused_mlp_fwd": L, "fused_mlp_bwd_dx": L, "fused_mlp_bwd_dw": L}
+    checks = {"grad_gate": gate_ok,
+              "grad_gate_launches": all(cf[k] == v for k, v in one.items())
+              and all(c32[k] == 0 and cu[k] == 0 for k in one)}
+    emit(dict(phase="train_fused_mlp_grad_gate", model="gpt2-125m", micro_batch=[2, 1024],
+              leaves=len(leaves), min_cos_fused_fp32=min(v["cos_fused_fp32"]
+                                                         for v in leaves.values()),
+              max_rel_fused_fp32=max(v["rel_fused_fp32"] for v in leaves.values()),
+              max_rel_unfused_fp32=max(v["rel_unfused_fp32"] for v in leaves.values()),
+              max_rel_fused_unfused=max(v["rel_fused_unfused"] for v in leaves.values()),
+              worst_leaf={worst: leaves[worst]}, launches_fused=cf, launches_fp32=c32,
+              launches_unfused=cu, checks=dict(checks)))
+
+    micro, gas, S = 24, 4, 1024
+    model = GPT2LMHeadModel(cfg, device="meta")
+    eng, *_ = ds.initialize(model=model, config=train_config(micro, gas))
+    eng.init_params()
+    ids = text_like_ids(np.random.default_rng(SEED + 8), micro * gas, S, cfg.vocab_size)
+    batch = eng._to_device({"input_ids": ids, "labels": ids})
+    t0 = time.perf_counter()
+    warm = eng.train_batches(batch, 2, stacked=False)
+    torch.cuda.synchronize()
+    warm_s = time.perf_counter() - t0
+    torch.cuda.reset_peak_memory_stats()
+    zero_counts()
+    steps = 4
+    t0 = time.perf_counter()
+    losses = eng.train_batches(batch, steps, stacked=False)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = read_counts()
+    peak_gb = torch.cuda.max_memory_allocated() / 2 ** 30
+    losses = [float(x) for x in torch.cat([warm, losses])]
+    per_step = {**{k: L * gas for k in FUSED_MLP_KERNELS}, "flash_attention_fwd": L * gas,
+                "flash_attention_bwd_merged": L * gas}
+    expected = {n: steps * per_step.get(n, 0) for n in launches}
+    tok_s = steps * micro * gas * S / wall
+
+    eng.train_batch(batch)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t1 = time.perf_counter()
+        eng.train_batch(batch)
+        torch.cuda.synchronize()
+        prof_wall = (time.perf_counter() - t1) * 1e3
+    by_name = device_ms_of(prof)
+    dev_ms = sum(by_name.values())
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:12]
+    if out_dir:
+        with open(os.path.join(out_dir, "profile_train_fused_mlp_step.txt"), "w") as fh:
+            fh.write(prof.key_averages().table(sort_by="self_cuda_time_total", row_limit=40))
+    del prof
+
+    # remat dots_saveable from the same weights
+    ref_loss = float(eng.eval_batch(batch))
+    rcfg = {**train_config(micro, gas), "activation_checkpointing": {
+        "enabled": True, "policy": "dots_saveable"}}
+    e2, *_ = ds.initialize(model=GPT2LMHeadModel(cfg, device="meta"), config=rcfg,
+                           model_parameters=eng.params)
+    zero_counts()
+    t1 = time.perf_counter()
+    remat_loss = float(e2.train_batch(batch))
+    torch.cuda.synchronize()
+    remat_ms = (time.perf_counter() - t1) * 1e3
+    remat_launches = read_counts()
+    remat_want = {**per_step, "fused_mlp_fwd": 2 * L * gas, "flash_attention_fwd": 2 * L * gas}
+    remat_expected = {n: remat_want.get(n, 0) for n in remat_launches}
+    del e2
+    checks.update({
+        "losses_finite": all(math.isfinite(x) for x in losses + [remat_loss, ref_loss]),
+        "loss_falling": losses[-1] < losses[2] and losses[-1] < losses[0],
+        "launch_counts": launches == expected,
+        "remat_launch_counts": remat_launches == remat_expected,
+        "remat_loss": abs(remat_loss / ref_loss - 1) <= 1e-3})
+    emit(dict(phase="train_fused_mlp", model="gpt2-125m", config=train_config(micro, gas),
+              fused_mlp=True, dtype="bfloat16", batch=[micro * gas, S], warmup_s=warm_s,
+              timed_steps=steps, wall_s=wall, ms_per_step=wall * 1e3 / steps,
+              tokens_per_s=tok_s, mfu=model.flops_per_token() * tok_s / peaks[1],
+              max_memory_allocated_gb=peak_gb, unfused_train_max_memory_allocated_gb=unfused_peak_gb,
+              losses=losses, launches=launches, expected_launches=expected,
+              profile=dict(step_wall_ms=prof_wall,
+                           step_device_ms=dev_ms if dev_ms else "not measured",
+                           device_busy_share=dev_ms / prof_wall if dev_ms else "not measured",
+                           top_device_ms={k[:90]: v for k, v in top}),
+              remat=dict(policy="dots_saveable", loss=remat_loss, loss_at_same_weights=ref_loss,
+                         loss_rel_diff=abs(remat_loss / ref_loss - 1), step_ms_first=remat_ms,
+                         launches=remat_launches, expected_launches=remat_expected),
+              checks=checks))
+    del eng, batch
+    torch.cuda.empty_cache()
+    return ({"train_fused_mlp": launches, "train_fused_mlp_remat": remat_launches},
+            all(checks.values()))
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--out", default=None, help="directory for build logs and profiles")
@@ -3529,6 +4088,8 @@ def main() -> int:
     ok &= llama_kernels_ok
     neox_rows, neox_at, neox_kernels_ok = run_kernels_neox(torch, F, peaks)
     ok &= neox_kernels_ok
+    mlp_rows, mlp_kernels_ok = run_kernels_fused_mlp(torch, F, peaks)
+    ok &= mlp_kernels_ok
     launches, slice_ok, eng, prompt = run_slice(torch)
     ok &= slice_ok
     run_profile(torch, eng, prompt, args.out)
@@ -3542,13 +4103,18 @@ def main() -> int:
     ok &= llama_ok
     neox_launches, neox_ok = run_serve_neox(torch, args.out)
     ok &= neox_ok
-    train_launches, train_ok = run_train(torch, peaks, args.out)
+    mlp_launches, mlp_slice_ok = run_slice_fused_mlp(torch, args.out)
+    ok &= mlp_slice_ok
+    train_launches, train_peak_gb, train_ok = run_train(torch, peaks, args.out)
     ok &= train_ok
+    mlp_train_launches, mlp_train_ok = run_train_fused_mlp(torch, peaks, train_peak_gb, args.out)
+    ok &= mlp_train_ok
     big_launches, opt_res, big_ok = run_train_1p5b(torch, peaks, args.out)
     ok &= big_ok
     # each path's counts were zeroed before it and read after it
     by_path = {"generate": launches, **serve_launches, **w8_launches, **llama_launches,
-               **neox_launches, **train_launches, **big_launches}
+               **neox_launches, **mlp_launches, **train_launches, **mlp_train_launches,
+               **big_launches}
 
     # the kernels' rows at gpt2-760m's heads, which the serve_w8 and
     # generate_w8 paths run
@@ -3669,6 +4235,26 @@ def main() -> int:
             shape=r["shape"]))
         ok &= all(by_path[p][kname] > 0 for p in paths)
     ok &= all(k in neox_rows for k in neox_paths)
+
+    # the fused FFN kernels at the flagship micro-batch (the train path), the
+    # other shapes under at_shapes; each launched on every path that runs it
+    mlp_paths = {"fused_mlp_fwd": ("forward_fused_mlp", "generate_fused_mlp",
+                                   "generate_fused_mlp_unfused_ticks", "serve_fused_mlp_paged",
+                                   "train_fused_mlp", "train_fused_mlp_remat"),
+                 "fused_mlp_bwd_dx": ("train_fused_mlp", "train_fused_mlp_remat"),
+                 "fused_mlp_bwd_dw": ("train_fused_mlp", "train_fused_mlp_remat")}
+    for kname, paths in mlp_paths.items():
+        r = mlp_rows.get(kname)
+        if r is None:   # the kernels phase failed before timing it (already not ok)
+            continue
+        summary.append(dict(
+            name=kname, route="cuda", source="deepspeed_tpu_torch/ops/csrc/fused_mlp.cu",
+            replaces="deepspeed_tpu/ops/pallas/fused_mlp.py" + FUSED_MLP_LINES[kname],
+            **path_counts(kname), max_abs_err=r["max_err"], ms=r["kernel_ms"],
+            plain_ms=r["plain_ms"], bound_ms=r["bound_ms"], bound_by=r["bound_by"],
+            library_ms=r["library_ms"], shape=r["shape"], at_shapes=r["at_shapes"]))
+        ok &= all(by_path[p][kname] > 0 for p in paths)
+    ok &= all(k in mlp_rows for k in mlp_paths)
 
     # the earlier kernels' rows at llama-1b's shapes (H=32 over KV=4, the
     # four dense panels) and at pythia-1b's (H=KV=8, D=256; qkv N=6144, the

@@ -14,7 +14,10 @@ or with ``loss_pallas`` the fused CE head kernels), else ``logits`` and the
 dense ``loss``. ``remat=True`` checkpoints each block under
 ``remat_policy``: the JAX package's ``nothing_saveable``,
 ``everything_saveable`` and dot-saving policies, each with ``+flash``
-(``models/common.resolve_remat_policy``). Dropout, MoE, ``fused_mlp`` and
+(``models/common.resolve_remat_policy``). ``fused_mlp=True`` runs the MLP
+through the fused FFN kernels (``ops/fused_mlp.py``) wherever the JAX
+package's rule fuses it (:meth:`MLP.use_fused`): the forward in training,
+prefill and unfused decode ticks, dx and dw in backward. Dropout, MoE and
 ``+offload`` are not ported and raise. ``forward(ids, position_ids=..., cache=...)`` is
 the decode mode: K/V are appended to the cache, single-token ticks run the
 fused decode kernels when ``decode_fused_plan`` allows, and the rest runs
@@ -42,6 +45,7 @@ from torch import nn
 
 from ..ops.attention import cached_decode_attention, dot_product_attention
 from ..ops.decode_layer import fused_norm_proj, fused_post_attn
+from ..ops.fused_mlp import fits_vmem, fused_mlp
 from .common import (LayerNorm, ModelOutput, append_kv_cache, chunked_lm_loss,
                      cross_entropy_loss, declare_dense, decode_fused_plan, dense, dense_weight,
                      new_param, pallas_lm_loss, resolve_remat_policy, shift_labels)
@@ -64,7 +68,7 @@ class GPT2Config:
     remat: bool = False                   # activation checkpointing per block
     remat_policy: str = "nothing_saveable"
     attn_impl: str = "auto"               # auto | jnp | flash
-    fused_mlp: bool = False               # the fused FFN kernel: not ported
+    fused_mlp: bool = False               # the fused FFN kernels where MLP.use_fused allows
     vocab_pad_multiple: int = 128
     moe: Optional[Any] = None             # mixture of experts: not ported
     decode_fused: Optional[bool] = None   # None: on for the card, off on the CPU
@@ -90,8 +94,6 @@ class GPT2Config:
                 raise NotImplementedError(f"{name} > 0 (dropout) {todo} (ROADMAP.md A2)")
         if self.moe is not None:
             raise NotImplementedError(f"moe {todo} (ROADMAP.md A9)")
-        if self.fused_mlp:
-            raise NotImplementedError(f"fused_mlp (the fused FFN kernel) {todo} (ROADMAP.md B8)")
         if self.remat:
             resolve_remat_policy(self.remat_policy)   # unknown or unported: raise at build
 
@@ -169,8 +171,21 @@ class MLP(nn.Module):
         declare_dense(self, "c_fc", E, F, cfg, device, dtype)
         declare_dense(self, "c_proj", F, E, cfg, device, dtype)
 
+    def use_fused(self) -> bool:
+        """The JAX package's rule (``models/gpt2.py:322-330``): ``fused_mlp``,
+        no residual dropout, full-width weights, and both panels within
+        :func:`~deepspeed_tpu_torch.ops.fused_mlp.fits_vmem` at the compute
+        dtype. Where the JAX rule also asks for a TPU, the port asks for
+        nothing: CPU tensors run the kernels' plain versions."""
+        cfg = self.cfg
+        return (cfg.fused_mlp and cfg.resid_pdrop == 0.0 and not cfg.w8
+                and fits_vmem(cfg.n_embd, 4 * cfg.n_embd, 128, cfg.dtype.itemsize))
+
     def forward(self, x):
         dt = self.cfg.dtype
+        if self.use_fused():
+            return fused_mlp(x, dense_weight(self, "c_fc", dt), self.c_fc_bias.to(dt),
+                             dense_weight(self, "c_proj", dt), self.c_proj_bias.to(dt))
         h = nn.functional.gelu(dense(x, dense_weight(self, "c_fc", dt), self.c_fc_bias, dt),
                                approximate="tanh")   # gelu_new
         return dense(h, dense_weight(self, "c_proj", dt), self.c_proj_bias, dt)

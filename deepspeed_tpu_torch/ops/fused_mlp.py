@@ -1,0 +1,223 @@
+"""Fused transformer MLP: ``gelu_tanh(x @ w1 + b1) @ w2 + b2`` with the hidden
+never in device memory, forward and backward.
+
+Port of ``deepspeed_tpu/ops/pallas/fused_mlp.py``: the TPU kernels
+``_fwd_kernel`` (:31), ``_bwd_dx_kernel`` (:45) and ``_bwd_dw_kernel`` (:72)
+become the three entries of ``csrc/fused_mlp.cu`` (see its header for the
+design and bounds), and the custom VJP (``_fused_mlp``, :116-216) an
+``autograd.Function``. The forward is one dispatcher op,
+``ds_tpu_torch::fused_mlp_fwd`` (:func:`fused_mlp_fwd_op`), so that
+activation checkpointing's policies see it as one op, as they see the flash
+forward. The function saves ``x, w1, b1, w2`` (never the hidden) and its
+backward runs the dx and dw kernels, which recompute the hidden. Under
+activation checkpointing every policy but ``everything_saveable`` recomputes
+the forward op (no policy saves its output): two forward launches per layer
+and micro-batch, one of dx and dw.
+
+Shapes are the JAX package's: ``x (R, E)`` (the public :func:`fused_mlp`
+takes ``(..., E)``), ``w1 (E, F)``, ``w2 (F, E)``, ``b1 (F,)`` in x's dtype,
+``b2`` fp32 (the public function casts it, as the JAX wrapper does).
+Arithmetic, as the TPU kernels' (:func:`fused_mlp_plain`,
+:func:`fused_mlp_bwd_dx_plain`, :func:`fused_mlp_bwd_dw_plain`): products
+of the inputs' values summed in fp32; ``h = gelu_tanh(u)`` cast to x's dtype
+before the second forward product; in dx, ``du = dh · gelu_tanh'(u)`` cast to
+x's dtype before ``du @ w1ᵀ``; in dw, ``du`` and ``h`` in fp32. One
+difference from the TPU dx kernel, which adds its per-F-tile partials into a
+bf16 output: the port sums all of F in fp32 and casts once (identical in
+fp32). Gradients come back as the JAX backward returns them: dx, dw1, db1,
+dw2 in their inputs' dtypes, db2 fp32.
+
+CUDA tensors launch the kernels; CPU tensors run the plain versions; a CUDA
+tensor never falls back (a build or launch failure raises). The kernels take
+E a multiple of 64 up to :data:`MAX_E` (768 in bf16, 384 in fp32, their
+shared-memory tiles), F a multiple of 32 and any R ≥ 1 (ragged row tiles are
+masked, where the JAX wrapper pads); other shapes raise on the card. The JAX
+wrapper's tiling error (``_pick_block_f``) and its mesh plan
+(``fused_mlp_spmd``) are TPU and multi-device matters with no counterpart
+here. :func:`fits_vmem` is the JAX package's dispatch rule, kept as it is.
+"""
+from __future__ import annotations
+
+import torch
+
+from ._build import INT, PTR, Kernel, check_operands, dtype_code, stream_of
+from .decode_layer import gelu_tanh
+
+_ARGS = [INT, INT, INT, INT, INT, INT, PTR]   # R E F splits per_split dtype stream
+FWD = Kernel("fused_mlp", "fused_mlp_fwd", [PTR] * 7 + _ARGS)
+DX = Kernel("fused_mlp", "fused_mlp_bwd_dx", [PTR] * 7 + _ARGS)
+DW = Kernel("fused_mlp", "fused_mlp_bwd_dw", [PTR] * 8 + _ARGS)
+
+MAX_E = {torch.bfloat16: 768, torch.float32: 384}
+ROWS = 32          # the kernels' row tile
+CHUNK = 32         # hidden columns per chunk of the forward and dx kernels
+DW_COLS = 16       # hidden columns per block of the dw kernel
+DW_ROWS = 16       # its row tile
+_SM_COUNT = 132    # splits and segments aim at a few blocks per SM of an H100
+_SQRT_2_OVER_PI = 0.7978845608028654
+
+
+def gelu_tanh_grad(u: torch.Tensor) -> torch.Tensor:
+    """``_gelu_tanh_grad`` of ``ops/pallas/fused_ops.py`` (:170), term for term."""
+    u3 = 0.044715 * u * u * u
+    inner = _SQRT_2_OVER_PI * (u + u3)
+    t = torch.tanh(inner)
+    sech2 = 1.0 - t * t
+    return 0.5 * (1.0 + t) + 0.5 * u * sech2 * _SQRT_2_OVER_PI * (1.0 + 3.0 * 0.044715 * u * u)
+
+
+def fits_vmem(e: int, f: int, block_rows: int, itemsize: int) -> bool:
+    """The JAX package's dispatch rule (``ops/pallas/fused_mlp.py:241``),
+    kept as it is so that both packages fuse the same configs: both weight
+    panels plus the row tiles within 15 MiB of TPU VMEM. Whether the card
+    should fuse wider models is an open, measured question (ROADMAP.md)."""
+    weights = 2 * e * f * itemsize
+    tiles = block_rows * (f * (4 + itemsize) + 2 * 2 * e * itemsize)
+    return weights + tiles <= 15 * 1024 * 1024
+
+
+def _u(x, w1, b1):
+    return x.float() @ w1.float() + b1.float()
+
+
+def fused_mlp_plain(x, w1, b1, w2, b2):
+    """The forward kernel's function: ``(R, E)`` in x's dtype."""
+    h = gelu_tanh(_u(x, w1, b1)).to(x.dtype)
+    return (h.float() @ w2.float() + b2.float()).to(x.dtype)
+
+
+def fused_mlp_bwd_dx_plain(x, w1, b1, w2, dy):
+    """The dx kernel's function: ``du = (dy @ w2ᵀ) · gelu_tanh'(u)`` cast to
+    x's dtype, ``dx = du @ w1ᵀ`` summed in fp32 over all of F, in x's dtype."""
+    du = (dy.float() @ w2.float().T) * gelu_tanh_grad(_u(x, w1, b1))
+    return (du.to(x.dtype).float() @ w1.float().T).to(x.dtype)
+
+
+def fused_mlp_bwd_dw_plain(x, w1, b1, w2, dy):
+    """The dw kernel's function: ``(dw1, db1, dw2, db2)`` from ``du`` and
+    ``h`` in fp32; dw1, db1, dw2 in the weights' dtype, db2 fp32."""
+    u = _u(x, w1, b1)
+    dyf = dy.float()
+    du = (dyf @ w2.float().T) * gelu_tanh_grad(u)
+    dw1 = x.float().T @ du
+    dw2 = gelu_tanh(u).T @ dyf
+    return dw1.to(w1.dtype), du.sum(0).to(b1.dtype), dw2.to(w2.dtype), dyf.sum(0)
+
+
+# ----------------------------------------------------------------------
+# the kernels' wrappers
+# ----------------------------------------------------------------------
+def _check(x, w1, b1, w2, dy=None):
+    R, E = x.shape
+    F = w1.shape[1]
+    if w1.shape != (E, F) or b1.shape != (F,) or w2.shape != (F, E) or (
+            dy is not None and dy.shape != x.shape):
+        raise ValueError(f"fused_mlp: x {tuple(x.shape)}, w1 {tuple(w1.shape)}, b1 "
+                         f"{tuple(b1.shape)}, w2 {tuple(w2.shape)} do not match")
+    if x.is_cuda and (E % 64 or E > MAX_E.get(x.dtype, 0) or F % CHUNK or R < 1):
+        raise ValueError(f"fused_mlp kernels: E={E} F={F} R={R} {x.dtype}: the kernels take E a "
+                         f"multiple of 64 up to {MAX_E} and F a multiple of {CHUNK}")
+
+
+def _splits(row_tiles: int, units: int, waves: int) -> tuple[int, int]:
+    """``(splits, units per split)`` of ``units`` work units so that
+    ``row_tiles × splits`` blocks make about ``waves`` blocks per SM, with
+    no empty split."""
+    want = max(1, min(units, -(-waves * _SM_COUNT // row_tiles)))
+    per = -(-units // want)
+    return -(-units // per), per
+
+
+def _launch_rows(kernel, x, w1, b1, w2, last, out):
+    """The forward or dx kernel: ``last`` is b2 (fp32) or dy."""
+    R, E = x.shape
+    F = w1.shape[1]
+    nsplit, per = _splits(-(-R // ROWS), F // CHUNK, 2)
+    part = torch.empty((nsplit, R, E) if nsplit > 1 else (1,), dtype=torch.float32,
+                       device=x.device)
+    with torch.cuda.device(x.device):
+        kernel.launch(x.data_ptr(), w1.data_ptr(), b1.data_ptr(), w2.data_ptr(), last.data_ptr(),
+                      out.data_ptr(), part.data_ptr(), R, E, F, nsplit, per, dtype_code(x),
+                      stream_of(x))
+    return out
+
+
+def fused_mlp_bwd_dx(x, w1, b1, w2, dy):
+    """dx ``(R, E)`` in x's dtype: the dx kernel on CUDA tensors,
+    :func:`fused_mlp_bwd_dx_plain` on CPU tensors."""
+    _check(x, w1, b1, w2, dy)
+    if not x.is_cuda:
+        return fused_mlp_bwd_dx_plain(x, w1, b1, w2, dy)
+    x, w1, b1, w2, dy = (t.contiguous() for t in (x, w1, b1, w2, dy))
+    check_operands(x, w1, b1, w2, dy)
+    return _launch_rows(DX, x, w1, b1, w2, dy, torch.empty_like(x))
+
+
+def fused_mlp_bwd_dw(x, w1, b1, w2, dy):
+    """``(dw1, db1, dw2, db2)``: the dw kernel on CUDA tensors (dw1, dw2 and
+    db1 views of one buffer in the weights' dtype, db2 fp32),
+    :func:`fused_mlp_bwd_dw_plain` on CPU tensors."""
+    _check(x, w1, b1, w2, dy)
+    if not x.is_cuda:
+        return fused_mlp_bwd_dw_plain(x, w1, b1, w2, dy)
+    x, w1, b1, w2, dy = (t.contiguous() for t in (x, w1, b1, w2, dy))
+    check_operands(x, w1, b1, w2, dy)
+    R, E = x.shape
+    F = w1.shape[1]
+    nseg, per = _splits(F // DW_COLS, -(-R // DW_ROWS), 8)
+    out = torch.empty((2 * E * F + F,), dtype=x.dtype, device=x.device)
+    db2 = torch.empty((E,), dtype=torch.float32, device=x.device)
+    part = torch.empty((nseg, 2 * E * F + F + E), dtype=torch.float32, device=x.device)
+    with torch.cuda.device(x.device):
+        DW.launch(x.data_ptr(), w1.data_ptr(), b1.data_ptr(), w2.data_ptr(), dy.data_ptr(),
+                  out.data_ptr(), db2.data_ptr(), part.data_ptr(), R, E, F, nseg, per,
+                  dtype_code(x), stream_of(x))
+    EF = E * F
+    return out[:EF].view(E, F), out[2 * EF:], out[EF:2 * EF].view(F, E), db2
+
+
+@torch.library.custom_op("ds_tpu_torch::fused_mlp_fwd", mutates_args=())
+def fused_mlp_fwd_op(x: torch.Tensor, w1: torch.Tensor, b1: torch.Tensor, w2: torch.Tensor,
+                     b2: torch.Tensor) -> torch.Tensor:
+    """The forward as one dispatcher op, ``(R, E)`` in x's dtype: the kernel
+    on CUDA tensors, :func:`fused_mlp_plain` on CPU tensors (its products stay
+    inside the op, so a checkpoint policy sees one op on both devices)."""
+    _check(x, w1, b1, w2)
+    if not x.is_cuda:
+        return fused_mlp_plain(x, w1, b1, w2, b2)
+    x, w1, b1, w2 = (t.contiguous() for t in (x, w1, b1, w2))
+    b2 = b2.float().contiguous()
+    check_operands(x, w1, b1, w2)
+    check_operands(b2)
+    return _launch_rows(FWD, x, w1, b1, w2, b2, torch.empty_like(x))
+
+
+@fused_mlp_fwd_op.register_fake
+def _(x, w1, b1, w2, b2):
+    return x.new_empty(x.shape)
+
+
+class _FusedMLP(torch.autograd.Function):
+    """``(R, E)`` inputs; saves ``x, w1, b1, w2``, never the hidden."""
+
+    @staticmethod
+    def forward(ctx, x, w1, b1, w2, b2):
+        ctx.save_for_backward(x, w1, b1, w2)
+        return fused_mlp_fwd_op(x, w1, b1, w2, b2)
+
+    @staticmethod
+    def backward(ctx, dy):
+        x, w1, b1, w2 = ctx.saved_tensors
+        dx = fused_mlp_bwd_dx(x, w1, b1, w2, dy)
+        dw1, db1, dw2, db2 = fused_mlp_bwd_dw(x, w1, b1, w2, dy)
+        return dx, dw1, db1, dw2, db2
+
+
+def fused_mlp(x: torch.Tensor, w1: torch.Tensor, b1: torch.Tensor, w2: torch.Tensor,
+              b2: torch.Tensor) -> torch.Tensor:
+    """``gelu_tanh(x @ w1 + b1) @ w2 + b2`` over ``(..., E)`` inputs, in x's
+    dtype, the hidden never in device memory; differentiable in all five
+    (b2's gradient is taken in fp32 and cast back by autograd)."""
+    lead, E = x.shape[:-1], x.shape[-1]
+    y = _FusedMLP.apply(x.reshape(-1, E), w1, b1, w2, b2.float())
+    return y.reshape(*lead, E)

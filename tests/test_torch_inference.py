@@ -7,6 +7,7 @@ decode kernels off and on (the JAX side runs them in interpret mode), the
 Also: entry points refuse to leave the card silently, unported options
 raise, and the package and ``chip_smoke.py`` import nothing of JAX.
 """
+import contextlib
 import os
 import shutil
 import subprocess
@@ -29,6 +30,8 @@ from deepspeed_tpu_torch.inference import engine as port_engine
 from deepspeed_tpu_torch.models.common import (append_kv_cache, cache_leaf_kind,
                                                init_layer_cache, set_cache_index)
 from deepspeed_tpu_torch.models.gpt2 import GPT2LMHeadModel, gpt2_config
+
+from .test_torch_fused_mlp import jax_fused_mlp_kernel
 
 REPO = Path(__file__).resolve().parents[1]
 SMALL = dict(vocab_size=512, n_embd=128, n_layer=2, n_head=2, n_positions=128)
@@ -55,20 +58,26 @@ def _port_model(**over):
         return GPT2LMHeadModel(gpt2_config("gpt2-125m", dtype=torch.float32, **{**SMALL, **over}))
 
 
-def _engines(params, **kw):
+def _engines(params, fused_mlp=False, **kw):
     jax_eng = deepspeed_tpu.init_inference(
-        model=FlaxGPT2(flax_config("gpt2-125m", dtype=jnp.float32, **SMALL)),
+        model=FlaxGPT2(flax_config("gpt2-125m", dtype=jnp.float32, fused_mlp=fused_mlp, **SMALL)),
         dtype=jnp.float32, params=params, **kw)
-    port = deepspeed_tpu_torch.init_inference(_port_model(), params=params,
+    port = deepspeed_tpu_torch.init_inference(_port_model(fused_mlp=fused_mlp), params=params,
                                               dtype=torch.float32, device="cpu", **kw)
     return jax_eng, port
 
 
-@pytest.mark.parametrize("decode_fused", [False, True])
-def test_greedy_generate_token_identical(flax_params, decode_fused):
-    jax_eng, port = _engines(flax_params, decode_fused=decode_fused)
-    ids = np.random.default_rng(0).integers(0, 512, size=(2, 9)).astype(np.int32)
-    want = np.asarray(jax_eng.generate(ids, max_new_tokens=12))
+@pytest.mark.parametrize("decode_fused,fused_mlp", [(False, False), (True, False), (False, True)],
+                         ids=["False", "True", "fused_mlp"])
+def test_greedy_generate_token_identical(flax_params, decode_fused, fused_mlp):
+    """``fused_mlp``: the prefill and every (unfused) tick through the fused
+    FFN, the JAX engine's through its interpreted Pallas kernel."""
+    with jax_fused_mlp_kernel() if fused_mlp else contextlib.nullcontext([]) as calls:
+        jax_eng, port = _engines(flax_params, fused_mlp=fused_mlp, decode_fused=decode_fused)
+        ids = np.random.default_rng(0).integers(0, 512, size=(2, 9)).astype(np.int32)
+        want = np.asarray(jax_eng.generate(ids, max_new_tokens=12))
+    assert bool(calls) == fused_mlp
+    assert all(b.mlp.use_fused() == fused_mlp for b in port.module.h)
     got = port.generate(ids, max_new_tokens=12).numpy()
     np.testing.assert_array_equal(got, want)
 
@@ -198,7 +207,7 @@ def test_port_imports_no_jax():
     assert {f"deepspeed_tpu_torch.runtime.{m}" for m in (
         "config", "constants", "engine", "lr_schedules", "optimizers", "precision")} <= imported
     assert {f"deepspeed_tpu_torch.ops.{m}" for m in (
-        "adam8bit", "fused_ce", "w8", "w8_matmul", "quantizer", "rotary")} <= imported
+        "adam8bit", "fused_ce", "fused_mlp", "w8", "w8_matmul", "quantizer", "rotary")} <= imported
     assert {"deepspeed_tpu_torch.models.llama", "deepspeed_tpu_torch.models.gptneox"} <= imported
     src = (REPO / "chip_smoke.py").read_text()
     assert "import jax" not in src and "deepspeed_tpu." not in src.replace(

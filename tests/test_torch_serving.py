@@ -8,9 +8,12 @@ kernels' 128-wide panels, where both packages would skip them), fp32, the
 same flax weights on both sides, ``n_slots=4``, 8-token pages and a 64-page
 pool. Greedy streams must be byte-identical to the JAX batcher's in both
 cache modes with the fused decode kernels off and on (the JAX side runs
-them in interpret mode). Sampled streams cannot match JAX's threefry draws;
+them in interpret mode), and in page-resident mode with ``fused_mlp`` (the
+JAX side's Pallas FFN kernel interpreted too). Sampled streams cannot match JAX's threefry draws;
 they must repeat under a seed and agree between the port's two modes.
 """
+import contextlib
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -26,6 +29,8 @@ from deepspeed_tpu.models.gpt2 import gpt2_config as flax_config
 from deepspeed_tpu_torch import ContinuousBatcher
 from deepspeed_tpu_torch.models import gpt2 as port_gpt2
 from deepspeed_tpu_torch.models.common import append_kv_cache, init_layer_cache
+
+from .test_torch_fused_mlp import jax_fused_mlp_kernel
 
 TINY = dict(n_embd=128)
 PAGED = {"page_tokens": 8, "n_pages": 64}
@@ -63,47 +68,58 @@ def _serve(batcher, prompts, **kw):
 
 @pytest.fixture(scope="module")
 def jax_greedy(flax_params):
-    """The JAX batcher's pass-1 streams (cache off) per fused setting: one
-    compile each for the module."""
+    """The JAX batcher's pass-1 streams (cache off) per fused setting, and
+    with ``fused_mlp`` (its interpreted Pallas kernel, decode fused off):
+    one compile each for the module."""
     out = {}
-    for fused in (False, True):
+    for fused, mlp in ((False, False), (True, False), (False, True)):
         mesh_mod.set_mesh(None)
-        eng = deepspeed_tpu.init_inference(
-            model=FlaxGPT2(flax_config("gpt2-tiny", dtype=jnp.float32, **TINY)),
-            dtype=jnp.float32, params=flax_params, max_tokens=64, decode_fused=fused)
-        out[fused] = _serve(JaxBatcher(eng, n_slots=4), _workload())
+        with jax_fused_mlp_kernel() if mlp else contextlib.nullcontext([]) as calls:
+            eng = deepspeed_tpu.init_inference(
+                model=FlaxGPT2(flax_config("gpt2-tiny", dtype=jnp.float32, fused_mlp=mlp,
+                                           **TINY)),
+                dtype=jnp.float32, params=flax_params, max_tokens=64, decode_fused=fused)
+            out[fused, mlp] = _serve(JaxBatcher(eng, n_slots=4), _workload())
+        assert bool(calls) == mlp
     mesh_mod.set_mesh(None)
     return out
 
 
-def _port_engine(params, **kw):
+def _port_engine(params, fused_mlp=False, **kw):
     with torch.device("meta"):
         model = port_gpt2.GPT2LMHeadModel(
-            port_gpt2.gpt2_config("gpt2-tiny", dtype=torch.float32, **TINY))
+            port_gpt2.gpt2_config("gpt2-tiny", dtype=torch.float32, fused_mlp=fused_mlp, **TINY))
     kw.setdefault("max_tokens", 64)
     return deepspeed_tpu_torch.init_inference(model, params=params, dtype=torch.float32,
                                               device="cpu", **kw)
 
 
-@pytest.mark.parametrize("fused", [False, True], ids=["fused_off", "fused_on"])
-@pytest.mark.parametrize("mode", list(MODES))
-def test_greedy_streams_match_jax(flax_params, jax_greedy, monkeypatch, mode, fused):
-    calls = []
-    real = port_gpt2.fused_norm_proj
+@pytest.mark.parametrize("mode,fused,fused_mlp", [
+    (mode, fused, False) for fused in (False, True) for mode in MODES] + [("paged", False, True)],
+    ids=[f"{mode}-fused_{f}" for f in ("off", "on") for mode in MODES] + ["paged-fused_mlp"])
+def test_greedy_streams_match_jax(flax_params, jax_greedy, monkeypatch, mode, fused, fused_mlp):
+    """``fused_mlp``: every prefill chunk and (unfused) tick through the
+    fused FFN, held against the JAX batcher running its Pallas kernel."""
+    calls, mlp_calls = [], []
+    real, real_mlp = port_gpt2.fused_norm_proj, port_gpt2.fused_mlp
     monkeypatch.setattr(port_gpt2, "fused_norm_proj",
                         lambda *a, **k: calls.append(1) or real(*a, **k))
-    b = ContinuousBatcher(_port_engine(flax_params, decode_fused=fused), n_slots=4,
-                          prefix_cache=MODES[mode])
+    monkeypatch.setattr(port_gpt2, "fused_mlp",
+                        lambda *a, **k: mlp_calls.append(1) or real_mlp(*a, **k))
+    b = ContinuousBatcher(_port_engine(flax_params, fused_mlp=fused_mlp, decode_fused=fused),
+                          n_slots=4, prefix_cache=MODES[mode])
     assert (b.paged is not None) == (mode == "paged")
     prompts = _workload()
     first = _serve(b, prompts)
     hits = b.prefix_cache.hit_tokens if b.prefix_cache else 0
     second = _serve(b, prompts)           # pass 2: radix hits in paged mode
     for i in range(0, len(prompts), 2):
-        np.testing.assert_array_equal(first[i], jax_greedy[fused][i], err_msg=f"pass 1 row {i}")
-        np.testing.assert_array_equal(second[i], jax_greedy[fused][i], err_msg=f"pass 2 row {i}")
+        want = jax_greedy[fused, fused_mlp][i]
+        np.testing.assert_array_equal(first[i], want, err_msg=f"pass 1 row {i}")
+        np.testing.assert_array_equal(second[i], want, err_msg=f"pass 2 row {i}")
     assert b.leak_counts() == {"slots": 0, "parked": 0, "pages": 0}
     assert bool(calls) == fused, "the fused decode kernels ran iff decode_fused"
+    assert bool(mlp_calls) == fused_mlp, "the fused FFN ran iff fused_mlp"
     if mode == "paged":
         assert b.prefix_cache.hit_tokens > hits > 0
         assert b.stats["one_token_prefills"] > 0   # odd suffixes end in a 1-token chunk

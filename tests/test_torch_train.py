@@ -17,6 +17,7 @@ steps amplify last-bit gradient differences; the key biases, whose gradient
 is rounding noise, at atol 1e-5); LRs rtol 1e-6 (float64 host
 arithmetic against JAX's float32).
 """
+import contextlib
 import dataclasses
 import os
 from unittest import mock
@@ -43,6 +44,8 @@ from deepspeed_tpu_torch.models.gpt2 import GPT2LMHeadModel, gpt2_config
 from deepspeed_tpu_torch.runtime import config as port_config
 from deepspeed_tpu_torch.runtime import lr_schedules as port_lr
 from deepspeed_tpu_torch.runtime import precision as port_precision
+
+from .test_torch_fused_mlp import jax_fused_mlp_kernel
 
 SMALL = dict(vocab_size=500, n_embd=128, n_layer=2, n_head=2, n_positions=128)
 S = 128
@@ -221,16 +224,24 @@ def test_cross_entropy_and_shift_match_jax(z_loss):
                                   np.asarray(jax_common.shift_labels(jnp.asarray(labels))))
 
 
-@pytest.mark.parametrize("loss_chunk", [None, 100])
-def test_gpt2_loss_and_grads_match_flax(flax_params, loss_chunk):
+@pytest.mark.parametrize("loss_chunk,fused_mlp", [(None, False), (100, False), (None, True)],
+                         ids=["None", "100", "fused_mlp"])
+def test_gpt2_loss_and_grads_match_flax(flax_params, loss_chunk, fused_mlp):
+    """``fused_mlp``: both models through their fused FFN (the JAX one its
+    interpreted Pallas kernel, forward and custom VJP)."""
     ids = _batches(1, 2, seed=3)[0]["input_ids"]
-    cfg = flax_config("gpt2-125m", dtype=jnp.float32, loss_chunk=loss_chunk, **SMALL)
+    cfg = flax_config("gpt2-125m", dtype=jnp.float32, loss_chunk=loss_chunk, fused_mlp=fused_mlp,
+                      **SMALL)
 
     def loss_fn(p):
         return FlaxGPT2(cfg).apply({"params": p}, jnp.asarray(ids), labels=jnp.asarray(ids))["loss"]
 
-    want, wgrads = jax.value_and_grad(loss_fn)(jax.tree_util.tree_map(jnp.asarray, flax_params))
-    model = _port_model(loss_chunk=loss_chunk)
+    with jax_fused_mlp_kernel() if fused_mlp else contextlib.nullcontext([]) as calls:
+        want, wgrads = jax.value_and_grad(loss_fn)(
+            jax.tree_util.tree_map(jnp.asarray, flax_params))
+    assert len(calls) == (SMALL["n_layer"] if fused_mlp else 0)
+    model = _port_model(loss_chunk=loss_chunk, fused_mlp=fused_mlp)
+    assert all(b.mlp.use_fused() == fused_mlp for b in model.h)
     model.load_state_dict(gpt2_params_from_jax(flax_params, model.cfg))
     out = model(torch.from_numpy(ids).long(), labels=torch.from_numpy(ids).long())
     assert set(out) == ({"loss"} if loss_chunk else {"logits", "loss"})
@@ -249,9 +260,21 @@ def test_gpt2_loss_and_grads_match_flax(flax_params, loss_chunk):
 # ---------------------------------------------------------------------------
 
 def test_engine_gate_matches_jax(flax_params):
+    _engine_gate(flax_params)
+
+
+def test_engine_gate_matches_jax_fused_mlp(flax_params):
+    """The gate with ``fused_mlp=True``: the JAX engine runs its interpreted
+    Pallas kernel (forward and VJP) inside its compiled step."""
+    with jax_fused_mlp_kernel() as calls:
+        _engine_gate(flax_params, fused_mlp=True)
+    assert calls
+
+
+def _engine_gate(flax_params, **over):
     batches = _batches(4, 4, seed=11)
-    jax_losses, jax_metrics, jax_eng = _jax_run(flax_params, GATE, batches)
-    eng = _port_engine(flax_params, GATE)
+    jax_losses, jax_metrics, jax_eng = _jax_run(flax_params, GATE, batches, **over)
+    eng = _port_engine(flax_params, GATE, **over)
     losses, metrics = [], []
     for b in batches:
         loss = eng.train_batch(b)
@@ -411,9 +434,18 @@ def test_train_batches_equals_repeated_calls(flax_params):
 
 
 def test_remat_gives_the_same_gradients(flax_params):
+    _remat_gives_the_same_gradients(flax_params)
+
+
+def test_remat_gives_the_same_gradients_fused_mlp(flax_params):
+    _remat_gives_the_same_gradients(flax_params, fused_mlp=True)
+
+
+def _remat_gives_the_same_gradients(flax_params, **over):
     mb = {k: torch.from_numpy(v[:2]).long() for k, v in _batches(1, 2, seed=7)[0].items()}
-    plain = _port_engine(flax_params, GATE)
-    remat = _port_engine(flax_params, {**GATE, "activation_checkpointing": {"enabled": True}})
+    plain = _port_engine(flax_params, GATE, **over)
+    remat = _port_engine(flax_params, {**GATE, "activation_checkpointing": {"enabled": True}},
+                         **over)
     assert remat.model_cfg.remat and not plain.model_cfg.remat
     l1, g1 = plain._grads_of(mb)
     l2, g2 = remat._grads_of(mb)
@@ -421,7 +453,7 @@ def test_remat_gives_the_same_gradients(flax_params):
     for x, y in zip(g1, g2):
         torch.testing.assert_close(x, y, rtol=1e-6, atol=1e-7)
     dots = _port_engine(flax_params, {**GATE, "activation_checkpointing": {
-        "enabled": True, "policy": "dots_saveable+flash"}})
+        "enabled": True, "policy": "dots_saveable+flash"}}, **over)
     l3, g3 = dots._grads_of(mb)
     assert float(l3) == float(l1)
     for x, y in zip(g1, g3):
@@ -514,8 +546,8 @@ def test_unported_arguments_raise(kw):
 
 @pytest.mark.parametrize("over", [dict(attn_pdrop=0.1), dict(embd_pdrop=0.1),
                                   dict(resid_pdrop=0.1), dict(moe={"num_experts": 2}),
-                                  dict(fused_mlp=True),
-                                  dict(remat=True, remat_policy="dots_saveable+offload")])
+                                  dict(remat=True, remat_policy="dots_saveable+offload")],
+                         ids=["over0", "over1", "over2", "over3", "over5"])   # over4: fused_mlp, ported
 def test_unported_model_options_raise(over):
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         gpt2_config("gpt2-tiny", **over)
