@@ -162,6 +162,30 @@ autograd backward beside dx and dw) and the bound; in fp32 at small
 shapes; and a GELU probe (``kernels_fused_mlp_gelu_probe``) whose control,
 the plain versions with the erf GELU, must miss.
 
+The kernels phase also holds block-sparse attention (``kernels_sparse``)
+at BERT-large's heads (H=16, D=64): the Fixed layout at B=16, S=512, block
+16 (bidirectional; unidirectional and causal; one query block emptied, whose
+rows must be zeros), the Dense layout, and BigBird, BSLongformer, Variable
+and a per-head BigBird layout at B=2, S=4096, block 64, in bf16 (timed
+beside its plain version, SDPA with the expanded element mask, dense SDPA
+and the bound; where some LUT rows are four times the median, those rows
+alone and the rest alone) and in fp32, each element within one ulp plus
+1e-5 of sum_j p_j |v_j| / l of the plain version, with an fp64 witness;
+then D=128 at blocks 32 and 128. And the six fused-op kernels
+(``kernels_fused_ops``): LayerNorm at (8192, 1024), bias-GELU at (8192,
+4096), the attention softmax at (256, 512, 512) with and without the causal
+mask and at (256, 128, 512), forward and backward (each backward on the
+plain forward's saved outputs), in bf16 timed beside the library call(s)
+and the bound, in fp32 at ragged widths and with Sq > Sk (NaN rows where
+the plain version has them), and a mean-1000 LayerNorm held against the
+one-pass plain version (the two-pass value must miss). Two paths drive the
+public entry points with exact launch counts: ``sparse_attention_api``
+(``SparseSelfAttention(FixedSparsityConfig(num_heads=16, block=16),
+impl="pallas")`` called four times: four launches, nothing else; a
+backward through it raises) and ``fused_ops_train`` (a forward and
+``.backward()`` through each op, then a ``no_grad`` forward: two forward
+launches and one backward launch of each).
+
 The kernels phase also holds the W8A16 kernels (``kernels_w8``): the w8
 matmul at M = 1, 8, 37, 64 on gpt2-760m's four dense panels and on one
 single-group panel, and the W8 branches of the two decode-layer kernels at
@@ -178,7 +202,8 @@ The ``kernels`` line gives each kernel's launches per path (``generate``,
 ``serve_neox{,_w8}_paged``, ``forward_neox``,
 ``generate_neox{,_w8}_{fused,unfused}``, ``generate_neox_seq{,_w8}_fused``,
 ``forward_fused_mlp``, ``generate_fused_mlp{,_unfused_ticks}``,
-``serve_fused_mlp_paged``, ``train``, ``train_fused_mlp{,_remat}``,
+``serve_fused_mlp_paged``, ``sparse_attention_api``, ``fused_ops_train``,
+``train``, ``train_fused_mlp{,_remat}``,
 ``train_split``, ``train_1p5b``,
 ``train_1p5b_dots``, ``train_1p5b_pallas``: each zeroed before its run and
 read after it) and their sum; the rows of kernels that llama-1b and
@@ -1034,7 +1059,9 @@ def counters():
     from deepspeed_tpu_torch.ops import adam8bit as a8
     from deepspeed_tpu_torch.ops import fused_ce as ce
     from deepspeed_tpu_torch.ops import fused_mlp as fm
+    from deepspeed_tpu_torch.ops import fused_ops as fo
     from deepspeed_tpu_torch.ops import w8_matmul as wm
+    from deepspeed_tpu_torch.ops.sparse_attention import sparse_self_attention as ssa
 
     return {"flash_attention_fwd": fa.KERNEL, "decode_attention": da.KERNEL,
             "norm_qkv": dl.NORM_PROJ, "post_attn": dl.POST_ATTN,
@@ -1054,7 +1081,11 @@ def counters():
             "post_attn_swiglu_par": dl.post_attn_handle(swiglu=True, parallel_residual=True),
             "post_attn_swiglu_par_w8": dl.post_attn_handle(swiglu=True, parallel_residual=True,
                                                            quant=True),
-            "fused_mlp_fwd": fm.FWD, "fused_mlp_bwd_dx": fm.DX, "fused_mlp_bwd_dw": fm.DW}
+            "fused_mlp_fwd": fm.FWD, "fused_mlp_bwd_dx": fm.DX, "fused_mlp_bwd_dw": fm.DW,
+            "sparse_attention_fwd": ssa.KERNEL, "layer_norm_fwd": fo.LN_FWD,
+            "layer_norm_bwd": fo.LN_BWD, "bias_gelu_fwd": fo.GELU_FWD,
+            "bias_gelu_bwd": fo.GELU_BWD, "softmax_fwd": fo.SOFTMAX_FWD,
+            "softmax_bwd": fo.SOFTMAX_BWD}
 
 
 # serving runs no backward, no optimizer and no loss head
@@ -1106,7 +1137,7 @@ def run_slice(torch):
     ticks = 2 * (new - 1)   # greedy + sampled; the max_new_tokens=1 run has no tick
     expected = {"flash_attention_fwd": 2 * L, "decode_attention": L * ticks,
                 "norm_qkv": L * ticks, "post_attn": L * ticks, "paged_attention": 0,
-                **NO_BACKWARD, **NO_W8, **NO_LLAMA, **NO_NEOX, **NO_FUSED_MLP}
+                **NO_BACKWARD, **NO_W8, **NO_LLAMA, **NO_NEOX, **NO_FUSED_MLP, **NO_BERT_OPS}
     ms_per_tick = (gen_ms - ttft_ms) / (new - 1)
     emit(dict(phase="slice", model="gpt2-125m", dtype="bfloat16", forward_shape=[2, 1024],
               forward_ms=fwd_ms, forward_again_ms=fwd_again_ms,
@@ -1271,7 +1302,7 @@ def run_serve(torch, delta_of, out_dir=None):
         other = "decode_attention" if mode == "paged" else "paged_attention"
         expected = {attn: L * singles, other: 0, "norm_qkv": L * singles,
                     "post_attn": L * singles, "flash_attention_fwd": 0, **NO_BACKWARD,
-                    **NO_W8, **NO_LLAMA, **NO_NEOX, **NO_FUSED_MLP}
+                    **NO_W8, **NO_LLAMA, **NO_NEOX, **NO_FUSED_MLP, **NO_BERT_OPS}
         checks = {"launch_counts": launches == expected,
                   "no_leaks": all(v == 0 for p in passes for v in p["leaks"].values()),
                   "shapes_and_vocab": all(len(o) == len(r["prompt"]) + r["max_new_tokens"]
@@ -1786,7 +1817,8 @@ def run_serve_w8(torch, out_dir=None):
         other = "decode_attention" if pc else "paged_attention"
         q = e is eng
         expected = {attn: L * singles, other: 0, "flash_attention_fwd": 0, **NO_BACKWARD,
-                    **NO_LLAMA, **NO_NEOX, **NO_FUSED_MLP, "norm_qkv": 0 if q else L * singles,
+                    **NO_LLAMA, **NO_NEOX, **NO_FUSED_MLP, **NO_BERT_OPS,
+                    "norm_qkv": 0 if q else L * singles,
                     "post_attn": 0 if q else L * singles,
                     "decode_norm_proj_w8": L * singles if q else 0,
                     "decode_post_attn_w8": L * singles if q else 0,
@@ -4037,6 +4069,582 @@ def run_train_fused_mlp(torch, peaks, unfused_peak_gb, out_dir=None):
             all(checks.values()))
 
 
+# ---------------------------------------------------------------------------
+# BERT-large ops: block-sparse attention and the fused LayerNorm / bias-GELU /
+# attention-softmax ops (kernels_sparse, kernels_fused_ops, and the paths
+# sparse_attention_api and fused_ops_train)
+# ---------------------------------------------------------------------------
+
+SPARSE_KERNEL = "sparse_attention_fwd"
+FUSED_OPS_KERNELS = ("layer_norm_fwd", "layer_norm_bwd", "bias_gelu_fwd", "bias_gelu_bwd",
+                     "softmax_fwd", "softmax_bwd")
+NO_BERT_OPS = {n: 0 for n in (SPARSE_KERNEL,) + FUSED_OPS_KERNELS}
+FUSED_OPS_LINES = {"layer_norm_fwd": ":46", "layer_norm_bwd": ":60", "bias_gelu_fwd": ":179",
+                   "bias_gelu_bwd": ":184", "softmax_fwd": ":259", "softmax_bwd": ":275"}
+BERT_E, BERT_H, BERT_D, BERT_F = 1024, 16, 64, 4096   # BERT-large
+BERT_B, BERT_S = 16, 512                               # phase-2 pretraining: 8192 tokens
+SPARSE_API_CALLS = 4
+
+
+def ulp_t(torch, x, dtype):
+    """Elementwise spacing of ``dtype`` values (bf16 or fp32) at |x|."""
+    e = torch.floor(torch.log2(x.abs().float().clamp(min=1e-30)))
+    return torch.exp2(e - (7 if dtype == torch.bfloat16 else 23))
+
+
+def sparse_layouts():
+    """The sparse cases: (name, sparsity config, causal, seq_len, batch, the
+    query blocks to empty). a-d at BERT-large's phase-2 pretraining length,
+    e-f at the long sequence sparse attention exists for."""
+    from deepspeed_tpu_torch.ops.sparse_attention import (
+        BigBirdSparsityConfig, BSLongformerSparsityConfig, DenseSparsityConfig,
+        FixedSparsityConfig, VariableSparsityConfig)
+
+    H = BERT_H
+    return [("a_fixed", FixedSparsityConfig(num_heads=H, block=16), False, BERT_S, BERT_B, ()),
+            ("b_fixed_uni_causal", FixedSparsityConfig(num_heads=H, block=16,
+                                                       attention="unidirectional"),
+             True, BERT_S, BERT_B, ()),
+            ("c_dense", DenseSparsityConfig(num_heads=H, block=16), False, BERT_S, BERT_B, ()),
+            ("d_fixed_empty_row", FixedSparsityConfig(num_heads=H, block=16), False, BERT_S,
+             BERT_B, (5,)),
+            ("e_bigbird", BigBirdSparsityConfig(num_heads=H, block=64), False, 4096, 2, ()),
+            ("e_bslongformer", BSLongformerSparsityConfig(num_heads=H, block=64), False, 4096,
+             2, ()),
+            ("e_variable", VariableSparsityConfig(num_heads=H, block=64), False, 4096, 2, ()),
+            ("f_bigbird_per_head", BigBirdSparsityConfig(num_heads=H, block=64,
+                                                         different_layout_per_head=True),
+             False, 4096, 2, ())]
+
+
+def sparse_keep(torch, layout, block, causal, device):
+    """The (H, S, S) bool element mask a layout enables (and the causal
+    triangle)."""
+    keep = torch.from_numpy(layout != 0).to(device)
+    keep = keep.repeat_interleave(block, 1).repeat_interleave(block, 2)
+    if causal:
+        keep = keep & torch.ones(keep.shape[1:], dtype=torch.bool, device=device).tril()
+    return keep
+
+
+def sparse_errors(torch, got, ref, q, k, v, keep, scale):
+    """The kernel against its plain version, element by element: within one
+    ulp of the output's dtype at the larger of the two plus 1e-5 of the sum of
+    its addends' magnitudes, sum_j p_j |v_j| / l (the attention limit of the
+    decode and paged rows). Then the fp64 witness: the kernel and the plain
+    version against the same function in fp64, in units of the limit, and
+    the kernel within max(1, the plain version's ratio) of it. Batch by
+    batch (the fp64 scores of S=4096 take 2 GiB a batch)."""
+    worst = dict(max_err=0.0, err_over_limit=0.0, kernel_vs_fp64_over_limit=0.0,
+                 plain_vs_fp64_over_limit=0.0)
+    for b in range(q.shape[0]):
+        s = torch.einsum("shd,thd->hst", q[b].double() * scale, k[b].double())
+        s = s.masked_fill(~keep, float("-inf"))
+        m = s.amax(-1, keepdim=True)
+        p = torch.exp(s - torch.where(torch.isinf(m), torch.zeros_like(m), m))
+        del s
+        l = p.sum(-1, keepdim=True)
+        l = torch.where(l == 0, torch.ones_like(l), l)
+        vd = v[b].double()
+        exact = (torch.einsum("hst,thd->hsd", p, vd) / l).transpose(0, 1)
+        mag = (torch.einsum("hst,thd->hsd", p, vd.abs()) / l).transpose(0, 1)
+        del p
+        g, r = got[b].double(), ref[b].double()
+        lim = ulp_t(torch, torch.maximum(g.abs(), r.abs()), got.dtype).double() + 1e-5 * mag
+        lim_x = ulp_t(torch, exact, got.dtype).double() + 1e-5 * mag
+        d = (g - r).abs()
+        worst["max_err"] = max(worst["max_err"], float(d.max()))
+        worst["err_over_limit"] = max(worst["err_over_limit"], float((d / lim).max()))
+        worst["kernel_vs_fp64_over_limit"] = max(worst["kernel_vs_fp64_over_limit"],
+                                                 float(((g - exact).abs() / lim_x).max()))
+        worst["plain_vs_fp64_over_limit"] = max(worst["plain_vs_fp64_over_limit"],
+                                                float(((r - exact).abs() / lim_x).max()))
+    worst["fp64_anchor_ok"] = (worst["kernel_vs_fp64_over_limit"]
+                               <= max(1.0, worst["plain_vs_fp64_over_limit"]))
+    return worst
+
+
+def sparse_case(torch, F, peaks, g, name, cfg, causal, S, B, empty, dtype, timed, D=BERT_D):
+    """One sparse case: the kernel (through ``sparse_attention``, impl
+    "pallas") against its plain version on the same inputs; with ``timed``
+    its device time, the plain version's, SDPA with the expanded boolean
+    element mask (library), dense SDPA without a mask and the bound."""
+    from deepspeed_tpu_torch.ops.sparse_attention import sparse_self_attention as ssa
+
+    H, block = BERT_H, cfg.block
+    layout = cfg.make_layout(S)
+    for qi in empty:
+        layout[:, qi, :] = 0
+    lut, counts = ssa.lut_on(layout, "cuda")
+    scale = D ** -0.5
+    n_sets = 3 if timed else 1
+    sets = [tuple(torch.randn((B, S, H, D), generator=g, device="cuda").to(dtype)
+                  for _ in range(3)) for _ in range(n_sets)]
+    q, k, v = sets[0]
+    got = ssa.sparse_attention(q, k, v, layout, block, causal=causal, impl="pallas")
+    ref = ssa.sparse_attention_plain(q, k, v, lut, counts, block, causal, scale)
+    torch.cuda.synchronize()
+    keep = sparse_keep(torch, layout, block, causal, "cuda")
+    res = sparse_errors(torch, got, ref, q, k, v, keep, scale)
+    rows_empty = [slice(qi * block, (qi + 1) * block) for qi in empty]
+    empty_zero = all(bool((got[:, r] == 0).all()) for r in rows_empty)
+    finite = bool(torch.isfinite(got.float()).all())
+    nnz = int(layout.sum())
+    pairs = int(keep.sum())   # (query, key) pairs this run's data needs, over the heads
+    row = dict(phase="kernels_sparse" if timed else "kernels_sparse_fp32", name=SPARSE_KERNEL,
+               case=name, shape=f"B={B} S={S} H={H} D={D} block={block} {str(dtype)[6:]}"
+               + (" causal" if causal else ""), layout=type(cfg).__name__,
+               per_head=cfg.different_layout_per_head, density=nnz / layout.size,
+               blocks_per_row=[int(layout.sum(-1).min()), int(layout.sum(-1).max())],
+               empty_query_blocks=list(empty), empty_rows_zero=empty_zero, finite=finite,
+               limit="per element: 1 ulp of the output dtype + 1e-5 x sum_j p_j |v_j| / l; "
+               "and against the fp64 value within max(1, the plain version's ratio)", **res)
+    row["ok"] = (res["err_over_limit"] <= 1.0 and res["fp64_anchor_ok"] and finite
+                 and empty_zero)
+    if timed:
+        mask = keep[None]
+        qt = [tuple(x.transpose(1, 2) for x in st) for st in sets]
+        rot = Rotation(list(range(n_sets)))
+        iters = 20
+        row["kernel_ms"] = device_ms(torch, lambda: ssa.sparse_attention_kernel(
+            *sets[rot.next()], lut, counts, block, causal, scale), iters)
+        row["kernel_event_ms"] = cuda_ms(torch, lambda: ssa.sparse_attention_kernel(
+            *sets[rot.next()], lut, counts, block, causal, scale), iters)
+        row["plain_ms"] = device_ms(torch, lambda: ssa.sparse_attention_plain(
+            q, k, v, lut, counts, block, causal, scale), 2)
+        row["dense_sdpa_ms"] = device_ms(torch, lambda: F.scaled_dot_product_attention(
+            *qt[rot.next()]), iters)
+        if bool(keep.all()):   # the Dense layout: SDPA without a mask is the same function
+            row["library_ms"] = row["dense_sdpa_ms"]
+            row["library"] = "SDPA without a mask"
+        else:
+            row["library_ms"] = device_ms(torch, lambda: F.scaled_dot_product_attention(
+                *qt[rot.next()], attn_mask=mask), iters)
+            row["library"] = ("SDPA with the expanded boolean element mask (the same "
+                              "function wherever every query row has a block)")
+        per_row = counts.flatten()
+        if int(per_row.max()) >= 4 * int(per_row.median()):
+            # the launch's tail: the widest LUT rows (BigBird's and
+            # BSLongformer's global rows) alone, and every row but those
+            wide = counts == per_row.max()
+            for key, cnt in (("widest_rows_alone_ms", torch.where(wide, counts, 0)),
+                             ("without_widest_rows_ms", torch.where(wide, 0, counts))):
+                row[key] = device_ms(torch, lambda cnt=cnt: ssa.sparse_attention_kernel(
+                    *sets[rot.next()], lut, cnt.contiguous(), block, causal, scale), iters)
+        item = 2 if dtype == torch.bfloat16 else 4
+        row["bound_ms"], row["bound_by"] = bound_ms(
+            4 * B * S * H * D * item + lut.numel() * 4 + counts.numel() * 4,
+            4.0 * B * pairs * D, peaks, dtype == torch.float32)
+        row["ok"] = row["ok"] and row["kernel_ms"] is not None
+    emit(row)
+    del sets, q, k, v, got, ref, keep
+    torch.cuda.empty_cache()
+    return row
+
+
+def run_kernels_sparse(torch, F, peaks):
+    """Block-sparse attention on the card: every case of ``sparse_layouts``
+    in bf16 (timed) and fp32 (checked), then the other head dim and blocks
+    the kernel takes (D=128; block 32 and 128) at a small shape in both
+    dtypes. Returns (the case a row with the others under ``at_shapes``, ok)."""
+    from deepspeed_tpu_torch.ops.sparse_attention import FixedSparsityConfig
+
+    g = torch.Generator(device="cuda").manual_seed(SEED + 30)
+    main, ok = None, True
+    for name, cfg, causal, S, B, empty in sparse_layouts():
+        for dtype, timed in ((torch.bfloat16, True), (torch.float32, False)):
+            row = sparse_case(torch, F, peaks, g, name, cfg, causal, S, B, empty, dtype, timed)
+            ok &= row["ok"]
+            if not timed:
+                continue
+            if main is None:
+                main = dict(row, at_shapes=[])
+            else:
+                main["at_shapes"].append({k: row[k] for k in (
+                    "case", "shape", "layout", "density", "max_err", "err_over_limit",
+                    "kernel_ms", "plain_ms", "library_ms", "dense_sdpa_ms", "bound_ms",
+                    "bound_by", "widest_rows_alone_ms", "without_widest_rows_ms") if k in row})
+    for block in (32, 128):
+        for causal in (False, True):
+            for dtype in (torch.bfloat16, torch.float32):
+                cfg = FixedSparsityConfig(num_heads=BERT_H, block=block,
+                                          different_layout_per_head=True,
+                                          num_different_global_patterns=2)
+                row = sparse_case(torch, F, peaks, g, f"d128_block{block}", cfg, causal, 1024, 1,
+                                  (), dtype, False, D=128)
+                ok &= row["ok"]
+    return main, ok
+
+
+def run_sparse_api(torch):
+    """The public entry point, as a user calls it:
+    ``SparseSelfAttention(FixedSparsityConfig(num_heads=16, block=16),
+    impl="pallas")(q, k, v)`` at B=16, S=512, H=16, D=64 in bf16,
+    SPARSE_API_CALLS times: exactly that many launches of the sparse kernel
+    and none of any other kernel; the outputs finite, of the input's shape,
+    equal call to call; the module's LUT built once; a backward through it
+    raises NotImplementedError. Returns ({path: counts}, ok)."""
+    from deepspeed_tpu_torch.ops.sparse_attention import FixedSparsityConfig, SparseSelfAttention
+
+    g = torch.Generator(device="cuda").manual_seed(SEED + 31)
+    q, k, v = (torch.randn((BERT_B, BERT_S, BERT_H, BERT_D), generator=g, device="cuda")
+               .to(torch.bfloat16) for _ in range(3))
+    attn = SparseSelfAttention(FixedSparsityConfig(num_heads=BERT_H, block=16), impl="pallas")
+    attn(q, k, v)    # the first call builds the layout and the device LUT
+    torch.cuda.synchronize()
+    zero_counts()
+    t0 = time.perf_counter()
+    outs = [attn(q, k, v) for _ in range(SPARSE_API_CALLS)]
+    torch.cuda.synchronize()
+    wall_ms = (time.perf_counter() - t0) * 1e3 / SPARSE_API_CALLS
+    launches = read_counts()
+    expected = {n: 0 for n in launches}
+    expected[SPARSE_KERNEL] = SPARSE_API_CALLS
+    try:
+        qg = q.clone().requires_grad_()
+        attn(qg, k, v).float().sum().backward()
+        raised = False
+    except NotImplementedError as e:
+        raised = "B10" in str(e)
+    checks = {"launch_counts": launches == expected,
+              "finite_and_shaped": all(bool(torch.isfinite(o.float()).all())
+                                       and o.shape == q.shape for o in outs),
+              "repeatable": all(torch.equal(o, outs[0]) for o in outs),
+              "lut_cached": len(attn._luts) == 1,
+              "backward_raises": raised}
+    emit(dict(phase="sparse_attention_api", shape=f"B={BERT_B} S={BERT_S} H={BERT_H} "
+              f"D={BERT_D} bfloat16", calls=SPARSE_API_CALLS, wall_ms_per_call=wall_ms,
+              launches={n: c for n, c in launches.items() if c}, checks=checks,
+              ok=all(checks.values())))
+    return {"sparse_attention_api": launches}, all(checks.values())
+
+
+def fused_ops_operands(torch, g, op, shape, dtype, dev="cuda"):
+    """Inputs of one fused op: LayerNorm x ~ N(0, 1) (a residual stream's
+    scale) with fp32 gamma ~ 1 + N(0, 0.1), beta ~ N(0, 0.1); bias-GELU x ~
+    N(0, 1) (a projection's output) and bias ~ N(0, 0.02); softmax scores ~
+    N(0, 8) (q.k at D=64, before the 1/8 scale). dy ~ N(0, 1) in x's dtype."""
+    def r(*s, scale=1.0, dt=torch.float32):
+        return (torch.randn(s, generator=g, device=dev) * scale).to(dt)
+    D = shape[-1]
+    if op == "layer_norm":
+        return (r(*shape, dt=dtype), 1 + r(D, scale=0.1), r(D, scale=0.1)), r(*shape, dt=dtype)
+    if op == "bias_gelu":
+        return (r(*shape, dt=dtype), r(D, scale=0.02)), r(*shape, dt=dtype)
+    return (r(*shape, scale=8.0, dt=dtype),), r(*shape, dt=dtype)
+
+
+def fused_ops_held(torch, fo, op, args, dy, kw, kernels=True, saved=None):
+    """The fused op's kernels (or their plain versions) on rows: the forward
+    outputs and the backward's, by kernel name. ``saved``: the outputs of
+    another forward (the plain version's), which the backward then takes in
+    place of this forward's, so that each backward kernel is held against
+    its plain version on the same inputs."""
+    sfx = "" if kernels else "_plain"
+    if op == "layer_norm":
+        x, gm, bt = args
+        y, mean, rstd = getattr(fo, "layer_norm_fwd" + sfx)(x, gm, bt, 1e-5)
+        src = {"mean": mean, "rstd": rstd} if saved is None else saved["layer_norm_fwd"]
+        dx, dg, db = getattr(fo, "layer_norm_bwd" + sfx)(x, gm, src["mean"], src["rstd"], dy)
+        return {"layer_norm_fwd": {"y": y, "mean": mean, "rstd": rstd},
+                "layer_norm_bwd": {"dx": dx, "dgamma": dg, "dbeta": db}}
+    if op == "bias_gelu":
+        x, b = args
+        y = getattr(fo, "bias_gelu_fwd" + sfx)(x, b)
+        dx, db = getattr(fo, "bias_gelu_bwd" + sfx)(x, b, dy)
+        return {"bias_gelu_fwd": {"y": y}, "bias_gelu_bwd": {"dx": dx, "dbias": db}}
+    (s,) = args
+    p = getattr(fo, "softmax_fwd" + sfx)(s, kw["causal"], kw["scale"])
+    ds = getattr(fo, "softmax_bwd" + sfx)(p if saved is None else saved["softmax_fwd"]["p"], dy,
+                                          kw["scale"])
+    return {"softmax_fwd": {"p": p}, "softmax_bwd": {"ds": ds}}
+
+
+def fused_ops_mags(torch, fo, op, args, dy, kw, ref):
+    """Per output, the magnitudes of its fp32 addends (see fused_ops_held)."""
+    f = torch.float32
+    if op == "layer_norm":
+        x, gm, bt = (a.float() for a in args)
+        mean, rstd = ref["layer_norm_fwd"]["mean"], ref["layer_norm_fwd"]["rstd"]
+        xhat = (x - mean) * rstd
+        dyf = dy.float()
+        dxh = (dyf * gm).abs()
+        m2 = (dxh * xhat.abs()).mean(-1, keepdim=True)
+        return {"y": xhat.abs() * gm.abs() + bt.abs(),
+                "mean": x.abs().mean(-1, keepdim=True),
+                # rstd moves by half var's relative error: var's addends over var
+                "rstd": rstd.pow(3) * (x * x).mean(-1, keepdim=True),
+                "dx": rstd * (dxh + dxh.mean(-1, keepdim=True) + xhat.abs() * m2),
+                "dgamma": (dyf * xhat).abs().sum(0), "dbeta": dyf.abs().sum(0)}
+    if op == "bias_gelu":
+        x, b = args
+        u = x.float() + b.float()
+        dmag = dy.float().abs() * (1 + u.abs() * (1 + 0.134 * u * u))
+        return {"y": u.abs(), "dx": dmag, "dbias": dmag.sum(0)}
+    p = ref["softmax_fwd"]["p"].float()
+    dyf = dy.to(f)
+    return {"p": p.abs(), "ds": p.abs() * (dyf.abs() + (p.abs() * dyf.abs()).sum(-1, keepdim=True))
+            * kw["scale"]}
+
+
+def fused_ops_check(torch, fo, op, args, dy, kw):
+    """Each kernel's outputs against its plain version: per kernel, the
+    largest error, error / limit, NaN positions equal, dtype equal and ok.
+    Limit: one ulp of the output's dtype at the plain value (the one-pass
+    statistics mean and rstd: fp32 ulps) plus 1e-5 of the magnitudes."""
+    ref = fused_ops_held(torch, fo, op, args, dy, kw, False)
+    got = fused_ops_held(torch, fo, op, args, dy, kw, True, saved=ref)
+    torch.cuda.synchronize()
+    mags = fused_ops_mags(torch, fo, op, args, dy, kw, ref)
+    per = {}
+    for kname, outs in ref.items():
+        p = per[kname] = dict(max_err=0.0, err_over_limit=0.0, outputs={})
+        for out, r in outs.items():
+            gt = got[kname][out]
+            nan_r, nan_g = torch.isnan(r), torch.isnan(gt)
+            live = ~nan_r
+            lim = ulp_t(torch, r.float(), r.dtype) + 1e-5 * mags[out].float()
+            d = torch.where(live, (gt.float() - r.float()).abs(), torch.zeros_like(lim))
+            q = torch.where(live, d / lim.clamp(min=1e-30), torch.zeros_like(lim))
+            err, ratio = float(d.max()), float(q.max())
+            p["outputs"][out] = dict(max_err=err, err_over_limit=ratio,
+                                     nan_rows_equal=bool(torch.equal(nan_r, nan_g)),
+                                     nans=int(nan_r.sum()), dtype=str(gt.dtype)[6:],
+                                     dtype_ok=gt.dtype == r.dtype)
+            p["max_err"], p["err_over_limit"] = max(p["max_err"], err), max(p["err_over_limit"],
+                                                                          ratio)
+        p["ok"] = all(o["err_over_limit"] <= 1.0 and o["nan_rows_equal"] and o["dtype_ok"]
+                      for o in p["outputs"].values())
+    return per
+
+
+# (op, shape, keywords): BERT-large at B=16, S=512 (8192 rows): the
+# LayerNorm at E=1024, bias-GELU at F=4096, the attention softmax over
+# (B*H, S, S) at scale 1/8, both masks; then a shorter query block (Sq < Sk)
+FUSED_OPS_CASES = (
+    ("layer_norm", (BERT_B * BERT_S, BERT_E), {}),
+    ("bias_gelu", (BERT_B * BERT_S, BERT_F), {}),
+    ("attention_softmax", (BERT_B * BERT_H, BERT_S, BERT_S), dict(causal=False, scale=0.125)),
+    ("attention_softmax", (BERT_B * BERT_H, BERT_S, BERT_S), dict(causal=True, scale=0.125)),
+    ("attention_softmax", (BERT_B * BERT_H, 128, BERT_S), dict(causal=True, scale=0.125)),
+)
+# fp32, checked: ragged widths (no 16-byte loads), odd rows, Sq > Sk (NaN rows)
+FUSED_OPS_FP32_CASES = (
+    ("layer_norm", (333, 1001), {}), ("layer_norm", (64, 1024), {}),
+    ("bias_gelu", (333, 4099), {}), ("bias_gelu", (100, 4096), {}),
+    ("attention_softmax", (3, 77, 130), dict(causal=True, scale=0.125)),
+    ("attention_softmax", (3, 77, 513), dict(causal=False, scale=1.0)),
+    ("attention_softmax", (4, 8, 5), dict(causal=True, scale=1.0)),
+)
+
+
+def fused_ops_bound(op, shape, item, kname, peaks):
+    """Each input read once and each output written once (parameters and
+    their gradients fp32 here, mean and rstd fp32), against a count of fp32
+    operations per element (LayerNorm 8 fwd / 12 bwd, GELU 12 / 20, softmax
+    6 / 5) at the fp32 rate."""
+    n = 1
+    for s in shape:
+        n *= s
+    rows, D = n // shape[-1], shape[-1]
+    nbytes, per_el = {
+        "layer_norm_fwd": (2 * n * item + 2 * D * 4 + 2 * rows * 4, 8),
+        "layer_norm_bwd": (3 * n * item + D * 4 + 2 * rows * 4 + 2 * D * 4, 12),
+        "bias_gelu_fwd": (2 * n * item + D * 4, 12),
+        "bias_gelu_bwd": (3 * n * item + 2 * D * 4, 20),
+        "softmax_fwd": (2 * n * item, 6), "softmax_bwd": (3 * n * item, 5)}[kname]
+    return bound_ms(nbytes, per_el * n, peaks, True)
+
+
+def run_kernels_fused_ops(torch, F, peaks):
+    """The six fused-op kernels on the card: bf16 at ``FUSED_OPS_CASES``
+    against their plain versions, each timed with the plain version, the
+    library call(s) and the bound; fp32 at ``FUSED_OPS_FP32_CASES`` (checked);
+    the mean-1000 LayerNorm (fp32, 8192 x 1024: rows of 1000 and a few 1008s,
+    whose squares and partial sums are exact in fp32 in any order, so the
+    one-pass variance is the same bits on both sides; the two-pass value is
+    printed as a witness, which both miss). Returns ({kernel: row at the
+    first shape, others under at_shapes}, ok)."""
+    from deepspeed_tpu_torch.ops import fused_ops as fo
+
+    g = torch.Generator(device="cuda").manual_seed(SEED + 32)
+    rows, ok = {}, True
+    for op, shape, kw in FUSED_OPS_CASES:
+        args, dy = fused_ops_operands(torch, g, op, shape, torch.bfloat16)
+        held = fused_ops_check(torch, fo, op, args, dy, kw)
+        iters = 20
+        if op == "layer_norm":
+            x, gm, bt = args
+            _, mean, rstd = fo.layer_norm_fwd(x, gm, bt, 1e-5)
+            calls = {"layer_norm_fwd": (lambda: fo.layer_norm_fwd(x, gm, bt, 1e-5),
+                                        lambda: fo.layer_norm_fwd_plain(x, gm, bt, 1e-5)),
+                     "layer_norm_bwd": (lambda: fo.layer_norm_bwd(x, gm, mean, rstd, dy),
+                                        lambda: fo.layer_norm_bwd_plain(x, gm, mean, rstd, dy))}
+            lib_in = [x.clone().requires_grad_(), gm.to(x.dtype).requires_grad_(),
+                      bt.to(x.dtype).requires_grad_()]
+
+            def lib_f(a=lib_in):
+                return F.layer_norm(a[0], (shape[-1],), a[1], a[2], 1e-5)
+            lib_name = "F.layer_norm (two-pass variance: printed, not gated)"
+            pair = False
+        elif op == "bias_gelu":
+            x, b = args
+            calls = {"bias_gelu_fwd": (lambda: fo.bias_gelu_fwd(x, b),
+                                       lambda: fo.bias_gelu_fwd_plain(x, b)),
+                     "bias_gelu_bwd": (lambda: fo.bias_gelu_bwd(x, b, dy),
+                                       lambda: fo.bias_gelu_bwd_plain(x, b, dy))}
+            lib_in = [x.clone().requires_grad_(), b.to(x.dtype).requires_grad_()]
+
+            def lib_f(a=lib_in):
+                return F.gelu(a[0] + a[1], approximate="tanh")
+            lib_name = "the pair x + b, F.gelu(approximate='tanh')"
+            pair = True
+        else:
+            (s,) = args
+            causal, scale = kw["causal"], kw["scale"]
+            p = fo.softmax_fwd(s, causal, scale)
+            calls = {"softmax_fwd": (lambda: fo.softmax_fwd(s, causal, scale),
+                                     lambda: fo.softmax_fwd_plain(s, causal, scale)),
+                     "softmax_bwd": (lambda: fo.softmax_bwd(p, dy, scale),
+                                     lambda: fo.softmax_bwd_plain(p, dy, scale))}
+            lib_in = [s.clone().requires_grad_()]
+            Sq, Sk = shape[1], shape[2]
+            cmask = fo._causal_keep(Sq, Sk, "cuda") if causal else None
+
+            def lib_f(a=lib_in):
+                t = a[0] * scale
+                if cmask is not None:
+                    t = t.masked_fill(~cmask, float("-inf"))
+                return torch.softmax(t, -1)
+            lib_name = "the scale" + (", masked_fill" if causal else "") + " and torch.softmax"
+            pair = True
+
+        def lib_fb():
+            return torch.autograd.grad(lib_f(), lib_in, dy)
+        lf = device_ms(torch, lib_f, iters)
+        lfb = device_ms(torch, lib_fb, iters)
+        lb = lfb - lf if lfb and lf else None
+        for kname, (kern, plain) in calls.items():
+            b_ms, b_by = fused_ops_bound(op, shape, 2, kname, peaks)
+            lib = lf if kname.endswith("_fwd") else lb
+            row = dict(phase="kernels_fused_ops", name=kname,
+                       shape=f"{op} {tuple(shape)} bfloat16" + (f" {kw}" if kw else ""),
+                       **held[kname], limit="per element: 1 ulp of the output dtype + 1e-5 of "
+                       "the fp32 addends' magnitudes (parameter sums: of the sum of |terms|)",
+                       kernel_ms=device_ms(torch, kern, iters),
+                       kernel_event_ms=cuda_ms(torch, kern, iters),
+                       plain_ms=device_ms(torch, plain, 3),
+                       library_ms=None if pair else lib, library=lib_name
+                       + ("" if kname.endswith("_fwd") else ", autograd backward"),
+                       bound_ms=b_ms, bound_by=b_by)
+            if pair:   # two or more calls, not one: beside, not library_ms
+                row["library_pair_ms"] = lib
+            row["ok"] = row["ok"] and row["kernel_ms"] is not None
+            emit(row)
+            ok &= row["ok"]
+            if kname not in rows:
+                rows[kname] = dict(row, at_shapes=[])
+            else:
+                rows[kname]["at_shapes"].append({k: row.get(k) for k in (
+                    "shape", "max_err", "err_over_limit", "kernel_ms", "plain_ms", "library_ms",
+                    "library_pair_ms", "bound_ms", "bound_by")})
+        del args, dy, lib_in, held
+        torch.cuda.empty_cache()
+    for op, shape, kw in FUSED_OPS_FP32_CASES:
+        args, dy = fused_ops_operands(torch, g, op, shape, torch.float32)
+        for kname, h in fused_ops_check(torch, fo, op, args, dy, kw).items():
+            emit(dict(phase="kernels_fused_ops_fp32", name=kname, shape=f"{op} {tuple(shape)}"
+                      + (f" {kw}" if kw else ""), **h))
+            ok &= h["ok"]
+            if shape == (4, 8, 5) and kname == "softmax_fwd":   # rows 0-2 see no key
+                nan_ok = h["outputs"]["p"]["nans"] == 4 * 3 * 5
+                emit(dict(phase="kernels_fused_ops_nan_rows", shape=shape, nans=h["outputs"]
+                          ["p"]["nans"], expected=4 * 3 * 5, ok=nan_ok))
+                ok &= nan_ok
+    # the mean-1000 LayerNorm
+    R, D = BERT_B * BERT_S, BERT_E
+    x = 1000 + 8 * (torch.rand((R, D), generator=g, device="cuda") < 1 / 64).float()
+    gm, bt = 1 + 0.1 * torch.randn(D, generator=g, device="cuda"), torch.zeros(D, device="cuda")
+    y = fo.layer_norm_fwd(x, gm, bt, 1e-5)[0]
+    yp = fo.layer_norm_fwd_plain(x, gm, bt, 1e-5)[0]
+    xd = x.double()
+    two = ((xd - xd.mean(-1, keepdim=True)) / torch.sqrt(xd.var(-1, unbiased=False, keepdim=True)
+                                                        + 1e-5)) * gm.double()
+    scale = float(two.abs().max())
+    err = float((y - yp).abs().max())
+    miss = float((y.double() - two).abs().max())
+    m1000_ok = err <= 1e-5 * scale and miss > 1e-3 * scale
+    emit(dict(phase="kernels_fused_ops_mean1000", name="layer_norm_fwd", shape=f"({R}, {D}) fp32",
+              max_err_vs_one_pass_plain=err, limit=1e-5 * scale,
+              max_err_vs_two_pass_fp64=miss, two_pass_must_miss_by_more_than=1e-3 * scale,
+              ok=m1000_ok))
+    ok &= m1000_ok
+    return rows, ok
+
+
+def run_fused_ops_train(torch):
+    """The public ops as a training step calls them, at BERT-large shapes in
+    bf16: ``layer_norm`` over (16, 512, 1024) with fp32 gamma, beta;
+    ``bias_gelu`` over (16, 512, 4096); ``attention_softmax`` over (16, 16,
+    512, 512) at scale 1/8; each forward and ``.backward()`` once (exactly one
+    launch of its forward and of its backward kernel), then each once under
+    ``torch.no_grad()`` (one more forward launch, no backward). Outputs and
+    gradients finite, of their inputs' shapes and the JAX wrappers' dtypes.
+    Returns ({path: counts}, ok)."""
+    from deepspeed_tpu_torch.ops import fused_ops as fo
+
+    g = torch.Generator(device="cuda").manual_seed(SEED + 33)
+    bf = torch.bfloat16
+
+    def r(*s, scale=1.0, dt=bf):
+        return (torch.randn(s, generator=g, device="cuda") * scale).to(dt).requires_grad_()
+    x = r(BERT_B, BERT_S, BERT_E)
+    gm, bt = (1 + r(BERT_E, scale=0.1, dt=torch.float32)).detach().requires_grad_(), r(
+        BERT_E, scale=0.1, dt=torch.float32)
+    h, hb = r(BERT_B, BERT_S, BERT_F), r(BERT_F, scale=0.02)
+    s = r(BERT_B, BERT_H, BERT_S, BERT_S, scale=8.0)
+    torch.cuda.synchronize()
+    zero_counts()
+    t0 = time.perf_counter()
+    outs = [fo.layer_norm(x, gm, bt), fo.bias_gelu(h, hb),
+            fo.attention_softmax(s, causal=False, scale=0.125)]
+    for o in outs:
+        o.backward(torch.randn(o.shape, generator=g, device="cuda").to(o.dtype))
+    with torch.no_grad():
+        plain_outs = [fo.layer_norm(x, gm, bt), fo.bias_gelu(h, hb),
+                      fo.attention_softmax(s, causal=False, scale=0.125)]
+    torch.cuda.synchronize()
+    wall_ms = (time.perf_counter() - t0) * 1e3
+    launches = read_counts()
+    expected = {n: 0 for n in launches}
+    expected.update({k: 2 for k in FUSED_OPS_KERNELS if k.endswith("_fwd")})
+    expected.update({k: 1 for k in FUSED_OPS_KERNELS if k.endswith("_bwd")})
+    grads = {"x": x.grad, "gamma": gm.grad, "beta": bt.grad, "h": h.grad, "bias": hb.grad,
+             "scores": s.grad}
+    checks = {
+        "launch_counts": launches == expected,
+        "outputs_finite": all(bool(torch.isfinite(o.float()).all()) for o in outs + plain_outs),
+        "no_grad_same_values": all(torch.equal(a.detach(), b) for a, b in zip(outs, plain_outs)),
+        "grads_finite": all(v is not None and bool(torch.isfinite(v.float()).all())
+                            for v in grads.values()),
+        "grad_dtypes": (x.grad.dtype == bf and gm.grad.dtype == torch.float32
+                        and bt.grad.dtype == torch.float32 and hb.grad.dtype == bf
+                        and s.grad.dtype == bf),
+        "grad_shapes": all(v.shape == t.shape for v, t in zip(
+            grads.values(), (x, gm, bt, h, hb, s)))}
+    emit(dict(phase="fused_ops_train", shapes=dict(layer_norm=[BERT_B, BERT_S, BERT_E],
+                                                   bias_gelu=[BERT_B, BERT_S, BERT_F],
+                                                   attention_softmax=[BERT_B, BERT_H, BERT_S,
+                                                                      BERT_S]),
+              wall_ms=wall_ms, launches={n: c for n, c in launches.items() if c},
+              expected={n: c for n, c in expected.items() if c}, checks=checks,
+              ok=all(checks.values())))
+    del x, h, s, outs, plain_outs
+    torch.cuda.empty_cache()
+    return {"fused_ops_train": launches}, all(checks.values())
+
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--out", default=None, help="directory for build logs and profiles")
@@ -4090,6 +4698,14 @@ def main() -> int:
     ok &= neox_kernels_ok
     mlp_rows, mlp_kernels_ok = run_kernels_fused_mlp(torch, F, peaks)
     ok &= mlp_kernels_ok
+    sparse_row, sparse_kernels_ok = run_kernels_sparse(torch, F, peaks)
+    ok &= sparse_kernels_ok
+    fops_rows, fops_kernels_ok = run_kernels_fused_ops(torch, F, peaks)
+    ok &= fops_kernels_ok
+    sparse_launches, sparse_api_ok = run_sparse_api(torch)
+    ok &= sparse_api_ok
+    fops_launches, fops_train_ok = run_fused_ops_train(torch)
+    ok &= fops_train_ok
     launches, slice_ok, eng, prompt = run_slice(torch)
     ok &= slice_ok
     run_profile(torch, eng, prompt, args.out)
@@ -4114,7 +4730,7 @@ def main() -> int:
     # each path's counts were zeroed before it and read after it
     by_path = {"generate": launches, **serve_launches, **w8_launches, **llama_launches,
                **neox_launches, **mlp_launches, **train_launches, **mlp_train_launches,
-               **big_launches}
+               **big_launches, **sparse_launches, **fops_launches}
 
     # the kernels' rows at gpt2-760m's heads, which the serve_w8 and
     # generate_w8 paths run
@@ -4255,6 +4871,30 @@ def main() -> int:
             library_ms=r["library_ms"], shape=r["shape"], at_shapes=r["at_shapes"]))
         ok &= all(by_path[p][kname] > 0 for p in paths)
     ok &= all(k in mlp_rows for k in mlp_paths)
+
+    # block-sparse attention at case a (the others under at_shapes), launched
+    # by the public SparseSelfAttention path; the six fused-op kernels at
+    # BERT-large's shapes, each launched by the fused_ops_train path
+    bert_rows = {SPARSE_KERNEL: (sparse_row, "deepspeed_tpu_torch/ops/csrc/sparse_attention.cu",
+                                 "deepspeed_tpu/ops/sparse_attention/sparse_self_attention.py:59",
+                                 "sparse_attention_api")}
+    for kname in FUSED_OPS_KERNELS:
+        bert_rows[kname] = (fops_rows.get(kname), "deepspeed_tpu_torch/ops/csrc/fused_ops.cu",
+                            "deepspeed_tpu/ops/pallas/fused_ops.py" + FUSED_OPS_LINES[kname],
+                            "fused_ops_train")
+    for kname, (r, src, where, path) in bert_rows.items():
+        if r is None:   # the kernels phase failed before timing it (already not ok)
+            ok = False
+            continue
+        row = dict(name=kname, route="cuda", source=src, replaces=where, **path_counts(kname),
+                   max_abs_err=r["max_err"], ms=r["kernel_ms"], plain_ms=r["plain_ms"],
+                   bound_ms=r["bound_ms"], bound_by=r["bound_by"], library_ms=r["library_ms"],
+                   shape=r["shape"], at_shapes=r["at_shapes"])
+        for extra in ("library_pair_ms", "dense_sdpa_ms"):
+            if extra in r:
+                row[extra] = r[extra]
+        summary.append(row)
+        ok &= by_path[path][kname] > 0
 
     # the earlier kernels' rows at llama-1b's shapes (H=32 over KV=4, the
     # four dense panels) and at pythia-1b's (H=KV=8, D=256; qkv N=6144, the

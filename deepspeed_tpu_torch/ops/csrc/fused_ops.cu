@@ -1,0 +1,454 @@
+// Fused LayerNorm, bias + tanh-GELU and attention softmax, forward and backward.
+//
+// Replaces the six TPU kernels of deepspeed_tpu/ops/pallas/fused_ops.py:
+// _ln_fwd_kernel (:46), _ln_bwd_kernel (:60), _bias_gelu_fwd_kernel (:179),
+// _bias_gelu_bwd_kernel (:184), _softmax_fwd_kernel (:259) and
+// _softmax_bwd_kernel (:275). The arithmetic is theirs, in fp32: LayerNorm's
+// ONE-pass variance E[x^2] - mean^2 (each square and mean^2 rounded on their
+// own, __fmul_rn, so that nvcc contracts none of them into an fma, which
+// would change the one-pass result far from zero mean); GELU's tanh form term
+// for term; the softmax's max at -inf read as 0, so a row whose every key
+// is masked is 0/0 = NaN, as the TPU kernel gives.
+//
+// Bound on the H100: every kernel here is an elementwise pass or a
+// single-row reduction, a few flops per byte, so the bytes bound them: each
+// input read once and each output written once, at 3.35 TB/s. The design
+// aims at reading each byte from device memory once and no more:
+//   - rows are read with 16-byte loads (8 elements) where the row width is
+//     a multiple of 8 (VEC), one element at a time otherwise;
+//   - LayerNorm and the softmax take one warp per row; a second (and third)
+//     sweep of the row re-reads it from L1, which the first sweep filled;
+//   - the backward kernels' parameter gradients (dgamma, dbeta, dbias) are
+//     written as one fp32 partial row per block of rows_per_block rows,
+//     summed over the rows in order, and the wrapper adds the partial rows
+//     with torch.sum: no atomics, so a repeated call gives the same bits.
+#include "common.cuh"
+
+namespace {
+
+constexpr int kThreads = 256;
+constexpr int kWarps = kThreads / 32;
+constexpr float kSqrt2OverPi = 0.7978845608028654f;
+
+// Eight elements at columns c .. c + 7 of a row, as floats (VEC: 16-byte
+// loads, the row width a multiple of 8; otherwise masked scalar loads, 0 past D).
+template <typename T, bool VEC>
+__device__ __forceinline__ void load_cols(const T* row, int c, int D, float (&o)[8]) {
+  if constexpr (VEC) {
+    ds::load8(row + c, o);
+  } else {
+#pragma unroll
+    for (int i = 0; i < 8; ++i) o[i] = c + i < D ? ds::to_float(row[c + i]) : 0.f;
+  }
+}
+
+template <typename T, bool VEC>
+__device__ __forceinline__ void store_cols(T* row, int c, int D, const float (&v)[8]) {
+  if constexpr (VEC) {
+    if constexpr (sizeof(T) == 2) {
+      __nv_bfloat162 h[4];
+#pragma unroll
+      for (int i = 0; i < 4; ++i) h[i] = __floats2bfloat162_rn(v[2 * i], v[2 * i + 1]);
+      *reinterpret_cast<uint4*>(row + c) = *reinterpret_cast<const uint4*>(h);
+    } else {
+      reinterpret_cast<float4*>(row + c)[0] = make_float4(v[0], v[1], v[2], v[3]);
+      reinterpret_cast<float4*>(row + c)[1] = make_float4(v[4], v[5], v[6], v[7]);
+    }
+  } else {
+#pragma unroll
+    for (int i = 0; i < 8; ++i)
+      if (c + i < D) row[c + i] = ds::from_float<T>(v[i]);
+  }
+}
+
+__device__ __forceinline__ float warp_max(float v) {
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, o));
+  return v;
+}
+
+__device__ __forceinline__ float gelu_tanh(float u) {
+  const float inner = kSqrt2OverPi * (u + 0.044715f * u * u * u);
+  return 0.5f * u * (1.f + tanhf(inner));
+}
+
+__device__ __forceinline__ float gelu_tanh_grad(float u) {
+  const float u3 = 0.044715f * u * u * u;
+  const float t = tanhf(kSqrt2OverPi * (u + u3));
+  const float sech2 = 1.f - t * t;
+  return 0.5f * (1.f + t) + 0.5f * u * sech2 * kSqrt2OverPi * (1.f + 3.f * 0.044715f * u * u);
+}
+
+// ---------------------------------------------------------------------------
+// LayerNorm: one warp per row
+// ---------------------------------------------------------------------------
+template <typename T, bool VEC>
+__global__ void __launch_bounds__(kThreads)
+ln_fwd_kernel(const T* __restrict__ x, const float* __restrict__ gamma,
+              const float* __restrict__ beta, T* __restrict__ y, float* __restrict__ mean_out,
+              float* __restrict__ rstd_out, int R, int D, float eps) {
+  const int lane = threadIdx.x % 32;
+  const int row = blockIdx.x * kWarps + threadIdx.x / 32;
+  if (row >= R) return;
+  const T* xr = x + (size_t)row * D;
+  float s = 0.f, ss = 0.f;
+  for (int c = lane * 8; c < D; c += 32 * 8) {
+    float v[8];
+    load_cols<T, VEC>(xr, c, D, v);
+#pragma unroll
+    for (int i = 0; i < 8; ++i) {
+      s += v[i];
+      ss += __fmul_rn(v[i], v[i]);
+    }
+  }
+  s = ds::warp_sum(s);
+  ss = ds::warp_sum(ss);
+  const float mean = s / D;
+  const float var = ss / D - __fmul_rn(mean, mean);
+  const float rstd = 1.f / sqrtf(var + eps);
+  if (lane == 0) {
+    mean_out[row] = mean;
+    rstd_out[row] = rstd;
+  }
+  T* yr = y + (size_t)row * D;
+  for (int c = lane * 8; c < D; c += 32 * 8) {
+    float v[8], g[8], b[8];
+    load_cols<T, VEC>(xr, c, D, v);
+    load_cols<float, VEC>(gamma, c, D, g);
+    load_cols<float, VEC>(beta, c, D, b);
+#pragma unroll
+    for (int i = 0; i < 8; ++i)
+      v[i] = __fadd_rn(__fmul_rn(__fmul_rn(v[i] - mean, rstd), g[i]), b[i]);
+    store_cols<T, VEC>(yr, c, D, v);
+  }
+}
+
+// dx per row (warps over the block's rows), then the block's dgamma and
+// dbeta partial rows (threads over columns, rows in order).
+template <typename T, bool VEC>
+__global__ void __launch_bounds__(kThreads)
+ln_bwd_kernel(const T* __restrict__ x, const float* __restrict__ gamma,
+              const float* __restrict__ mean, const float* __restrict__ rstd,
+              const T* __restrict__ dy, T* __restrict__ dx, float* __restrict__ dg_part,
+              float* __restrict__ db_part, int R, int D, int rows_per_block) {
+  const int lane = threadIdx.x % 32, warp = threadIdx.x / 32;
+  const int r0 = blockIdx.x * rows_per_block;
+  const int r1 = min(R, r0 + rows_per_block);
+  for (int row = r0 + warp; row < r1; row += kWarps) {
+    const T* xr = x + (size_t)row * D;
+    const T* dyr = dy + (size_t)row * D;
+    const float mu = mean[row], rs = rstd[row];
+    float s1 = 0.f, s2 = 0.f;
+    for (int c = lane * 8; c < D; c += 32 * 8) {
+      float v[8], d[8], g[8];
+      load_cols<T, VEC>(xr, c, D, v);
+      load_cols<T, VEC>(dyr, c, D, d);
+      load_cols<float, VEC>(gamma, c, D, g);
+#pragma unroll
+      for (int i = 0; i < 8; ++i) {
+        const float xhat = (v[i] - mu) * rs;
+        const float dxhat = d[i] * g[i];
+        s1 += dxhat;
+        s2 += dxhat * xhat;
+      }
+    }
+    const float m1 = ds::warp_sum(s1) / D;
+    const float m2 = ds::warp_sum(s2) / D;
+    T* dxr = dx + (size_t)row * D;
+    for (int c = lane * 8; c < D; c += 32 * 8) {
+      float v[8], d[8], g[8];
+      load_cols<T, VEC>(xr, c, D, v);
+      load_cols<T, VEC>(dyr, c, D, d);
+      load_cols<float, VEC>(gamma, c, D, g);
+#pragma unroll
+      for (int i = 0; i < 8; ++i) {
+        const float xhat = (v[i] - mu) * rs;
+        v[i] = rs * (d[i] * g[i] - m1 - xhat * m2);
+      }
+      store_cols<T, VEC>(dxr, c, D, v);
+    }
+  }
+  for (int c = threadIdx.x * 8; c < D; c += kThreads * 8) {
+    float ag[8] = {}, ab[8] = {};
+    for (int row = r0; row < r1; ++row) {
+      float v[8], d[8];
+      load_cols<T, VEC>(x + (size_t)row * D, c, D, v);
+      load_cols<T, VEC>(dy + (size_t)row * D, c, D, d);
+      const float mu = mean[row], rs = rstd[row];
+#pragma unroll
+      for (int i = 0; i < 8; ++i) {
+        ag[i] += d[i] * ((v[i] - mu) * rs);
+        ab[i] += d[i];
+      }
+    }
+#pragma unroll
+    for (int i = 0; i < 8; ++i)
+      if (c + i < D) {
+        dg_part[(size_t)blockIdx.x * D + c + i] = ag[i];
+        db_part[(size_t)blockIdx.x * D + c + i] = ab[i];
+      }
+  }
+}
+
+// ---------------------------------------------------------------------------
+// bias + tanh-GELU: elementwise, eight columns a thread
+// ---------------------------------------------------------------------------
+template <typename T, bool VEC>
+__global__ void __launch_bounds__(kThreads)
+gelu_fwd_kernel(const T* __restrict__ x, const float* __restrict__ bias, T* __restrict__ y,
+                int R, int D) {
+  const int groups = (D + 7) / 8;   // column groups per row
+  const size_t n = (size_t)R * groups;
+  for (size_t i = (size_t)blockIdx.x * kThreads + threadIdx.x; i < n;
+       i += (size_t)gridDim.x * kThreads) {
+    const size_t row = i / groups;
+    const int c = (int)(i % groups) * 8;
+    float v[8], b[8];
+    load_cols<T, VEC>(x + row * D, c, D, v);
+    load_cols<float, VEC>(bias, c, D, b);
+#pragma unroll
+    for (int j = 0; j < 8; ++j) v[j] = gelu_tanh(v[j] + b[j]);
+    store_cols<T, VEC>(y + row * D, c, D, v);
+  }
+}
+
+// dx = dy * gelu'(x + b) for the block's rows, and the block's dbias partial
+// row: the fp32 dx summed over those rows in order.
+template <typename T, bool VEC>
+__global__ void __launch_bounds__(kThreads)
+gelu_bwd_kernel(const T* __restrict__ x, const float* __restrict__ bias,
+                const T* __restrict__ dy, T* __restrict__ dx, float* __restrict__ db_part,
+                int R, int D, int rows_per_block) {
+  const int c = (blockIdx.x * kThreads + threadIdx.x) * 8;
+  if (c >= D) return;
+  const int r0 = blockIdx.y * rows_per_block;
+  const int r1 = min(R, r0 + rows_per_block);
+  float b[8], acc[8] = {};
+  load_cols<float, VEC>(bias, c, D, b);
+#pragma unroll 4
+  for (int row = r0; row < r1; ++row) {
+    float v[8], d[8];
+    load_cols<T, VEC>(x + (size_t)row * D, c, D, v);
+    load_cols<T, VEC>(dy + (size_t)row * D, c, D, d);
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      v[j] = d[j] * gelu_tanh_grad(v[j] + b[j]);
+      acc[j] += v[j];
+    }
+    store_cols<T, VEC>(dx + (size_t)row * D, c, D, v);
+  }
+#pragma unroll
+  for (int j = 0; j < 8; ++j)
+    if (c + j < D) db_part[(size_t)blockIdx.y * D + c + j] = acc[j];
+}
+
+// ---------------------------------------------------------------------------
+// attention softmax: one warp per (bh, query) row
+// ---------------------------------------------------------------------------
+template <typename T, bool VEC>
+__global__ void __launch_bounds__(kThreads)
+softmax_fwd_kernel(const T* __restrict__ s, T* __restrict__ p, int rows, int Sq, int Sk,
+                   int q_offset, float scale, int causal) {
+  const int lane = threadIdx.x % 32;
+  const int row = blockIdx.x * kWarps + threadIdx.x / 32;
+  if (row >= rows) return;
+  // keys past `last` are masked (causal: the bottom-aligned triangle)
+  const int last = causal ? q_offset + row % Sq : Sk - 1;
+  const T* sr = s + (size_t)row * Sk;
+  float m = -INFINITY;
+  for (int c = lane * 8; c < Sk; c += 32 * 8) {
+    float v[8];
+    load_cols<T, VEC>(sr, c, Sk, v);
+#pragma unroll
+    for (int i = 0; i < 8; ++i)
+      if (c + i < Sk && c + i <= last) m = fmaxf(m, v[i] * scale);
+  }
+  m = warp_max(m);
+  if (m == -INFINITY) m = 0.f;
+  float l = 0.f;
+  for (int c = lane * 8; c < Sk; c += 32 * 8) {
+    float v[8];
+    load_cols<T, VEC>(sr, c, Sk, v);
+#pragma unroll
+    for (int i = 0; i < 8; ++i)
+      if (c + i < Sk && c + i <= last) l += expf(v[i] * scale - m);
+  }
+  l = ds::warp_sum(l);
+  T* pr = p + (size_t)row * Sk;
+  for (int c = lane * 8; c < Sk; c += 32 * 8) {
+    float v[8];
+    load_cols<T, VEC>(sr, c, Sk, v);
+#pragma unroll
+    for (int i = 0; i < 8; ++i) v[i] = (c + i <= last ? expf(v[i] * scale - m) : 0.f) / l;
+    store_cols<T, VEC>(pr, c, Sk, v);
+  }
+}
+
+template <typename T, bool VEC>
+__global__ void __launch_bounds__(kThreads)
+softmax_bwd_kernel(const T* __restrict__ p, const T* __restrict__ dy, T* __restrict__ ds_out,
+                   int rows, int Sk, float scale) {
+  const int lane = threadIdx.x % 32;
+  const int row = blockIdx.x * kWarps + threadIdx.x / 32;
+  if (row >= rows) return;
+  const T* pr = p + (size_t)row * Sk;
+  const T* dr = dy + (size_t)row * Sk;
+  float dot = 0.f;
+  for (int c = lane * 8; c < Sk; c += 32 * 8) {
+    float a[8], d[8];
+    load_cols<T, VEC>(pr, c, Sk, a);
+    load_cols<T, VEC>(dr, c, Sk, d);
+#pragma unroll
+    for (int i = 0; i < 8; ++i) dot += a[i] * d[i];
+  }
+  dot = ds::warp_sum(dot);
+  T* out = ds_out + (size_t)row * Sk;
+  for (int c = lane * 8; c < Sk; c += 32 * 8) {
+    float a[8], d[8];
+    load_cols<T, VEC>(pr, c, Sk, a);
+    load_cols<T, VEC>(dr, c, Sk, d);
+#pragma unroll
+    for (int i = 0; i < 8; ++i) a[i] = __fmul_rn(a[i] * (d[i] - dot), scale);
+    store_cols<T, VEC>(out, c, Sk, a);
+  }
+}
+
+// ---------------------------------------------------------------------------
+// launches: dtype and VEC (the row width a multiple of 8) picked here
+// ---------------------------------------------------------------------------
+template <template <typename, bool> class Launch, typename... Args>
+cudaError_t dispatch(int dtype, int width, Args... args) {
+  const bool vec = width % 8 == 0;
+  if (dtype == ds::kBFloat16)
+    return vec ? Launch<ds::bf16, true>::run(args...) : Launch<ds::bf16, false>::run(args...);
+  if (dtype == ds::kFloat32)
+    return vec ? Launch<float, true>::run(args...) : Launch<float, false>::run(args...);
+  return cudaErrorInvalidValue;
+}
+
+int blocks_for(size_t threads_needed) {
+  const size_t b = (threads_needed + kThreads - 1) / kThreads;
+  return (int)(b < 132 * 16 ? (b ? b : 1) : 132 * 16);   // grid-stride past 16 blocks per SM
+}
+
+template <typename T, bool VEC>
+struct LnFwd {
+  static cudaError_t run(const void* x, const void* g, const void* b, void* y, void* mean,
+                         void* rstd, int R, int D, float eps, cudaStream_t st) {
+    ln_fwd_kernel<T, VEC><<<(R + kWarps - 1) / kWarps, kThreads, 0, st>>>(
+        static_cast<const T*>(x), static_cast<const float*>(g), static_cast<const float*>(b),
+        static_cast<T*>(y), static_cast<float*>(mean), static_cast<float*>(rstd), R, D, eps);
+    return cudaGetLastError();
+  }
+};
+
+template <typename T, bool VEC>
+struct LnBwd {
+  static cudaError_t run(const void* x, const void* g, const void* mean, const void* rstd,
+                         const void* dy, void* dx, void* dg, void* db, int R, int D, int rpb,
+                         cudaStream_t st) {
+    ln_bwd_kernel<T, VEC><<<(R + rpb - 1) / rpb, kThreads, 0, st>>>(
+        static_cast<const T*>(x), static_cast<const float*>(g), static_cast<const float*>(mean),
+        static_cast<const float*>(rstd), static_cast<const T*>(dy), static_cast<T*>(dx),
+        static_cast<float*>(dg), static_cast<float*>(db), R, D, rpb);
+    return cudaGetLastError();
+  }
+};
+
+template <typename T, bool VEC>
+struct GeluFwd {
+  static cudaError_t run(const void* x, const void* b, void* y, int R, int D, cudaStream_t st) {
+    gelu_fwd_kernel<T, VEC><<<blocks_for((size_t)R * ((D + 7) / 8)), kThreads, 0, st>>>(
+        static_cast<const T*>(x), static_cast<const float*>(b), static_cast<T*>(y), R, D);
+    return cudaGetLastError();
+  }
+};
+
+template <typename T, bool VEC>
+struct GeluBwd {
+  static cudaError_t run(const void* x, const void* b, const void* dy, void* dx, void* db,
+                         int R, int D, int rpb, cudaStream_t st) {
+    const dim3 grid(((D + 7) / 8 + kThreads - 1) / kThreads, (R + rpb - 1) / rpb);
+    gelu_bwd_kernel<T, VEC><<<grid, kThreads, 0, st>>>(
+        static_cast<const T*>(x), static_cast<const float*>(b), static_cast<const T*>(dy),
+        static_cast<T*>(dx), static_cast<float*>(db), R, D, rpb);
+    return cudaGetLastError();
+  }
+};
+
+template <typename T, bool VEC>
+struct SoftmaxFwd {
+  static cudaError_t run(const void* s, void* p, int rows, int Sq, int Sk, int q_offset,
+                         float scale, int causal, cudaStream_t st) {
+    softmax_fwd_kernel<T, VEC><<<(rows + kWarps - 1) / kWarps, kThreads, 0, st>>>(
+        static_cast<const T*>(s), static_cast<T*>(p), rows, Sq, Sk, q_offset, scale, causal);
+    return cudaGetLastError();
+  }
+};
+
+template <typename T, bool VEC>
+struct SoftmaxBwd {
+  static cudaError_t run(const void* p, const void* dy, void* ds_out, int rows, int Sk,
+                         float scale, cudaStream_t st) {
+    softmax_bwd_kernel<T, VEC><<<(rows + kWarps - 1) / kWarps, kThreads, 0, st>>>(
+        static_cast<const T*>(p), static_cast<const T*>(dy), static_cast<T*>(ds_out), rows, Sk,
+        scale);
+    return cudaGetLastError();
+  }
+};
+
+cudaStream_t as_stream(void* s) { return static_cast<cudaStream_t>(s); }
+
+}  // namespace
+
+DS_DEFINE_ERROR_STRING
+
+// x, y (R, D) in one dtype; gamma, beta (D,) fp32; mean, rstd (R, 1) fp32.
+DS_EXPORT int layer_norm_fwd(const void* x, const void* gamma, const void* beta, void* y,
+                             void* mean, void* rstd, int R, int D, float eps, int dtype,
+                             void* stream) {
+  if (R < 1 || D < 1) return cudaErrorInvalidValue;
+  return dispatch<LnFwd>(dtype, D, x, gamma, beta, y, mean, rstd, R, D, eps, as_stream(stream));
+}
+
+// x, dy, dx (R, D); gamma (D,) fp32; mean, rstd (R, 1) fp32; dg_part and
+// db_part (ceil(R / rows_per_block), D) fp32.
+DS_EXPORT int layer_norm_bwd(const void* x, const void* gamma, const void* mean,
+                             const void* rstd, const void* dy, void* dx, void* dg_part,
+                             void* db_part, int R, int D, int rows_per_block, int dtype,
+                             void* stream) {
+  if (R < 1 || D < 1 || rows_per_block < 1) return cudaErrorInvalidValue;
+  return dispatch<LnBwd>(dtype, D, x, gamma, mean, rstd, dy, dx, dg_part, db_part, R, D,
+                         rows_per_block, as_stream(stream));
+}
+
+// x, y (R, D); bias (D,) fp32.
+DS_EXPORT int bias_gelu_fwd(const void* x, const void* bias, void* y, int R, int D, int dtype,
+                            void* stream) {
+  if (R < 1 || D < 1) return cudaErrorInvalidValue;
+  return dispatch<GeluFwd>(dtype, D, x, bias, y, R, D, as_stream(stream));
+}
+
+// x, dy, dx (R, D); bias (D,) fp32; db_part (ceil(R / rows_per_block), D) fp32.
+DS_EXPORT int bias_gelu_bwd(const void* x, const void* bias, const void* dy, void* dx,
+                            void* db_part, int R, int D, int rows_per_block, int dtype,
+                            void* stream) {
+  if (R < 1 || D < 1 || rows_per_block < 1) return cudaErrorInvalidValue;
+  return dispatch<GeluBwd>(dtype, D, x, bias, dy, dx, db_part, R, D, rows_per_block,
+                           as_stream(stream));
+}
+
+// s, p (BH, Sq, Sk); causal keeps key j for query i where q_offset + i >= j.
+DS_EXPORT int softmax_fwd(const void* s, void* p, int BH, int Sq, int Sk, int q_offset,
+                          float scale, int causal, int dtype, void* stream) {
+  if (BH < 1 || Sq < 1 || Sk < 1) return cudaErrorInvalidValue;
+  return dispatch<SoftmaxFwd>(dtype, Sk, s, p, BH * Sq, Sq, Sk, q_offset, scale, causal,
+                              as_stream(stream));
+}
+
+// p, dy, ds (rows, Sk).
+DS_EXPORT int softmax_bwd(const void* p, const void* dy, void* ds_out, int rows, int Sk,
+                          float scale, int dtype, void* stream) {
+  if (rows < 1 || Sk < 1) return cudaErrorInvalidValue;
+  return dispatch<SoftmaxBwd>(dtype, Sk, p, dy, ds_out, rows, Sk, scale, as_stream(stream));
+}

@@ -33,6 +33,7 @@ from typing import Optional
 import torch
 
 from ._build import FLOAT, INT, PTR, Kernel, check_operands, dtype_code, stream_of
+from .fused_ops import gelu_tanh
 from .w8 import w8a16_matmul
 
 _TAIL = [INT, INT, INT, FLOAT, INT, INT, PTR]   # M, K/E, N/F, eps, rms, dtype, stream
@@ -84,14 +85,7 @@ POST_ATTN_ERF_PAR = post_attn_handle(exact_gelu=True, parallel_residual=True)   
 POST_ATTN_ERF_PAR_W8 = post_attn_handle(exact_gelu=True, parallel_residual=True, quant=True)
 
 MAX_ROWS = 64      # the decode regime; prefill rows take the unfused chain
-_SQRT_2_OVER_PI = 0.7978845608028654
 _SQRT_HALF = 2.0 ** -0.5
-
-
-def gelu_tanh(u: torch.Tensor) -> torch.Tensor:
-    """``_gelu_tanh`` of ``ops/pallas/fused_ops.py``, term for term."""
-    inner = _SQRT_2_OVER_PI * (u + 0.044715 * u * u * u)
-    return 0.5 * u * (1.0 + torch.tanh(inner))
 
 
 def gelu_exact(u: torch.Tensor) -> torch.Tensor:

@@ -41,7 +41,7 @@ from __future__ import annotations
 import torch
 
 from ._build import INT, PTR, Kernel, check_operands, dtype_code, stream_of
-from .decode_layer import gelu_tanh
+from .fused_ops import gelu_tanh, gelu_tanh_grad
 
 _ARGS = [INT, INT, INT, INT, INT, INT, PTR]   # R E F splits per_split dtype stream
 FWD = Kernel("fused_mlp", "fused_mlp_fwd", [PTR] * 7 + _ARGS)
@@ -54,16 +54,6 @@ CHUNK = 32         # hidden columns per chunk of the forward and dx kernels
 DW_COLS = 16       # hidden columns per block of the dw kernel
 DW_ROWS = 16       # its row tile
 _SM_COUNT = 132    # splits and segments aim at a few blocks per SM of an H100
-_SQRT_2_OVER_PI = 0.7978845608028654
-
-
-def gelu_tanh_grad(u: torch.Tensor) -> torch.Tensor:
-    """``_gelu_tanh_grad`` of ``ops/pallas/fused_ops.py`` (:170), term for term."""
-    u3 = 0.044715 * u * u * u
-    inner = _SQRT_2_OVER_PI * (u + u3)
-    t = torch.tanh(inner)
-    sech2 = 1.0 - t * t
-    return 0.5 * (1.0 + t) + 0.5 * u * sech2 * _SQRT_2_OVER_PI * (1.0 + 3.0 * 0.044715 * u * u)
 
 
 def fits_vmem(e: int, f: int, block_rows: int, itemsize: int) -> bool:

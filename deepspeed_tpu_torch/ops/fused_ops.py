@@ -1,0 +1,312 @@
+"""Fused LayerNorm, bias + tanh-GELU and attention softmax, forward and backward.
+
+Port of ``deepspeed_tpu/ops/pallas/fused_ops.py``: the six TPU kernels
+``_ln_fwd_kernel`` (:46), ``_ln_bwd_kernel`` (:60),
+``_bias_gelu_fwd_kernel`` (:179), ``_bias_gelu_bwd_kernel`` (:184),
+``_softmax_fwd_kernel`` (:259) and ``_softmax_bwd_kernel`` (:275) become the
+six entries of ``csrc/fused_ops.cu`` (see its header for the design and
+bounds), and each ``jax.custom_vjp`` pair an ``autograd.Function`` whose
+forward and backward are kernels. CUDA tensors launch the kernels; CPU
+tensors run the plain versions (``*_plain`` below, the kernels' arithmetic
+in plain PyTorch with the same cast points); a CUDA tensor never falls back
+(a build or launch failure raises).
+
+The arithmetic is the TPU kernels', fp32 inside:
+
+- :func:`layer_norm`: the ONE-pass variance ``E[x²] − mean²`` (not the
+  two-pass variance of ``BertLayerNorm``: far from zero mean they part),
+  ``rstd = rsqrt(var + eps)``; ``y`` in x's dtype; ``mean`` and ``rstd``
+  saved as fp32 ``(R, 1)``. The backward: ``dx = rstd·(dŷ − mean(dŷ) −
+  x̂·mean(dŷ·x̂))`` with ``dŷ = dy·γ``, in x's dtype; ``dgamma = Σ dy·x̂`` and
+  ``dbeta = Σ dy`` over rows in fp32, both cast to GAMMA's dtype (the JAX
+  wrapper casts beta's gradient so too).
+- :func:`bias_gelu`: ``gelu_tanh(x + b)`` in x's dtype; the backward ``dx =
+  dy·gelu_tanh'(x + b)`` in x's dtype and ``dbias = Σ dx`` (of the fp32 dx)
+  in bias's dtype.
+- :func:`attention_softmax`: ``softmax(scores·scale)`` over the last dim,
+  with ``causal`` keeping key j for query i where ``Sk − Sq + i ≥ j`` (the
+  bottom-aligned triangle); a row's max at −inf reads 0, so a row whose every
+  key is masked (``Sq > Sk``, rows ``i < Sq − Sk``) is 0/0 = NaN, as the TPU
+  kernel gives (ROADMAP.md, "Not port faults"). ``p`` in the scores' dtype;
+  the backward ``ds = p·(dy − Σ p·dy)·scale`` in p's dtype.
+
+The backward kernels of LayerNorm and bias-GELU write per-row-block fp32
+partials of the parameter gradients, as the TPU kernels do; ``torch.sum``
+adds them in a fixed order (no atomics: a repeated call gives the same
+bits). The JAX wrappers' ``block_rows`` / ``block_q`` (TPU tiles, which
+change no result beyond the order of partial sums) and ``interpret`` (the
+Pallas interpreter) have no counterpart here, nor has their row padding: the
+kernels take any row count. ``gelu_tanh`` and ``gelu_tanh_grad`` are the
+JAX module's ``_gelu_tanh`` and ``_gelu_tanh_grad``, term for term, and
+``ops/decode_layer.py`` and ``ops/fused_mlp.py`` take them from here, as
+the JAX modules do.
+"""
+from __future__ import annotations
+
+import torch
+
+from ._build import FLOAT, INT, PTR, Kernel, check_operands, dtype_code, stream_of
+
+_TAIL = [INT, PTR]   # dtype, stream
+LN_FWD = Kernel("fused_ops", "layer_norm_fwd", [PTR] * 6 + [INT, INT, FLOAT] + _TAIL)
+LN_BWD = Kernel("fused_ops", "layer_norm_bwd", [PTR] * 8 + [INT, INT, INT] + _TAIL)
+GELU_FWD = Kernel("fused_ops", "bias_gelu_fwd", [PTR] * 3 + [INT, INT] + _TAIL)
+GELU_BWD = Kernel("fused_ops", "bias_gelu_bwd", [PTR] * 5 + [INT, INT, INT] + _TAIL)
+SOFTMAX_FWD = Kernel("fused_ops", "softmax_fwd", [PTR] * 2 + [INT] * 4 + [FLOAT, INT] + _TAIL)
+SOFTMAX_BWD = Kernel("fused_ops", "softmax_bwd", [PTR] * 3 + [INT, INT, FLOAT] + _TAIL)
+
+_F32 = torch.float32
+LN_ROWS = 32       # rows per block of the LayerNorm backward: one partial row each
+GELU_ROWS = 32     # rows per block of the bias-GELU backward: one partial row each
+_SQRT_2_OVER_PI = 0.7978845608028654
+
+
+def gelu_tanh(u: torch.Tensor) -> torch.Tensor:
+    """``_gelu_tanh`` of ``ops/pallas/fused_ops.py`` (:165), term for term."""
+    inner = _SQRT_2_OVER_PI * (u + 0.044715 * u * u * u)
+    return 0.5 * u * (1.0 + torch.tanh(inner))
+
+
+def gelu_tanh_grad(u: torch.Tensor) -> torch.Tensor:
+    """``_gelu_tanh_grad`` of ``ops/pallas/fused_ops.py`` (:170), term for term."""
+    u3 = 0.044715 * u * u * u
+    inner = _SQRT_2_OVER_PI * (u + u3)
+    t = torch.tanh(inner)
+    sech2 = 1.0 - t * t
+    return 0.5 * (1.0 + t) + 0.5 * u * sech2 * _SQRT_2_OVER_PI * (1.0 + 3.0 * 0.044715 * u * u)
+
+
+# ----------------------------------------------------------------------
+# plain versions: the six kernels' functions in plain PyTorch
+# ----------------------------------------------------------------------
+def layer_norm_fwd_plain(x, gamma, beta, eps: float):
+    """``(y, mean, rstd)`` of rows ``x (R, D)``: the one-pass variance."""
+    xf = x.float()
+    mean = xf.mean(-1, keepdim=True)
+    var = (xf * xf).mean(-1, keepdim=True) - mean * mean
+    rstd = torch.rsqrt(var + eps)
+    y = (xf - mean) * rstd * gamma.float() + beta.float()
+    return y.to(x.dtype), mean, rstd
+
+
+def layer_norm_bwd_plain(x, gamma, mean, rstd, dy):
+    """``(dx, dgamma, dbeta)``: dx in x's dtype, the sums fp32."""
+    xhat = (x.float() - mean) * rstd
+    dyf = dy.float()
+    dxhat = dyf * gamma.float()
+    m1 = dxhat.mean(-1, keepdim=True)
+    m2 = (dxhat * xhat).mean(-1, keepdim=True)
+    dx = rstd * (dxhat - m1 - xhat * m2)
+    return dx.to(x.dtype), (dyf * xhat).sum(0), dyf.sum(0)
+
+
+def bias_gelu_fwd_plain(x, bias):
+    return gelu_tanh(x.float() + bias.float()).to(x.dtype)
+
+
+def bias_gelu_bwd_plain(x, bias, dy):
+    """``(dx, dbias)``: dx in x's dtype, dbias the fp32 sum of the fp32 dx."""
+    dx = dy.float() * gelu_tanh_grad(x.float() + bias.float())
+    return dx.to(x.dtype), dx.sum(0)
+
+
+def _causal_keep(Sq: int, Sk: int, device) -> torch.Tensor:
+    q_pos = (Sk - Sq) + torch.arange(Sq, device=device)
+    return q_pos[:, None] >= torch.arange(Sk, device=device)[None, :]
+
+
+def softmax_fwd_plain(s, causal: bool, scale: float):
+    """``p`` of scores ``(BH, Sq, Sk)`` in their dtype (NaN rows where every
+    key is masked, as the TPU kernel)."""
+    sf = s.float() * scale
+    if causal:
+        sf = sf.masked_fill(~_causal_keep(s.shape[1], s.shape[2], s.device), float("-inf"))
+    m = sf.amax(-1, keepdim=True)
+    m = torch.where(m == float("-inf"), torch.zeros_like(m), m)
+    e = torch.exp(sf - m)
+    return (e / e.sum(-1, keepdim=True)).to(s.dtype)
+
+
+def softmax_bwd_plain(p, dy, scale: float):
+    pf, dyf = p.float(), dy.float()
+    dot = (pf * dyf).sum(-1, keepdim=True)
+    return (pf * (dyf - dot) * scale).to(p.dtype)
+
+
+# ----------------------------------------------------------------------
+# the kernels' wrappers: CUDA tensors launch, CPU tensors run the plain versions
+# ----------------------------------------------------------------------
+def _check_vec(D: int, **params) -> None:
+    for name, t in params.items():
+        if t.shape != (D,):
+            raise ValueError(f"{name} of shape {tuple(t.shape)} for rows of width {D}")
+
+
+def _launch_args(x):
+    return dtype_code(x), stream_of(x)
+
+
+def layer_norm_fwd(x, gamma, beta, eps: float):
+    if not x.is_cuda:
+        return layer_norm_fwd_plain(x, gamma, beta, eps)
+    R, D = x.shape
+    _check_vec(D, gamma=gamma, beta=beta)
+    g, b = gamma.float().contiguous(), beta.float().contiguous()
+    check_operands(x, g, b, dtypes=[x.dtype, _F32, _F32])
+    y = torch.empty_like(x)
+    mean = torch.empty((R, 1), dtype=torch.float32, device=x.device)
+    rstd = torch.empty_like(mean)
+    with torch.cuda.device(x.device):
+        LN_FWD.launch(x.data_ptr(), g.data_ptr(), b.data_ptr(), y.data_ptr(), mean.data_ptr(),
+                      rstd.data_ptr(), R, D, eps, *_launch_args(x))
+    return y, mean, rstd
+
+
+def layer_norm_bwd(x, gamma, mean, rstd, dy):
+    if not x.is_cuda:
+        return layer_norm_bwd_plain(x, gamma, mean, rstd, dy)
+    R, D = x.shape
+    dy = dy.contiguous()
+    _check_vec(D, gamma=gamma)
+    if mean.shape != (R, 1) or rstd.shape != (R, 1) or dy.shape != x.shape:
+        raise ValueError(f"layer_norm backward: mean {tuple(mean.shape)}, rstd "
+                         f"{tuple(rstd.shape)}, dy {tuple(dy.shape)} for x {tuple(x.shape)}")
+    g = gamma.float().contiguous()
+    check_operands(x, dy, g, mean, rstd, dtypes=[x.dtype, x.dtype, _F32, _F32, _F32])
+    dx = torch.empty_like(x)
+    nb = -(-R // LN_ROWS)
+    dg_part = torch.empty((nb, D), dtype=torch.float32, device=x.device)
+    db_part = torch.empty_like(dg_part)
+    with torch.cuda.device(x.device):
+        LN_BWD.launch(x.data_ptr(), g.data_ptr(), mean.data_ptr(), rstd.data_ptr(), dy.data_ptr(),
+                      dx.data_ptr(), dg_part.data_ptr(), db_part.data_ptr(), R, D, LN_ROWS,
+                      *_launch_args(x))
+    return dx, dg_part.sum(0), db_part.sum(0)
+
+
+def bias_gelu_fwd(x, bias):
+    if not x.is_cuda:
+        return bias_gelu_fwd_plain(x, bias)
+    R, D = x.shape
+    _check_vec(D, bias=bias)
+    b = bias.float().contiguous()
+    check_operands(x, b, dtypes=[x.dtype, _F32])
+    y = torch.empty_like(x)
+    with torch.cuda.device(x.device):
+        GELU_FWD.launch(x.data_ptr(), b.data_ptr(), y.data_ptr(), R, D, *_launch_args(x))
+    return y
+
+
+def bias_gelu_bwd(x, bias, dy):
+    if not x.is_cuda:
+        return bias_gelu_bwd_plain(x, bias, dy)
+    R, D = x.shape
+    dy = dy.contiguous()
+    _check_vec(D, bias=bias)
+    if dy.shape != x.shape:
+        raise ValueError(f"bias_gelu backward: dy {tuple(dy.shape)} for x {tuple(x.shape)}")
+    b = bias.float().contiguous()
+    check_operands(x, dy, b, dtypes=[x.dtype, x.dtype, _F32])
+    dx = torch.empty_like(x)
+    db_part = torch.empty((-(-R // GELU_ROWS), D), dtype=torch.float32, device=x.device)
+    with torch.cuda.device(x.device):
+        GELU_BWD.launch(x.data_ptr(), b.data_ptr(), dy.data_ptr(), dx.data_ptr(),
+                        db_part.data_ptr(), R, D, GELU_ROWS, *_launch_args(x))
+    return dx, db_part.sum(0)
+
+
+def softmax_fwd(s, causal: bool, scale: float):
+    if not s.is_cuda:
+        return softmax_fwd_plain(s, causal, scale)
+    BH, Sq, Sk = s.shape
+    check_operands(s)
+    p = torch.empty_like(s)
+    with torch.cuda.device(s.device):
+        SOFTMAX_FWD.launch(s.data_ptr(), p.data_ptr(), BH, Sq, Sk, Sk - Sq, scale, int(causal),
+                           *_launch_args(s))
+    return p
+
+
+def softmax_bwd(p, dy, scale: float):
+    if not p.is_cuda:
+        return softmax_bwd_plain(p, dy, scale)
+    BH, Sq, Sk = p.shape
+    dy = dy.contiguous()
+    if dy.shape != p.shape:
+        raise ValueError(f"softmax backward: dy {tuple(dy.shape)} for p {tuple(p.shape)}")
+    check_operands(p, dy)
+    ds = torch.empty_like(p)
+    with torch.cuda.device(p.device):
+        SOFTMAX_BWD.launch(p.data_ptr(), dy.data_ptr(), ds.data_ptr(), BH * Sq, Sk, scale,
+                           *_launch_args(p))
+    return ds
+
+
+# ----------------------------------------------------------------------
+# the public ops
+# ----------------------------------------------------------------------
+def _rows(x: torch.Tensor) -> torch.Tensor:
+    return x.reshape(-1, x.shape[-1]).contiguous()
+
+
+class _LayerNorm(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x2, gamma, beta, eps):
+        y, mean, rstd = layer_norm_fwd(x2, gamma, beta, eps)
+        ctx.save_for_backward(x2, gamma, mean, rstd)
+        return y
+
+    @staticmethod
+    def backward(ctx, dy):
+        x2, gamma, mean, rstd = ctx.saved_tensors
+        dx, dg, db = layer_norm_bwd(x2, gamma, mean, rstd, dy)
+        return dx, dg.to(gamma.dtype), db.to(gamma.dtype), None
+
+
+class _BiasGelu(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x2, bias):
+        ctx.save_for_backward(x2, bias)
+        return bias_gelu_fwd(x2, bias)
+
+    @staticmethod
+    def backward(ctx, dy):
+        x2, bias = ctx.saved_tensors
+        dx, db = bias_gelu_bwd(x2, bias, dy)
+        return dx, db.to(bias.dtype)
+
+
+class _Softmax(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, s, causal, scale):
+        p = softmax_fwd(s, causal, scale)
+        ctx.save_for_backward(p)
+        ctx.scale = scale
+        return p
+
+    @staticmethod
+    def backward(ctx, dy):
+        (p,) = ctx.saved_tensors
+        return softmax_bwd(p, dy, ctx.scale), None, None
+
+
+def layer_norm(x: torch.Tensor, gamma: torch.Tensor, beta: torch.Tensor, *,
+               eps: float = 1e-5) -> torch.Tensor:
+    """Fused layernorm over the last dim; any leading shape."""
+    return _LayerNorm.apply(_rows(x), gamma, beta, float(eps)).reshape(x.shape)
+
+
+def bias_gelu(x: torch.Tensor, bias: torch.Tensor) -> torch.Tensor:
+    """Fused ``gelu(x + bias)`` (the tanh approximation)."""
+    return _BiasGelu.apply(_rows(x), bias).reshape(x.shape)
+
+
+def attention_softmax(scores: torch.Tensor, *, causal: bool = True,
+                      scale: float = 1.0) -> torch.Tensor:
+    """Fused (scaled, causally masked) attention softmax over the last dim.
+
+    ``scores``: ``(..., Sq, Sk)``; the causal triangle is bottom-aligned
+    (query i sits at absolute position ``Sk − Sq + i``)."""
+    Sq, Sk = scores.shape[-2:]
+    s = scores.reshape(-1, Sq, Sk).contiguous()
+    return _Softmax.apply(s, bool(causal), float(scale)).reshape(scores.shape)

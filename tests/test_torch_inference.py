@@ -209,6 +209,9 @@ def test_port_imports_no_jax():
     assert {f"deepspeed_tpu_torch.ops.{m}" for m in (
         "adam8bit", "fused_ce", "fused_mlp", "w8", "w8_matmul", "quantizer", "rotary")} <= imported
     assert {"deepspeed_tpu_torch.models.llama", "deepspeed_tpu_torch.models.gptneox"} <= imported
+    assert {f"deepspeed_tpu_torch.ops.{m}" for m in (
+        "fused_ops", "sparse_attention.sparsity_config",
+        "sparse_attention.sparse_self_attention")} <= imported
     src = (REPO / "chip_smoke.py").read_text()
     assert "import jax" not in src and "deepspeed_tpu." not in src.replace(
         "deepspeed_tpu_torch", "")
