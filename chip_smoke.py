@@ -127,12 +127,19 @@ The kernels phase also holds the fused adam8bit update at the 1.5B leaf
 shapes (and a 100000-wide row, and three steps in place) and the three
 fused CE kernels at the 1.5B head in bf16 and a ragged fp32 shape against
 their plain versions. It also holds the flash backward kernels (merged, and the
-split dq/dkv pair) against their plain version: bf16 at the train shape and
-fp32 at D=128, D=256, a ragged S and a non-causal Sk != S, each with its
-device time, the plain version's, SDPA's backward and the bound. At each
-of these cases the forward kernel's output and lse, which the backward
-takes, are held against the plain forward first; at the train shape the
-forward is timed too (the ``at_train_shape`` entry of its ``kernels`` row).
+split dq/dkv pair) against their plain version: bf16 (the tensor-core
+forward and merged backward) at the train shapes, at D=128 and D=256, at
+S=200 and S=1000 and at a non-causal S=384, Sk=640, and fp32 (the CUDA-core
+kernels) at D=128, D=256, a ragged S and a non-causal Sk != S, each with its
+device time, the plain version's, SDPA's backward and the bound, and the
+kernels that ran, as the C libraries count their launches. At each of these
+cases the forward kernel's output and lse, which the backward takes, are
+held against the plain forward first; at the bf16 cases the forward is
+timed too (the train shape's is the ``at_train_shape`` entry of its
+``kernels`` row). The bf16 flash outputs are held element by element
+(``FLASH_LIMIT``: the kernels round p and ds to bf16, each addend within
+2^-8 of itself) beside the fp64 values; ``scripts/flash_planted_faults.py``
+shows that limit failing kernels with a planted fault.
 
 The kernels phase also holds the LLaMA branches (``kernels_llama``): the
 RMSNorm -> projection kernel at M=8, E=2048, N=2048 and 256, and the
@@ -304,6 +311,99 @@ def device_ms_of(prof) -> dict:
     return by_name
 
 
+# the tensor-core flash kernels' symbols (bf16); the CUDA-core ones (fp32
+# and the split pair) are flash_fwd_kernel, flash_bwd_kv_kernel, flash_bwd_dq_kernel
+FLASH_SM90 = {"fwd": "flash_fwd_sm90_kernel", "bwd": "flash_bwd_sm90_kernel"}
+
+BF16_UNIT = 2.0 ** -8   # bf16's unit roundoff: 8 significant bits, rounded to nearest
+FLASH_LIMIT = ("per element: 1 bf16 ulp of the larger value + (2^-8 + 1e-5) x the sum of "
+               "its addends' magnitudes (the kernels round p, and ds, to bf16 before the "
+               "products that take them); 2 bf16 ulps at the output's scale; against the "
+               "fp64 value within max(1, the plain version's ratio)")
+
+
+def flash_launched(fa, before: dict) -> dict:
+    """The flash kernels launched since ``before`` (``fa.kernel_launches()``
+    then), by symbol, as the C libraries count them."""
+    return {n: c - before[n] for n, c in fa.kernel_launches().items()}
+
+
+def flash_fp64(torch, q, k, v, causal: bool, scale: float, o=None, lse=None, do=None):
+    """The flash function's exact values in fp64 on the card, each with its
+    elements' sums of addend magnitudes: ``[(out, mag)]`` for the forward
+    (mag = sum_j p_j |v_j| / l); with ``o``, ``lse`` (B·H, 1, S) and ``do``,
+    ``[(dq, mag), (dk, mag), (dv, mag)]`` for the backward from those inputs
+    (delta = rowsum(do·o)): dv's sum_i p_ij |do_i|; dk's and dq's scale x
+    sums of p (sum_d |do_d v_d| + sum_d |do_d o_d|) |q| or |k|, which bound
+    |ds| and the fp32 error of dp - delta. Heads in chunks of S x Sk
+    matrices of about 256 MB."""
+    B, S, H, D = q.shape
+    Sk = k.shape[1]
+    dev, f64 = q.device, torch.float64
+    keep = (torch.arange(S, device=dev)[:, None] >= torch.arange(Sk, device=dev)[None, :]
+            if causal else None)
+    outs = (q,) if do is None else (q, k, v)
+    exact = [torch.empty(t.shape, dtype=f64, device=dev) for t in outs]
+    mag = [torch.empty_like(e) for e in exact]
+    hc = max(1, min(H, (1 << 28) // (8 * S * Sk)))
+    for b in range(B):
+        for h0 in range(0, H, hc):
+            h1 = min(H, h0 + hc)
+
+            def heads(x):  # (heads, rows, D) in fp64
+                return x[b, :, h0:h1].to(f64).transpose(0, 1)
+            qb, kb, vb = heads(q), heads(k), heads(v)
+            s = scale * qb @ kb.transpose(1, 2)
+            if keep is not None:
+                s = s.masked_fill(~keep, float("-inf"))
+            if do is None:
+                m = s.amax(-1, keepdim=True)
+                p = torch.exp(s - torch.where(torch.isinf(m), torch.zeros_like(m), m))
+                l = p.sum(-1, keepdim=True)
+                l = torch.where(l == 0, torch.ones_like(l), l)
+                pairs = [(p @ vb / l, p @ vb.abs() / l)]
+            else:
+                dob, ob = heads(do), heads(o)
+                p = torch.exp(s - lse.reshape(B, H, S)[b, h0:h1, :, None].to(f64))
+                ds = p * (dob @ vb.transpose(1, 2) - (dob * ob).sum(-1, keepdim=True))
+                t = p * (dob.abs() @ vb.abs().transpose(1, 2)
+                         + (dob * ob).abs().sum(-1, keepdim=True))
+                pairs = [(scale * ds @ kb, scale * t @ kb.abs()),
+                         (scale * ds.transpose(1, 2) @ qb, scale * t.transpose(1, 2) @ qb.abs()),
+                         (p.transpose(1, 2) @ dob, p.transpose(1, 2) @ dob.abs())]
+            for i, (e, m_) in enumerate(pairs):
+                exact[i][b, :, h0:h1] = e.transpose(0, 1)
+                mag[i][b, :, h0:h1] = m_.transpose(0, 1)
+    return list(zip(exact, mag))
+
+
+def flash_check(torch, got, ref, exact, mag) -> dict:
+    """A bf16 flash output against its plain version. The tensor-core
+    kernels round p (forward: the operand of o += p v, while l sums the
+    fp32 p; backward: of dv += p^T do) and ds (of dk and dq) to bf16; the
+    plain versions keep both in fp32. Each addend is then within 2^-8 of
+    itself, so each element must lie within one bf16 ulp of the larger of
+    the two values + (2^-8 + 1e-5) x its sum of addend magnitudes (``mag``;
+    1e-5 for fp32 sums in another order), and within two bf16 ulps at the
+    output's scale. The witness: the ratio to the limit without the 2^-8
+    term (what rounding p and ds costs), and the kernel and the plain version
+    against the fp64 value (``exact``) in units of the limit at that value;
+    the kernel must lie within max(1, the plain version's ratio) of it."""
+    d = (got.double() - ref.double()).abs()
+    ulp = bf16_ulp_t(torch, torch.maximum(got.float().abs(), ref.float().abs())).double()
+    lim_x = bf16_ulp_t(torch, exact).double() + (BF16_UNIT + 1e-5) * mag
+    res = dict(max_err=float(d.max()), tol=2 * bf16_ulp(float(ref.float().abs().max())),
+               err_over_limit=float((d / (ulp + (BF16_UNIT + 1e-5) * mag)).max()),
+               err_over_fp32_limit=float((d / (ulp + 1e-5 * mag)).max()),
+               kernel_vs_fp64_over_limit=float(((got.double() - exact).abs() / lim_x).max()),
+               plain_vs_fp64_over_limit=float(((ref.double() - exact).abs() / lim_x).max()))
+    res["fp64_anchor_ok"] = (res["kernel_vs_fp64_over_limit"]
+                             <= max(1.0, res["plain_vs_fp64_over_limit"]))
+    res["ok"] = (res["max_err"] <= res["tol"] and res["err_over_limit"] <= 1.0
+                 and res["fp64_anchor_ok"] and bool(torch.isfinite(got).all()))
+    return res
+
+
 def device_ms_by_name(torch, fn, iters: int):
     """Mean device ms per call, in all and by kernel name (torch.profiler),
     after warm-up; (None, {}) if the profiler saw no device activity in
@@ -371,7 +471,7 @@ def kernel_cases(torch, F, peaks):
             plain=lambda q, k, v, c=causal: fa.flash_attention_plain(q, k, v, c, 64 ** -0.5),
             library=lambda *_, c=causal, t=(qt, kt, vt): F.scaled_dot_product_attention(
                 *t, is_causal=c),
-            compare="flash",
+            compare="flash", causal=causal, scale=64 ** -0.5,
             bound=bound_ms(4 * B * S * H * D * 2 + B * H * S * 4, 4 * B * H * D * pairs, peaks)))
 
     B, S_max = 8, 512
@@ -516,12 +616,12 @@ def run_kernels(torch, F, peaks):
         if case["compare"] == "flash":
             (o, lse), (ro, rlse) = got, ref
             rlse = rlse.reshape(o.shape[0], o.shape[2], o.shape[1]).transpose(1, 2)
-            err = float((o.float() - ro.float()).abs().max())
             lse_err = float((lse - rlse).abs().max())
-            # both compute in fp32 and cast once: at most ~1 bf16 ulp apart
-            tol = 2 * bf16_ulp(float(ro.float().abs().max()))
-            ok = err <= tol and lse_err <= 1e-4 * max(1.0, float(rlse.abs().max()))
-            extra = {"lse_max_err": lse_err}
+            held = flash_check(torch, o, ro, *flash_fp64(torch, *args, case["causal"],
+                                                         case["scale"])[0])
+            err, tol = held.pop("max_err"), held.pop("tol")
+            ok = held.pop("ok") and lse_err <= 1e-4 * max(1.0, float(rlse.abs().max()))
+            extra = dict(held, lse_max_err=lse_err, limit=FLASH_LIMIT)
         elif case["compare"] == "fp32":
             err = float((got - ref).abs().max())
             # fp32 sums in another order: 1e-4 relative to the output's scale
@@ -606,41 +706,104 @@ def run_fp32_shapes(torch):
     return ok
 
 
-def run_bwd_kernels(torch, F, peaks):
-    """The flash backward kernels against ``flash_attention_bwd_plain``: bf16
-    at the two train shapes (125M: B=24, S=1024, H=12, D=64; gpt2-1.5b:
-    B=2, H=25; causal) and fp32 at D=128, D=256, a ragged S and a
-    non-causal Sk != S; merged and split at each.
+def flash_bwd_cases(torch):
+    """The flash cases (dtype, B, S, Sk, H, D, causal) of
+    :func:`run_bwd_kernels`: the 125M train shape first (its rows are the
+    kernels line's), the gpt2-1.5b train shape (B·H = 50), then bf16 at the
+    tensor-core kernels' other tiles (D=128 and 256, S off the 64- and
+    128-row tiles, a non-causal Sk != S) and fp32 (the CUDA-core kernels) at
+    the same kinds of shapes."""
+    bf, f32 = torch.bfloat16, torch.float32
+    return [(bf, 24, 1024, 1024, 12, 64, True), (bf, 2, 1024, 1024, 25, 64, True),
+            (bf, 2, 512, 512, 8, 128, True), (bf, 2, 512, 512, 4, 256, True),
+            (bf, 2, 200, 200, 12, 64, True), (bf, 2, 1000, 1000, 12, 64, True),
+            (bf, 1, 1000, 1000, 4, 256, True), (bf, 2, 384, 640, 12, 64, False),
+            (bf, 2, 384, 640, 4, 128, False), (f32, 2, 512, 512, 8, 128, True),
+            (f32, 2, 512, 512, 4, 256, True), (f32, 2, 200, 200, 12, 64, True),
+            (f32, 2, 384, 640, 12, 64, False)]
 
-    The forward kernel's (o, lse), which both backward versions take, is
-    first held against ``flash_attention_plain`` at each case; at the
-    train shapes, where the train paths launch it, it is timed too. Each
-    backward kernel's time is its own device time (the merged wrapper's
-    delta, zero fill and scale-and-cast are printed beside it as
-    ``wrapper_ms``); its bound counts what its function must move: q, k,
-    v, do, lse and delta read, its gradients written in the inputs'
-    dtype. The merged design's zeroed fp32 dq buffer, read and written,
-    is its own cost, printed beside the bound as ``dq_scratch_ms``. The
-    plain version and the library call (SDPA's forward + backward through
-    ``torch.autograd.grad`` minus its forward) compute all three
-    gradients. Tolerance: 2 bf16 ulps at each output's scale; fp32 1e-4
-    relative (the merged dq adds with atomics in no fixed order), lse
-    1e-4 relative. Returns ``{kernel name: row}`` of the 125M train-shape
-    case (the forward's under ``flash_attention_fwd``) and ok."""
+
+def flash_case_held(torch, fa, q, k, v, do, causal: bool, sc: float,
+                    modes=("merged", "split")):
+    """One flash case held on the card: the forward kernel's (o, lse)
+    against ``flash_attention_plain``, then each backward mode's (dq, dk,
+    dv) against ``flash_attention_bwd_plain`` from that (o, lse). bf16 by
+    :func:`flash_check` at the fp64 values of :func:`flash_fp64`; fp32
+    within 1e-4 relative to each output's scale (the merged dq adds with
+    atomics in no fixed order); lse within 1e-4 relative. Each call's
+    kernels are counted where the C libraries launch them: bf16 must run
+    the tensor-core forward and merged backward, fp32 the CUDA-core ones,
+    split the CUDA-core pair, and nothing else. Returns (o, lse, the
+    forward's row, {mode: row}, the plain backward as a closure)."""
+    fp32 = q.dtype == torch.float32
+    B, S, H, _ = q.shape
+
+    def held(got, ref, exact):
+        if exact is not None:
+            return flash_check(torch, got, ref, *exact)
+        err, tol = float((got - ref).abs().max()), 1e-4 * max(1.0, float(ref.abs().max()))
+        return dict(max_err=err, tol=tol, ok=err <= tol and bool(torch.isfinite(got).all()))
+
+    before = fa.kernel_launches()
+    o, lse = fa.flash_attention_fwd_op(q, k, v, causal, sc)
+    launched = flash_launched(fa, before)
+    ro, rlse = fa.flash_attention_plain(q, k, v, causal, sc)
+    torch.cuda.synchronize()
+    fwd = held(o, ro, None if fp32 else flash_fp64(torch, q, k, v, causal, sc)[0])
+    fwd.update(lse_max_err=float((lse - rlse).abs().max()),
+               lse_tol=1e-4 * max(1.0, float(rlse.abs().max())), launched=launched)
+    want = {n: int(n == ("flash_fwd_kernel" if fp32 else FLASH_SM90["fwd"])) for n in launched}
+    fwd["ok"] = (fwd["ok"] and fwd["lse_max_err"] <= fwd["lse_tol"] and launched == want
+                 and bool(torch.isfinite(lse).all()))
+    del ro, rlse
+
+    def plain():
+        delta = (do.float() * o.float()).sum(-1).permute(0, 2, 1).reshape(B * H, 1, S)
+        return fa.flash_attention_bwd_plain(q, k, v, o, lse, do, delta, causal, sc)
+
+    ref = plain()
+    exact = None if fp32 else flash_fp64(torch, q, k, v, causal, sc, o, lse, do)
+    rows = {}
+    for mode in modes:
+        before = fa.kernel_launches()
+        got = fa.flash_attention_bwd(q, k, v, o, lse, do, causal, sc, mode=mode)
+        launched = flash_launched(fa, before)
+        torch.cuda.synchronize()
+        checks = [held(x, r, None if fp32 else exact[i]) for i, (x, r) in enumerate(zip(got, ref))]
+        ran = (("flash_bwd_kv_kernel" if fp32 else FLASH_SM90["bwd"],) if mode == "merged"
+               else ("flash_bwd_dq_kernel", "flash_bwd_kv_kernel"))
+        row = {key + "_dq_dk_dv": [c[key] for c in checks] for key in checks[0] if key != "ok"}
+        row.update(launched=launched, ok=all(c["ok"] for c in checks)
+                   and launched == {n: int(n in ran) for n in launched})
+        rows[mode] = row
+        del got
+    del ref, exact
+    return o, lse, fwd, rows, plain
+
+
+def run_bwd_kernels(torch, F, peaks):
+    """The flash kernels at :func:`flash_bwd_cases`, held by
+    :func:`flash_case_held`: bf16 (the tensor-core forward and merged
+    backward, and the split dq/dkv pair) at the train shapes, at D=128 and
+    256, S=200 and 1000 and a non-causal S=384, Sk=640; fp32 (the CUDA-core
+    kernels) at D=128, D=256, a ragged S and a non-causal Sk != S. At the
+    bf16 cases the forward is timed too. Each backward kernel's time is its
+    own device time (the merged backward's prep and cast passes are
+    printed beside it as ``wrapper_ms``, the whole call); its bound counts
+    what its function must move: q, k, v, do, lse and delta read, its
+    gradients written in the inputs' dtype. The merged design's zeroed fp32
+    dq buffer, read and written, is its own cost, printed beside the bound
+    as ``dq_scratch_ms``. The plain version and the library call (SDPA's
+    forward + backward through ``torch.autograd.grad`` minus its forward)
+    compute all three gradients. Returns ``{kernel name: row}`` of the 125M
+    train-shape case (the forward's under ``flash_attention_fwd``) and ok."""
     from deepspeed_tpu_torch.ops import flash_attention as fa
 
     g = torch.Generator(device="cuda").manual_seed(SEED + 6)
-    # the first case is the 125M train shape (its rows are the kernels
-    # line's), the second the gpt2-1.5b train shape (B·H = 50)
-    cases = [(torch.bfloat16, 24, 1024, 1024, 12, 64, True),
-             (torch.bfloat16, 2, 1024, 1024, 25, 64, True),
-             (torch.float32, 2, 512, 512, 8, 128, True),
-             (torch.float32, 2, 512, 512, 4, 256, True),
-             (torch.float32, 2, 200, 200, 12, 64, True),
-             (torch.float32, 2, 384, 640, 12, 64, False)]
     main_rows, ok = {}, True
-    for ci, (dt, B, S, Sk, H, D, causal) in enumerate(cases):
+    for ci, (dt, B, S, Sk, H, D, causal) in enumerate(flash_bwd_cases(torch)):
         main = ci == 0
+
         def rnd(*shape):
             return torch.randn(shape, generator=g, device="cuda").to(dt)
         q, k, v, do = rnd(B, S, H, D), rnd(B, Sk, H, D), rnd(B, Sk, H, D), rnd(B, S, H, D)
@@ -650,26 +813,11 @@ def run_bwd_kernels(torch, F, peaks):
         nq, nk, rows = B * S * H * D, B * Sk * H * D, B * H * S
         pairs = B * H * (sum(min(i + 1, Sk) for i in range(S)) if causal else S * Sk)
         shape = f"B={B} S={S} Sk={Sk} H={H} D={D} causal={causal} {str(dt)[6:]}"
-        o, lse = fa.flash_attention_fwd_op(q, k, v, causal, sc)
-        ro, rlse = fa.flash_attention_plain(q, k, v, causal, sc)
-        torch.cuda.synchronize()
-        o_scale = float(ro.float().abs().max())
-        fwd_err = float((o.float() - ro.float()).abs().max())
-        fwd_tol = 1e-4 * max(1.0, o_scale) if fp32 else 2 * bf16_ulp(o_scale)
-        lse_err = float((lse - rlse).abs().max())
-        lse_tol = 1e-4 * max(1.0, float(rlse.abs().max()))
-        fwd_ok = (fwd_err <= fwd_tol and lse_err <= lse_tol
-                  and bool(torch.isfinite(o).all()) and bool(torch.isfinite(lse).all()))
-        ok &= fwd_ok
-        del ro, rlse
-        fwd = dict(phase="kernels_fwd_at_bwd_shape", shape=shape, max_err=fwd_err, tol=fwd_tol,
-                   lse_max_err=lse_err, lse_tol=lse_tol, ok=fwd_ok)
-
-        def plain():
-            delta = (do.float() * o.float()).sum(-1).permute(0, 2, 1).reshape(B * H, 1, S)
-            return fa.flash_attention_bwd_plain(q, k, v, o, lse, do, delta, causal, sc)
-
-        ref = plain()
+        o, lse, fwd, held, plain = flash_case_held(torch, fa, q, k, v, do, causal, sc)
+        ok &= fwd["ok"]
+        fwd = dict(phase="kernels_fwd_at_bwd_shape", shape=shape, **fwd)
+        if not fp32:
+            fwd["limit"] = FLASH_LIMIT
         qt, kt, vt = (t.transpose(1, 2).contiguous().requires_grad_() for t in (q, k, v))
         dot = do.transpose(1, 2).contiguous()
 
@@ -683,7 +831,7 @@ def run_bwd_kernels(torch, F, peaks):
         plain_ms, _ = device_ms_by_name(torch, plain, 3)
         lib_fb, lib_f = (device_ms_by_name(torch, fn, iters)[0] for fn in (lib_fwd_bwd, lib_fwd))
         lib_ms = lib_fb - lib_f if lib_fb and lib_f else None
-        if dt == torch.bfloat16:
+        if not fp32:
             # a train path's forward: its own time, plain and bound here
             f_bound, f_by = bound_ms(item * (2 * nq + 2 * nk) + 4 * rows, 4 * D * pairs, peaks)
             fwd.update(ms=device_ms(torch, lambda: fa.flash_attention_fwd_op(q, k, v, causal, sc),
@@ -694,7 +842,7 @@ def run_bwd_kernels(torch, F, peaks):
         if main:
             main_rows["flash_attention_fwd"] = dict(
                 {k_: fwd[k_] for k_ in ("shape", "ms", "plain_ms", "library_ms", "bound_ms",
-                                        "bound_by")}, max_abs_err=fwd_err)
+                                        "bound_by")}, max_abs_err=fwd["max_err"])
         emit(fwd)
         reads = item * (2 * nq + 2 * nk) + 2 * 4 * rows     # q, do, k, v, lse, delta
         bounds = {"flash_attention_bwd_merged": bound_ms(reads + item * (nq + 2 * nk),
@@ -704,20 +852,14 @@ def run_bwd_kernels(torch, F, peaks):
                   "flash_attention_bwd_dkv": bound_ms(reads + item * 2 * nk,
                                                       4 * 2 * D * pairs, peaks, fp32)}
         for mode in ("merged", "split"):
-            got = fa.flash_attention_bwd(q, k, v, o, lse, do, causal, sc, mode=mode)
-            torch.cuda.synchronize()
-            errs, tols = [], []
-            for x, r in zip(got, ref):
-                scale_ = float(r.float().abs().max())
-                errs.append(float((x.float() - r.float()).abs().max()))
-                tols.append(1e-4 * max(1.0, scale_) if fp32 else 2 * bf16_ulp(scale_))
-            finite = all(bool(torch.isfinite(x).all()) for x in got)
-            case_ok = finite and all(e <= t for e, t in zip(errs, tols))
             def wrapper(m=mode):
                 return fa.flash_attention_bwd(q, k, v, o, lse, do, causal, sc, mode=m)
 
-            # the kv-loop kernel is the merged one in merged mode, dkv in split mode
-            names = ({"flash_bwd_kv_kernel": "flash_attention_bwd_merged"} if mode == "merged"
+            # the kernels' times by symbol: merged, the tensor-core kernel in
+            # bf16 and the CUDA-core kv-loop kernel in fp32; split, the
+            # CUDA-core pair in both dtypes
+            merged_name = "flash_bwd_kv_kernel" if fp32 else FLASH_SM90["bwd"]
+            names = ({merged_name: "flash_attention_bwd_merged"} if mode == "merged"
                      else {"flash_bwd_dq_kernel": "flash_attention_bwd_dq",
                            "flash_bwd_kv_kernel": "flash_attention_bwd_dkv"})
             # the profiler now and then drops a run's device events: profile
@@ -736,23 +878,24 @@ def run_bwd_kernels(torch, F, peaks):
                 # its fp32 dq buffer read and written once: this design's
                 # own traffic, beyond the function's bound
                 kernels["flash_attention_bwd_merged"]["dq_scratch_ms"] = 2 * 4 * nq / peaks[0] * 1e3
-            case_ok = case_ok and len(kernels) == len(names)
+            row = held[mode]
+            row["ok"] = row["ok"] and len(kernels) == len(names)
             # event time of the same calls: a cross-check of the profiler's
             # sums (equal to device time where the card, not the host, is
             # the limit)
-            emit(dict(phase="kernels_bwd", mode=mode, shape=shape, max_err_dq_dk_dv=errs,
-                      tol=tols, ok=case_ok, profile_runs=attempts, wrapper_ms=total,
-                      wrapper_event_ms=cuda_ms(torch, wrapper, iters), kernels=kernels,
-                      plain_ms=plain_ms, library_ms=lib_ms,
+            emit(dict(phase="kernels_bwd", mode=mode, shape=shape, **row,
+                      **({} if fp32 else dict(limit=FLASH_LIMIT)), profile_runs=attempts,
+                      wrapper_ms=total, wrapper_event_ms=cuda_ms(torch, wrapper, iters),
+                      kernels=kernels, plain_ms=plain_ms, library_ms=lib_ms,
                       library_event_ms=cuda_ms(torch, lib_fwd_bwd, iters)
                       - cuda_ms(torch, lib_fwd, iters),
                       library="SDPA forward+backward via torch.autograd.grad minus SDPA forward"))
-            ok &= case_ok
+            ok &= row["ok"]
             if main:
                 for key, kern in kernels.items():
-                    main_rows[key] = dict(kern, max_abs_err=max(errs), plain_ms=plain_ms,
-                                          library_ms=lib_ms, shape=shape)
-        del q, k, v, do, o, lse, ref, qt, kt, vt, dot
+                    main_rows[key] = dict(kern, max_abs_err=max(row["max_err_dq_dk_dv"]),
+                                          plain_ms=plain_ms, library_ms=lib_ms, shape=shape)
+        del q, k, v, do, o, lse, qt, kt, vt, dot
         torch.cuda.empty_cache()
     return main_rows, ok
 
@@ -2106,8 +2249,11 @@ def attention_rows(torch, F, peaks, g, H, KV, D, phase):
                             fa.flash_attention_plain(q, k, v, True, D ** -0.5))
     torch.cuda.synchronize()
     rlse = rlse.reshape(Bf, H, Sf).transpose(1, 2)
-    err = float((o.float() - ro.float()).abs().max())
-    tol = 2 * bf16_ulp(float(ro.float().abs().max()))
+    held = flash_check(torch, o, ro, *flash_fp64(torch, q, k, v, True, D ** -0.5)[0])
+    err, tol = held.pop("max_err"), held.pop("tol")
+    held.pop("ok")
+    held["per_element_err_over_limit"] = held.pop("err_over_limit")
+    finite = bool(torch.isfinite(o).all())
     lse_err = float((lse - rlse).abs().max())
     lse_ok = lse_err <= 1e-4 * max(1.0, float(rlse.abs().max()))
     qt, kt, vt = (x.transpose(1, 2).contiguous() for x in (q, k, v))
@@ -2116,12 +2262,15 @@ def attention_rows(torch, F, peaks, g, H, KV, D, phase):
               lambda *_: F.scaled_dot_product_attention(qt, kt, vt, is_causal=True),
               Rotation([(q, k, v)]), n=20)
     pairs = Sf * (Sf + 1) / 2
+    # the row's ratio: the larger of its two limits' (FLASH_LIMIT); inf where the lse
+    # misses or o is not finite (the row gates the fp64 anchor)
     rows["flash_attention_fwd"] = kernel_row(
         phase, "flash_attention_fwd", f"B={Bf} S={Sf} H={H} D={D} causal", err,
-        err / tol if lse_ok else float("inf"),
-        "2 bf16 ulps at the output's scale; lse within 1e-4", t,
+        max(err / tol, held["per_element_err_over_limit"]) if lse_ok and finite
+        else float("inf"),
+        FLASH_LIMIT + "; lse within 1e-4", t,
         bound_ms(4 * Bf * Sf * H * D * 2 + Bf * H * Sf * 4, 4 * Bf * H * D * pairs, peaks),
-        library="SDPA", lse_max_err=lse_err)
+        library="SDPA", lse_max_err=lse_err, **held)
     torch.cuda.empty_cache()
     return rows
 
@@ -3238,12 +3387,14 @@ def grad_gate(torch, cfg):
 def run_train(torch, peaks, out_dir=None):
     """gpt2-125m through ``initialize`` at the flagship config: the gradient
     gate, 2 warm-up and 8 timed steps (launches zeroed before the timed run
-    and read after it), one profiled step, one step in split mode."""
+    and read after it), one profiled step (its flash launches by kernel
+    symbol: the tensor-core ones only), one step in split mode."""
     import numpy as np
     from torch.profiler import ProfilerActivity, profile
 
     import deepspeed_tpu_torch as ds
     from deepspeed_tpu_torch.models.gpt2 import GPT2LMHeadModel, gpt2_config
+    from deepspeed_tpu_torch.ops import flash_attention as fa
 
     cfg = gpt2_config("gpt2-125m", n_positions=1024, loss_chunk=1 << 30)
     ok = grad_gate(torch, cfg)
@@ -3275,11 +3426,17 @@ def run_train(torch, peaks, out_dir=None):
     dev_batch = eng._to_device(batch)
     eng.train_batch(dev_batch)
     torch.cuda.synchronize()
+    # the bf16 step's flash launches by kernel, as the C libraries count
+    # them (a profile can lose kernel records): the tensor-core forward and
+    # merged backward L·gas times each, no CUDA-core flash kernel
+    before = fa.kernel_launches()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t1 = time.perf_counter()
         eng.train_batch(dev_batch)
         torch.cuda.synchronize()
         prof_wall = (time.perf_counter() - t1) * 1e3
+    flash_launches = flash_launched(fa, before)
+    want_flash = {n: L * gas if n in FLASH_SM90.values() else 0 for n in flash_launches}
     by_name = device_ms_of(prof)
     dev_ms = sum(by_name.values())
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:12]
@@ -3304,6 +3461,7 @@ def run_train(torch, peaks, out_dir=None):
               "loss_falling": timed[-1] < timed[0] and losses[-1] < losses[0],
               "launch_counts": launches == expected,
               "split_launch_counts": split_launches == split_expected,
+              "flash_kernel_launches": flash_launches == want_flash,
               "grad_gate": ok}
     emit(dict(phase="train", model="gpt2-125m", config=train_config(micro, gas),
               loss_chunk=cfg.loss_chunk, dtype="bfloat16", batch=[micro * gas, S],
@@ -3314,6 +3472,7 @@ def run_train(torch, peaks, out_dir=None):
               profile=dict(step_wall_ms=prof_wall,
                            step_device_ms=dev_ms if dev_ms else "not measured",
                            device_busy_share=dev_ms / prof_wall if dev_ms else "not measured",
+                           flash_launches=flash_launches,
                            top_device_ms={k[:90]: v for k, v in top}),
               checks=checks))
     del eng, opt

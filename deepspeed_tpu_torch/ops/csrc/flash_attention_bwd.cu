@@ -5,15 +5,14 @@
 // _dqkv_kernel (:182, the default "merged" backward) and the split pair
 // _dq_kernel (:93) and _dkv_kernel (:133) (DS_TPU_FLASH_BWD=split).
 //
-// Computes, per (batch, head), with s = (q * scale) k^T masked as the
-// forward masks it (causal keeps q_pos >= k_pos; ragged rows and keys past
-// S / Sk are dropped) and p = exp(s - lse):
+// Computes, per (batch, head), with s = q k^T masked as the forward masks
+// it (causal keeps q_pos >= k_pos; ragged rows and keys past S / Sk are
+// dropped) and p = exp(scale s - lse):
 //   dv = p^T do,  dp = do v^T,  ds = p * (dp - delta),
-//   dk = ds^T (q * scale),  dq = scale * ds k.
-// delta = rowsum(do * o) (minus the lse cotangent, when there is one) is
-// computed by the wrapper. dk carries `scale` through the pre-scaled q, as
-// in the TPU kernels. A row with nothing to attend has p = 0 everywhere and
-// so gives zero gradients.
+//   dk = scale * ds^T q,  dq = scale * ds k.
+// delta = rowsum(do * o) (minus the lse cotangent, when there is one). A
+// row with nothing to attend has p = 0 everywhere and so gives zero
+// gradients.
 //
 // Layouts (the forward's, csrc/flash_attention.cu): q, do, dq (B, S, H, D);
 // k, v, dk, dv (B, Sk, H, D), rows of stride H * D; lse and delta
@@ -25,14 +24,13 @@
 // here the merged kernel has one block per (key tile, batch * head); the
 // block keeps its dk and dv in fp32 registers, loops over the query tiles
 // from the causal lower bound, and adds its share of dq (ds k) into a
-// zeroed fp32 buffer with atomicAdd. The buffer has the public (B, S, H, D)
-// layout, so the wrapper's scale-and-cast to the input dtype is one
-// elementwise pass. The atomics add in no fixed order, so dq's last fp32
+// zeroed fp32 buffer with atomic adds. The buffer has the public
+// (B, S, H, D) layout. The adds come in no fixed order, so dq's last fp32
 // bits vary from run to run (the smoke's fp32 tolerance is 1e-4 relative
-// for that reason). The split dkv kernel is the same loop without dq; the
-// split dq kernel has one block per (query tile, batch * head), loops over
-// the key tiles up to the causal limit and sums dq in registers: no
-// atomics, deterministic.
+// for that reason). Two small kernels around it belong to the merged
+// backward: flash_bwd_prep_kernel forms delta in fp32 and zeroes the dq
+// buffer (the split pair takes its delta too), flash_bwd_dq_cast_kernel
+// writes dq = scale * buffer in the input dtype.
 //
 // Bound on the H100 at the training shape (B = 24, S = 1024, H = 12,
 // D = 64, causal, bf16): five S x S x D products over the causal half,
@@ -41,23 +39,69 @@
 // read and dq, dk, dv written in bf16 (0.27 GB), take 0.080 ms at 3.35
 // TB/s, so the merged backward is bound by its operations: 0.098 ms. The
 // merged design adds its own traffic beyond that bound: the fp32 dq
-// buffer, read and written once (0.15 GB, 0.045 ms). This kernel does its
-// products on the fp32 CUDA cores from shared memory, like the forward:
-// the simple, right first version. Tensor cores (wgmma) are later work.
+// buffer, read and written once (0.15 GB, 0.045 ms).
 //
-// Design: 256 threads as a 16 x 16 grid. Each block stages its resident
-// tile (k, v for the dkv loops; q, do for the dq loop) and then each
-// streamed tile in shared memory, rows padded by one float so column reads
-// hit distinct banks. A thread owns the scores of rows ty + 16 i and keys
-// tx + 16 j, forms s and dp in one pass over D, writes p and ds to shared
-// memory, and then accumulates its rows of dk and dv (or dq) over the
-// tile. Query tiles are 64 rows and key tiles 64 keys (32 and 32 at
-// D = 256, to stay under the 227 KB of shared memory).
+// Merged, bf16: flash_bwd_sm90_kernel, on the tensor cores (wgmma; the
+// layouts are flash_sm90.cuh's). wgmma, not mma.sync: the products read
+// their operands straight from the TMA-written swizzled tiles, and p^T /
+// ds^T need one bf16 store each. 256 threads, two warpgroups, no producer
+// warp: at D = 256 the accumulators need nearly all 255 registers a
+// thread, which a 288-thread block cannot give. Its key tile (k, v) is
+// resident; the query tiles (q, do, and the tile's lse and delta) stream
+// through a ring of two stages by TMA, thread 0 issuing tile j + 2 as soon
+// as both warpgroups are done with tile j, so one tile's copy overlaps the
+// next one's products. Per query tile of 64 rows:
+// - s^T = k q^T and dp^T = v do^T (wgmma, k / v and q / do K-major), keys
+//   in the accumulator's rows and queries in its columns;
+// - p^T = exp2(s^T scale log2(e) - lse log2(e)) and ds^T = p^T (dp^T -
+//   delta) in fp32 registers, masked only on tiles that cross S, Sk or the
+//   diagonal, stored as bf16 in shared memory (p and ds enter the tensor
+//   cores as bf16, as in every flash-attention backward);
+// - dv += p^T do and dk += ds^T q (p^T / ds^T K-major, do / q MN-major),
+//   and this tile's dq share ds k (ds read from ds^T MN-major, k
+//   MN-major).
+// The dq share goes to the fp32 buffer as a TMA reduce-add: staged in
+// shared memory (fp32, swizzled), one cp.reduce.async.bulk per 32 columns,
+// added in L2 element by element. Per-element red.global.add, tried first,
+// took most of the kernel's time (a development variant without it ran
+// several times faster); at D = 256 the staging buffer does not fit beside
+// the rest (64 KB), so that case keeps red.global.add.
+// D = 64: key tiles of 128, each warpgroup owning 64 keys (its s^T holds
+// all 64 queries); both warpgroups' dq shares cover the same rows and
+// columns and are summed in shared memory before the one reduce. D = 128
+// and 256: key tiles of 64 (dk and dv at D = 256 alone take 128 registers a
+// warpgroup thread): the two warpgroups split s^T and dp^T by query halves
+// and dk, dv and dq by column halves. scale multiplies the fp32
+// accumulators only (dk in the epilogue, dq in the cast): nothing is
+// pre-scaled in bf16. Shared memory: 114 KB at D = 64, 146 KB at D = 128,
+// 210 KB at D = 256.
+//
+// fp32, and the split pair in both dtypes: flash_bwd_kv_kernel and
+// flash_bwd_dq_kernel, products on the fp32 CUDA cores, the card's exact
+// fp32 reference (the fp32 engines and the gates that compare bf16 runs
+// against them go through it). 256 threads as a 16 x 16 grid; each block
+// stages its resident tile (k, v for the dkv loops; q, do for the dq loop)
+// and then each streamed tile in shared memory as fp32, rows padded by one
+// float. A thread owns the scores of rows ty + 16 i and keys tx + 16 j,
+// forms s and dp in one pass over D, writes p and ds to shared memory, and
+// then accumulates its rows of dk and dv (or dq) over the tile. Query
+// tiles are 64 rows and key tiles 64 keys (32 and 32 at D = 256). dk
+// carries scale through the pre-scaled q (fp32), as in the TPU kernels. The
+// split dkv kernel is the merged loop without dq; the split dq kernel has
+// one block per (query tile, batch * head), loops over the key tiles up to
+// the causal limit and sums dq in registers: no atomics, deterministic.
 #include "common.cuh"
+#include "flash_sm90.cuh"
+
+#include <type_traits>
 
 namespace {
 
 constexpr int kThreads = 256;
+
+// launches by kernel: 0 flash_bwd_sm90_kernel, 1 flash_bwd_kv_kernel (merged
+// fp32 and split dkv), 2 flash_bwd_dq_kernel
+std::atomic<unsigned long long> g_launched[3];
 
 template <int D, int BQ, int BK>
 constexpr size_t smem_bytes() {
@@ -346,25 +390,370 @@ cudaError_t launch(int kind, const Args& a) {
     kernel<<<grid, kThreads, smem, a.stream>>>(q, k, v, dout, a.lse, a.delta,
                                                static_cast<T*>(a.dq), a.S, a.Sk, a.H,
                                                a.scale, a.causal);
-    return cudaGetLastError();
+    return ds::sm90::counted(cudaGetLastError(), g_launched[2]);
   }
   const dim3 grid((a.Sk + BK - 1) / BK, a.B * a.H);
-  if (kind == 0) {
-    const auto kernel = flash_bwd_kv_kernel<T, D, BQ, BK, true>;
-    err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-    if (err != cudaSuccess) return err;
-    kernel<<<grid, kThreads, smem, a.stream>>>(
-        q, k, v, dout, a.lse, a.delta, static_cast<float*>(a.dq), static_cast<T*>(a.dk),
-        static_cast<T*>(a.dv), a.S, a.Sk, a.H, a.scale, a.causal);
+  if constexpr (!std::is_same_v<T, float>) {
+    // bf16 merged runs flash_bwd_sm90_kernel: no CUDA-core kernel here forms its dq
+    if (kind == 0) return cudaErrorInvalidValue;
   } else {
-    const auto kernel = flash_bwd_kv_kernel<T, D, BQ, BK, false>;
-    err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-    if (err != cudaSuccess) return err;
-    kernel<<<grid, kThreads, smem, a.stream>>>(q, k, v, dout, a.lse, a.delta, nullptr,
-                                               static_cast<T*>(a.dk), static_cast<T*>(a.dv),
-                                               a.S, a.Sk, a.H, a.scale, a.causal);
+    if (kind == 0) {
+      const auto kernel = flash_bwd_kv_kernel<T, D, BQ, BK, true>;
+      err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+      if (err != cudaSuccess) return err;
+      kernel<<<grid, kThreads, smem, a.stream>>>(
+          q, k, v, dout, a.lse, a.delta, static_cast<float*>(a.dq), static_cast<T*>(a.dk),
+          static_cast<T*>(a.dv), a.S, a.Sk, a.H, a.scale, a.causal);
+      return ds::sm90::counted(cudaGetLastError(), g_launched[1]);
+    }
+  }
+  const auto kernel = flash_bwd_kv_kernel<T, D, BQ, BK, false>;
+  err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return err;
+  kernel<<<grid, kThreads, smem, a.stream>>>(q, k, v, dout, a.lse, a.delta, nullptr,
+                                             static_cast<T*>(a.dk), static_cast<T*>(a.dv), a.S,
+                                             a.Sk, a.H, a.scale, a.causal);
+  return ds::sm90::counted(cudaGetLastError(), g_launched[1]);
+}
+
+// ---- bf16 merged: flash_bwd_sm90_kernel -----------------------------------
+
+using namespace ds::sm90;
+
+template <int D, int BK>
+struct Sm90Bwd {
+  static constexpr bool kOwnKeys = BK == 128;  // each warpgroup owns 64 of the keys
+  static constexpr int BQ = 64, KB = D / 64, STAGES = 2, THREADS = 256;
+  static constexpr int NQ = kOwnKeys ? 64 : 32;     // queries of a warpgroup's s^T
+  static constexpr int DN = kOwnKeys ? D : D / 2;   // dk, dv, dq columns of a warpgroup
+  static constexpr int KV_BYTES = BK * D * 2;       // k or v
+  static constexpr int Q_BYTES = BQ * D * 2;        // q or do, one stage
+  static constexpr int P_BYTES = BK * BQ * 2;       // p^T or ds^T
+  static constexpr int OFF_Q = 2 * KV_BYTES;        // stage s: q, then do
+  static constexpr int OFF_P = OFF_Q + STAGES * 2 * Q_BYTES, OFF_DS = OFF_P + P_BYTES;
+  // dq shares staged for the TMA reduce-add: fp32 [D / 32][64][32], swizzled
+  // (at D = 256 they do not fit beside the rest: red.global.add instead)
+  static constexpr bool kStageDq = D < 256;
+  static constexpr int OFF_DQ = OFF_DS + P_BYTES;
+  static constexpr int OFF_ROW = OFF_DQ + (kStageDq ? BQ * D * 4 : 0);  // stage s: lse, delta
+  static constexpr int OFF_BAR = OFF_ROW + STAGES * 2 * BQ * 4;
+  static constexpr int SMEM = 1024 + OFF_BAR + (STAGES + 1) * 8;
+  static constexpr uint32_t STAGE_TX = 2 * Q_BYTES + 2 * BQ * 4;
+};
+
+template <int D, int BK>
+__global__ void __launch_bounds__(256, 1)
+flash_bwd_sm90_kernel(const __grid_constant__ CUtensorMap tm_q,
+                      const __grid_constant__ CUtensorMap tm_k,
+                      const __grid_constant__ CUtensorMap tm_v,
+                      const __grid_constant__ CUtensorMap tm_do,
+                      const __grid_constant__ CUtensorMap tm_lse,
+                      const __grid_constant__ CUtensorMap tm_delta,
+                      const __grid_constant__ CUtensorMap tm_dq, float* __restrict__ dq_acc,
+                      ds::bf16* __restrict__ dk, ds::bf16* __restrict__ dv, int S, int Sk, int H,
+                      float scale, int causal) {
+  using C = Sm90Bwd<D, BK>;
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* sm = align1024(smem_raw);
+  ds::bf16* sK = reinterpret_cast<ds::bf16*>(sm);
+  ds::bf16* sV = reinterpret_cast<ds::bf16*>(sm + C::KV_BYTES);
+  ds::bf16* sP = reinterpret_cast<ds::bf16*>(sm + C::OFF_P);
+  ds::bf16* sDS = reinterpret_cast<ds::bf16*>(sm + C::OFF_DS);
+  float* sDQ = reinterpret_cast<float*>(sm + C::OFF_DQ);
+  uint64_t* full = reinterpret_cast<uint64_t*>(sm + C::OFF_BAR);
+  uint64_t* kvbar = full + C::STAGES;
+
+  const int bh = blockIdx.x, b = bh / H, h = bh % H;
+  const int k0 = blockIdx.y * BK;  // causal: the low key tiles see the most query tiles
+  const int q_begin = causal ? (k0 / C::BQ) * C::BQ : 0;
+  const int n_q = S > q_begin ? (S - q_begin + C::BQ - 1) / C::BQ : 0;
+
+  auto stage_q = [&](int s) {
+    return reinterpret_cast<ds::bf16*>(sm + C::OFF_Q + s * 2 * C::Q_BYTES);
+  };
+  auto stage_row = [&](int s) {
+    return reinterpret_cast<float*>(sm + C::OFF_ROW + s * 2 * C::BQ * 4);
+  };
+  auto load_q_tile = [&](int j) {  // query tile j into stage j % 2 (thread 0 only)
+    const int s = j % C::STAGES, qq = q_begin + j * C::BQ;
+    ds::bf16* q_s = stage_q(s);
+    ds::bf16* do_s = q_s + C::BQ * D;
+    float* row_s = stage_row(s);
+    mbar_expect_tx(&full[s], C::STAGE_TX);
+    for (int c = 0; c < C::KB; ++c) {
+      tma_load_4d(q_s + c * C::BQ * 64, &tm_q, &full[s], c * 64, h, qq, b);
+      tma_load_4d(do_s + c * C::BQ * 64, &tm_do, &full[s], c * 64, h, qq, b);
+    }
+    tma_load_2d(row_s, &tm_lse, &full[s], bh * S + qq, 0);
+    tma_load_2d(row_s + C::BQ, &tm_delta, &full[s], bh * S + qq, 0);
+  };
+
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < C::STAGES; ++s) mbar_init(&full[s], 1);
+    mbar_init(kvbar, 1);
+    mbar_fence_init();
+  }
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    mbar_expect_tx(kvbar, 2 * C::KV_BYTES);
+    for (int c = 0; c < C::KB; ++c) {
+      tma_load_4d(sK + c * BK * 64, &tm_k, kvbar, c * 64, h, k0, b);
+      tma_load_4d(sV + c * BK * 64, &tm_v, kvbar, c * 64, h, k0, b);
+    }
+    for (int j = 0; j < min(n_q, C::STAGES); ++j) load_q_tile(j);
+  }
+
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32, wg = warp / 4, t = lane % 4;
+  const int wrow = 16 * (warp % 4) + lane / 4;    // accumulator rows: wrow, wrow + 8
+  const int kr = C::kOwnKeys ? 64 * wg : 0;       // this warpgroup's keys [kr, kr + 64)
+  const int qc = C::kOwnKeys ? 0 : 32 * wg;       // its s^T query columns [qc, qc + NQ)
+  const int dc = C::kOwnKeys ? 0 : wg * (D / 2);  // its dk, dv, dq columns [dc, dc + DN)
+  const float scale_log2 = scale * kLog2e;
+
+  float dk_acc[C::DN / 2], dv_acc[C::DN / 2];
+#pragma unroll
+  for (int i = 0; i < C::DN / 2; ++i) dk_acc[i] = dv_acc[i] = 0.f;
+
+  mbar_wait(kvbar, 0);
+  for (int j = 0; j < n_q; ++j) {
+    const int s = j % C::STAGES, qq = q_begin + j * C::BQ;
+    const ds::bf16* q_s = stage_q(s);
+    const ds::bf16* do_s = q_s + C::BQ * D;
+    const float* row_s = stage_row(s);
+    mbar_wait(&full[s], (j / C::STAGES) & 1);
+
+    // s^T = k q^T and dp^T = v do^T: keys [kr, kr + 64) x queries [qc, qc + NQ)
+    float st[C::NQ / 2], dpt[C::NQ / 2];
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < D / 16; ++kk) {
+      const int ok = (kk / 4) * BK * 64 + kr * 64 + (kk % 4) * 16;
+      const int oq = (kk / 4) * C::BQ * 64 + qc * 64 + (kk % 4) * 16;
+      wgmma_ss<C::NQ, 0, 0>(st, kmajor_desc(sK + ok), kmajor_desc(q_s + oq), kk > 0);
+    }
+#pragma unroll
+    for (int kk = 0; kk < D / 16; ++kk) {
+      const int ok = (kk / 4) * BK * 64 + kr * 64 + (kk % 4) * 16;
+      const int oq = (kk / 4) * C::BQ * 64 + qc * 64 + (kk % 4) * 16;
+      wgmma_ss<C::NQ, 0, 0>(dpt, kmajor_desc(sV + ok), kmajor_desc(do_s + oq), kk > 0);
+    }
+    wgmma_commit();
+    wgmma_wait_all();
+    fence_regs(st);
+    fence_regs(dpt);
+
+    // p^T and ds^T, stored to shared memory as bf16
+    const bool edge = qq + C::BQ > S || k0 + BK > Sk || (causal && k0 + BK - 1 > qq);
+#pragma unroll
+    for (int i = 0; i < C::NQ / 2; ++i) {
+      const int col = qc + 8 * (i / 4) + 2 * t + (i % 2);  // query within the tile
+      const int key = k0 + kr + wrow + 8 * ((i / 2) % 2);
+      float p = exp2f(fmaf(st[i], scale_log2, -row_s[col] * kLog2e));
+      if (edge && (qq + col >= S || key >= Sk || (causal && key > qq + col))) p = 0.f;
+      st[i] = p;
+      dpt[i] = p * (dpt[i] - row_s[C::BQ + col]);
+    }
+#pragma unroll
+    for (int i = 0; i < C::NQ / 2; i += 2) {
+      const int row = kr + wrow + 8 * ((i / 2) % 2), col = qc + 8 * (i / 4) + 2 * t;
+      const int off = sw128_offset(row, col);
+      *reinterpret_cast<uint32_t*>(sP + off) = pack_bf16(st[i], st[i + 1]);
+      *reinterpret_cast<uint32_t*>(sDS + off) = pack_bf16(dpt[i], dpt[i + 1]);
+    }
+    // the previous tile's dq reduce has read sDQ before anyone writes it again
+    if (C::kStageDq && threadIdx.x % 128 == 0) bulk_wait_read();
+    fence_proxy_async();
+    __syncthreads();  // both warpgroups' p^T and ds^T are in place
+
+    // dv += p^T do, dk += ds^T q: keys [kr, kr + 64) x columns [dc, dc + DN);
+    // dq share = ds k over keys [kr, kr + 64): queries x columns [dc, dc + DN)
+    float dq[C::DN / 2];
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < C::BQ / 16; ++kk) {
+      const int op = kr * 64 + kk * 16;
+      const int oq = (dc / 64) * C::BQ * 64 + kk * 16 * 64;
+      wgmma_ss<C::DN, 0, 1>(dv_acc, kmajor_desc(sP + op), mnmajor_desc(do_s + oq, C::BQ * 128), 1);
+      wgmma_ss<C::DN, 0, 1>(dk_acc, kmajor_desc(sDS + op), mnmajor_desc(q_s + oq, C::BQ * 128), 1);
+    }
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) {
+      const int od = (kr + 16 * kk) * 64;
+      const int ok = (dc / 64) * BK * 64 + (kr + 16 * kk) * 64;
+      wgmma_ss<C::DN, 1, 1>(dq, mnmajor_desc(sDS + od, BK * 128), mnmajor_desc(sK + ok, BK * 128),
+                            kk > 0);
+    }
+    wgmma_commit();
+    wgmma_wait_all();
+    fence_regs(dv_acc);
+    fence_regs(dk_acc);
+    fence_regs(dq);
+    if constexpr (C::kStageDq) {
+      // this tile's dq share: into sDQ (at D = 64 the two warpgroups' shares
+      // summed there first), then one TMA reduce-add per 32 columns
+      auto stage_dq = [&](bool add) {
+#pragma unroll
+        for (int i = 0; i < C::DN / 2; i += 2) {
+          const int row = wrow + 8 * ((i / 2) % 2), col = dc + 8 * (i / 4) + 2 * t;
+          float2* p = reinterpret_cast<float2*>(sDQ + (col / 32) * C::BQ * 32 +
+                                                sw128_offset_f32(row, col % 32));
+          const float2 prev = add ? *p : make_float2(0.f, 0.f);
+          *p = make_float2(prev.x + dq[i], prev.y + dq[i + 1]);
+        }
+      };
+      const bool reducer = C::kOwnKeys ? wg == 1 : true;
+      if (C::kOwnKeys && wg == 0) stage_dq(false);
+      __syncthreads();  // stage s, p^T and ds^T are free (and warpgroup 0's share is in)
+      if (threadIdx.x == 0 && j + C::STAGES < n_q) load_q_tile(j + C::STAGES);
+      if (reducer) {
+        stage_dq(C::kOwnKeys);
+        fence_proxy_async();
+        bar_sync(1 + wg, 128);
+        if (threadIdx.x % 128 == 0) {
+          for (int c = dc / 32; c < (dc + C::DN) / 32; ++c)
+            tma_reduce_add_4d(&tm_dq, sDQ + c * C::BQ * 32, c * 32, h, qq, b);
+          bulk_commit();
+        }
+      }
+    } else {
+      __syncthreads();  // stage s, p^T and ds^T are free
+      if (threadIdx.x == 0 && j + C::STAGES < n_q) load_q_tile(j + C::STAGES);
+      const size_t row_stride = (size_t)H * D;
+      float* dq_b = dq_acc + (size_t)b * S * row_stride + (size_t)h * D + dc;
+#pragma unroll
+      for (int i = 0; i < C::DN / 2; ++i) {
+        const int row = qq + wrow + 8 * ((i / 2) % 2);
+        if (row < S)
+          atomicAdd(dq_b + (size_t)row * row_stride + 8 * (i / 4) + 2 * t + (i % 2), dq[i]);
+      }
+    }
+  }
+  // the last reduce has finished with shared memory before the block exits
+  if (C::kStageDq && threadIdx.x % 128 == 0) bulk_wait();
+
+  const size_t row_stride = (size_t)H * D;
+  const size_t off = (size_t)b * Sk * row_stride + (size_t)h * D + dc;
+#pragma unroll
+  for (int i = 0; i < C::DN / 2; i += 2) {
+    const int key = k0 + kr + wrow + 8 * ((i / 2) % 2);
+    if (key < Sk) {
+      const size_t o = off + (size_t)key * row_stride + 8 * (i / 4) + 2 * t;
+      *reinterpret_cast<__nv_bfloat162*>(dk + o) =
+          __floats2bfloat162_rn(scale * dk_acc[i], scale * dk_acc[i + 1]);
+      *reinterpret_cast<__nv_bfloat162*>(dv + o) = __floats2bfloat162_rn(dv_acc[i], dv_acc[i + 1]);
+    }
+  }
+}
+
+template <int D, int BK>
+cudaError_t launch_sm90(const Args& a) {
+  using C = Sm90Bwd<D, BK>;
+  CUtensorMap mq, mk, mv, mdo, mlse, mdelta, mdq;
+  const size_t rows = (size_t)a.B * a.H * a.S;
+  if (!head_map(&mq, a.q, a.B, a.S, a.H, D, C::BQ) || !head_map(&mk, a.k, a.B, a.Sk, a.H, D, BK) ||
+      !head_map(&mv, a.v, a.B, a.Sk, a.H, D, BK) ||
+      !head_map(&mdo, a.dout, a.B, a.S, a.H, D, C::BQ) || !row_map(&mlse, a.lse, rows) ||
+      !row_map(&mdelta, a.delta, rows) || !head_map(&mdq, a.dq, a.B, a.S, a.H, D, C::BQ, true))
+    return cudaErrorInvalidValue;
+  const auto kernel = flash_bwd_sm90_kernel<D, BK>;
+  const cudaError_t err =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, C::SMEM);
+  if (err != cudaSuccess) return err;
+  const dim3 grid(a.B * a.H, (a.Sk + BK - 1) / BK);
+  kernel<<<grid, C::THREADS, C::SMEM, a.stream>>>(
+      mq, mk, mv, mdo, mlse, mdelta, mdq, static_cast<float*>(a.dq), static_cast<ds::bf16*>(a.dk),
+      static_cast<ds::bf16*>(a.dv), a.S, a.Sk, a.H, a.scale, a.causal);
+  return counted(cudaGetLastError(), g_launched[0]);
+}
+
+cudaError_t merged_sm90(int D, const Args& a) {
+  switch (D) {
+    case 64:
+      return launch_sm90<64, 128>(a);
+    case 128:
+      return launch_sm90<128, 64>(a);
+    case 256:
+      return launch_sm90<256, 64>(a);
+    default:
+      return cudaErrorInvalidValue;
+  }
+}
+
+// ---- the merged backward's passes around the kernel ------------------------
+
+// delta = sum(do * o) - dlse in fp32 for each (b, s, h) row, written at
+// (b * H + h) * S + s, and the row of the dq buffer zeroed (dq_acc not
+// null). D / 8 threads a row, eight elements (16 bytes of bf16) each.
+template <typename T, int D>
+__global__ void __launch_bounds__(256)
+flash_bwd_prep_kernel(const T* __restrict__ dout, const T* __restrict__ o,
+                      const float* __restrict__ dlse, float* __restrict__ delta,
+                      float* __restrict__ dq_acc, int S, int H, size_t n_rows) {
+  constexpr int L = D / 8;  // threads a row
+  const size_t row = (size_t)blockIdx.x * (256 / L) + threadIdx.x / L;
+  const int part = threadIdx.x % L;
+  float acc = 0.f;
+  if (row < n_rows) {
+    float x[8], y[8];
+    ds::load8(dout + row * D + part * 8, x);
+    ds::load8(o + row * D + part * 8, y);
+#pragma unroll
+    for (int e = 0; e < 8; ++e) acc = fmaf(x[e], y[e], acc);
+    if (dq_acc) {
+      float4* z = reinterpret_cast<float4*>(dq_acc + row * D + part * 8);
+      z[0] = z[1] = make_float4(0.f, 0.f, 0.f, 0.f);
+    }
+  }
+#pragma unroll
+  for (int m = L / 2; m > 0; m >>= 1) acc += __shfl_xor_sync(0xffffffffu, acc, m);
+  if (row < n_rows && part == 0) {
+    const size_t h = row % H, bs = row / H, s = bs % S, b = bs / S;
+    const size_t at = (b * H + h) * S + s;
+    delta[at] = dlse ? acc - dlse[at] : acc;
+  }
+}
+
+template <typename T, int D>
+void launch_prep(const T* d, const T* o, const float* dlse, float* delta, float* dq_acc, int S,
+                 int H, size_t rows, cudaStream_t st) {
+  const dim3 grid((unsigned)((rows * (D / 8) + 255) / 256));
+  flash_bwd_prep_kernel<T, D><<<grid, 256, 0, st>>>(d, o, dlse, delta, dq_acc, S, H, rows);
+}
+
+template <typename T>
+cudaError_t prep(const void* dout, const void* out, const float* dlse, float* delta,
+                 float* dq_acc, int B, int S, int H, int D, cudaStream_t st) {
+  const size_t rows = (size_t)B * S * H;
+  const T *d = static_cast<const T*>(dout), *o = static_cast<const T*>(out);
+  switch (D) {
+    case 64:
+      launch_prep<T, 64>(d, o, dlse, delta, dq_acc, S, H, rows, st);
+      break;
+    case 128:
+      launch_prep<T, 128>(d, o, dlse, delta, dq_acc, S, H, rows, st);
+      break;
+    case 256:
+      launch_prep<T, 256>(d, o, dlse, delta, dq_acc, S, H, rows, st);
+      break;
+    default:
+      return cudaErrorInvalidValue;
   }
   return cudaGetLastError();
+}
+
+// dq = scale * dq_acc in the output dtype, four elements a thread.
+template <typename T>
+__global__ void __launch_bounds__(256)
+flash_bwd_dq_cast_kernel(const float* __restrict__ dq_acc, T* __restrict__ dq, float scale,
+                         size_t n4) {
+  const size_t i = (size_t)blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= n4) return;
+  const float4 v = reinterpret_cast<const float4*>(dq_acc)[i];
+  T* d = dq + 4 * i;
+  d[0] = ds::from_float<T>(v.x * scale);
+  d[1] = ds::from_float<T>(v.y * scale);
+  d[2] = ds::from_float<T>(v.z * scale);
+  d[3] = ds::from_float<T>(v.w * scale);
 }
 
 template <typename T>
@@ -382,7 +771,7 @@ cudaError_t by_dim(int kind, int D, const Args& a) {
 }
 
 int dispatch(int kind, const Args& a, int D, int dtype) {
-  if (dtype == ds::kBFloat16) return by_dim<ds::bf16>(kind, D, a);
+  if (dtype == ds::kBFloat16) return kind == 0 ? merged_sm90(D, a) : by_dim<ds::bf16>(kind, D, a);
   if (dtype == ds::kFloat32) return by_dim<float>(kind, D, a);
   return cudaErrorInvalidValue;
 }
@@ -395,8 +784,9 @@ DS_DEFINE_ERROR_STRING
 // dtype; lse and delta (B * H, 1, S) fp32. Each returns the
 // cudaGetLastError() of its launch.
 
-// Merged: dq_acc (B, S, H, D) fp32, ZEROED by the caller, receives
-// sum(ds k) unscaled; dk, dv (B, Sk, H, D) in the input dtype.
+// Merged: dq_acc (B, S, H, D) fp32, ZEROED by the caller (the prep entry),
+// receives sum(ds k) unscaled (the cast entry scales it); dk, dv
+// (B, Sk, H, D) in the input dtype.
 DS_EXPORT int flash_attention_bwd_merged(const void* q, const void* k, const void* v,
                                          const void* dout, const void* lse, const void* delta,
                                          void* dq_acc, void* dk, void* dv, int B, int S, int Sk,
@@ -425,4 +815,42 @@ DS_EXPORT int flash_attention_bwd_dq(const void* q, const void* k, const void* v
   const Args a{q, k, v, dout, static_cast<const float*>(lse), static_cast<const float*>(delta),
                dq, nullptr, nullptr, B, S, Sk, H, scale, causal, static_cast<cudaStream_t>(stream)};
   return dispatch(2, a, D, dtype);
+}
+
+// delta (B * H, 1, S) fp32 = rowsum(do * o) - dlse (dlse (B * H, 1, S) fp32,
+// or null for none); dq_acc (B, S, H, D) fp32 zeroed, unless null. do and o
+// (B, S, H, D) contiguous, of one dtype.
+DS_EXPORT int flash_attention_bwd_prep(const void* dout, const void* out, const void* dlse,
+                                       void* delta, void* dq_acc, int B, int S, int H, int D,
+                                       int dtype, void* stream) {
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const float* dl = static_cast<const float*>(dlse);
+  float *de = static_cast<float*>(delta), *dq = static_cast<float*>(dq_acc);
+  if (dtype == ds::kBFloat16) return prep<ds::bf16>(dout, out, dl, de, dq, B, S, H, D, st);
+  if (dtype == ds::kFloat32) return prep<float>(dout, out, dl, de, dq, B, S, H, D, st);
+  return cudaErrorInvalidValue;
+}
+
+// dq (B, S, H, D) in the input dtype = scale * dq_acc (fp32, same shape).
+DS_EXPORT int flash_attention_bwd_dq_cast(const void* dq_acc, void* dq, int B, int S, int H,
+                                          int D, float scale, int dtype, void* stream) {
+  const size_t n4 = (size_t)B * S * H * D / 4;  // D is a multiple of 64
+  const dim3 grid((unsigned)((n4 + 255) / 256));
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const float* src = static_cast<const float*>(dq_acc);
+  if (dtype == ds::kBFloat16)
+    flash_bwd_dq_cast_kernel<ds::bf16><<<grid, 256, 0, st>>>(src, static_cast<ds::bf16*>(dq),
+                                                             scale, n4);
+  else if (dtype == ds::kFloat32)
+    flash_bwd_dq_cast_kernel<float><<<grid, 256, 0, st>>>(src, static_cast<float*>(dq), scale, n4);
+  else
+    return cudaErrorInvalidValue;
+  return cudaGetLastError();
+}
+
+// Launches so far of kernel `which` (0 flash_bwd_sm90_kernel, 1
+// flash_bwd_kv_kernel, 2 flash_bwd_dq_kernel), counted on the host where each
+// is launched.
+DS_EXPORT unsigned long long flash_attention_bwd_launched(int which) {
+  return which >= 0 && which < 3 ? g_launched[which].load() : 0;
 }

@@ -4,7 +4,9 @@ Port of ``deepspeed_tpu/ops/pallas/flash_attention.py``: the TPU kernel
 ``_fwd_kernel`` becomes ``csrc/flash_attention.cu``, and the backward
 kernels ``_dqkv_kernel`` (merged, the default) and ``_dq_kernel`` /
 ``_dkv_kernel`` (split) become ``csrc/flash_attention_bwd.cu`` (see each
-header for the design and bound).
+header for the design and bound). bf16 runs the forward and the merged
+backward on the tensor cores (``flash_*_sm90_kernel``); fp32 runs the
+CUDA-core kernels, the card's exact fp32 reference.
 
 Public shapes are the JAX package's, ``(B, S, H, D)``. The kernels keep
 ``lse`` and ``delta`` in the TPU kernels' ``(B·H, 1, S)`` fp32 layout;
@@ -13,9 +15,9 @@ The forward is one dispatcher op, ``ds_tpu_torch::flash_attention_fwd``
 (:func:`flash_attention_fwd_op`), so that activation checkpointing's
 policies can name and keep its outputs. One ``autograd.Function`` serves
 both public functions on every device: its forward calls the op and saves
-``q, k, v, out, lse``; its backward forms
-``delta = rowsum(do·o)`` in fp32 (minus the lse cotangent, when the caller
-used ``lse``) and then runs :func:`flash_attention_bwd`, which dispatches
+``q, k, v, out, lse``; its backward runs :func:`flash_attention_bwd`, which
+forms ``delta = rowsum(do·o)`` in fp32 (minus the lse cotangent, when the
+caller used ``lse``) and then dispatches
 on the backward mode as the JAX package does (``BWD_MODE``, overridden by
 the ``DS_TPU_FLASH_BWD`` environment variable; an unknown mode raises).
 CUDA tensors launch the kernels; CPU tensors run the plain versions
@@ -27,12 +29,13 @@ fp32 accumulation.
 """
 from __future__ import annotations
 
+import ctypes
 import os
 from typing import Optional
 
 import torch
 
-from ._build import FLOAT, INT, PTR, Kernel, check_operands, dtype_code, stream_of
+from ._build import FLOAT, INT, PTR, Kernel, check_operands, dtype_code, load, stream_of
 
 KERNEL = Kernel("flash_attention", "flash_attention_fwd",
                 [PTR, PTR, PTR, PTR, PTR, INT, INT, INT, INT, INT, FLOAT, INT, INT, PTR])
@@ -40,6 +43,16 @@ _BWD_ARGS = [INT, INT, INT, INT, INT, FLOAT, INT, INT, PTR]   # B S Sk H D scale
 BWD_MERGED = Kernel("flash_attention_bwd", "flash_attention_bwd_merged", [PTR] * 9 + _BWD_ARGS)
 BWD_DKV = Kernel("flash_attention_bwd", "flash_attention_bwd_dkv", [PTR] * 8 + _BWD_ARGS)
 BWD_DQ = Kernel("flash_attention_bwd", "flash_attention_bwd_dq", [PTR] * 7 + _BWD_ARGS)
+# the backward's passes around the kernels: delta (and the zeroed dq buffer
+# of the merged kernel), and the merged kernel's dq = scale · buffer
+BWD_PREP = Kernel("flash_attention_bwd", "flash_attention_bwd_prep",
+                  [PTR] * 5 + [INT, INT, INT, INT, INT, PTR])
+BWD_DQ_CAST = Kernel("flash_attention_bwd", "flash_attention_bwd_dq_cast",
+                     [PTR, PTR, INT, INT, INT, INT, FLOAT, INT, PTR])
+
+# the kernels behind the C entries, in the order their libraries count them
+FWD_KERNELS = ("flash_fwd_sm90_kernel", "flash_fwd_kernel")
+BWD_KERNELS = ("flash_bwd_sm90_kernel", "flash_bwd_kv_kernel", "flash_bwd_dq_kernel")
 
 HEAD_DIMS = (64, 128, 256)   # the flash predicate's head dims, instantiated in CUDA
 BWD_MODE = "merged"          # "merged" | "split"; env DS_TPU_FLASH_BWD overrides
@@ -53,6 +66,22 @@ def bwd_mode(mode: Optional[str] = None) -> str:
     if mode not in BWD_MODES:
         raise ValueError(f"flash attention backward mode {mode!r}: valid modes are {BWD_MODES}")
     return mode
+
+
+def kernel_launches() -> dict:
+    """Launches so far of each flash kernel, by symbol (:data:`FWD_KERNELS`,
+    :data:`BWD_KERNELS`), as the C libraries count them where they launch
+    them: which kernel a run took, the bf16 tensor-core ones or the
+    CUDA-core ones. Loads (and builds) the libraries."""
+    counts = {}
+    for source, symbol, names in (("flash_attention", "flash_attention_fwd_launched",
+                                   FWD_KERNELS),
+                                  ("flash_attention_bwd", "flash_attention_bwd_launched",
+                                   BWD_KERNELS)):
+        fn = getattr(load(source), symbol)
+        fn.argtypes, fn.restype = [INT], ctypes.c_ulonglong
+        counts.update({name: int(fn(i)) for i, name in enumerate(names)})
+    return counts
 
 
 def _causal_keep(S: int, Sk: int, device) -> torch.Tensor:
@@ -144,35 +173,47 @@ def flash_attention_bwd(q, k, v, out, lse, do, causal: bool, scale: float,
     """``(dq, dk, dv)`` of flash attention from the saved forward: ``delta =
     rowsum(do·o) − dlse`` in fp32 (``lse``/``dlse`` ``(B·H, 1, S)``), then
     the merged kernel or the split pair (:func:`bwd_mode`) on CUDA tensors,
-    :func:`flash_attention_bwd_plain` on CPU tensors."""
+    :func:`flash_attention_bwd_plain` on CPU tensors. On the card the
+    prep kernel forms ``delta`` (and zeroes the merged kernel's fp32 dq
+    buffer) and the cast kernel scales that buffer into ``dq``."""
     mode = bwd_mode(mode)
     B, S, H, D = q.shape
     Sk = k.shape[1]
     do = do.contiguous()
-    delta = (do.float() * out.float()).sum(-1).permute(0, 2, 1).reshape(B * H, 1, S)
-    if dlse is not None:
-        # the lse cotangent folds in exactly: dlse_i/ds_ij = p_ij, so
-        # ds = p (dp − delta + dlse)
-        delta = delta - dlse.float()
-    delta = delta.contiguous()
     if not q.is_cuda:
-        return flash_attention_bwd_plain(q, k, v, out, lse, do, delta, causal, scale)
+        delta = (do.float() * out.float()).sum(-1).permute(0, 2, 1).reshape(B * H, 1, S)
+        if dlse is not None:
+            # the lse cotangent folds in exactly: dlse_i/ds_ij = p_ij, so
+            # ds = p (dp − delta + dlse)
+            delta = delta - dlse.float()
+        return flash_attention_bwd_plain(q, k, v, out, lse, do, delta.contiguous(), causal,
+                                         scale)
     _check_shapes(q, k, v)
-    q, k, v, lse = q.contiguous(), k.contiguous(), v.contiguous(), lse.contiguous()
-    check_operands(q, k, v, do)
-    check_operands(lse, delta)
-    if lse.shape != (B * H, 1, S):
-        raise ValueError(f"flash backward: lse {tuple(lse.shape)}, expected {(B * H, 1, S)}")
+    q, k, v, out, lse = (t.contiguous() for t in (q, k, v, out, lse))
+    check_operands(q, k, v, do, out)
+    rows = (B * H, 1, S)
+    dlse = None if dlse is None else dlse.float().contiguous()
+    for name, t in (("lse", lse), ("dlse", dlse)):
+        if t is not None and t.shape != rows:
+            raise ValueError(f"flash backward: {name} {tuple(t.shape)}, expected {rows}")
+    check_operands(*(t for t in (lse, dlse) if t is not None))
+    delta = torch.empty(rows, dtype=torch.float32, device=q.device)
+    dq_acc = (torch.empty(q.shape, dtype=torch.float32, device=q.device)
+              if mode == "merged" else None)
     dk, dv = torch.empty_like(k), torch.empty_like(v)
-    ins = (q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(), lse.data_ptr(),
-           delta.data_ptr())
-    tail = (B, S, Sk, H, D, scale, int(causal), dtype_code(q), stream_of(q))
+    code, stream = dtype_code(q), stream_of(q)
     with torch.cuda.device(q.device):
-        if mode == "merged":
-            dq_acc = torch.zeros(q.shape, dtype=torch.float32, device=q.device)
-            BWD_MERGED.launch(*ins, dq_acc.data_ptr(), dk.data_ptr(), dv.data_ptr(), *tail)
-            return (dq_acc * scale).to(q.dtype), dk, dv
+        BWD_PREP.launch(do.data_ptr(), out.data_ptr(), None if dlse is None else dlse.data_ptr(),
+                        delta.data_ptr(), None if dq_acc is None else dq_acc.data_ptr(),
+                        B, S, H, D, code, stream)
+        ins = (q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(), lse.data_ptr(),
+               delta.data_ptr())
+        tail = (B, S, Sk, H, D, scale, int(causal), code, stream)
         dq = torch.empty_like(q)
+        if mode == "merged":
+            BWD_MERGED.launch(*ins, dq_acc.data_ptr(), dk.data_ptr(), dv.data_ptr(), *tail)
+            BWD_DQ_CAST.launch(dq_acc.data_ptr(), dq.data_ptr(), B, S, H, D, scale, code, stream)
+            return dq, dk, dv
         BWD_DQ.launch(*ins, dq.data_ptr(), *tail)
         BWD_DKV.launch(*ins, dk.data_ptr(), dv.data_ptr(), *tail)
         return dq, dk, dv

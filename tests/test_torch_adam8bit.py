@@ -52,6 +52,9 @@ from deepspeed_tpu_torch.models.convert import adam8bit_state_from_jax, gpt2_par
 from deepspeed_tpu_torch.models.gpt2 import GPT2LMHeadModel, gpt2_config
 from deepspeed_tpu_torch.ops import adam8bit as port8
 
+# several pytest workers share the host's cores: one torch thread each
+torch.set_num_threads(1)
+
 SMALL = dict(vocab_size=500, n_embd=64, n_layer=2, n_head=2, n_positions=128)
 B1, B2, EPS = 0.9, 0.999, 1e-8
 

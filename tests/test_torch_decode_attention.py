@@ -13,6 +13,9 @@ from deepspeed_tpu.ops.pallas.decode_attention import decode_attention as jax_de
 from deepspeed_tpu.ops.pallas.decode_attention import fits_vmem
 from deepspeed_tpu_torch.ops.decode_attention import decode_attention, decode_supported
 
+# several pytest workers share the host's cores: one torch thread each
+torch.set_num_threads(1)
+
 
 def _inputs(B, S, H, KV, D, seed):
     rng = np.random.default_rng(seed)

@@ -25,6 +25,9 @@ from deepspeed_tpu.ops import w8 as jw8
 from deepspeed_tpu.ops.pallas import decode_layer as jdl
 from deepspeed_tpu_torch.ops import decode_layer as dl
 
+# several pytest workers share the host's cores: one torch thread each
+torch.set_num_threads(1)
+
 M, E, N, F = 3, 128, 384, 512
 
 

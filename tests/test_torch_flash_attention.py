@@ -1,7 +1,8 @@
-"""Flash-attention forward: the port's plain version (what its CUDA kernel is
-held against on the card) against the JAX Pallas kernel in interpret mode,
-output and log-sum-exp, fp32, atol 2e-5 (the tolerance the JAX package's
-own flash tests use: fp32 online softmax against one dense softmax).
+"""Flash-attention forward: the port's plain version (what its CUDA kernels
+are held against on the card) against the JAX Pallas kernel in interpret
+mode, output and log-sum-exp, fp32, atol 2e-5 (the tolerance the JAX
+package's own flash tests use: fp32 online softmax against one dense
+softmax), at every head dim the kernels take and with an explicit scale.
 """
 import jax.numpy as jnp
 import numpy as np
@@ -11,6 +12,9 @@ import torch
 from deepspeed_tpu.ops.pallas.flash_attention import flash_attention_with_lse as jax_flash
 from deepspeed_tpu_torch.ops.attention import _pick_impl, dot_product_attention
 from deepspeed_tpu_torch.ops.flash_attention import flash_attention, flash_attention_with_lse
+
+# several pytest workers share the host's cores: one torch thread each
+torch.set_num_threads(1)
 
 
 def _qkv(B, S, Sk, H, D, seed):
@@ -32,6 +36,21 @@ def test_plain_matches_pallas(causal, S, Sk):
     got_o, got_lse = flash_attention_with_lse(torch.from_numpy(q), torch.from_numpy(k),
                                               torch.from_numpy(v), causal=causal)
     assert got_o.shape == (2, S, 2, 64) and got_lse.shape == (2, S, 2)
+    np.testing.assert_allclose(got_o.numpy(), np.asarray(want_o), atol=2e-5, rtol=0)
+    np.testing.assert_allclose(got_lse.numpy(), np.asarray(want_lse), atol=2e-5, rtol=0)
+
+
+@pytest.mark.parametrize("D,causal,scale", [
+    (128, True, None), (128, False, None), (256, True, None), (256, False, None),
+    (128, True, 0.3),                        # a scale that is not D^-1/2
+])
+def test_plain_matches_pallas_head_dims(D, causal, scale):
+    q, k, v = _qkv(1, 128, 128, 1, D, seed=D + causal)
+    want_o, want_lse = jax_flash(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v),
+                                 causal=causal, scale=scale, interpret=True)
+    got_o, got_lse = flash_attention_with_lse(torch.from_numpy(q), torch.from_numpy(k),
+                                              torch.from_numpy(v), causal=causal, scale=scale)
+    assert got_o.shape == (1, 128, 1, D) and got_lse.shape == (1, 128, 1)
     np.testing.assert_allclose(got_o.numpy(), np.asarray(want_o), atol=2e-5, rtol=0)
     np.testing.assert_allclose(got_lse.numpy(), np.asarray(want_lse), atol=2e-5, rtol=0)
 

@@ -1,8 +1,9 @@
 """Flash-attention backward: the port's autograd.Function on the CPU (the
 plain backward its CUDA kernels are held against on the card) against
 ``jax.grad`` through the JAX Pallas kernels in interpret mode, in both of
-JAX's backward modes, with and without an lse cotangent; ragged S and
-Sk != S against dense autograd in torch.
+JAX's backward modes, with and without an lse cotangent, at every head dim
+the kernels take and with an explicit scale; ragged S and Sk != S against
+dense autograd in torch.
 
 fp32 throughout. Tolerances: rtol 1e-5 with atol 1e-5 against the Pallas
 backward (the same fp32 products summed in another order, gradients of
@@ -21,6 +22,9 @@ from deepspeed_tpu_torch.ops.attention import dense_attention, dot_product_atten
 from deepspeed_tpu_torch.ops.flash_attention import (bwd_mode, flash_attention,
                                                      flash_attention_bwd,
                                                      flash_attention_with_lse)
+
+# several pytest workers share the host's cores: one torch thread each
+torch.set_num_threads(1)
 
 
 def _inputs(B, S, Sk, H, D, seed):
@@ -50,6 +54,21 @@ def test_backward_matches_pallas(monkeypatch, mode, causal, S):
                      *map(jnp.asarray, (q, k, v)))
     want = vjp(jnp.asarray(do))
     got = _torch_grads(lambda *a: flash_attention(*a, causal=causal), q, k, v, [do])
+    for g, w in zip(got, want):
+        np.testing.assert_allclose(g, np.asarray(w), rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.parametrize("D,mode,scale", [
+    (128, "merged", None), (128, "split", None), (256, "merged", None), (256, "split", None),
+    (128, "merged", 0.3),                    # a scale that is not D^-1/2
+])
+def test_backward_matches_pallas_head_dims(monkeypatch, D, mode, scale):
+    monkeypatch.setenv("DS_TPU_FLASH_BWD", mode)
+    q, k, v, do, _ = _inputs(1, 128, 128, 1, D, seed=D)
+    _, vjp = jax.vjp(lambda *a: jax_flash(*a, causal=True, scale=scale, interpret=True),
+                     *map(jnp.asarray, (q, k, v)))
+    want = vjp(jnp.asarray(do))
+    got = _torch_grads(lambda *a: flash_attention(*a, causal=True, scale=scale), q, k, v, [do])
     for g, w in zip(got, want):
         np.testing.assert_allclose(g, np.asarray(w), rtol=1e-5, atol=1e-5)
 

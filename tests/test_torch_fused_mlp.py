@@ -38,6 +38,9 @@ from deepspeed_tpu_torch.models.convert import gpt2_params_from_jax
 from deepspeed_tpu_torch.models.gpt2 import MLP, GPT2LMHeadModel, gpt2_config
 from deepspeed_tpu_torch.ops import fused_mlp as fm
 
+# several pytest workers share the host's cores: one torch thread each
+torch.set_num_threads(1)
+
 SMALL = dict(vocab_size=500, n_embd=64, n_layer=2, n_head=2, n_positions=128)
 
 

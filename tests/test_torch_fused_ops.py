@@ -24,6 +24,9 @@ import torch
 from deepspeed_tpu.ops.pallas import fused_ops as jfo
 from deepspeed_tpu_torch.ops import fused_ops as fo
 
+# several pytest workers share the host's cores: one torch thread each
+torch.set_num_threads(1)
+
 
 @pytest.fixture(autouse=True, scope="module")
 def warm_torch_cpu_ops():

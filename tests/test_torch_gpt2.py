@@ -20,6 +20,9 @@ from deepspeed_tpu_torch.models.common import init_layer_cache
 from deepspeed_tpu_torch.models.convert import gpt2_params_from_jax
 from deepspeed_tpu_torch.models.gpt2 import GPT2LMHeadModel, gpt2_config
 
+# several pytest workers share the host's cores: one torch thread each
+torch.set_num_threads(1)
+
 SMALL = dict(n_embd=128, n_layer=2, n_head=2, n_positions=256)
 
 

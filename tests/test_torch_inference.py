@@ -33,6 +33,9 @@ from deepspeed_tpu_torch.models.gpt2 import GPT2LMHeadModel, gpt2_config
 
 from .test_torch_fused_mlp import jax_fused_mlp_kernel
 
+# several pytest workers share the host's cores: one torch thread each
+torch.set_num_threads(1)
+
 REPO = Path(__file__).resolve().parents[1]
 SMALL = dict(vocab_size=512, n_embd=128, n_layer=2, n_head=2, n_positions=128)
 

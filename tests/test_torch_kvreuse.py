@@ -24,6 +24,9 @@ from deepspeed_tpu.models.gpt2 import gpt2_config as flax_config
 from deepspeed_tpu_torch.inference import kvreuse
 from deepspeed_tpu_torch.models.gpt2 import GPT2LMHeadModel, gpt2_config
 
+# several pytest workers share the host's cores: one torch thread each
+torch.set_num_threads(1)
+
 PT, MAX_TOKENS, N_SLOTS = 8, 32, 2
 
 

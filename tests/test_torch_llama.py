@@ -32,6 +32,9 @@ from deepspeed_tpu_torch.models.convert import llama_params_from_jax
 from deepspeed_tpu_torch.models.llama import LlamaForCausalLM, llama_config
 from deepspeed_tpu_torch.ops import rotary as trot
 
+# several pytest workers share the host's cores: one torch thread each
+torch.set_num_threads(1)
+
 FUSED = dict(vocab_size=512, max_position_embeddings=64, hidden_size=256, num_hidden_layers=2,
              num_attention_heads=4, num_key_value_heads=2, intermediate_size=512)
 CONFIGS = {"tiny": {}, "fused": FUSED}

@@ -14,6 +14,9 @@ from deepspeed_tpu.ops.attention import _jnp_attention
 from deepspeed_tpu.ops.pallas import paged_attention as jax_pa
 from deepspeed_tpu_torch.ops import paged_attention as pa
 
+# several pytest workers share the host's cores: one torch thread each
+torch.set_num_threads(1)
+
 ATOL = 1e-5
 
 

@@ -36,6 +36,9 @@ from deepspeed_tpu_torch.models.common import REMAT_BASES, resolve_remat_policy
 from deepspeed_tpu_torch.models.convert import gpt2_params_from_jax
 from deepspeed_tpu_torch.models.gpt2 import GPT2LMHeadModel, gpt2_config
 
+# several pytest workers share the host's cores: one torch thread each
+torch.set_num_threads(1)
+
 SMALL = dict(vocab_size=500, n_embd=128, n_layer=2, n_head=2, n_positions=128)  # D = 64, S = 128
 POLICIES = [b + s for b in REMAT_BASES for s in ("", "+flash")]
 FLASH = "ds_tpu_torch.flash_attention_fwd"

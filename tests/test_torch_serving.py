@@ -32,6 +32,9 @@ from deepspeed_tpu_torch.models.common import append_kv_cache, init_layer_cache
 
 from .test_torch_fused_mlp import jax_fused_mlp_kernel
 
+# several pytest workers share the host's cores: one torch thread each
+torch.set_num_threads(1)
+
 TINY = dict(n_embd=128)
 PAGED = {"page_tokens": 8, "n_pages": 64}
 MODES = {"contiguous": None, "paged": PAGED}

@@ -29,6 +29,9 @@ from deepspeed_tpu_torch.ops.sparse_attention import sparsity_config as tsc
 
 from .test_torch_fused_ops import warm_torch_cpu_ops  # noqa: F401 (an autouse fixture)
 
+# several pytest workers share the host's cores: one torch thread each
+torch.set_num_threads(1)
+
 H, BLOCK, S, D = 2, 16, 128, 32
 
 # id: (class name, keyword arguments); the first six are the JAX tests' configs

@@ -47,6 +47,9 @@ from deepspeed_tpu_torch.runtime import precision as port_precision
 
 from .test_torch_fused_mlp import jax_fused_mlp_kernel
 
+# several pytest workers share the host's cores: one torch thread each
+torch.set_num_threads(1)
+
 SMALL = dict(vocab_size=500, n_embd=128, n_layer=2, n_head=2, n_positions=128)
 S = 128
 GATE = {"train_micro_batch_size_per_gpu": 2, "gradient_accumulation_steps": 2,

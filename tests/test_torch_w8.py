@@ -41,6 +41,9 @@ from deepspeed_tpu_torch.ops import quantizer as tq
 from deepspeed_tpu_torch.ops import w8 as tw8
 from deepspeed_tpu_torch.ops import w8_matmul as twm
 
+# several pytest workers share the host's cores: one torch thread each
+torch.set_num_threads(1)
+
 SMALL = dict(vocab_size=512, n_embd=256, n_layer=2, n_head=4, n_positions=128)
 W8 = {"enabled": True, "bits": 8}
 FAKE = {"enabled": True, "bits": 4, "groups": 16}
