@@ -100,8 +100,16 @@ Run from the root of the repository. Phases, each printing JSON lines:
             ``train_batches`` steps on a fixed seeded batch (losses finite
             and falling, exactly 12 × 4 forward and merged-backward
             launches per step), one profiled step (device busy share, top
-            device ops) and one step with ``DS_TPU_FLASH_BWD=split``
-            (12 × 4 launches of each split kernel).
+            device ops) and steps with ``DS_TPU_FLASH_BWD=split``: one
+            counted and timed (wall ms; 12 × 4 launches of each tensor-core
+            split kernel by symbol, no CUDA-core flash kernel), one profiled
+            (device ms).
+7a. train_flash_precision  gpt2-125m at the gate's micro 2 × gas 2, S=1024:
+            16 steps over 16 distinct seeded batches from one seeded init, in
+            bf16 merged (twice: its run-to-run spread), bf16 split (p and ds
+            fp32-grade) and fp32; each bf16 run's loss gaps to fp32, the
+            step-1 gradient cosines, exact launches by symbol, and whether
+            merged's gap exceeds split's by more than twice the spread.
 7b. train_fused_mlp  the train phase's model and config with
             ``fused_mlp=True``: a gradient gate at micro 2 (the bf16 fused
             engine against the fp32 and the bf16 unfused engines), 2 warm-up
@@ -128,18 +136,21 @@ shapes (and a 100000-wide row, and three steps in place) and the three
 fused CE kernels at the 1.5B head in bf16 and a ragged fp32 shape against
 their plain versions. It also holds the flash backward kernels (merged, and the
 split dq/dkv pair) against their plain version: bf16 (the tensor-core
-forward and merged backward) at the train shapes, at D=128 and D=256, at
-S=200 and S=1000 and at a non-causal S=384, Sk=640, and fp32 (the CUDA-core
-kernels) at D=128, D=256, a ragged S and a non-causal Sk != S, each with its
-device time, the plain version's, SDPA's backward and the bound, and the
-kernels that ran, as the C libraries count their launches. At each of these
+forward, merged backward and split pair) at the train shapes, at D=128 and
+D=256, at S=200 and S=1000 and at a non-causal S=384, Sk=640, and fp32 (the
+CUDA-core kernels) at D=128, D=256, a ragged S and a non-causal Sk != S,
+each with its device time, the plain version's, SDPA's backward and the
+bound (the split pair's hi + lo floor beside it), and the kernels that ran,
+as the C libraries count their launches. At each of these
 cases the forward kernel's output and lse, which the backward takes, are
 held against the plain forward first; at the bf16 cases the forward is
 timed too (the train shape's is the ``at_train_shape`` entry of its
 ``kernels`` row). The bf16 flash outputs are held element by element
 (``FLASH_LIMIT``: the kernels round p and ds to bf16, each addend within
-2^-8 of itself) beside the fp64 values; ``scripts/flash_planted_faults.py``
-shows that limit failing kernels with a planted fault.
+2^-8 of itself) beside the fp64 values; the bf16 split pair, whose p and ds
+enter the tensor cores as hi + lo, must also meet that limit without the
+2^-8 term and repeat bit for bit. ``scripts/flash_planted_faults.py``
+shows those checks failing kernels with a planted fault.
 
 The kernels phase also holds the LLaMA branches (``kernels_llama``): the
 RMSNorm -> projection kernel at M=8, E=2048, N=2048 and 256, and the
@@ -210,7 +221,8 @@ The ``kernels`` line gives each kernel's launches per path (``generate``,
 ``generate_neox{,_w8}_{fused,unfused}``, ``generate_neox_seq{,_w8}_fused``,
 ``forward_fused_mlp``, ``generate_fused_mlp{,_unfused_ticks}``,
 ``serve_fused_mlp_paged``, ``sparse_attention_api``, ``fused_ops_train``,
-``train``, ``train_fused_mlp{,_remat}``,
+``train``, ``train_flash_precision_{merged,merged_again,split,fp32}``,
+``train_fused_mlp{,_remat}``,
 ``train_split``, ``train_1p5b``,
 ``train_1p5b_dots``, ``train_1p5b_pallas``: each zeroed before its run and
 read after it) and their sum; the rows of kernels that llama-1b and
@@ -311,9 +323,13 @@ def device_ms_of(prof) -> dict:
     return by_name
 
 
-# the tensor-core flash kernels' symbols (bf16); the CUDA-core ones (fp32
-# and the split pair) are flash_fwd_kernel, flash_bwd_kv_kernel, flash_bwd_dq_kernel
-FLASH_SM90 = {"fwd": "flash_fwd_sm90_kernel", "bwd": "flash_bwd_sm90_kernel"}
+# the tensor-core flash kernels' symbols (bf16); the CUDA-core ones (fp32)
+# are flash_fwd_kernel, flash_bwd_kv_kernel (merged and split dkv) and
+# flash_bwd_dq_kernel
+FLASH_SM90 = {"fwd": "flash_fwd_sm90_kernel", "bwd": "flash_bwd_sm90_kernel",
+              "dq": "flash_bwd_dq_sm90_kernel", "dkv": "flash_bwd_dkv_sm90_kernel"}
+FLASH_CUDA_CORE = {"fwd": "flash_fwd_kernel", "bwd": "flash_bwd_kv_kernel",
+                   "dq": "flash_bwd_dq_kernel", "dkv": "flash_bwd_kv_kernel"}
 
 BF16_UNIT = 2.0 ** -8   # bf16's unit roundoff: 8 significant bits, rounded to nearest
 FLASH_LIMIT = ("per element: 1 bf16 ulp of the larger value + (2^-8 + 1e-5) x the sum of "
@@ -730,11 +746,15 @@ def flash_case_held(torch, fa, q, k, v, do, causal: bool, sc: float,
     dv) against ``flash_attention_bwd_plain`` from that (o, lse). bf16 by
     :func:`flash_check` at the fp64 values of :func:`flash_fp64`; fp32
     within 1e-4 relative to each output's scale (the merged dq adds with
-    atomics in no fixed order); lse within 1e-4 relative. Each call's
-    kernels are counted where the C libraries launch them: bf16 must run
-    the tensor-core forward and merged backward, fp32 the CUDA-core ones,
-    split the CUDA-core pair, and nothing else. Returns (o, lse, the
-    forward's row, {mode: row}, the plain backward as a closure)."""
+    atomics in no fixed order); lse within 1e-4 relative. The bf16 split
+    pair keeps p and ds fp32-grade (hi + lo), so its outputs must also lie
+    within the limit without the 2^-8 term (``err_over_fp32_limit`` <= 1)
+    and repeat bit for bit on a second call. Each call's kernels are
+    counted where the C libraries launch them: bf16 must run the
+    tensor-core kernels of its mode (forward; merged, or the split dq and
+    dkv kernels), fp32 the CUDA-core ones, and nothing else. Returns (o,
+    lse, the forward's row, {mode: row}, the plain backward as a
+    closure)."""
     fp32 = q.dtype == torch.float32
     B, S, H, _ = q.shape
 
@@ -752,7 +772,8 @@ def flash_case_held(torch, fa, q, k, v, do, causal: bool, sc: float,
     fwd = held(o, ro, None if fp32 else flash_fp64(torch, q, k, v, causal, sc)[0])
     fwd.update(lse_max_err=float((lse - rlse).abs().max()),
                lse_tol=1e-4 * max(1.0, float(rlse.abs().max())), launched=launched)
-    want = {n: int(n == ("flash_fwd_kernel" if fp32 else FLASH_SM90["fwd"])) for n in launched}
+    kern = FLASH_CUDA_CORE if fp32 else FLASH_SM90
+    want = {n: int(n == kern["fwd"]) for n in launched}
     fwd["ok"] = (fwd["ok"] and fwd["lse_max_err"] <= fwd["lse_tol"] and launched == want
                  and bool(torch.isfinite(lse).all()))
     del ro, rlse
@@ -770,11 +791,16 @@ def flash_case_held(torch, fa, q, k, v, do, causal: bool, sc: float,
         launched = flash_launched(fa, before)
         torch.cuda.synchronize()
         checks = [held(x, r, None if fp32 else exact[i]) for i, (x, r) in enumerate(zip(got, ref))]
-        ran = (("flash_bwd_kv_kernel" if fp32 else FLASH_SM90["bwd"],) if mode == "merged"
-               else ("flash_bwd_dq_kernel", "flash_bwd_kv_kernel"))
+        ran = (kern["bwd"],) if mode == "merged" else (kern["dq"], kern["dkv"])
         row = {key + "_dq_dk_dv": [c[key] for c in checks] for key in checks[0] if key != "ok"}
         row.update(launched=launched, ok=all(c["ok"] for c in checks)
                    and launched == {n: int(n in ran) for n in launched})
+        if mode == "split" and not fp32:
+            again = fa.flash_attention_bwd(q, k, v, o, lse, do, causal, sc, mode=mode)
+            row["repeats_bitwise"] = all(torch.equal(x, y) for x, y in zip(got, again))
+            row["fp32_limit_ok"] = all(c["err_over_fp32_limit"] <= 1.0 for c in checks)
+            row["ok"] = row["ok"] and row["repeats_bitwise"] and row["fp32_limit_ok"]
+            del again
         rows[mode] = row
         del got
     del ref, exact
@@ -855,13 +881,12 @@ def run_bwd_kernels(torch, F, peaks):
             def wrapper(m=mode):
                 return fa.flash_attention_bwd(q, k, v, o, lse, do, causal, sc, mode=m)
 
-            # the kernels' times by symbol: merged, the tensor-core kernel in
-            # bf16 and the CUDA-core kv-loop kernel in fp32; split, the
-            # CUDA-core pair in both dtypes
-            merged_name = "flash_bwd_kv_kernel" if fp32 else FLASH_SM90["bwd"]
-            names = ({merged_name: "flash_attention_bwd_merged"} if mode == "merged"
-                     else {"flash_bwd_dq_kernel": "flash_attention_bwd_dq",
-                           "flash_bwd_kv_kernel": "flash_attention_bwd_dkv"})
+            # the kernels' times by symbol: the tensor-core kernels in bf16,
+            # the CUDA-core ones in fp32
+            syms = FLASH_CUDA_CORE if fp32 else FLASH_SM90
+            names = ({syms["bwd"]: "flash_attention_bwd_merged"} if mode == "merged"
+                     else {syms["dq"]: "flash_attention_bwd_dq",
+                           syms["dkv"]: "flash_attention_bwd_dkv"})
             # the profiler now and then drops a run's device events: profile
             # again, up to three runs, until every kernel of the mode shows
             for attempts in range(1, 4):
@@ -878,6 +903,14 @@ def run_bwd_kernels(torch, F, peaks):
                 # its fp32 dq buffer read and written once: this design's
                 # own traffic, beyond the function's bound
                 kernels["flash_attention_bwd_merged"]["dq_scratch_ms"] = 2 * 4 * nq / peaks[0] * 1e3
+            if mode == "split" and not fp32:
+                # the hi + lo design's own products: dq 4 (s, dp, ds_hi k,
+                # ds_lo k), dkv 6 (s^T, dp^T, two for dv, two for dk)
+                for key, n_products in (("flash_attention_bwd_dq", 4),
+                                        ("flash_attention_bwd_dkv", 6)):
+                    if key in kernels:
+                        kernels[key]["hi_lo_floor_ms"] = (n_products * 2 * D * pairs
+                                                          / peaks[1] * 1e3)
             row = held[mode]
             row["ok"] = row["ok"] and len(kernels) == len(names)
             # event time of the same calls: a cross-check of the profiler's
@@ -3388,7 +3421,9 @@ def run_train(torch, peaks, out_dir=None):
     """gpt2-125m through ``initialize`` at the flagship config: the gradient
     gate, 2 warm-up and 8 timed steps (launches zeroed before the timed run
     and read after it), one profiled step (its flash launches by kernel
-    symbol: the tensor-core ones only), one step in split mode."""
+    symbol: the tensor-core ones only), then split mode: a warm-up step, a
+    counted step (wall ms; the tensor-core split pair by symbol) and a
+    profiled one (device ms)."""
     import numpy as np
     from torch.profiler import ProfilerActivity, profile
 
@@ -3436,7 +3471,8 @@ def run_train(torch, peaks, out_dir=None):
         torch.cuda.synchronize()
         prof_wall = (time.perf_counter() - t1) * 1e3
     flash_launches = flash_launched(fa, before)
-    want_flash = {n: L * gas if n in FLASH_SM90.values() else 0 for n in flash_launches}
+    want_flash = {n: L * gas if n in (FLASH_SM90["fwd"], FLASH_SM90["bwd"]) else 0
+                  for n in flash_launches}
     by_name = device_ms_of(prof)
     dev_ms = sum(by_name.values())
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:12]
@@ -3444,16 +3480,31 @@ def run_train(torch, peaks, out_dir=None):
         with open(os.path.join(out_dir, "profile_train_step.txt"), "w") as fh:
             fh.write(prof.key_averages().table(sort_by="self_cuda_time_total", row_limit=40))
 
+    # split mode: one warm-up step, then a counted and timed step (its
+    # launches by entry and by kernel symbol: the tensor-core split pair
+    # L·gas times each, no CUDA-core flash kernel), then a profiled one
     os.environ["DS_TPU_FLASH_BWD"] = "split"
     try:
+        eng.train_batch(dev_batch)
+        torch.cuda.synchronize()
         zero_counts()
+        before = fa.kernel_launches()
+        t1 = time.perf_counter()
         split_loss = float(eng.train_batch(dev_batch))
         torch.cuda.synchronize()
+        split_wall = (time.perf_counter() - t1) * 1e3
         split_launches = read_counts()
+        split_flash = flash_launched(fa, before)
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as sprof:
+            eng.train_batch(dev_batch)
+            torch.cuda.synchronize()
+        split_dev = sum(device_ms_of(sprof).values())
     finally:
         os.environ.pop("DS_TPU_FLASH_BWD", None)
     split_expected = {n: {"flash_attention_fwd": L * gas, "flash_attention_bwd_dq": L * gas,
                           "flash_attention_bwd_dkv": L * gas}.get(n, 0) for n in split_launches}
+    want_split_flash = {n: L * gas if n in (FLASH_SM90["fwd"], FLASH_SM90["dq"], FLASH_SM90["dkv"])
+                        else 0 for n in split_flash}
 
     mfu = model.flops_per_token() * tok_s / peaks[1]
     timed = losses[2:]
@@ -3461,6 +3512,7 @@ def run_train(torch, peaks, out_dir=None):
               "loss_falling": timed[-1] < timed[0] and losses[-1] < losses[0],
               "launch_counts": launches == expected,
               "split_launch_counts": split_launches == split_expected,
+              "split_flash_kernel_launches": split_flash == want_split_flash,
               "flash_kernel_launches": flash_launches == want_flash,
               "grad_gate": ok}
     emit(dict(phase="train", model="gpt2-125m", config=train_config(micro, gas),
@@ -3468,6 +3520,9 @@ def run_train(torch, peaks, out_dir=None):
               warmup_s=warm_s, timed_steps=8, wall_s=wall, ms_per_step=wall * 1e3 / 8,
               tokens_per_s=tok_s, flops_per_token=model.flops_per_token(), mfu=mfu,
               max_memory_allocated_gb=peak_mem / 2 ** 30, losses=losses, split_step_loss=split_loss,
+              split_step=dict(wall_ms=split_wall,
+                              device_ms=split_dev if split_dev else "not measured",
+                              flash_launches=split_flash),
               launches=launches, expected_launches=expected, split_launches=split_launches,
               profile=dict(step_wall_ms=prof_wall,
                            step_device_ms=dev_ms if dev_ms else "not measured",
@@ -3479,6 +3534,102 @@ def run_train(torch, peaks, out_dir=None):
     torch.cuda.empty_cache()
     return ({"train": launches, "train_split": split_launches}, peak_mem / 2 ** 30,
             all(checks.values()))
+
+
+def run_train_flash_precision(torch):
+    """Whether the merged backward's bf16 p and ds cost training loss: gpt2-125m
+    at ``grad_gate``'s config (micro 2 × gas 2, S=1024) from one seeded init,
+    16 optimizer steps over 16 distinct seeded ``text_like_ids`` batches, in
+    four runs: bf16 merged twice (the spread its dq reduce-add's order gives
+    from run to run), bf16 split (p and ds fp32-grade, hi + lo) and the fp32
+    engine. Prints every run's losses, each bf16 run's mean and max |ΔL| to
+    fp32, the step-1 gradient (the first micro-batch, before any update)
+    cosine of merged and split to fp32, and the launches by entry and by
+    kernel symbol. Gates: losses finite and falling, launches exact. The
+    finding (not a gate): merged's mean gap beyond split's, in units of the
+    merged-versus-merged spread; past 2 it is a fault."""
+    import dataclasses
+
+    import numpy as np
+
+    import deepspeed_tpu_torch as ds
+    from deepspeed_tpu_torch.models.gpt2 import GPT2LMHeadModel, gpt2_config
+    from deepspeed_tpu_torch.ops import flash_attention as fa
+
+    cfg = gpt2_config("gpt2-125m", n_positions=1024, loss_chunk=1 << 30)
+    steps, micro, gas, S, L = 16, 2, 2, 1024, cfg.n_layer
+    rng = np.random.default_rng(SEED + 11)
+    batches = [text_like_ids(rng, micro * gas, S, cfg.vocab_size) for _ in range(steps)]
+    n = L * gas * steps
+    runs = {"merged": (torch.bfloat16, "merged"), "merged_again": (torch.bfloat16, "merged"),
+            "split": (torch.bfloat16, "split"), "fp32": (torch.float32, "merged")}
+    entries = {"merged": ("flash_attention_fwd", "flash_attention_bwd_merged"),
+               "split": ("flash_attention_fwd", "flash_attention_bwd_dq", "flash_attention_bwd_dkv")}
+    res, grads, checks, by_path = {}, {}, {}, {}
+    t0 = time.perf_counter()
+    for name, (dtype, mode) in runs.items():
+        fp32 = dtype == torch.float32
+        model = GPT2LMHeadModel(dataclasses.replace(cfg, dtype=dtype), device="meta")
+        eng, *_ = ds.initialize(model=model,
+                                config=train_config(micro, gas, "fp32" if fp32 else "bf16"))
+        eng.init_params()   # the same seeded weights in every run
+        os.environ["DS_TPU_FLASH_BWD"] = mode
+        try:
+            first = eng._to_device({"input_ids": batches[0][:micro], "labels": batches[0][:micro]})
+            grads[name] = [g.float() for g in eng._grads_of(first)[1]]
+            torch.cuda.synchronize()
+            zero_counts()
+            before = fa.kernel_launches()
+            losses = [float(eng.train_batch({"input_ids": ids, "labels": ids})) for ids in batches]
+            torch.cuda.synchronize()
+            counts, flash = read_counts(), flash_launched(fa, before)
+        finally:
+            os.environ.pop("DS_TPU_FLASH_BWD", None)
+        del eng, model
+        torch.cuda.empty_cache()
+        syms = FLASH_CUDA_CORE if fp32 else FLASH_SM90
+        want = {e: n if e in entries[mode] else 0 for e in counts}
+        ran = {syms[k] for k in (("fwd", "bwd") if mode == "merged" else ("fwd", "dq", "dkv"))}
+        want_flash = {k: n if k in ran else 0 for k in flash}
+        checks[f"{name}_launches"] = counts == want and flash == want_flash
+        checks[f"{name}_losses_finite_and_falling"] = (
+            all(math.isfinite(x) for x in losses) and losses[-1] < losses[0]
+            and sum(losses[-4:]) < sum(losses[:4]))
+        res[name] = dict(losses=losses, launches={k: v for k, v in counts.items() if v},
+                         flash_launches=flash)
+        by_path[name] = counts
+
+    def cos(a, b):
+        num = sum(float((x.double() * y.double()).sum()) for x, y in zip(a, b))
+        den = (math.sqrt(sum(float(x.double().pow(2).sum()) for x in a))
+               * math.sqrt(sum(float(y.double().pow(2).sum()) for y in b)))
+        return num / den
+
+    def min_leaf_cos(a, b):
+        return min(float(torch.nn.functional.cosine_similarity(
+            x.flatten(), y.flatten(), dim=0)) for x, y in zip(a, b) if y.abs().max() > 0)
+
+    ref = res["fp32"]["losses"]
+    for name in ("merged", "merged_again", "split"):
+        gap = [abs(x - y) for x, y in zip(res[name]["losses"], ref)]
+        res[name].update(mean_abs_dloss_to_fp32=sum(gap) / steps, max_abs_dloss_to_fp32=max(gap))
+    for name in ("merged", "split"):
+        res[name].update(step1_grad_cos_to_fp32=cos(grads[name], grads["fp32"]),
+                         step1_grad_min_leaf_cos_to_fp32=min_leaf_cos(grads[name], grads["fp32"]))
+    del grads
+    spread = sum(abs(x - y) for x, y in zip(res["merged"]["losses"],
+                                            res["merged_again"]["losses"])) / steps
+    excess = res["merged"]["mean_abs_dloss_to_fp32"] - res["split"]["mean_abs_dloss_to_fp32"]
+    in_spreads = excess / spread if spread > 0 else (0.0 if excess <= 0 else math.inf)
+    emit(dict(phase="train_flash_precision", model="gpt2-125m", config=train_config(micro, gas),
+              batch=[micro * gas, S], steps=steps, seconds=time.perf_counter() - t0, runs=res,
+              merged_vs_merged_mean_abs_dloss=spread,
+              merged_gap_beyond_split=excess, merged_gap_beyond_split_in_spreads=in_spreads,
+              finding=("fault: merged's bf16 p and ds cost loss beyond twice the run-to-run "
+                       "spread" if in_spreads > 2 else
+                       "no loss cost beyond twice the run-to-run spread"),
+              checks=checks))
+    return {"train_flash_precision_" + k: v for k, v in by_path.items()}, all(checks.values())
 
 
 # ---------------------------------------------------------------------------
@@ -4882,14 +5033,16 @@ def main() -> int:
     ok &= mlp_slice_ok
     train_launches, train_peak_gb, train_ok = run_train(torch, peaks, args.out)
     ok &= train_ok
+    precision_launches, precision_ok = run_train_flash_precision(torch)
+    ok &= precision_ok
     mlp_train_launches, mlp_train_ok = run_train_fused_mlp(torch, peaks, train_peak_gb, args.out)
     ok &= mlp_train_ok
     big_launches, opt_res, big_ok = run_train_1p5b(torch, peaks, args.out)
     ok &= big_ok
     # each path's counts were zeroed before it and read after it
     by_path = {"generate": launches, **serve_launches, **w8_launches, **llama_launches,
-               **neox_launches, **mlp_launches, **train_launches, **mlp_train_launches,
-               **big_launches, **sparse_launches, **fops_launches}
+               **neox_launches, **mlp_launches, **train_launches, **precision_launches,
+               **mlp_train_launches, **big_launches, **sparse_launches, **fops_launches}
 
     # the kernels' rows at gpt2-760m's heads, which the serve_w8 and
     # generate_w8 paths run

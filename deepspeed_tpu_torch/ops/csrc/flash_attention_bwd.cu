@@ -76,16 +76,46 @@
 // pre-scaled in bf16. Shared memory: 114 KB at D = 64, 146 KB at D = 128,
 // 210 KB at D = 256.
 //
-// fp32, and the split pair in both dtypes: flash_bwd_kv_kernel and
-// flash_bwd_dq_kernel, products on the fp32 CUDA cores, the card's exact
-// fp32 reference (the fp32 engines and the gates that compare bf16 runs
-// against them go through it). 256 threads as a 16 x 16 grid; each block
-// stages its resident tile (k, v for the dkv loops; q, do for the dq loop)
-// and then each streamed tile in shared memory as fp32, rows padded by one
-// float. A thread owns the scores of rows ty + 16 i and keys tx + 16 j,
-// forms s and dp in one pass over D, writes p and ds to shared memory, and
-// then accumulates its rows of dk and dv (or dq) over the tile. Query
-// tiles are 64 rows and key tiles 64 keys (32 and 32 at D = 256). dk
+// Split, bf16: flash_bwd_dq_sm90_kernel and flash_bwd_dkv_sm90_kernel, on
+// the tensor cores with flash_sm90.cuh's layouts, and with the TPU split
+// kernels' numerics: those form every product from fp32 operands, so here p
+// and ds enter the tensor cores as a bf16 hi + lo pair, hi = bf16(x) and lo
+// = bf16(x - hi) (x - hi is exact in fp32). q, k, v and do are exact bf16,
+// so each product p X = p_hi X + p_lo X is exact and summed in fp32 in one
+// accumulator; what is left out, |x - hi - lo| <= 2^-18 |x|, lies under the
+// 1e-5 per addend of an fp32 sum in another order. There is no switch that
+// turns the lo part off. scale multiplies fp32 values only (s before the
+// exp2, dq and dk in the epilogues).
+// - dq kernel: one block per (64-row query tile, batch * head), the longest
+//   causal rows first; one consumer warpgroup and one producer warp. q and
+//   do stay resident, lse and delta in registers; k and v stream by TMA
+//   through a ring of two stages up to the causal limit min(Sk, q0 + 64).
+//   Per 64-key tile: s = q k^T and dp = do v^T (k / v and q / do K-major),
+//   p and ds in fp32 registers (masked only on tiles that cross S, Sk or the
+//   diagonal), ds split into the register-A fragments of dq += ds_hi k +
+//   ds_lo k (k MN-major). dq is summed in registers and written once as
+//   scale * dq: no fp32 buffer, no atomics, deterministic.
+// - dkv kernel: the merged kernel's loop without its dq share (key tiles
+//   of 128 at D = 64, each warpgroup owning 64 keys; of 64 at D = 128 and
+//   256, the warpgroups splitting s^T and dp^T by query halves and dk, dv by
+//   column halves). p^T and ds^T, hi and lo, go through shared memory at
+//   every D (four K-major tiles): dv += p^T_hi do + p^T_lo do, dk += ds^T_hi
+//   q + ds^T_lo q. Deterministic too.
+// Bounds at the training shape (the function's work: dq 3 products, dkv
+// 4): 0.0587 and 0.0782 ms, both by operations; the hi + lo design does 4
+// and 6, a floor of 0.0782 and 0.1174 ms. Shared memory: dq 49 / 97 / 193
+// KB, dkv 130 / 130 / 226 KB at D = 64 / 128 / 256.
+//
+// fp32: flash_bwd_kv_kernel (merged and split dkv) and flash_bwd_dq_kernel,
+// products on the fp32 CUDA cores, the card's exact fp32 reference (the
+// fp32 engines and the gates that compare bf16 runs against them go
+// through it); no bf16 tensor reaches them. 256 threads as a 16 x 16 grid;
+// each block stages its resident tile (k, v for the dkv loops; q, do for
+// the dq loop) and then each streamed tile in shared memory as fp32, rows
+// padded by one float. A thread owns the scores of rows ty + 16 i and keys
+// tx + 16 j, forms s and dp in one pass over D, writes p and ds to shared
+// memory, and then accumulates its rows of dk and dv (or dq) over the tile.
+// Query tiles are 64 rows and key tiles 64 keys (32 and 32 at D = 256). dk
 // carries scale through the pre-scaled q (fp32), as in the TPU kernels. The
 // split dkv kernel is the merged loop without dq; the split dq kernel has
 // one block per (query tile, batch * head), loops over the key tiles up to
@@ -93,15 +123,15 @@
 #include "common.cuh"
 #include "flash_sm90.cuh"
 
-#include <type_traits>
-
 namespace {
 
 constexpr int kThreads = 256;
 
-// launches by kernel: 0 flash_bwd_sm90_kernel, 1 flash_bwd_kv_kernel (merged
-// fp32 and split dkv), 2 flash_bwd_dq_kernel
-std::atomic<unsigned long long> g_launched[3];
+// launches by kernel: 0 flash_bwd_sm90_kernel, 1 flash_bwd_kv_kernel (fp32
+// merged and split dkv), 2 flash_bwd_dq_kernel (fp32 split dq), 3
+// flash_bwd_dq_sm90_kernel, 4 flash_bwd_dkv_sm90_kernel
+constexpr int kCounted = 5;
+std::atomic<unsigned long long> g_launched[kCounted];
 
 template <int D, int BQ, int BK>
 constexpr size_t smem_bytes() {
@@ -375,9 +405,11 @@ struct Args {
   cudaStream_t stream;
 };
 
-// kind: 0 merged (dq into the fp32 buffer, dk, dv), 1 split dkv, 2 split dq
-template <typename T, int D, int BQ, int BK>
+// fp32 only. kind: 0 merged (dq into the fp32 buffer, dk, dv), 1 split
+// dkv, 2 split dq
+template <int D, int BQ, int BK>
 cudaError_t launch(int kind, const Args& a) {
+  using T = float;
   constexpr size_t smem = smem_bytes<D, BQ, BK>();
   const T *q = static_cast<const T*>(a.q), *k = static_cast<const T*>(a.k);
   const T *v = static_cast<const T*>(a.v), *dout = static_cast<const T*>(a.dout);
@@ -393,26 +425,13 @@ cudaError_t launch(int kind, const Args& a) {
     return ds::sm90::counted(cudaGetLastError(), g_launched[2]);
   }
   const dim3 grid((a.Sk + BK - 1) / BK, a.B * a.H);
-  if constexpr (!std::is_same_v<T, float>) {
-    // bf16 merged runs flash_bwd_sm90_kernel: no CUDA-core kernel here forms its dq
-    if (kind == 0) return cudaErrorInvalidValue;
-  } else {
-    if (kind == 0) {
-      const auto kernel = flash_bwd_kv_kernel<T, D, BQ, BK, true>;
-      err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-      if (err != cudaSuccess) return err;
-      kernel<<<grid, kThreads, smem, a.stream>>>(
-          q, k, v, dout, a.lse, a.delta, static_cast<float*>(a.dq), static_cast<T*>(a.dk),
-          static_cast<T*>(a.dv), a.S, a.Sk, a.H, a.scale, a.causal);
-      return ds::sm90::counted(cudaGetLastError(), g_launched[1]);
-    }
-  }
-  const auto kernel = flash_bwd_kv_kernel<T, D, BQ, BK, false>;
+  const auto kernel = kind == 0 ? flash_bwd_kv_kernel<T, D, BQ, BK, true>
+                                : flash_bwd_kv_kernel<T, D, BQ, BK, false>;
   err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
-  kernel<<<grid, kThreads, smem, a.stream>>>(q, k, v, dout, a.lse, a.delta, nullptr,
-                                             static_cast<T*>(a.dk), static_cast<T*>(a.dv), a.S,
-                                             a.Sk, a.H, a.scale, a.causal);
+  kernel<<<grid, kThreads, smem, a.stream>>>(
+      q, k, v, dout, a.lse, a.delta, kind == 0 ? static_cast<float*>(a.dq) : nullptr,
+      static_cast<T*>(a.dk), static_cast<T*>(a.dv), a.S, a.Sk, a.H, a.scale, a.causal);
   return ds::sm90::counted(cudaGetLastError(), g_launched[1]);
 }
 
@@ -679,6 +698,396 @@ cudaError_t merged_sm90(int D, const Args& a) {
   }
 }
 
+// ---- bf16 split: flash_bwd_dq_sm90_kernel, flash_bwd_dkv_sm90_kernel ------
+
+// Two fp32 values of a fragment row as bf16 pairs: hi = bf16(x) and lo =
+// bf16(x - hi), x - hi exact in fp32, so x - hi - lo is within 2^-18 |x|.
+__device__ __forceinline__ void split_hi_lo(float a, float b, uint32_t& hi, uint32_t& lo) {
+  const __nv_bfloat162 h = __floats2bfloat162_rn(a, b);
+  hi = *reinterpret_cast<const uint32_t*>(&h);
+  lo = pack_bf16(a - __low2float(h), b - __high2float(h));
+}
+
+template <int D>
+struct Sm90Dq {
+  static constexpr int BQ = 64, BK = 64, KB = D / 64, STAGES = 2;
+  static constexpr int THREADS = 128 + 32;  // one consumer warpgroup, one producer warp
+  static constexpr int Q_BYTES = BQ * D * 2, KV_BYTES = BK * D * 2;
+  static constexpr int OFF_KV = 2 * Q_BYTES;  // q, do; then stage s: k, v
+  static constexpr int OFF_BAR = OFF_KV + STAGES * 2 * KV_BYTES;
+  static constexpr int SMEM = 1024 + OFF_BAR + (2 * STAGES + 1) * 8;
+};
+
+template <int D>
+__global__ void __launch_bounds__(Sm90Dq<D>::THREADS, 1)
+flash_bwd_dq_sm90_kernel(const __grid_constant__ CUtensorMap tm_q,
+                         const __grid_constant__ CUtensorMap tm_k,
+                         const __grid_constant__ CUtensorMap tm_v,
+                         const __grid_constant__ CUtensorMap tm_do, const float* __restrict__ lse,
+                         const float* __restrict__ delta, ds::bf16* __restrict__ dq_out, int S,
+                         int Sk, int H, float scale, int causal) {
+  using C = Sm90Dq<D>;
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* sm = align1024(smem_raw);
+  ds::bf16* sQ = reinterpret_cast<ds::bf16*>(sm);
+  ds::bf16* sDO = sQ + C::BQ * D;
+  uint64_t* full = reinterpret_cast<uint64_t*>(sm + C::OFF_BAR);
+  uint64_t* empty = full + C::STAGES;
+  uint64_t* qbar = full + 2 * C::STAGES;
+
+  const int bh = blockIdx.x, b = bh / H, h = bh % H;
+  const int q0 = (gridDim.y - 1 - blockIdx.y) * C::BQ;  // the longest causal rows first
+  const int k_end = causal ? min(Sk, q0 + C::BQ) : Sk;
+  const int n_tiles = (k_end + C::BK - 1) / C::BK;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < C::STAGES; ++s) {
+      mbar_init(&full[s], 1);
+      mbar_init(&empty[s], 4);  // one arrival per consumer warp
+    }
+    mbar_init(qbar, 1);
+    mbar_fence_init();
+  }
+  __syncthreads();
+
+  if (warp == 4) {  // the producer warp
+    if (lane == 0) {
+      mbar_expect_tx(qbar, 2 * C::Q_BYTES);
+      for (int c = 0; c < C::KB; ++c) {
+        tma_load_4d(sQ + c * C::BQ * 64, &tm_q, qbar, c * 64, h, q0, b);
+        tma_load_4d(sDO + c * C::BQ * 64, &tm_do, qbar, c * 64, h, q0, b);
+      }
+      for (int j = 0; j < n_tiles; ++j) {
+        const int s = j % C::STAGES;
+        if (j >= C::STAGES) mbar_wait(&empty[s], ((j / C::STAGES) - 1) & 1);
+        ds::bf16* sK = reinterpret_cast<ds::bf16*>(sm + C::OFF_KV + s * 2 * C::KV_BYTES);
+        ds::bf16* sV = sK + C::BK * D;
+        mbar_expect_tx(&full[s], 2 * C::KV_BYTES);
+        for (int c = 0; c < C::KB; ++c) {
+          tma_load_4d(sK + c * C::BK * 64, &tm_k, &full[s], c * 64, h, j * C::BK, b);
+          tma_load_4d(sV + c * C::BK * 64, &tm_v, &full[s], c * 64, h, j * C::BK, b);
+        }
+      }
+    }
+    return;
+  }
+
+  // the consumer warpgroup: accumulator rows are the queries wrow, wrow + 8
+  const int t = lane % 4, wrow = 16 * warp + lane / 4;
+  const float scale_log2 = scale * kLog2e;
+  float lse_l2[2], dlt[2];
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int row = q0 + wrow + 8 * r;
+    lse_l2[r] = row < S ? lse[(size_t)bh * S + row] * kLog2e : 0.f;
+    dlt[r] = row < S ? delta[(size_t)bh * S + row] : 0.f;
+  }
+  float dq[D / 2];
+#pragma unroll
+  for (int i = 0; i < D / 2; ++i) dq[i] = 0.f;
+
+  mbar_wait(qbar, 0);
+  for (int j = 0; j < n_tiles; ++j) {
+    const int s = j % C::STAGES, k0 = j * C::BK;
+    const ds::bf16* sK = reinterpret_cast<const ds::bf16*>(sm + C::OFF_KV + s * 2 * C::KV_BYTES);
+    const ds::bf16* sV = sK + C::BK * D;
+    mbar_wait(&full[s], (j / C::STAGES) & 1);
+
+    // s = q k^T and dp = do v^T: queries x keys
+    float st[C::BK / 2], dp[C::BK / 2];
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < D / 16; ++kk)
+      wgmma_ss<C::BK, 0, 0>(st, kmajor_desc(sQ + (kk / 4) * C::BQ * 64 + (kk % 4) * 16),
+                            kmajor_desc(sK + (kk / 4) * C::BK * 64 + (kk % 4) * 16), kk > 0);
+#pragma unroll
+    for (int kk = 0; kk < D / 16; ++kk)
+      wgmma_ss<C::BK, 0, 0>(dp, kmajor_desc(sDO + (kk / 4) * C::BQ * 64 + (kk % 4) * 16),
+                            kmajor_desc(sV + (kk / 4) * C::BK * 64 + (kk % 4) * 16), kk > 0);
+    wgmma_commit();
+    wgmma_wait_all();
+    fence_regs(st);
+    fence_regs(dp);
+
+    // p and ds in fp32; ds as the hi and lo A fragments of dq += ds k
+    const bool edge = q0 + C::BQ > S || k0 + C::BK > Sk || (causal && k0 + C::BK - 1 > q0);
+#pragma unroll
+    for (int i = 0; i < C::BK / 2; ++i) {
+      const int r = (i / 2) % 2, row = q0 + wrow + 8 * r;
+      const int key = k0 + 8 * (i / 4) + 2 * t + (i % 2);
+      float p = exp2f(fmaf(st[i], scale_log2, -lse_l2[r]));
+      if (edge && (row >= S || key >= Sk || (causal && key > row))) p = 0.f;
+      dp[i] = p * (dp[i] - dlt[r]);
+    }
+    uint32_t hi[C::BK / 16][4], lo[C::BK / 16][4];
+#pragma unroll
+    for (int kk = 0; kk < C::BK / 16; ++kk)
+#pragma unroll
+      for (int x = 0; x < 4; ++x)
+        split_hi_lo(dp[8 * kk + 2 * x], dp[8 * kk + 2 * x + 1], hi[kk][x], lo[kk][x]);
+    fence_regs(dq);
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < C::BK / 16; ++kk) {
+      const uint64_t dk_ = mnmajor_desc(sK + kk * 16 * 64, C::BK * 128);
+      wgmma_rs<D, 1>(dq, hi[kk], dk_, 1);
+      wgmma_rs<D, 1>(dq, lo[kk], dk_, 1);
+    }
+    wgmma_commit();
+    wgmma_wait_all();
+    fence_regs(dq);
+    __syncwarp();
+    if (lane == 0) mbar_arrive(&empty[s]);
+  }
+
+  const size_t row_stride = (size_t)H * D;
+  ds::bf16* ob = dq_out + (size_t)b * S * row_stride + (size_t)h * D;
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int row = q0 + wrow + 8 * r;
+    if (row < S) {
+#pragma unroll
+      for (int jj = 0; jj < D / 8; ++jj)
+        *reinterpret_cast<__nv_bfloat162*>(ob + (size_t)row * row_stride + 8 * jj + 2 * t) =
+            __floats2bfloat162_rn(scale * dq[4 * jj + 2 * r], scale * dq[4 * jj + 2 * r + 1]);
+    }
+  }
+}
+
+template <int D, int BK>
+struct Sm90Dkv {
+  static constexpr bool kOwnKeys = BK == 128;  // each warpgroup owns 64 of the keys
+  static constexpr int BQ = 64, KB = D / 64, STAGES = 2, THREADS = 256;
+  static constexpr int NQ = kOwnKeys ? 64 : 32;     // queries of a warpgroup's s^T
+  static constexpr int DN = kOwnKeys ? D : D / 2;   // dk, dv columns of a warpgroup
+  static constexpr int KV_BYTES = BK * D * 2;       // k or v
+  static constexpr int Q_BYTES = BQ * D * 2;        // q or do, one stage
+  static constexpr int P_ELEMS = BK * BQ;           // one of p^T hi, p^T lo, ds^T hi, ds^T lo
+  static constexpr int OFF_Q = 2 * KV_BYTES;        // stage s: q, then do
+  static constexpr int OFF_P = OFF_Q + STAGES * 2 * Q_BYTES;  // p^T hi, lo; ds^T hi, lo
+  static constexpr int OFF_ROW = OFF_P + 4 * P_ELEMS * 2;     // stage s: lse, delta
+  static constexpr int OFF_BAR = OFF_ROW + STAGES * 2 * BQ * 4;
+  static constexpr int SMEM = 1024 + OFF_BAR + (STAGES + 1) * 8;
+  static constexpr uint32_t STAGE_TX = 2 * Q_BYTES + 2 * BQ * 4;
+};
+
+template <int D, int BK>
+__global__ void __launch_bounds__(256, 1)
+flash_bwd_dkv_sm90_kernel(const __grid_constant__ CUtensorMap tm_q,
+                          const __grid_constant__ CUtensorMap tm_k,
+                          const __grid_constant__ CUtensorMap tm_v,
+                          const __grid_constant__ CUtensorMap tm_do,
+                          const __grid_constant__ CUtensorMap tm_lse,
+                          const __grid_constant__ CUtensorMap tm_delta, ds::bf16* __restrict__ dk,
+                          ds::bf16* __restrict__ dv, int S, int Sk, int H, float scale,
+                          int causal) {
+  using C = Sm90Dkv<D, BK>;
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* sm = align1024(smem_raw);
+  ds::bf16* sK = reinterpret_cast<ds::bf16*>(sm);
+  ds::bf16* sV = reinterpret_cast<ds::bf16*>(sm + C::KV_BYTES);
+  ds::bf16* sP = reinterpret_cast<ds::bf16*>(sm + C::OFF_P);  // hi at 0, lo at P_ELEMS
+  ds::bf16* sDS = sP + 2 * C::P_ELEMS;                         // likewise
+  uint64_t* full = reinterpret_cast<uint64_t*>(sm + C::OFF_BAR);
+  uint64_t* kvbar = full + C::STAGES;
+
+  const int bh = blockIdx.x, b = bh / H, h = bh % H;
+  const int k0 = blockIdx.y * BK;  // causal: the low key tiles see the most query tiles
+  const int q_begin = causal ? (k0 / C::BQ) * C::BQ : 0;
+  const int n_q = S > q_begin ? (S - q_begin + C::BQ - 1) / C::BQ : 0;
+
+  auto stage_q = [&](int s) {
+    return reinterpret_cast<ds::bf16*>(sm + C::OFF_Q + s * 2 * C::Q_BYTES);
+  };
+  auto stage_row = [&](int s) {
+    return reinterpret_cast<float*>(sm + C::OFF_ROW + s * 2 * C::BQ * 4);
+  };
+  auto load_q_tile = [&](int j) {  // query tile j into stage j % 2 (thread 0 only)
+    const int s = j % C::STAGES, qq = q_begin + j * C::BQ;
+    ds::bf16* q_s = stage_q(s);
+    ds::bf16* do_s = q_s + C::BQ * D;
+    float* row_s = stage_row(s);
+    mbar_expect_tx(&full[s], C::STAGE_TX);
+    for (int c = 0; c < C::KB; ++c) {
+      tma_load_4d(q_s + c * C::BQ * 64, &tm_q, &full[s], c * 64, h, qq, b);
+      tma_load_4d(do_s + c * C::BQ * 64, &tm_do, &full[s], c * 64, h, qq, b);
+    }
+    tma_load_2d(row_s, &tm_lse, &full[s], bh * S + qq, 0);
+    tma_load_2d(row_s + C::BQ, &tm_delta, &full[s], bh * S + qq, 0);
+  };
+
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < C::STAGES; ++s) mbar_init(&full[s], 1);
+    mbar_init(kvbar, 1);
+    mbar_fence_init();
+  }
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    mbar_expect_tx(kvbar, 2 * C::KV_BYTES);
+    for (int c = 0; c < C::KB; ++c) {
+      tma_load_4d(sK + c * BK * 64, &tm_k, kvbar, c * 64, h, k0, b);
+      tma_load_4d(sV + c * BK * 64, &tm_v, kvbar, c * 64, h, k0, b);
+    }
+    for (int j = 0; j < min(n_q, C::STAGES); ++j) load_q_tile(j);
+  }
+
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32, wg = warp / 4, t = lane % 4;
+  const int wrow = 16 * (warp % 4) + lane / 4;    // accumulator rows: wrow, wrow + 8
+  const int kr = C::kOwnKeys ? 64 * wg : 0;       // this warpgroup's keys [kr, kr + 64)
+  const int qc = C::kOwnKeys ? 0 : 32 * wg;       // its s^T query columns [qc, qc + NQ)
+  const int dc = C::kOwnKeys ? 0 : wg * (D / 2);  // its dk, dv columns [dc, dc + DN)
+  const float scale_log2 = scale * kLog2e;
+
+  float dk_acc[C::DN / 2], dv_acc[C::DN / 2];
+#pragma unroll
+  for (int i = 0; i < C::DN / 2; ++i) dk_acc[i] = dv_acc[i] = 0.f;
+
+  mbar_wait(kvbar, 0);
+  for (int j = 0; j < n_q; ++j) {
+    const int s = j % C::STAGES, qq = q_begin + j * C::BQ;
+    const ds::bf16* q_s = stage_q(s);
+    const ds::bf16* do_s = q_s + C::BQ * D;
+    const float* row_s = stage_row(s);
+    mbar_wait(&full[s], (j / C::STAGES) & 1);
+
+    // s^T = k q^T and dp^T = v do^T: keys [kr, kr + 64) x queries [qc, qc + NQ)
+    float st[C::NQ / 2], dpt[C::NQ / 2];
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < D / 16; ++kk) {
+      const int ok = (kk / 4) * BK * 64 + kr * 64 + (kk % 4) * 16;
+      const int oq = (kk / 4) * C::BQ * 64 + qc * 64 + (kk % 4) * 16;
+      wgmma_ss<C::NQ, 0, 0>(st, kmajor_desc(sK + ok), kmajor_desc(q_s + oq), kk > 0);
+    }
+#pragma unroll
+    for (int kk = 0; kk < D / 16; ++kk) {
+      const int ok = (kk / 4) * BK * 64 + kr * 64 + (kk % 4) * 16;
+      const int oq = (kk / 4) * C::BQ * 64 + qc * 64 + (kk % 4) * 16;
+      wgmma_ss<C::NQ, 0, 0>(dpt, kmajor_desc(sV + ok), kmajor_desc(do_s + oq), kk > 0);
+    }
+    wgmma_commit();
+    wgmma_wait_all();
+    fence_regs(st);
+    fence_regs(dpt);
+
+    // p^T and ds^T in fp32, stored to shared memory as bf16 hi and lo
+    const bool edge = qq + C::BQ > S || k0 + BK > Sk || (causal && k0 + BK - 1 > qq);
+#pragma unroll
+    for (int i = 0; i < C::NQ / 2; ++i) {
+      const int col = qc + 8 * (i / 4) + 2 * t + (i % 2);  // query within the tile
+      const int key = k0 + kr + wrow + 8 * ((i / 2) % 2);
+      float p = exp2f(fmaf(st[i], scale_log2, -row_s[col] * kLog2e));
+      if (edge && (qq + col >= S || key >= Sk || (causal && key > qq + col))) p = 0.f;
+      st[i] = p;
+      dpt[i] = p * (dpt[i] - row_s[C::BQ + col]);
+    }
+#pragma unroll
+    for (int i = 0; i < C::NQ / 2; i += 2) {
+      const int row = kr + wrow + 8 * ((i / 2) % 2), col = qc + 8 * (i / 4) + 2 * t;
+      const int off = sw128_offset(row, col);
+      uint32_t hi, lo;
+      split_hi_lo(st[i], st[i + 1], hi, lo);
+      *reinterpret_cast<uint32_t*>(sP + off) = hi;
+      *reinterpret_cast<uint32_t*>(sP + C::P_ELEMS + off) = lo;
+      split_hi_lo(dpt[i], dpt[i + 1], hi, lo);
+      *reinterpret_cast<uint32_t*>(sDS + off) = hi;
+      *reinterpret_cast<uint32_t*>(sDS + C::P_ELEMS + off) = lo;
+    }
+    fence_proxy_async();
+    __syncthreads();  // both warpgroups' p^T and ds^T are in place
+
+    // dv += p^T do, dk += ds^T q, each over hi then lo: keys [kr, kr + 64) x
+    // columns [dc, dc + DN)
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < C::BQ / 16; ++kk) {
+      const int op = kr * 64 + kk * 16;
+      const int oq = (dc / 64) * C::BQ * 64 + kk * 16 * 64;
+#pragma unroll
+      for (int part = 0; part < 2; ++part) {
+        wgmma_ss<C::DN, 0, 1>(dv_acc, kmajor_desc(sP + part * C::P_ELEMS + op), mnmajor_desc(do_s + oq, C::BQ * 128), 1);
+        wgmma_ss<C::DN, 0, 1>(dk_acc, kmajor_desc(sDS + part * C::P_ELEMS + op), mnmajor_desc(q_s + oq, C::BQ * 128), 1);
+      }
+    }
+    wgmma_commit();
+    wgmma_wait_all();
+    fence_regs(dv_acc);
+    fence_regs(dk_acc);
+    __syncthreads();  // stage s, p^T and ds^T are free
+    if (threadIdx.x == 0 && j + C::STAGES < n_q) load_q_tile(j + C::STAGES);
+  }
+
+  const size_t row_stride = (size_t)H * D;
+  const size_t off = (size_t)b * Sk * row_stride + (size_t)h * D + dc;
+#pragma unroll
+  for (int i = 0; i < C::DN / 2; i += 2) {
+    const int key = k0 + kr + wrow + 8 * ((i / 2) % 2);
+    if (key < Sk) {
+      const size_t o = off + (size_t)key * row_stride + 8 * (i / 4) + 2 * t;
+      *reinterpret_cast<__nv_bfloat162*>(dk + o) =
+          __floats2bfloat162_rn(scale * dk_acc[i], scale * dk_acc[i + 1]);
+      *reinterpret_cast<__nv_bfloat162*>(dv + o) = __floats2bfloat162_rn(dv_acc[i], dv_acc[i + 1]);
+    }
+  }
+}
+
+template <int D>
+cudaError_t launch_dq_sm90(const Args& a) {
+  using C = Sm90Dq<D>;
+  CUtensorMap mq, mk, mv, mdo;
+  if (!head_map(&mq, a.q, a.B, a.S, a.H, D, C::BQ) ||
+      !head_map(&mk, a.k, a.B, a.Sk, a.H, D, C::BK) ||
+      !head_map(&mv, a.v, a.B, a.Sk, a.H, D, C::BK) ||
+      !head_map(&mdo, a.dout, a.B, a.S, a.H, D, C::BQ))
+    return cudaErrorInvalidValue;
+  const auto kernel = flash_bwd_dq_sm90_kernel<D>;
+  const cudaError_t err =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, C::SMEM);
+  if (err != cudaSuccess) return err;
+  const dim3 grid(a.B * a.H, (a.S + C::BQ - 1) / C::BQ);
+  kernel<<<grid, C::THREADS, C::SMEM, a.stream>>>(mq, mk, mv, mdo, a.lse, a.delta,
+                                                  static_cast<ds::bf16*>(a.dq), a.S, a.Sk, a.H,
+                                                  a.scale, a.causal);
+  return counted(cudaGetLastError(), g_launched[3]);
+}
+
+template <int D, int BK>
+cudaError_t launch_dkv_sm90(const Args& a) {
+  using C = Sm90Dkv<D, BK>;
+  CUtensorMap mq, mk, mv, mdo, mlse, mdelta;
+  const size_t rows = (size_t)a.B * a.H * a.S;
+  if (!head_map(&mq, a.q, a.B, a.S, a.H, D, C::BQ) || !head_map(&mk, a.k, a.B, a.Sk, a.H, D, BK) ||
+      !head_map(&mv, a.v, a.B, a.Sk, a.H, D, BK) ||
+      !head_map(&mdo, a.dout, a.B, a.S, a.H, D, C::BQ) || !row_map(&mlse, a.lse, rows) ||
+      !row_map(&mdelta, a.delta, rows))
+    return cudaErrorInvalidValue;
+  const auto kernel = flash_bwd_dkv_sm90_kernel<D, BK>;
+  const cudaError_t err =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, C::SMEM);
+  if (err != cudaSuccess) return err;
+  const dim3 grid(a.B * a.H, (a.Sk + BK - 1) / BK);
+  kernel<<<grid, C::THREADS, C::SMEM, a.stream>>>(mq, mk, mv, mdo, mlse, mdelta,
+                                                  static_cast<ds::bf16*>(a.dk),
+                                                  static_cast<ds::bf16*>(a.dv), a.S, a.Sk, a.H,
+                                                  a.scale, a.causal);
+  return counted(cudaGetLastError(), g_launched[4]);
+}
+
+// kind: 1 split dkv, 2 split dq
+cudaError_t split_sm90(int kind, int D, const Args& a) {
+  switch (D) {
+    case 64:
+      return kind == 1 ? launch_dkv_sm90<64, 128>(a) : launch_dq_sm90<64>(a);
+    case 128:
+      return kind == 1 ? launch_dkv_sm90<128, 64>(a) : launch_dq_sm90<128>(a);
+    case 256:
+      return kind == 1 ? launch_dkv_sm90<256, 64>(a) : launch_dq_sm90<256>(a);
+    default:
+      return cudaErrorInvalidValue;
+  }
+}
+
 // ---- the merged backward's passes around the kernel ------------------------
 
 // delta = sum(do * o) - dlse in fp32 for each (b, s, h) row, written at
@@ -756,23 +1165,23 @@ flash_bwd_dq_cast_kernel(const float* __restrict__ dq_acc, T* __restrict__ dq, f
   d[3] = ds::from_float<T>(v.w * scale);
 }
 
-template <typename T>
-cudaError_t by_dim(int kind, int D, const Args& a) {
+// fp32: the CUDA-core kernels
+cudaError_t by_dim_fp32(int kind, int D, const Args& a) {
   switch (D) {
     case 64:
-      return launch<T, 64, 64, 64>(kind, a);
+      return launch<64, 64, 64>(kind, a);
     case 128:
-      return launch<T, 128, 64, 64>(kind, a);
+      return launch<128, 64, 64>(kind, a);
     case 256:
-      return launch<T, 256, 32, 32>(kind, a);
+      return launch<256, 32, 32>(kind, a);
     default:
       return cudaErrorInvalidValue;
   }
 }
 
 int dispatch(int kind, const Args& a, int D, int dtype) {
-  if (dtype == ds::kBFloat16) return kind == 0 ? merged_sm90(D, a) : by_dim<ds::bf16>(kind, D, a);
-  if (dtype == ds::kFloat32) return by_dim<float>(kind, D, a);
+  if (dtype == ds::kBFloat16) return kind == 0 ? merged_sm90(D, a) : split_sm90(kind, D, a);
+  if (dtype == ds::kFloat32) return by_dim_fp32(kind, D, a);
   return cudaErrorInvalidValue;
 }
 
@@ -849,8 +1258,8 @@ DS_EXPORT int flash_attention_bwd_dq_cast(const void* dq_acc, void* dq, int B, i
 }
 
 // Launches so far of kernel `which` (0 flash_bwd_sm90_kernel, 1
-// flash_bwd_kv_kernel, 2 flash_bwd_dq_kernel), counted on the host where each
-// is launched.
+// flash_bwd_kv_kernel, 2 flash_bwd_dq_kernel, 3 flash_bwd_dq_sm90_kernel, 4
+// flash_bwd_dkv_sm90_kernel), counted on the host where each is launched.
 DS_EXPORT unsigned long long flash_attention_bwd_launched(int which) {
-  return which >= 0 && which < 3 ? g_launched[which].load() : 0;
+  return which >= 0 && which < kCounted ? g_launched[which].load() : 0;
 }

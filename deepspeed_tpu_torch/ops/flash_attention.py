@@ -4,9 +4,13 @@ Port of ``deepspeed_tpu/ops/pallas/flash_attention.py``: the TPU kernel
 ``_fwd_kernel`` becomes ``csrc/flash_attention.cu``, and the backward
 kernels ``_dqkv_kernel`` (merged, the default) and ``_dq_kernel`` /
 ``_dkv_kernel`` (split) become ``csrc/flash_attention_bwd.cu`` (see each
-header for the design and bound). bf16 runs the forward and the merged
-backward on the tensor cores (``flash_*_sm90_kernel``); fp32 runs the
-CUDA-core kernels, the card's exact fp32 reference.
+header for the design and bound). bf16 runs every kernel on the tensor
+cores (``flash_*_sm90_kernel``): the forward, the merged backward, and the
+split pair ``flash_bwd_dq_sm90_kernel`` / ``flash_bwd_dkv_sm90_kernel``,
+which keeps the TPU split kernels' fp32-grade p and ds by feeding each to
+the tensor cores as a bf16 hi + lo pair (the merged kernel rounds them to
+bf16 once). fp32 runs the CUDA-core kernels, the card's exact fp32
+reference.
 
 Public shapes are the JAX package's, ``(B, S, H, D)``. The kernels keep
 ``lse`` and ``delta`` in the TPU kernels' ``(B·H, 1, S)`` fp32 layout;
@@ -23,9 +27,9 @@ the ``DS_TPU_FLASH_BWD`` environment variable; an unknown mode raises).
 CUDA tensors launch the kernels; CPU tensors run the plain versions
 (:func:`flash_attention_plain`, :func:`flash_attention_bwd_plain`), the
 same functions in plain PyTorch. S need not divide any tile: ragged
-lengths are masked. Gradients come back in the inputs' dtype; ``dk``
-carries ``scale`` through the pre-scaled q, and ``dq`` is scaled after its
-fp32 accumulation.
+lengths are masked. Gradients come back in the inputs' dtype; ``dq`` and
+``dk`` are scaled after their fp32 accumulation (the plain version and the
+fp32 kernels carry ``dk``'s through the pre-scaled q, as the TPU kernels do).
 """
 from __future__ import annotations
 
@@ -52,7 +56,8 @@ BWD_DQ_CAST = Kernel("flash_attention_bwd", "flash_attention_bwd_dq_cast",
 
 # the kernels behind the C entries, in the order their libraries count them
 FWD_KERNELS = ("flash_fwd_sm90_kernel", "flash_fwd_kernel")
-BWD_KERNELS = ("flash_bwd_sm90_kernel", "flash_bwd_kv_kernel", "flash_bwd_dq_kernel")
+BWD_KERNELS = ("flash_bwd_sm90_kernel", "flash_bwd_kv_kernel", "flash_bwd_dq_kernel",
+               "flash_bwd_dq_sm90_kernel", "flash_bwd_dkv_sm90_kernel")
 
 HEAD_DIMS = (64, 128, 256)   # the flash predicate's head dims, instantiated in CUDA
 BWD_MODE = "merged"          # "merged" | "split"; env DS_TPU_FLASH_BWD overrides
@@ -71,7 +76,7 @@ def bwd_mode(mode: Optional[str] = None) -> str:
 def kernel_launches() -> dict:
     """Launches so far of each flash kernel, by symbol (:data:`FWD_KERNELS`,
     :data:`BWD_KERNELS`), as the C libraries count them where they launch
-    them: which kernel a run took, the bf16 tensor-core ones or the
+    them: which kernel a run took, the bf16 tensor-core ones or the fp32
     CUDA-core ones. Loads (and builds) the libraries."""
     counts = {}
     for source, symbol, names in (("flash_attention", "flash_attention_fwd_launched",
