@@ -499,9 +499,10 @@ def kernel_cases(torch, F, peaks):
         sets = [(randn(B, 1, H, D), randn(B, S_max, KV, D), randn(B, S_max, KV, D))
                 for _ in range(10)]   # 10 caches of 6.3 MB (125m MHA): past the L2
 
-        def sdpa(q, k, v):
+        def sdpa(q, k, v, gqa=KV < H):
             return F.scaled_dot_product_attention(q.transpose(1, 2), k.transpose(1, 2),
-                                                  v.transpose(1, 2), attn_mask=mask)
+                                                  v.transpose(1, 2), attn_mask=mask,
+                                                  enable_gqa=gqa)
         cases.append(dict(
             name="decode_attention", shape=f"B={B} S_max={S_max} H={H} KV={KV} D={D} "
             "lengths=" + ",".join(str(int(x)) for x in lengths),
@@ -510,7 +511,9 @@ def kernel_cases(torch, F, peaks):
             source="deepspeed_tpu_torch/ops/csrc/decode_attention.cu", sets=sets,
             kernel=lambda q, k, v: da.decode_attention(q, k, v, lengths),
             plain=lambda q, k, v, sc=D ** -0.5: da.decode_attention_plain(q, k, v, lengths, sc),
-            library=sdpa if KV == H else None, compare="bf16",
+            library=sdpa, compare="bf16",
+            library_label="SDPA, masked" + (f", enable_gqa ({H // KV} query heads per KV head)"
+                                            if KV < H else ""),
             bound=bound_ms(2 * live * KV * D * 2 + 2 * B * H * D * 2 + B * 4,
                            4 * live * H * D, peaks)))
 
@@ -720,6 +723,82 @@ def run_fp32_shapes(torch):
                   ok=err <= tol))
         ok &= err <= tol
     return ok
+
+
+def decode_split_cases(torch):
+    """Decode and paged attention at the lengths around the kernels' 64-position
+    chunks (none live, one, one short of a chunk, one and two chunks, one
+    past, the whole cache, past the table), with NaN in every dead position
+    of the caches and arenas: (name, kernel call, plain call, q, gathered
+    K, V, lengths, scale, dtype) per case."""
+    from deepspeed_tpu_torch.ops import decode_attention as da
+    from deepspeed_tpu_torch.ops import paged_attention as pa
+
+    dev = "cuda"
+    g = torch.Generator(device=dev).manual_seed(SEED + 12)
+    cases = []
+    # contiguous: (H, KV, D, dtype, S_max, lengths or a scalar length)
+    for H, KV, D, dtype, S, lens in (
+            (32, 4, 64, torch.bfloat16, 512, [0, 1, 63, 64, 65, 128, 129, 512]),
+            (12, 4, 96, torch.bfloat16, 300, 129),                # generate's scalar length
+            (16, 2, 128, torch.bfloat16, 40, [0, 1, 40]),         # one chunk, then the merge
+            (8, 8, 256, torch.float32, 200, [0, 64, 65, 200])):   # fp32 at 143 KB of smem
+        B = 3 if isinstance(lens, int) else len(lens)
+        lengths = torch.tensor(lens, dtype=torch.int32, device=dev).expand(B).contiguous()
+        dead = (torch.arange(S, device=dev)[None, :] >= lengths[:, None])[:, :, None, None]
+        q, k, v = (torch.randn(shape, generator=g, device=dev).to(dtype)
+                   for shape in ((B, 1, H, D), (B, S, KV, D), (B, S, KV, D)))
+        k, v = k.masked_fill(dead, float("nan")), v.masked_fill(dead, float("nan"))
+        length = lens if isinstance(lens, int) else lengths
+        cases.append((f"decode H={H} KV={KV} D={D} S_max={S} {str(dtype)[6:]} lengths={lens}",
+                      lambda q=q, k=k, v=v, n=length: da.decode_attention(q, k, v, n),
+                      lambda q=q, k=k, v=v, n=lengths, sc=D ** -0.5:
+                      da.decode_attention_plain(q, k, v, n, sc),
+                      q, k, v, lengths, D ** -0.5, dtype))
+    # paged: (H, KV, D, dtype, pt, T, lengths); 12-token pages end inside chunks
+    for H, KV, D, dtype, pt, T, lens in (
+            (32, 4, 64, torch.bfloat16, 16, 32, [0, 1, 63, 64, 65, 128, 129, 512, 600]),
+            (12, 4, 128, torch.float32, 12, 20, [0, 5, 64, 65, 240, 300])):
+        q, kp, vp, table = paged_arena(torch, g, lens, len(lens), H, KV, D, pt, T, dtype)
+        lengths = torch.tensor(lens, dtype=torch.int32, device=dev)
+        cases.append((f"paged H={H} KV={KV} D={D} pt={pt} T={T} {str(dtype)[6:]} lengths={lens}",
+                      lambda q=q, kp=kp, vp=vp, t=table, n=lengths:
+                      pa.paged_decode_attention(q, kp, vp, t, n),
+                      lambda q=q, kp=kp, vp=vp, t=table, n=lengths, sc=D ** -0.5:
+                      pa.paged_decode_attention_plain(q, kp, vp, t, n, sc),
+                      q, pa.gather_kv_pages(kp, table), pa.gather_kv_pages(vp, table),
+                      lengths.clamp(max=T * pt), D ** -0.5, dtype))
+    return cases
+
+
+def run_decode_split_checks(torch):
+    """Each :func:`decode_split_cases` case held against its plain version
+    (bf16: :func:`attention_errors`'s per-element limit and fp64 anchor;
+    fp32: 1e-4 of the output's scale), its L = 0 rows exactly zero, and a
+    second call equal bit for bit (fixed merge order, no atomics). One
+    ``kernels_decode_split`` line per case; returns the lines and whether
+    all passed."""
+    rows = []
+    for name, kernel, plain, q, k, v, lengths, scale, dtype in decode_split_cases(torch):
+        got, again, ref = kernel(), kernel(), plain()
+        torch.cuda.synchronize()
+        zero_rows = bool((got[lengths == 0] == 0).all())
+        finite = bool(torch.isfinite(got).all())
+        if dtype == torch.bfloat16:
+            err, ratio, witness = attention_errors(torch, got, ref, q, k, v, lengths, scale)
+            limit = "1 bf16 ulp + 1e-5 x sum_i p_i |v_i| / l per element; fp64 anchor"
+        else:
+            err = float((got - ref).abs().max())
+            ratio = err / (1e-4 * max(1.0, float(ref.abs().max())))
+            witness, limit = {}, "1e-4 x max(1, |out|) (fp32 sums in another order)"
+        row = dict(phase="kernels_decode_split", case=name, max_err=err, err_over_limit=ratio,
+                   limit=limit, repeats_bitwise=bool(torch.equal(got, again)),
+                   zero_rows_ok=zero_rows, finite=finite, **witness)
+        row["ok"] = (ratio <= 1.0 and row["repeats_bitwise"] and zero_rows and finite
+                     and witness.get("fp64_anchor_ok", True))
+        emit(row)
+        rows.append(row)
+    return rows, all(r["ok"] for r in rows)
 
 
 def flash_bwd_cases(torch):
@@ -1426,7 +1505,9 @@ def serve_pass(torch, batcher, reqs):
 def serve_profile(torch, batcher, reqs, out_path=None):
     """Device time against wall time for one 16-tick decode window of 8
     live slots (greedy and sampled rows, no waiters): the serve tick's
-    device busy share."""
+    device busy share, and the decode or paged attention kernels' device
+    time per tick (their split and merge kernels, ``ds::decode_split::``)
+    and share of the tick's device time."""
     from torch.profiler import ProfilerActivity, profile
 
     uids = [batcher.submit(**r) for r in reqs[:batcher.n_slots]]
@@ -1438,14 +1519,18 @@ def serve_profile(torch, batcher, reqs, out_path=None):
         torch.cuda.synchronize()
     ticks = batcher.stats["ticks"] - st0["ticks"]
     wall_ms = (batcher.stats["decode_s"] - st0["decode_s"]) * 1e3
-    dev_ms = sum(device_ms_of(prof).values())
+    by_name = device_ms_of(prof)
+    dev_ms = sum(by_name.values())
+    attn_ms = sum(v for k, v in by_name.items() if "decode_split::" in k)
     batcher.wait(uids)
     if out_path:
         with open(out_path, "w") as fh:
             fh.write(prof.key_averages().table(sort_by="self_cpu_time_total", row_limit=50))
     return dict(window_ticks=ticks, tick_wall_ms=wall_ms / ticks,
                 tick_device_ms=dev_ms / ticks if dev_ms else "not measured",
-                tick_device_busy_share=dev_ms / wall_ms if dev_ms else "not measured")
+                tick_device_busy_share=dev_ms / wall_ms if dev_ms else "not measured",
+                tick_attention_device_ms=attn_ms / ticks if dev_ms else "not measured",
+                tick_attention_share_of_device=attn_ms / dev_ms if dev_ms else "not measured")
 
 
 def run_serve(torch, delta_of, out_dir=None):
@@ -4994,6 +5079,7 @@ def main() -> int:
     kernel_results = run_kernels(torch, F, peaks)
     ok &= all(r["ok"] for _, r in kernel_results)
     ok &= run_fp32_shapes(torch)
+    ok &= run_decode_split_checks(torch)[1]
     bwd_rows, bwd_ok = run_bwd_kernels(torch, F, peaks)
     ok &= bwd_ok
     adam_err, adam_ok = run_adam8bit_kernel(torch, peaks)

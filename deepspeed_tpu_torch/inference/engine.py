@@ -353,7 +353,11 @@ def _filtered_logits(logits, temperature, top_k: int, top_p=1.0):
     else:
         return scaled
     sorted_desc = torch.sort(scaled, dim=-1, descending=True).values
-    probs = torch.softmax(sorted_desc, dim=-1)
+    # the nucleus's mass in fp64: an fp32 softmax's normaliser rounds apart
+    # on the card and the CPU (~1e-6 at V = 50257), and bf16-valued logits
+    # tie in blocks, so in fp32 a tied block at the boundary can be kept on
+    # one device and dropped on the other
+    probs = torch.softmax(sorted_desc.double(), dim=-1)
     mass_before = torch.cumsum(probs, dim=-1) - probs
     thr = torch.where(mass_before < p, sorted_desc,
                       torch.full_like(sorted_desc, float("inf"))).amin(-1, keepdim=True)

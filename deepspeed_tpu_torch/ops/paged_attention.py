@@ -1,11 +1,16 @@
 """Paged decode attention: one decode tick read straight off the KV page arena.
 
 Port of ``deepspeed_tpu/ops/pallas/paged_attention.py``. The TPU kernel
-``_paged_kernel`` (a flash-decode whose grid walks the page table, the
-table and lengths riding as scalar prefetch) becomes one CUDA kernel,
-``csrc/paged_attention.cu``: the contiguous decode kernel's design
-(``csrc/decode_attention.cu``) with a paged address map. See its header
-for the design and bound.
+``_paged_kernel`` (a flash-decode whose grid walks the page table in order,
+the table and lengths riding as scalar prefetch) becomes one C entry,
+``csrc/paged_attention.cu``: the contiguous decode kernel's split design
+(``csrc/decode_split.cuh``) with a paged address map. The ``T * pt``
+positions a row's table covers are cut into chunks of ``CHUNK``; one block
+per (chunk, KV head, batch row) reads the table entries its chunk spans,
+copies the live rows through them (rows past the length zero-filled, never
+read) and forms the chunk's fp32 softmax state for the group's query heads;
+a second kernel merges a row's live chunks by their lse, in chunk order.
+See the sources' headers for the bound and what limits the kernel.
 
 Layouts are the JAX package's: ``q`` ``(B, 1, H, D)``; the arena
 ``k_pages``/``v_pages`` ``(P, pt, KV, D)`` with ``KV`` dividing ``H``
@@ -18,7 +23,10 @@ all trash, and the table is never indexed past ``T - 1``.
 
 :func:`paged_decode_attention` launches the kernel for CUDA tensors and
 runs :func:`paged_decode_attention_plain` (gather the table's pages, then
-the contiguous kernel's masked arithmetic) for CPU tensors.
+the contiguous plain version's one pass) for CPU tensors;
+:func:`paged_decode_attention_split_plain` repeats the kernel's chunks and
+merge for the tests. The launch plan comes from shapes alone: the wrapper
+never reads ``lengths`` back from the card.
 :func:`paged_reference_attention` is the multi-token path (suffix prefill)
 over the gathered view, as in the JAX package.
 """
@@ -29,10 +37,11 @@ from typing import NamedTuple, Optional
 import torch
 
 from ._build import FLOAT, INT, PTR, Kernel, check_operands, dtype_code, stream_of
-from .decode_attention import decode_attention_plain, decode_supported
+from .decode_attention import (CHUNK, decode_attention_plain, decode_attention_split_plain,
+                               decode_supported, split_workspace)
 
 KERNEL = Kernel("paged_attention", "paged_attention_fwd",
-                [PTR, PTR, PTR, PTR, PTR, PTR, INT, INT, INT, INT, INT, INT, INT, FLOAT,
+                [PTR, PTR, PTR, PTR, PTR, PTR, PTR, INT, INT, INT, INT, INT, INT, INT, FLOAT,
                  INT, PTR])
 
 
@@ -75,6 +84,16 @@ def paged_decode_attention_plain(q, k_pages, v_pages, table, lengths, scale):
     v = gather_kv_pages(v_pages, table)
     live = lengths.to(q.device).clamp(0, k.shape[1])
     return decode_attention_plain(q, k, v, live, scale)
+
+
+def paged_decode_attention_split_plain(q, k_pages, v_pages, table, lengths, scale,
+                                       chunk=CHUNK):
+    """The kernel's split arithmetic in plain PyTorch, for the tests: gather
+    the table's pages, then :func:`decode_attention_split_plain` (chunks of
+    the ``T*pt`` gathered positions, merged by lse) over ``min(L, T*pt)``."""
+    k = gather_kv_pages(k_pages, table)
+    v = gather_kv_pages(v_pages, table)
+    return decode_attention_split_plain(q, k, v, lengths, scale, chunk)
 
 
 def _check_geometry(q, k_pages, v_pages, table, lengths):
@@ -121,10 +140,11 @@ def paged_decode_attention(q: torch.Tensor, k_pages: torch.Tensor, v_pages: torc
     if table.device != q.device:
         raise ValueError(f"page table on {table.device}, q on {q.device}")
     out = torch.empty_like(q)
+    ws = split_workspace(B, H, D, T * pt, q.device)
     with torch.cuda.device(q.device):
         KERNEL.launch(q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(), table.data_ptr(),
-                      lengths.data_ptr(), out.data_ptr(), B, P, pt, T, H, KV, D, scale,
-                      dtype_code(q), stream_of(q))
+                      lengths.data_ptr(), out.data_ptr(), ws.data_ptr(), B, P, pt, T, H, KV, D,
+                      scale, dtype_code(q), stream_of(q))
     return out
 
 

@@ -133,6 +133,46 @@ def test_sampling_transforms_match_jax(temperature, top_k, top_p, penalty):
     np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=1e-6, rtol=0)
 
 
+@pytest.mark.parametrize("side", ["kept", "dropped"])
+def test_top_p_keeps_a_tied_boundary_block_as_exact_arithmetic_does(side):
+    """bf16-valued logits at GPT-2's vocab tie in blocks. Where top_p lies
+    one fp32 step above (below) the mass before the block that straddles
+    it, the port keeps (drops) the whole block, as the JAX package's
+    ``_filtered_logits`` does in float64 on the same values. The port takes
+    the nucleus's mass in fp64 (JAX: in the logits' dtype, fp32), since an
+    fp32 softmax's normaliser rounds apart on the card and the CPU and
+    moved such blocks (62 tokens on the card)."""
+    rng = np.random.default_rng(3)
+    V, rows = 50257, 4
+    lg = torch.from_numpy(rng.standard_normal((rows, V)).astype(np.float32)).to(
+        torch.bfloat16).float()
+    temperature = torch.full((rows,), 0.8)
+    scaled = lg / temperature[:, None]          # the port's fp32 division, given to JAX
+    p = []
+    for r in range(rows):                       # top_p one fp32 step off a block's edge
+        sd = torch.sort(scaled[r], descending=True).values
+        pr = torch.softmax(sd.double(), -1)
+        mass_before = torch.cumsum(pr, -1) - pr
+        v = sd[int((mass_before < 0.9).sum()) - 1]           # the block across 0.9
+        edge = np.float32(float(mass_before[int((sd > v).sum())]))
+        p.append(np.nextafter(edge, np.float32(side == "kept")))
+    p = np.asarray(p, np.float32)
+    got = port_engine._filtered_logits(lg, temperature, 0, torch.from_numpy(p))
+    with jax.enable_x64(True):
+        want = np.asarray(jax_engine._filtered_logits(
+            jnp.asarray(scaled.numpy().astype(np.float64)), 1.0, 0,
+            jnp.asarray(p.astype(np.float64))[:, None]))
+    assert want.dtype == np.float64
+    np.testing.assert_array_equal(torch.isfinite(got).numpy(), np.isfinite(want))
+    # the boundary is a tied block's edge, so kept and dropped differ by it
+    kept = np.isfinite(want).sum(-1)
+    for r in range(rows):
+        sd = np.sort(scaled[r].numpy())[::-1]
+        assert sd[kept[r] - 1] != sd[kept[r]]
+        tied = sd[kept[r]] if side == "dropped" else sd[kept[r] - 1]
+        assert (sd == tied).sum() > 1
+
+
 def test_seeded_sampling_is_deterministic(flax_params):
     _, port = _engines(flax_params)
     ids = np.random.default_rng(2).integers(0, 512, size=(2, 5)).astype(np.int32)

@@ -1,6 +1,7 @@
-"""Paged decode attention: the port's plain version (what its CUDA kernel is
-held against on the card) against the JAX Pallas kernel in interpret mode,
-and the gather / multi-token reference against the JAX functions.
+"""Paged decode attention: the port's plain versions (what its CUDA kernel is
+held against on the card, and the kernel's split-and-merge arithmetic)
+against the JAX Pallas kernel in interpret mode, the gather / multi-token
+reference against the JAX functions, and the wrapper's launch plan.
 
 The same numpy inputs, made from a seed, go through both. fp32, atol 1e-5:
 both sides compute fp32 scores, softmax and ``p @ v``, in different orders.
@@ -13,6 +14,8 @@ import torch
 from deepspeed_tpu.ops.attention import _jnp_attention
 from deepspeed_tpu.ops.pallas import paged_attention as jax_pa
 from deepspeed_tpu_torch.ops import paged_attention as pa
+
+from .test_torch_decode_attention import _OnCard, launch_recorder
 
 # several pytest workers share the host's cores: one torch thread each
 torch.set_num_threads(1)
@@ -42,14 +45,15 @@ def _paged_case(rng, B, H, KV, D, pt, T):
     return q, k_pages, v_pages, table, k, v
 
 
-def _hazard_case(rng, H, KV, D=64, pt=8, T=5):
+def _hazard_case(rng, H, KV, D=64, pt=8, T=5, lengths=None):
     """Rows at L = 0, 1, pt, pt + 3, T*pt (full table) and T*pt + 5 (past
-    the table), each row's pages shuffled and its table padded with trash
-    page 0; a free slot whose table is all trash page 1 and whose length
-    ran to 3*T*pt. Unallocated pages, trash page 0 and every dead position
-    of a tail page hold NaN; trash page 1 (which the free slot reads) is
-    finite."""
-    lengths = [0, 1, pt, pt + 3, T * pt, T * pt + 5, 3 * T * pt]
+    the table), or at ``lengths`` but the last, each row's pages shuffled
+    and its table padded with trash page 0; a free slot (the last row) whose
+    table is all trash page 1 and whose length ran to 3*T*pt. Unallocated
+    pages, trash page 0 and every dead position of a tail page hold NaN;
+    trash page 1 (which the free slot reads) is finite."""
+    lengths = ([0, 1, pt, pt + 3, T * pt, T * pt + 5] if lengths is None else lengths) \
+        + [3 * T * pt]
     B = len(lengths)
     P = B * T + 2
     k_pages = np.full((P, pt, KV, D), np.nan, np.float32)
@@ -210,3 +214,48 @@ def test_jax_dense_reference_agrees_with_port_gather():
                           dropout_rng=None, scale=None)
     got = pa.paged_decode_attention(*map(_t, (q, kp, vp, tab, lengths)))
     np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=ATOL, rtol=0)
+
+
+# (H, KV, D, pt, T, lengths, chunk): the kernel's 64-position chunks over
+# 16-token pages at 8 query heads per KV head (L = 0, 1, 63, 64, 65, 128,
+# 129, the whole table, past it); 24-token pages, which chunks cut inside a
+# page; the hazard rows with 16-position chunks, so every row of more than
+# one page merges several states
+PAGED_SPLIT_CASES = {
+    "pt16_g8": (8, 1, 32, 16, 10, [0, 1, 63, 64, 65, 128, 129, 160, 300], 64),
+    "pt24_g4": (8, 2, 32, 24, 4, [0, 5, 64, 65, 96, 130], 64),
+    "hazard_chunk16": (8, 2, 64, 8, 5, None, 16),
+}
+
+
+@pytest.mark.parametrize("name", list(PAGED_SPLIT_CASES))
+def test_split_plain_matches_pallas_paged(name):
+    """The kernel's split arithmetic (gather, per-chunk fp32 states, merge
+    by lse in chunk order) against the interpreted TPU kernel and the
+    one-pass plain version, with NaN in every dead position and trash page
+    and a free slot whose length ran past its all-trash table."""
+    H, KV, D, pt, T, lengths, chunk = PAGED_SPLIT_CASES[name]
+    q, kp, vp, table, lens = _hazard_case(np.random.default_rng(len(name)), H, KV, D, pt, T,
+                                          lengths)
+    want = jax_pa.paged_decode_attention(*map(jnp.asarray, (q, kp, vp, table, lens)),
+                                         interpret=True)
+    args = tuple(map(_t, (q, kp, vp, table, lens))) + (D ** -0.5,)
+    got = pa.paged_decode_attention_split_plain(*args, chunk=chunk)
+    assert torch.isfinite(got).all(), "NaN pages or dead positions reached the output"
+    assert (got[lens == 0] == 0).all(), "an L=0 row gives zeros"
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=ATOL, rtol=0)
+    np.testing.assert_allclose(got.numpy(), pa.paged_decode_attention_plain(*args).numpy(),
+                               atol=ATOL, rtol=0)
+
+
+@pytest.mark.parametrize("pt,T", [(16, 4), (16, 32), (12, 9)])
+def test_paged_launch_plan_comes_from_shapes_alone(monkeypatch, pt, T):
+    """The paged wrapper's plan: ``ceil(T*pt / CHUNK)`` chunks and their
+    workspace from the table's shape, nothing read back from the card."""
+    q, kp, vp, table, lens = (_t(x).as_subclass(_OnCard) for x in
+                              _hazard_case(np.random.default_rng(pt + T), 8, 2, 32, pt, T))
+    with launch_recorder(monkeypatch, pa) as (launches, workspaces):
+        pa.paged_decode_attention(q, kp, vp, table, lens)
+    n = -(-T * pt // pa.CHUNK)
+    assert len(launches) == 1 and workspaces == [(7, 8, n, 34)]
+    assert launches[0][6] is not None
