@@ -183,13 +183,19 @@ the plain versions with the erf GELU, must miss.
 The kernels phase also holds block-sparse attention (``kernels_sparse``)
 at BERT-large's heads (H=16, D=64): the Fixed layout at B=16, S=512, block
 16 (bidirectional; unidirectional and causal; one query block emptied, whose
-rows must be zeros), the Dense layout, and BigBird, BSLongformer, Variable
-and a per-head BigBird layout at B=2, S=4096, block 64, in bf16 (timed
-beside its plain version, SDPA with the expanded element mask, dense SDPA
-and the bound; where some LUT rows are four times the median, those rows
-alone and the rest alone) and in fp32, each element within one ulp plus
-1e-5 of sum_j p_j |v_j| / l of the plain version, with an fp64 witness;
-then D=128 at blocks 32 and 128. And the six fused-op kernels
+rows must be zeros), the Dense layout, BigBird, BSLongformer, Variable and
+a per-head BigBird layout at B=2, S=4096, block 64, and one row of every
+key block beside two emptied ones at B=8, S=1024, block 16; then D=128 at
+blocks 32 and 128, causal and not. bf16 runs the tensor-core kernel (and
+its merge where a tile is split), fp32 the CUDA-core one: each case
+through ``sparse_attention`` and again through the kernel on a plan built
+once (bit for bit), each element within one ulp plus 1e-5 of sum_j p_j
+|v_j| / l of the plain version, with an fp64 witness, the plan's plain
+twin by the same limit (bf16), and exact launches of each kernel; bf16
+timed beside its plain version, SDPA with the expanded element mask, dense
+SDPA, the bound and the hi + lo floor (where some LUT rows are four times
+the median, those rows alone and the rest alone, each from a plan of its
+own), fp32 timed at case a. And the six fused-op kernels
 (``kernels_fused_ops``): LayerNorm at (8192, 1024), bias-GELU at (8192,
 4096), the attention softmax at (256, 512, 512) with and without the causal
 mask and at (256, 128, 512), forward and backward (each backward on the
@@ -199,8 +205,10 @@ the plain version has them), and a mean-1000 LayerNorm held against the
 one-pass plain version (the two-pass value must miss). Two paths drive the
 public entry points with exact launch counts: ``sparse_attention_api``
 (``SparseSelfAttention(FixedSparsityConfig(num_heads=16, block=16),
-impl="pallas")`` called four times: four launches, nothing else; a
-backward through it raises) and ``fused_ops_train`` (a forward and
+impl="pallas")`` called four times in bf16: four launches of the
+tensor-core kernel, nothing else; a backward through it raises; then once
+in fp32, ``sparse_attention_api_fp32``: one launch of the CUDA-core
+kernel) and ``fused_ops_train`` (a forward and
 ``.backward()`` through each op, then a ``no_grad`` forward: two forward
 launches and one backward launch of each).
 
@@ -220,7 +228,7 @@ The ``kernels`` line gives each kernel's launches per path (``generate``,
 ``serve_neox{,_w8}_paged``, ``forward_neox``,
 ``generate_neox{,_w8}_{fused,unfused}``, ``generate_neox_seq{,_w8}_fused``,
 ``forward_fused_mlp``, ``generate_fused_mlp{,_unfused_ticks}``,
-``serve_fused_mlp_paged``, ``sparse_attention_api``, ``fused_ops_train``,
+``serve_fused_mlp_paged``, ``sparse_attention_api{,_fp32}``, ``fused_ops_train``,
 ``train``, ``train_flash_precision_{merged,merged_again,split,fp32}``,
 ``train_fused_mlp{,_remat}``,
 ``train_split``, ``train_1p5b``,
@@ -1337,7 +1345,8 @@ def counters():
             "post_attn_swiglu_par_w8": dl.post_attn_handle(swiglu=True, parallel_residual=True,
                                                            quant=True),
             "fused_mlp_fwd": fm.FWD, "fused_mlp_bwd_dx": fm.DX, "fused_mlp_bwd_dw": fm.DW,
-            "sparse_attention_fwd": ssa.KERNEL, "layer_norm_fwd": fo.LN_FWD,
+            "sparse_attention_fwd": ssa.KERNEL, "sparse_attention_fwd_fp32": ssa.KERNEL_FP32,
+            "layer_norm_fwd": fo.LN_FWD,
             "layer_norm_bwd": fo.LN_BWD, "bias_gelu_fwd": fo.GELU_FWD,
             "bias_gelu_bwd": fo.GELU_BWD, "softmax_fwd": fo.SOFTMAX_FWD,
             "softmax_bwd": fo.SOFTMAX_BWD}
@@ -4470,10 +4479,11 @@ def run_train_fused_mlp(torch, peaks, unfused_peak_gb, out_dir=None):
 # sparse_attention_api and fused_ops_train)
 # ---------------------------------------------------------------------------
 
-SPARSE_KERNEL = "sparse_attention_fwd"
+SPARSE_KERNEL = "sparse_attention_fwd"            # bf16: sparse_fwd_sm90_kernel (+ merge)
+SPARSE_KERNEL_FP32 = "sparse_attention_fwd_fp32"  # fp32: the CUDA-core sparse_fwd_kernel
 FUSED_OPS_KERNELS = ("layer_norm_fwd", "layer_norm_bwd", "bias_gelu_fwd", "bias_gelu_bwd",
                      "softmax_fwd", "softmax_bwd")
-NO_BERT_OPS = {n: 0 for n in (SPARSE_KERNEL,) + FUSED_OPS_KERNELS}
+NO_BERT_OPS = {n: 0 for n in (SPARSE_KERNEL, SPARSE_KERNEL_FP32) + FUSED_OPS_KERNELS}
 FUSED_OPS_LINES = {"layer_norm_fwd": ":46", "layer_norm_bwd": ":60", "bias_gelu_fwd": ":179",
                    "bias_gelu_bwd": ":184", "softmax_fwd": ":259", "softmax_bwd": ":275"}
 BERT_E, BERT_H, BERT_D, BERT_F = 1024, 16, 64, 4096   # BERT-large
@@ -4489,27 +4499,33 @@ def ulp_t(torch, x, dtype):
 
 def sparse_layouts():
     """The sparse cases: (name, sparsity config, causal, seq_len, batch, the
-    query blocks to empty). a-d at BERT-large's phase-2 pretraining length,
-    e-f at the long sequence sparse attention exists for."""
+    query blocks to empty, the query blocks to fill). a-d at BERT-large's
+    phase-2 pretraining length, e-f at the long sequence sparse attention
+    exists for; g puts one row of all 64 key blocks (16 key tiles of the
+    tensor-core kernel, two pieces of its cap of 8, merged by lse; the other
+    tiles take 5) beside an empty query block of the same tile and another
+    elsewhere."""
     from deepspeed_tpu_torch.ops.sparse_attention import (
         BigBirdSparsityConfig, BSLongformerSparsityConfig, DenseSparsityConfig,
         FixedSparsityConfig, VariableSparsityConfig)
 
     H = BERT_H
-    return [("a_fixed", FixedSparsityConfig(num_heads=H, block=16), False, BERT_S, BERT_B, ()),
+    return [("a_fixed", FixedSparsityConfig(num_heads=H, block=16), False, BERT_S, BERT_B, (), ()),
             ("b_fixed_uni_causal", FixedSparsityConfig(num_heads=H, block=16,
                                                        attention="unidirectional"),
-             True, BERT_S, BERT_B, ()),
-            ("c_dense", DenseSparsityConfig(num_heads=H, block=16), False, BERT_S, BERT_B, ()),
+             True, BERT_S, BERT_B, (), ()),
+            ("c_dense", DenseSparsityConfig(num_heads=H, block=16), False, BERT_S, BERT_B, (), ()),
             ("d_fixed_empty_row", FixedSparsityConfig(num_heads=H, block=16), False, BERT_S,
-             BERT_B, (5,)),
-            ("e_bigbird", BigBirdSparsityConfig(num_heads=H, block=64), False, 4096, 2, ()),
+             BERT_B, (5,), ()),
+            ("e_bigbird", BigBirdSparsityConfig(num_heads=H, block=64), False, 4096, 2, (), ()),
             ("e_bslongformer", BSLongformerSparsityConfig(num_heads=H, block=64), False, 4096,
-             2, ()),
-            ("e_variable", VariableSparsityConfig(num_heads=H, block=64), False, 4096, 2, ()),
+             2, (), ()),
+            ("e_variable", VariableSparsityConfig(num_heads=H, block=64), False, 4096, 2, (), ()),
             ("f_bigbird_per_head", BigBirdSparsityConfig(num_heads=H, block=64,
                                                          different_layout_per_head=True),
-             False, 4096, 2, ())]
+             False, 4096, 2, (), ()),
+            ("g_wide_row_empty_rows", FixedSparsityConfig(num_heads=H, block=16), False, 1024, 8,
+             (10, 40), (9,))]
 
 
 def sparse_keep(torch, layout, block, causal, device):
@@ -4522,16 +4538,20 @@ def sparse_keep(torch, layout, block, causal, device):
     return keep
 
 
-def sparse_errors(torch, got, ref, q, k, v, keep, scale):
+def sparse_errors(torch, got, ref, q, k, v, keep, scale, tiled=None):
     """The kernel against its plain version, element by element: within one
     ulp of the output's dtype at the larger of the two plus 1e-5 of the sum of
     its addends' magnitudes, sum_j p_j |v_j| / l (the attention limit of the
     decode and paged rows). Then the fp64 witness: the kernel and the plain
     version against the same function in fp64, in units of the limit, and
-    the kernel within max(1, the plain version's ratio) of it. Batch by
-    batch (the fp64 scores of S=4096 take 2 GiB a batch)."""
+    the kernel within max(1, the plain version's ratio) of it. ``tiled``
+    (the plan's plain twin's output) is held against the plain version by
+    the same limit (``tiled_plain_err_over_limit``). Batch by batch (the
+    fp64 scores of S=4096 take 2 GiB a batch)."""
     worst = dict(max_err=0.0, err_over_limit=0.0, kernel_vs_fp64_over_limit=0.0,
                  plain_vs_fp64_over_limit=0.0)
+    if tiled is not None:
+        worst["tiled_plain_err_over_limit"] = 0.0
     for b in range(q.shape[0]):
         s = torch.einsum("shd,thd->hst", q[b].double() * scale, k[b].double())
         s = s.masked_fill(~keep, float("-inf"))
@@ -4554,59 +4574,101 @@ def sparse_errors(torch, got, ref, q, k, v, keep, scale):
                                                  float(((g - exact).abs() / lim_x).max()))
         worst["plain_vs_fp64_over_limit"] = max(worst["plain_vs_fp64_over_limit"],
                                                 float(((r - exact).abs() / lim_x).max()))
+        if tiled is not None:
+            x = tiled[b].double()
+            lim_t = ulp_t(torch, torch.maximum(x.abs(), r.abs()), got.dtype).double() + 1e-5 * mag
+            worst["tiled_plain_err_over_limit"] = max(worst["tiled_plain_err_over_limit"],
+                                                      float(((x - r).abs() / lim_t).max()))
     worst["fp64_anchor_ok"] = (worst["kernel_vs_fp64_over_limit"]
                                <= max(1.0, worst["plain_vs_fp64_over_limit"]))
     return worst
 
 
-def sparse_case(torch, F, peaks, g, name, cfg, causal, S, B, empty, dtype, timed, D=BERT_D):
+def sparse_launched(ssa, before=None):
+    """The sparse kernels' launch counts: each C entry's (the wrappers'
+    counters) and each kernel's (the library's own), minus ``before``."""
+    now = {SPARSE_KERNEL: ssa.KERNEL.launches, SPARSE_KERNEL_FP32: ssa.KERNEL_FP32.launches,
+           **ssa.kernel_launches()}
+    return now if before is None else {n: c - before[n] for n, c in now.items()}
+
+
+def sparse_case(torch, F, peaks, g, name, cfg, causal, S, B, empty, wide, dtype, timed,
+                D=BERT_D):
     """One sparse case: the kernel (through ``sparse_attention``, impl
-    "pallas") against its plain version on the same inputs; with ``timed``
+    "pallas", which builds the plan; then again through the kernel wrapper
+    on a plan built once, bit for bit) against its plain version on the
+    same inputs, with its exact launches; in bf16 the plan's plain twin
+    (``sparse_attention_tiled_plain``) by the same limit. With ``timed``:
     its device time, the plain version's, SDPA with the expanded boolean
-    element mask (library), dense SDPA without a mask and the bound."""
+    element mask (library), dense SDPA without a mask, the bound and (bf16)
+    the hi + lo floor: 6 B pairs D flops, since p v runs twice."""
+    import numpy as np
+
     from deepspeed_tpu_torch.ops.sparse_attention import sparse_self_attention as ssa
 
     H, block = BERT_H, cfg.block
     layout = cfg.make_layout(S)
+    for qi in wide:
+        layout[:, qi, :] = 1
     for qi in empty:
         layout[:, qi, :] = 0
-    lut, counts = ssa.lut_on(layout, "cuda")
+    dplan = ssa.plan_on(layout, block, causal, "cuda")
     scale = D ** -0.5
     n_sets = 3 if timed else 1
     sets = [tuple(torch.randn((B, S, H, D), generator=g, device="cuda").to(dtype)
                   for _ in range(3)) for _ in range(n_sets)]
     q, k, v = sets[0]
+    torch.cuda.synchronize()
+    before = sparse_launched(ssa)
     got = ssa.sparse_attention(q, k, v, layout, block, causal=causal, impl="pallas")
-    ref = ssa.sparse_attention_plain(q, k, v, lut, counts, block, causal, scale)
+    torch.cuda.synchronize()
+    launched = sparse_launched(ssa, before)
+    again = ssa.sparse_attention_kernel(q, k, v, dplan, scale)
+    ref = ssa.sparse_attention_plain(q, k, v, dplan.lut, dplan.counts, block, causal, scale)
+    bf16 = dtype == torch.bfloat16
+    tiled = ssa.sparse_attention_tiled_plain(q, k, v, dplan.plan, scale) if bf16 else None
     torch.cuda.synchronize()
     keep = sparse_keep(torch, layout, block, causal, "cuda")
-    res = sparse_errors(torch, got, ref, q, k, v, keep, scale)
+    res = sparse_errors(torch, got, ref, q, k, v, keep, scale, tiled)
     rows_empty = [slice(qi * block, (qi + 1) * block) for qi in empty]
     empty_zero = all(bool((got[:, r] == 0).all()) for r in rows_empty)
     finite = bool(torch.isfinite(got.float()).all())
+    n_merges = len(dplan.plan.merges)
+    expect = {SPARSE_KERNEL: int(bf16), SPARSE_KERNEL_FP32: int(not bf16),
+              "sparse_fwd_sm90_kernel": int(bf16),
+              "sparse_merge_kernel": int(bf16 and n_merges > 0),
+              "sparse_fwd_kernel": int(not bf16)}
     nnz = int(layout.sum())
     pairs = int(keep.sum())   # (query, key) pairs this run's data needs, over the heads
-    row = dict(phase="kernels_sparse" if timed else "kernels_sparse_fp32", name=SPARSE_KERNEL,
+    items = dplan.plan.items
+    row = dict(phase="kernels_sparse" if bf16 else "kernels_sparse_fp32",
+               name=SPARSE_KERNEL if bf16 else SPARSE_KERNEL_FP32,
                case=name, shape=f"B={B} S={S} H={H} D={D} block={block} {str(dtype)[6:]}"
                + (" causal" if causal else ""), layout=type(cfg).__name__,
                per_head=cfg.different_layout_per_head, density=nnz / layout.size,
                blocks_per_row=[int(layout.sum(-1).min()), int(layout.sum(-1).max())],
-               empty_query_blocks=list(empty), empty_rows_zero=empty_zero, finite=finite,
+               empty_query_blocks=list(empty), wide_query_blocks=list(wide),
+               empty_rows_zero=empty_zero, finite=finite, repeat_bitwise=torch.equal(got, again),
+               launches=launched, expected_launches=expect,
+               plan=dict(items=len(items), key_tiles=int(items[:, 2].sum()),
+                         widest_item=int(items[:, 2].max()), merges=n_merges,
+                         slots=dplan.plan.n_slots),
                limit="per element: 1 ulp of the output dtype + 1e-5 x sum_j p_j |v_j| / l; "
                "and against the fp64 value within max(1, the plain version's ratio)", **res)
     row["ok"] = (res["err_over_limit"] <= 1.0 and res["fp64_anchor_ok"] and finite
-                 and empty_zero)
+                 and empty_zero and row["repeat_bitwise"] and launched == expect
+                 and res.get("tiled_plain_err_over_limit", 0.0) <= 1.0)
     if timed:
         mask = keep[None]
         qt = [tuple(x.transpose(1, 2) for x in st) for st in sets]
         rot = Rotation(list(range(n_sets)))
         iters = 20
         row["kernel_ms"] = device_ms(torch, lambda: ssa.sparse_attention_kernel(
-            *sets[rot.next()], lut, counts, block, causal, scale), iters)
+            *sets[rot.next()], dplan, scale), iters)
         row["kernel_event_ms"] = cuda_ms(torch, lambda: ssa.sparse_attention_kernel(
-            *sets[rot.next()], lut, counts, block, causal, scale), iters)
+            *sets[rot.next()], dplan, scale), iters)
         row["plain_ms"] = device_ms(torch, lambda: ssa.sparse_attention_plain(
-            q, k, v, lut, counts, block, causal, scale), 2)
+            q, k, v, dplan.lut, dplan.counts, block, causal, scale), 2)
         row["dense_sdpa_ms"] = device_ms(torch, lambda: F.scaled_dot_product_attention(
             *qt[rot.next()]), iters)
         if bool(keep.all()):   # the Dense layout: SDPA without a mask is the same function
@@ -4617,57 +4679,67 @@ def sparse_case(torch, F, peaks, g, name, cfg, causal, S, B, empty, dtype, timed
                 *qt[rot.next()], attn_mask=mask), iters)
             row["library"] = ("SDPA with the expanded boolean element mask (the same "
                               "function wherever every query row has a block)")
-        per_row = counts.flatten()
-        if int(per_row.max()) >= 4 * int(per_row.median()):
-            # the launch's tail: the widest LUT rows (BigBird's and
-            # BSLongformer's global rows) alone, and every row but those
-            wide = counts == per_row.max()
-            for key, cnt in (("widest_rows_alone_ms", torch.where(wide, counts, 0)),
-                             ("without_widest_rows_ms", torch.where(wide, 0, counts))):
-                row[key] = device_ms(torch, lambda cnt=cnt: ssa.sparse_attention_kernel(
-                    *sets[rot.next()], lut, cnt.contiguous(), block, causal, scale), iters)
-        item = 2 if dtype == torch.bfloat16 else 4
+        per_row = layout.sum(-1)
+        if bf16 and per_row.max() >= 4 * np.median(per_row):
+            # the launch's old tail: the widest LUT rows (BigBird's and
+            # BSLongformer's global rows) alone, and every row but those,
+            # each from a plan of its own sub-layout
+            wide_rows = (per_row == per_row.max())[..., None]
+            for key, sub in (("widest_rows_alone_ms", layout * wide_rows),
+                             ("without_widest_rows_ms", layout * ~wide_rows)):
+                sub_plan = ssa.plan_on(sub, block, causal, "cuda")
+                row[key] = device_ms(torch, lambda p=sub_plan: ssa.sparse_attention_kernel(
+                    *sets[rot.next()], p, scale), iters)
+        item = 2 if bf16 else 4
         row["bound_ms"], row["bound_by"] = bound_ms(
-            4 * B * S * H * D * item + lut.numel() * 4 + counts.numel() * 4,
-            4.0 * B * pairs * D, peaks, dtype == torch.float32)
+            4 * B * S * H * D * item + dplan.lut.numel() * 4 + dplan.counts.numel() * 4,
+            4.0 * B * pairs * D, peaks, not bf16)
+        if bf16:
+            row["hi_lo_floor_ms"] = 6.0 * B * pairs * D / peaks[1] * 1e3
         row["ok"] = row["ok"] and row["kernel_ms"] is not None
     emit(row)
-    del sets, q, k, v, got, ref, keep
+    del sets, q, k, v, got, again, ref, keep, tiled
     torch.cuda.empty_cache()
     return row
 
 
-def run_kernels_sparse(torch, F, peaks):
+AT_SHAPE_KEYS = ("case", "shape", "layout", "density", "max_err", "err_over_limit",
+                 "kernel_ms", "plain_ms", "library_ms", "dense_sdpa_ms", "bound_ms", "bound_by",
+                 "hi_lo_floor_ms", "widest_rows_alone_ms", "without_widest_rows_ms")
+
+
+def run_kernels_sparse(torch, F, peaks, timed=True):
     """Block-sparse attention on the card: every case of ``sparse_layouts``
-    in bf16 (timed) and fp32 (checked), then the other head dim and blocks
-    the kernel takes (D=128; block 32 and 128) at a small shape in both
-    dtypes. Returns (the case a row with the others under ``at_shapes``, ok)."""
+    in bf16 (timed) and fp32 (checked; case a timed), then the other head
+    dim and blocks the kernels take (D=128; block 32 and 128) at a small
+    shape, bf16 timed. Returns ({kernel: its case a row, the bf16 one with
+    the others under ``at_shapes``}, ok); ``timed=False`` times nothing."""
     from deepspeed_tpu_torch.ops.sparse_attention import FixedSparsityConfig
 
     g = torch.Generator(device="cuda").manual_seed(SEED + 30)
-    main, ok = None, True
-    for name, cfg, causal, S, B, empty in sparse_layouts():
-        for dtype, timed in ((torch.bfloat16, True), (torch.float32, False)):
-            row = sparse_case(torch, F, peaks, g, name, cfg, causal, S, B, empty, dtype, timed)
+    main, ok = {}, True
+    cases = [(name, cfg, causal, S, B, empty, wide, 64)
+             for name, cfg, causal, S, B, empty, wide in sparse_layouts()]
+    for block in (32, 128):
+        for causal in (False, True):
+            cfg = FixedSparsityConfig(num_heads=BERT_H, block=block,
+                                      different_layout_per_head=True,
+                                      num_different_global_patterns=2)
+            cases.append((f"d128_block{block}" + ("_causal" if causal else ""), cfg, causal,
+                          1024, 1, (), (), 128))
+    for name, cfg, causal, S, B, empty, wide, D in cases:
+        for dtype in (torch.bfloat16, torch.float32):
+            bf16 = dtype == torch.bfloat16
+            row = sparse_case(torch, F, peaks, g, name, cfg, causal, S, B, empty, wide, dtype,
+                              timed and (bf16 or name == "a_fixed"), D=D)
             ok &= row["ok"]
             if not timed:
                 continue
-            if main is None:
-                main = dict(row, at_shapes=[])
-            else:
-                main["at_shapes"].append({k: row[k] for k in (
-                    "case", "shape", "layout", "density", "max_err", "err_over_limit",
-                    "kernel_ms", "plain_ms", "library_ms", "dense_sdpa_ms", "bound_ms",
-                    "bound_by", "widest_rows_alone_ms", "without_widest_rows_ms") if k in row})
-    for block in (32, 128):
-        for causal in (False, True):
-            for dtype in (torch.bfloat16, torch.float32):
-                cfg = FixedSparsityConfig(num_heads=BERT_H, block=block,
-                                          different_layout_per_head=True,
-                                          num_different_global_patterns=2)
-                row = sparse_case(torch, F, peaks, g, f"d128_block{block}", cfg, causal, 1024, 1,
-                                  (), dtype, False, D=128)
-                ok &= row["ok"]
+            kname = SPARSE_KERNEL if bf16 else SPARSE_KERNEL_FP32
+            if kname not in main:
+                main[kname] = dict(row, at_shapes=[])
+            elif bf16:
+                main[kname]["at_shapes"].append({k: row[k] for k in AT_SHAPE_KEYS if k in row})
     return main, ok
 
 
@@ -4675,24 +4747,30 @@ def run_sparse_api(torch):
     """The public entry point, as a user calls it:
     ``SparseSelfAttention(FixedSparsityConfig(num_heads=16, block=16),
     impl="pallas")(q, k, v)`` at B=16, S=512, H=16, D=64 in bf16,
-    SPARSE_API_CALLS times: exactly that many launches of the sparse kernel
-    and none of any other kernel; the outputs finite, of the input's shape,
-    equal call to call; the module's LUT built once; a backward through it
-    raises NotImplementedError. Returns ({path: counts}, ok)."""
+    SPARSE_API_CALLS times: exactly that many launches of the bf16 entry
+    (one tensor-core kernel a call: no tile of this layout is split, so no
+    merge) and none of any other kernel; the outputs finite, of the input's
+    shape, equal call to call; the module's LUT and plan built once; a
+    backward through it raises NotImplementedError. Then the same module in
+    fp32 once (``sparse_attention_api_fp32``): one launch of the fp32 entry,
+    held against the plain version. Returns ({path: counts}, ok)."""
     from deepspeed_tpu_torch.ops.sparse_attention import FixedSparsityConfig, SparseSelfAttention
+    from deepspeed_tpu_torch.ops.sparse_attention import sparse_self_attention as ssa
 
     g = torch.Generator(device="cuda").manual_seed(SEED + 31)
     q, k, v = (torch.randn((BERT_B, BERT_S, BERT_H, BERT_D), generator=g, device="cuda")
                .to(torch.bfloat16) for _ in range(3))
     attn = SparseSelfAttention(FixedSparsityConfig(num_heads=BERT_H, block=16), impl="pallas")
-    attn(q, k, v)    # the first call builds the layout and the device LUT
+    attn(q, k, v)    # the first call builds the layout, the LUT and the plan on the card
     torch.cuda.synchronize()
     zero_counts()
+    c_before = ssa.kernel_launches()
     t0 = time.perf_counter()
     outs = [attn(q, k, v) for _ in range(SPARSE_API_CALLS)]
     torch.cuda.synchronize()
     wall_ms = (time.perf_counter() - t0) * 1e3 / SPARSE_API_CALLS
     launches = read_counts()
+    by_kernel = {n: c - c_before[n] for n, c in ssa.kernel_launches().items()}
     expected = {n: 0 for n in launches}
     expected[SPARSE_KERNEL] = SPARSE_API_CALLS
     try:
@@ -4702,16 +4780,42 @@ def run_sparse_api(torch):
     except NotImplementedError as e:
         raised = "B10" in str(e)
     checks = {"launch_counts": launches == expected,
+              "kernel_counts": by_kernel == {"sparse_fwd_sm90_kernel": SPARSE_API_CALLS,
+                                             "sparse_merge_kernel": 0, "sparse_fwd_kernel": 0},
               "finite_and_shaped": all(bool(torch.isfinite(o.float()).all())
                                        and o.shape == q.shape for o in outs),
               "repeatable": all(torch.equal(o, outs[0]) for o in outs),
-              "lut_cached": len(attn._luts) == 1,
+              "lut_and_plan_cached": len(attn._luts) == 1 and len(attn._plans) == 1,
               "backward_raises": raised}
     emit(dict(phase="sparse_attention_api", shape=f"B={BERT_B} S={BERT_S} H={BERT_H} "
               f"D={BERT_D} bfloat16", calls=SPARSE_API_CALLS, wall_ms_per_call=wall_ms,
-              launches={n: c for n, c in launches.items() if c}, checks=checks,
-              ok=all(checks.values())))
-    return {"sparse_attention_api": launches}, all(checks.values())
+              launches={n: c for n, c in launches.items() if c}, launches_by_kernel=by_kernel,
+              checks=checks, ok=all(checks.values())))
+
+    q32, k32, v32 = (x.float() for x in (q, k, v))
+    torch.cuda.synchronize()
+    zero_counts()
+    out32 = attn(q32, k32, v32)
+    torch.cuda.synchronize()
+    launches32 = read_counts()
+    expected32 = {n: 0 for n in launches32}
+    expected32[SPARSE_KERNEL_FP32] = 1
+    dplan = attn.get_plan(BERT_S, q.device)
+    ref = ssa.sparse_attention_plain(q32, k32, v32, dplan.lut, dplan.counts, 16, False,
+                                     BERT_D ** -0.5)
+    keep = sparse_keep(torch, attn.get_layout(BERT_S), 16, False, "cuda")
+    res = sparse_errors(torch, out32, ref, q32, k32, v32, keep, BERT_D ** -0.5)
+    checks32 = {"launch_counts": launches32 == expected32,
+                "within_limit": res["err_over_limit"] <= 1.0 and res["fp64_anchor_ok"],
+                "finite_and_shaped": bool(torch.isfinite(out32).all()) and
+                out32.shape == q.shape and out32.dtype == torch.float32}
+    emit(dict(phase="sparse_attention_api_fp32", shape=f"B={BERT_B} S={BERT_S} H={BERT_H} "
+              f"D={BERT_D} float32", launches={n: c for n, c in launches32.items() if c},
+              err_over_limit=res["err_over_limit"], checks=checks32, ok=all(checks32.values())))
+    del q, k, v, outs, q32, k32, v32, out32, ref, keep
+    torch.cuda.empty_cache()
+    return ({"sparse_attention_api": launches, "sparse_attention_api_fp32": launches32},
+            all(checks.values()) and all(checks32.values()))
 
 
 def fused_ops_operands(torch, g, op, shape, dtype, dev="cuda"):
@@ -5094,7 +5198,7 @@ def main() -> int:
     ok &= neox_kernels_ok
     mlp_rows, mlp_kernels_ok = run_kernels_fused_mlp(torch, F, peaks)
     ok &= mlp_kernels_ok
-    sparse_row, sparse_kernels_ok = run_kernels_sparse(torch, F, peaks)
+    sparse_rows, sparse_kernels_ok = run_kernels_sparse(torch, F, peaks)
     ok &= sparse_kernels_ok
     fops_rows, fops_kernels_ok = run_kernels_fused_ops(torch, F, peaks)
     ok &= fops_kernels_ok
@@ -5270,12 +5374,14 @@ def main() -> int:
         ok &= all(by_path[p][kname] > 0 for p in paths)
     ok &= all(k in mlp_rows for k in mlp_paths)
 
-    # block-sparse attention at case a (the others under at_shapes), launched
-    # by the public SparseSelfAttention path; the six fused-op kernels at
-    # BERT-large's shapes, each launched by the fused_ops_train path
-    bert_rows = {SPARSE_KERNEL: (sparse_row, "deepspeed_tpu_torch/ops/csrc/sparse_attention.cu",
-                                 "deepspeed_tpu/ops/sparse_attention/sparse_self_attention.py:59",
-                                 "sparse_attention_api")}
+    # block-sparse attention at case a (bf16: the others under at_shapes),
+    # each entry launched by the public SparseSelfAttention path of its
+    # dtype; the six fused-op kernels at BERT-large's shapes, each launched
+    # by the fused_ops_train path
+    bert_rows = {kname: (sparse_rows.get(kname), "deepspeed_tpu_torch/ops/csrc/sparse_attention.cu",
+                         "deepspeed_tpu/ops/sparse_attention/sparse_self_attention.py:59", path)
+                 for kname, path in ((SPARSE_KERNEL, "sparse_attention_api"),
+                                     (SPARSE_KERNEL_FP32, "sparse_attention_api_fp32"))}
     for kname in FUSED_OPS_KERNELS:
         bert_rows[kname] = (fops_rows.get(kname), "deepspeed_tpu_torch/ops/csrc/fused_ops.cu",
                             "deepspeed_tpu/ops/pallas/fused_ops.py" + FUSED_OPS_LINES[kname],
@@ -5288,7 +5394,7 @@ def main() -> int:
                    max_abs_err=r["max_err"], ms=r["kernel_ms"], plain_ms=r["plain_ms"],
                    bound_ms=r["bound_ms"], bound_by=r["bound_by"], library_ms=r["library_ms"],
                    shape=r["shape"], at_shapes=r["at_shapes"])
-        for extra in ("library_pair_ms", "dense_sdpa_ms"):
+        for extra in ("library_pair_ms", "dense_sdpa_ms", "hi_lo_floor_ms"):
             if extra in r:
                 row[extra] = r[extra]
         summary.append(row)

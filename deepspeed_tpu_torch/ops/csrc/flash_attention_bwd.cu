@@ -700,14 +700,6 @@ cudaError_t merged_sm90(int D, const Args& a) {
 
 // ---- bf16 split: flash_bwd_dq_sm90_kernel, flash_bwd_dkv_sm90_kernel ------
 
-// Two fp32 values of a fragment row as bf16 pairs: hi = bf16(x) and lo =
-// bf16(x - hi), x - hi exact in fp32, so x - hi - lo is within 2^-18 |x|.
-__device__ __forceinline__ void split_hi_lo(float a, float b, uint32_t& hi, uint32_t& lo) {
-  const __nv_bfloat162 h = __floats2bfloat162_rn(a, b);
-  hi = *reinterpret_cast<const uint32_t*>(&h);
-  lo = pack_bf16(a - __low2float(h), b - __high2float(h));
-}
-
 template <int D>
 struct Sm90Dq {
   static constexpr int BQ = 64, BK = 64, KB = D / 64, STAGES = 2;

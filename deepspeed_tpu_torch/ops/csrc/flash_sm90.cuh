@@ -320,6 +320,15 @@ __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   return *reinterpret_cast<const uint32_t*>(&h);
 }
 
+// Two fp32 values of a fragment row as bf16 pairs: hi = bf16(x) and lo =
+// bf16(x - hi), x - hi exact in fp32, so x - hi - lo is within 2^-18 |x|
+// (the split flash backward's p and ds, the sparse kernel's p).
+__device__ __forceinline__ void split_hi_lo(float a, float b, uint32_t& hi, uint32_t& lo) {
+  const __nv_bfloat162 h = __floats2bfloat162_rn(a, b);
+  hi = *reinterpret_cast<const uint32_t*>(&h);
+  lo = pack_bf16(a - __low2float(h), b - __high2float(h));
+}
+
 // Element offset of (row, col) in a [rows][64] bf16 swizzled block.
 __device__ __forceinline__ int sw128_offset(int row, int col) {
   return row * 64 + ((((col >> 3) ^ row) & 7) << 3) + (col & 7);

@@ -81,7 +81,7 @@ FAULTS = {
     "split_dkv_skip_ragged_q_tile": [
         ("flash_attention_bwd.cu", _DKV,
          "        if (j + 1 < n_q || S % C::BQ == 0) {\n" + _DKV + "        }\n")],
-    "split_drop_lo": [("flash_attention_bwd.cu", _LO, "  lo = 0u;\n")],
+    "split_drop_lo": [("flash_sm90.cuh", _LO, "  lo = 0u;\n")],
 }
 # what a variant must show: every case passes; some case fails; or the
 # split pair fails the fp32-only gate and nothing else
