@@ -212,6 +212,21 @@ kernel) and ``fused_ops_train`` (a forward and
 ``.backward()`` through each op, then a ``no_grad`` forward: two forward
 launches and one backward launch of each).
 
+The kernels phase also holds the bf16 decode-layer kernels on the tensor
+cores (``kernels_decode_sm90``, ``csrc/decode_gemv_sm90.cuh``): norm_proj
+(LayerNorm at N=6144, RMSNorm at N=2048 and 256) and every branch of
+post_attn at E=2048, F=8192, with bf16 weights and W8A16 (128-row groups and
+one group), at M = 1, 8, 13 and 64, each within ``w8_limits`` of the plain
+version and of the fp64 value with the same bf16 casts, bit-identical on a
+second call and run by the tensor-core GEMV and the norm's kernel alone (the
+library's own counts), timed (the union of the call's kernels) beside the
+unfused PyTorch chain; the bf16 rows 6-7 cases of the other phases carry the
+same repeat and launch gates. ``build_decode_sm90`` prints each tensor-core
+kernel's registers, shared memory and spills from the build log (no spills
+gated). ``scripts/decode_layer_planted_faults.py`` shows these checks
+failing kernels with a planted fault; ``scripts/decode_layer_ab.py`` times
+two trees' kernels in turns.
+
 The kernels phase also holds the W8A16 kernels (``kernels_w8``): the w8
 matmul at M = 1, 8, 37, 64 on gpt2-760m's four dense panels and on one
 single-group panel, and the W8 branches of the two decode-layer kernels at
@@ -448,6 +463,73 @@ def device_ms_by_name(torch, fn, iters: int):
     return (sum(by_name.values()) or None), by_name
 
 
+def device_union_ms(torch, fn, iters: int):
+    """Mean device ms per call counted two ways from one profiled run of
+    ``iters`` calls after warm-up: the kernels' summed durations, and the
+    union of their intervals. A programmatic dependent launch starts while
+    the kernel before it runs (its blocks wait in griddepcontrol.wait), so
+    there the sum counts the overlap twice and the union is the card's busy
+    time. (None, None) if the profiler saw no device activity in three runs."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    for _ in range(3):
+        fn()
+    torch.cuda.synchronize()
+    for _ in range(3):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(iters):
+                fn()
+            torch.cuda.synchronize()
+        spans = sorted((e.time_range.start, e.time_range.end) for e in prof.events()
+                       if e.device_type == DeviceType.CUDA)
+        if spans:
+            break
+    if not spans:
+        return None, None
+    busy, lo, hi = 0.0, *spans[0]
+    for a, b in spans[1:]:
+        if a > hi:
+            busy, lo, hi = busy + (hi - lo), a, b
+        else:
+            hi = max(hi, b)
+    busy += hi - lo
+    total = sum(b - a for a, b in spans)
+    return total / 1e3 / iters, busy / 1e3 / iters
+
+
+def graph_ms(torch, fn, iters: int):
+    """Mean ms per call of ``iters`` calls captured in one CUDA graph and
+    replayed five times, by CUDA events: the card's time for the calls back
+    to back, without the host's enqueue. None (and the reason) if the calls
+    cannot be captured."""
+    try:
+        side = torch.cuda.Stream()
+        side.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(side):
+            for _ in range(3):
+                fn()
+        torch.cuda.current_stream().wait_stream(side)
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph):
+            for _ in range(iters):
+                fn()
+        graph.replay()
+        torch.cuda.synchronize()
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(5):
+            graph.replay()
+        end.record()
+        end.synchronize()
+        ms = start.elapsed_time(end) / (5 * iters)
+        del graph
+        return ms, None
+    except Exception as exc:   # reported beside the other timings, not raised
+        torch.cuda.synchronize()
+        return None, f"{type(exc).__name__}: {exc}"[:300]
+
+
 class Rotation:
     """Copies of a kernel's inputs, cycled call by call so that the timed
     working set exceeds the 50 MB L2 cache where the real path finds its
@@ -539,7 +621,7 @@ def kernel_cases(torch, F, peaks):
         source="deepspeed_tpu_torch/ops/csrc/decode_layer.cu", sets=sets,
         kernel=lambda x, ns, nb, w, b: dl.fused_norm_proj(x, ns, nb, w, b),
         plain=lambda x, ns, nb, w, b: dl.norm_proj_plain(x, ns, nb, w, b, 1e-5),
-        library=None, compare="bf16",
+        library=None, compare="bf16", decode_gemvs=1,
         bound=bound_ms(E * N * 2 + M * E * 2 + M * N * 2 + N * 2 + 2 * E * 4,
                        2 * M * E * N, peaks)))
 
@@ -556,7 +638,7 @@ def kernel_cases(torch, F, peaks):
         kernel=lambda y, x, wo, bo, ns, nb, w1, b1, w2, b2: dl.fused_post_attn(
             y, x, wo, bo, ns, nb, (w1, b1, w2, b2)),
         plain=lambda *a: dl.post_attn_plain(*a[:6], a[6:], 1e-5),
-        library=None, compare="bf16",
+        library=None, compare="bf16", decode_gemvs=3,
         bound=bound_ms((E * E + 2 * E * Fh) * 2 + 3 * M * E * 2 + (2 * E + Fh) * 2 + 2 * E * 4,
                        2 * M * (E * E + 2 * E * Fh), peaks)))
     return cases
@@ -663,6 +745,11 @@ def run_kernels(torch, F, peaks):
             tol = 2 * bf16_ulp(float(ref.float().abs().max()))
             ok = err <= tol and bool(torch.isfinite(got).all())
             extra = {}
+        if "decode_gemvs" in case:   # rows 6-7: the tensor-core kernels, bit for bit
+            held = decode_sm90_held(torch, lambda: case["kernel"](*args), got,
+                                    case["decode_gemvs"], False)
+            extra.update(held)
+            ok = ok and held["bitwise_repeat"] and held["sm90_ok"]
         if "library_label" in case:
             extra["library"] = case["library_label"]
         rot = Rotation(case["sets"])
@@ -674,7 +761,11 @@ def run_kernels(torch, F, peaks):
                 timed[which] = (None, None)
                 continue
             call = lambda fn=fn: fn(*rot.next())  # noqa: E731
-            timed[which] = (device_ms(torch, call, n), cuda_ms(torch, call, n))
+            if which == "kernel" and "decode_gemvs" in case:   # overlapping launches
+                extra["kernel_sum_ms"], dev = device_union_ms(torch, call, n)
+            else:
+                dev = device_ms(torch, call, n)
+            timed[which] = (dev, cuda_ms(torch, call, n))
         # device time where the profiler saw the card, else event time
         pick = {w: (d if d is not None else e) for w, (d, e) in timed.items()}
         b_ms, b_by = case["bound"]
@@ -1775,24 +1866,10 @@ def one_ulp_witness(torch, got, ref, mag, *args):
     of one sum, rounded at the intermediate casts, part by more than one
     ulp. ``args``: the plain version's operands (5 for norm_proj, 10 for
     post_attn), eps 1e-5."""
-    from deepspeed_tpu_torch.ops import decode_layer as dl
-
-    def dot(a, w):
-        codes, scale = w
-        g = codes.shape[0] // scale.shape[0]
-        return a.double() @ (codes.double() * scale.double().repeat_interleave(g, 0))
-
-    cdt = ref.dtype
     if len(args) == 5:
-        x, ns, nb, w, b = args
-        xn = dl._norm_rows(x.double(), ns.double(), nb.double(), 1e-5).to(cdt)
-        exact = (dot(xn, w) + b.double()).to(cdt)
+        exact = decode_fp64(torch, "norm_proj", args, {})
     else:
-        y, x, wo, bo, ns, nb, w1, b1, w2, b2 = args
-        r1 = (x.double() + dot(y, wo)) + bo.double()
-        hin = dl._norm_rows(r1, ns.double(), nb.double(), 1e-5).to(cdt)
-        h = dl.gelu_tanh(dot(hin, w1) + b1.double()).to(cdt)
-        exact = ((r1 + dot(h, w2)) + b2.double()).to(cdt)
+        exact = decode_fp64(torch, "post_attn", (*args[:6], args[6:]), {})
     lim = bf16_ulp_t(torch, ref) + 1e-5 * mag
 
     def over(a, b):
@@ -1831,22 +1908,28 @@ def run_kernels_w8(torch, peaks):
     bf = torch.bfloat16
     rows, ok = {}, True
 
-    def timed(kernel, plain, pair, rot):
+    def timed(kernel, plain, pair, rot, union=False):
         """Device ms (None where the profiler saw no device activity) and,
-        under ``*_event``, CUDA-event ms of each callable."""
+        under ``*_event``, CUDA-event ms of each callable; with ``union``
+        the kernel's is the union of its kernels' intervals (their sum
+        under ``kernel_sum``: the decode-layer launches overlap)."""
         out = {}
         for which, fn, n in (("kernel", kernel, 50), ("plain", plain, 5), ("pair", pair, 50)):
             if fn is None:
                 out[which] = out[which + "_event"] = None
                 continue
             call = lambda fn=fn: fn(*rot.next())  # noqa: E731
-            out[which] = device_ms(torch, call, n)
+            if which == "kernel" and union:
+                out["kernel_sum"], out[which] = device_union_ms(torch, call, n)
+            else:
+                out[which] = device_ms(torch, call, n)
             out[which + "_event"] = cuda_ms(torch, call, n)
         return out
 
     def times(t):
         return dict(kernel_ms=t["kernel"], kernel_event_ms=t["kernel_event"],
-                    plain_ms=t["plain"], plain_event_ms=t["plain_event"])
+                    plain_ms=t["plain"], plain_event_ms=t["plain_event"],
+                    **({"kernel_sum_ms": t["kernel_sum"]} if "kernel_sum" in t else {}))
 
     # the w8 matmul on the four 760m panels, and one single-group panel
     cases = [(K, N, M, 128) for K, N in PANELS_760M for M in (1, 8, 37, 64)]
@@ -1904,8 +1987,9 @@ def run_kernels_w8(torch, peaks):
         xn = dl._norm_rows(x.float(), ns, nb, 1e-5).to(bf)
         mag = xn.float().abs() @ w8ops.dequantize_weight(*w).abs() + b.float().abs()
         err, ratio, wide = w8_limits(torch, got, ref, mag, True)
+        held = decode_sm90_held(torch, lambda: dl.fused_norm_proj(x, ns, nb, w, b), got, 1, True)
         t = timed(lambda x, ns, nb, w, b: dl.fused_norm_proj(x, ns, nb, w, b),
-                  lambda *a: dl.norm_proj_plain(*a, 1e-5), None, Rotation(np_sets))
+                  lambda *a: dl.norm_proj_plain(*a, 1e-5), None, Rotation(np_sets), union=True)
         G = E // grp(E)
         b_ms, b_by = bound_ms(3 * E * E + G * 3 * E * 4 + M * E * 2 + M * 3 * E * 2 + 3 * E * 2
                               + 2 * E * 4, 2 * M * E * 3 * E, peaks)
@@ -1913,7 +1997,8 @@ def run_kernels_w8(torch, peaks):
                    max_err=err, err_over_limit=ratio,
                    limit="per element: 1 bf16 ulp of the plain value + 1e-5 x |xn| @ |W| "
                    "+ half a bf16 ulp of the row's largest output",
-                   limit_over_2ulp_share=wide, ok=ratio <= 1.0, **times(t),
+                   limit_over_2ulp_share=wide, **held,
+                   ok=ratio <= 1.0 and held["bitwise_repeat"] and held["sm90_ok"], **times(t),
                    **one_ulp_witness(torch, got, ref, mag, x, ns, nb, w, b),
                    bound_us=b_ms * 1e3, bound_by=b_by)
         emit(res)
@@ -1933,10 +2018,12 @@ def run_kernels_w8(torch, peaks):
                + bo.float().abs() + h.float().abs() @ w8ops.dequantize_weight(*w2).abs()
                + b2.float().abs())
         err, ratio, wide = w8_limits(torch, got, ref, mag, True)
+        held = decode_sm90_held(torch, lambda: dl.fused_post_attn(
+            y, x, wo, bo, ns, nb, (w1, b1, w2, b2)), got, 3, True)
         t = timed(lambda y, x, wo, bo, ns, nb, w1, b1, w2, b2: dl.fused_post_attn(
             y, x, wo, bo, ns, nb, (w1, b1, w2, b2)),
             lambda *a: dl.post_attn_plain(*a[:6], a[6:], 1e-5),
-            None, Rotation(pa_sets))
+            None, Rotation(pa_sets), union=True)
         Ge, Gf = E // grp(E), F // grp(F)
         nbytes = (E * E + 2 * E * F + (Ge * E + Ge * F + Gf * E) * 4 + 3 * M * E * 2
                   + (2 * E + F) * 2 + 2 * E * 4)
@@ -1945,7 +2032,8 @@ def run_kernels_w8(torch, peaks):
                    err_over_limit=ratio,
                    limit="per element: 1 bf16 ulp of the plain value + 1e-5 x the fp32 "
                    "addends' magnitudes + half a bf16 ulp of the row's largest output",
-                   limit_over_2ulp_share=wide, ok=ratio <= 1.0, **times(t),
+                   limit_over_2ulp_share=wide, **held,
+                   ok=ratio <= 1.0 and held["bitwise_repeat"] and held["sm90_ok"], **times(t),
                    **one_ulp_witness(torch, got, ref, mag, *args),
                    bound_us=b_ms * 1e3, bound_by=b_by)
         emit(res)
@@ -2216,17 +2304,23 @@ def abs_panel(w):
     return (w8ops.dequantize_weight(*w) if isinstance(w, tuple) else w.float()).abs()
 
 
-def timed_calls(torch, kernel, plain, library, rot, n=50):
+def timed_calls(torch, kernel, plain, library, rot, n=50, union=False):
     """Device ms of each callable on inputs cycled by ``rot`` (None where
     the profiler saw no device activity) and, under ``*_event``, its
-    CUDA-event ms; the plain version takes 5 calls."""
+    CUDA-event ms; the plain version takes 5 calls. With ``union`` (the
+    decode-layer kernels, whose launches overlap under programmatic
+    dependent launch) the kernel's device ms is the union of its kernels'
+    intervals, their sum under ``kernel_sum``."""
     out = {}
     for which, fn, k in (("kernel", kernel, n), ("plain", plain, 5), ("library", library, n)):
         if fn is None:
             out[which] = out[which + "_event"] = None
             continue
         call = lambda fn=fn: fn(*rot.next())  # noqa: E731
-        out[which] = device_ms(torch, call, k)
+        if which == "kernel" and union:
+            out["kernel_sum"], out[which] = device_union_ms(torch, call, k)
+        else:
+            out[which] = device_ms(torch, call, k)
         out[which + "_event"] = cuda_ms(torch, call, k)
     return out
 
@@ -2236,12 +2330,13 @@ def kernel_row(phase, name, shape, err, ratio, limit, t, bound, **extra):
     limit, and an fp64 anchor that ``extra`` carries held); returns the row."""
     b_ms, b_by = bound
     res = dict(phase=phase, name=name, shape=shape, max_err=err, err_over_limit=ratio,
-               limit=limit, ok=ratio <= 1.0 and extra.get("fp64_anchor_ok", True),
+               limit=limit, ok=ratio <= 1.0 and extra.get("fp64_anchor_ok", True)
+               and extra.get("bitwise_repeat", True) and extra.get("sm90_ok", True),
                kernel_ms=t["kernel"],
                kernel_event_ms=t["kernel_event"], plain_ms=t["plain"],
                plain_event_ms=t["plain_event"], library_ms=t["library"],
                library_event_ms=t["library_event"], bound_us=b_ms * 1e3, bound_by=b_by,
-               **extra)
+               **({"kernel_sum_ms": t["kernel_sum"]} if "kernel_sum" in t else {}), **extra)
     emit(res)
     return res
 
@@ -2464,9 +2559,10 @@ def run_kernels_llama(torch, F, peaks):
             torch.cuda.synchronize()
             xn = dl._norm_rows(x.float(), ns, None, 1e-5, rms=True).to(bf)
             err, ratio, wide = w8_limits(torch, got, ref, xn.float().abs() @ abs_panel(w), True)
+            held = decode_sm90_held(torch, lambda: kern(x, ns, w), got, 1, group is not None)
             res = row("norm_proj_rms" + suffix, f"M={M} E={E} N={N}{glabel}", err, ratio,
-                      lim_bf16, timed(kern, plain, None, Rotation(sets)),
-                      bound_ms(nbytes, 2 * M * E * N, peaks), limit_over_2ulp_share=wide)
+                      lim_bf16, timed(kern, plain, None, Rotation(sets), union=True),
+                      bound_ms(nbytes, 2 * M * E * N, peaks), limit_over_2ulp_share=wide, **held)
             ok &= res["ok"]
             if N == 2048 and group in (None, 128):
                 rows["norm_proj_rms" + suffix] = res
@@ -2494,10 +2590,11 @@ def run_kernels_llama(torch, F, peaks):
         h = (gate * torch.sigmoid(gate) * dl._dot(hin, wu)).to(bf)
         mag = x.float().abs() + y.float().abs() @ abs_panel(wo) + h.float().abs() @ abs_panel(wd)
         err, ratio, wide = w8_limits(torch, got, ref, mag, True)
+        held = decode_sm90_held(torch, lambda: kern(*sets[0]), got, 3, group is not None)
         res = row("post_attn_swiglu" + suffix, f"M={M} E={E} F={Fh}{glabel}", err, ratio,
-                  lim_bf16, timed(kern, plain, None, Rotation(sets), n=20),
+                  lim_bf16, timed(kern, plain, None, Rotation(sets), n=20, union=True),
                   bound_ms(nbytes, 2 * M * (E * E + 3 * E * Fh), peaks),
-                  limit_over_2ulp_share=wide, launches_per_call=3)
+                  limit_over_2ulp_share=wide, launches_per_call=4, **held)
         ok &= res["ok"]
         if group in (None, 128):
             rows["post_attn_swiglu" + suffix] = res
@@ -3031,11 +3128,13 @@ def run_kernels_neox(torch, F, peaks):
         err, ratio, wide = w8_limits(torch, got, ref, xn.float().abs() @ abs_panel(w)
                                      + b.float().abs(), True)
         name = "decode_norm_proj_w8" if group else "norm_qkv"
+        held = decode_sm90_held(torch, lambda: dl.fused_norm_proj(x, ns, nb, w, b), got, 1,
+                                group is not None)
         at[name] = row(name, f"M={M} E={E} N={N}{glabel}", err, ratio, lim_bf16,
                        timed(lambda x, ns, nb, w, b: dl.fused_norm_proj(x, ns, nb, w, b),
                              lambda x, ns, nb, w, b: dl.norm_proj_plain(x, ns, nb, w, b, 1e-5),
-                             None, Rotation(sets)),
-                       bound_ms(nbytes, 2 * M * E * N, peaks), limit_over_2ulp_share=wide)
+                             None, Rotation(sets), union=True),
+                       bound_ms(nbytes, 2 * M * E * N, peaks), limit_over_2ulp_share=wide, **held)
         ok &= at[name]["ok"]
         del sets
 
@@ -3053,19 +3152,22 @@ def run_kernels_neox(torch, F, peaks):
             got, ref = dl.fused_post_attn(*sets[0], **kw), branch_plain(sets[0], kw)
             torch.cuda.synchronize()
             err, ratio, wide = w8_limits(torch, got, ref, post_attn_mag(torch, sets[0], kw), True)
+            held = decode_sm90_held(torch, lambda kw=kw: dl.fused_post_attn(*sets[0], **kw), got,
+                                    3, group is not None)
             shape = (f"M={M} E={E} F={Fh}{glabel} " + ("RMSNorm" if kw.get("rms") else "LN")
                      + (" SwiGLU" if kw.get("swiglu") else
                         " exact GELU" if kw.get("exact_gelu") else " tanh GELU")
                      + (" parallel" if kw.get("parallel_residual") else " sequential"))
             if timed_case:
                 t = timed(lambda *a, kw=kw: dl.fused_post_attn(*a, **kw),
-                          lambda *a, kw=kw: branch_plain(a, kw), None, Rotation(sets), n=20)
+                          lambda *a, kw=kw: branch_plain(a, kw), None, Rotation(sets), n=20,
+                          union=True)
             else:
                 t = dict.fromkeys(("kernel", "kernel_event", "plain", "plain_event", "library",
                                    "library_event"))
             res = row(label, shape, err, ratio, lim_bf16, t,
                       bound_ms(nbytes, 2 * M * (E * E + (n_up + 1) * E * Fh), peaks),
-                      limit_over_2ulp_share=wide, launches_per_call=3)
+                      limit_over_2ulp_share=wide, launches_per_call=4, **held)
             ok &= res["ok"]
             if label in NEOX_KERNELS:
                 rows[label] = res
@@ -3127,6 +3229,247 @@ def run_kernels_neox(torch, F, peaks):
         del sets, panels
     torch.cuda.empty_cache()
     return rows, at, ok
+
+
+# ---------------------------------------------------------------------------
+# the bf16 decode-layer kernels on the tensor cores (rows 6-7)
+# ---------------------------------------------------------------------------
+
+DECODE_SM90_LIMIT = ("w8_limits per element (1 bf16 ulp of the plain value + 1e-5 x the fp32 "
+                     "addends' magnitudes + half a bf16 ulp of the row's largest output), "
+                     "against the plain version and against the fp64 value with the same "
+                     "bf16 casts; identical bits on a second call")
+
+
+def decode_sm90_held(torch, call, got, n_gemv: int, quant: bool) -> dict:
+    """A bf16 rows 6-7 call made again: identical bits, and the library's own
+    launch counts for it (``decode_layer.kernel_launches``): ``n_gemv``
+    launches of the tensor-core GEMV (its W8A16 instantiations with
+    ``quant``), one of the norm's, none of the CUDA-core GEMV."""
+    from deepspeed_tpu_torch.ops import decode_layer as dl
+
+    before = dl.kernel_launches()
+    again = call()
+    torch.cuda.synchronize()
+    after = dl.kernel_launches()
+    ran = {k: after[k] - before[k] for k in after}
+    want = {"gemv_sm90_kernel": 0 if quant else n_gemv, "gemv_sm90_kernel_w8": n_gemv if quant
+            else 0, "norm_rows_kernel": 1, "rows_gemv_kernel": 0}
+    return dict(bitwise_repeat=bool(torch.equal(got, again)), sm90_launches=ran,
+                sm90_ok=ran == want)
+
+
+def decode_fp64(torch, kind: str, args, kw: dict):
+    """The decode-layer function in fp64 with the kernels' bf16 casts (the
+    normalised rows, h, the output): the value two correct fp32 orders of
+    summation round around. ``args``: norm_proj's (x, ns, nb, w, b) or
+    post_attn's (y, x, wo, bo, ns, nb, mlp); weights dense or W8A16 pairs."""
+    from deepspeed_tpu_torch.ops import decode_layer as dl
+
+    def dot(a, w):
+        if isinstance(w, tuple):
+            codes, scale = w
+            w = codes.double() * scale.double().repeat_interleave(
+                codes.shape[0] // scale.shape[0], 0)
+        return a.double() @ w.double()
+
+    def vec(v, like):
+        return torch.zeros_like(like) if v is None else v.double()
+
+    rms = kw.get("rms", False)
+    if kind == "norm_proj":
+        x, ns, nb, w, b = args
+        cdt = x.dtype
+        xn = dl._norm_rows(x.double(), ns.double(), vec(nb, ns.double()), 1e-5, rms).to(cdt)
+        return (dot(xn, w) + b.double()).to(cdt)
+    y, x, wo, bo, ns, nb, mlp = args
+    cdt = x.dtype
+    r1 = (x.double() + dot(y, wo)) + bo.double()
+    src = x.double() if kw.get("parallel_residual") else r1
+    hin = dl._norm_rows(src, ns.double(), vec(nb, ns.double()), 1e-5, rms).to(cdt)
+    if kw.get("swiglu"):
+        wg, wu, wd = mlp
+        gate = dot(hin, wg)
+        h = (gate * torch.sigmoid(gate) * dot(hin, wu)).to(cdt)
+        return (r1 + dot(h, wd)).to(cdt)
+    w1, b1, w2, b2 = mlp
+    gelu = dl.gelu_exact if kw.get("exact_gelu") else dl.gelu_tanh
+    h = gelu(dot(hin, w1) + b1.double()).to(cdt)
+    return ((r1 + dot(h, w2)) + b2.double()).to(cdt)
+
+
+def unfused_chain(torch, F, kind: str, args, kw: dict):
+    """The same function as separate PyTorch calls, timed beside the kernels
+    and neither gated nor a yardstick: ``F.layer_norm`` or ``F.rms_norm``
+    (in fp32, cast back), ``F.linear``-style products in bf16 (W8A16:
+    dequantise, then ``matmul``), ``F.gelu`` / ``F.silu``, the residual adds."""
+    from deepspeed_tpu_torch.ops import w8 as w8ops
+
+    bf = torch.bfloat16
+
+    def lin(a, w, b=None):
+        wd = w8ops.dequantize_weight(*w, bf) if isinstance(w, tuple) else w
+        out = a @ wd
+        return out if b is None else out + b
+
+    def norm(a, ns, nb):
+        E = a.shape[-1]
+        if kw.get("rms"):
+            return F.rms_norm(a.float(), (E,), ns, 1e-5).to(bf)
+        return F.layer_norm(a.float(), (E,), ns, nb, 1e-5).to(bf)
+
+    if kind == "norm_proj":
+        x, ns, nb, w, b = args
+        return lin(norm(x, ns, nb), w, b)
+    y, x, wo, bo, ns, nb, mlp = args
+    r1 = x + lin(y, wo, bo)
+    hin = norm(x if kw.get("parallel_residual") else r1, ns, nb)
+    if kw.get("swiglu"):
+        wg, wu, wd = mlp
+        return r1 + lin(F.silu(lin(hin, wg)) * lin(hin, wu), wd)
+    w1, b1, w2, b2 = mlp
+    h = F.gelu(lin(hin, w1, b1), approximate="none" if kw.get("exact_gelu") else "tanh")
+    return r1 + lin(h, w2, b2)
+
+
+DECODE_SM90_ROWS = (1, 8, 13, 64)
+# norm_proj at pythia-1b's qkv (LayerNorm) and llama-1b's q and k/v (RMSNorm)
+DECODE_SM90_NORM_PROJ = (("norm_proj_ln", 6144, {}), ("norm_proj_rms", 2048, dict(rms=True)),
+                         ("norm_proj_rms", 256, dict(rms=True)))
+
+
+def run_kernels_decode_sm90(torch, F, peaks, timed=True):
+    """The bf16 decode-layer kernels (``csrc/decode_gemv_sm90.cuh``) at
+    llama-1b's and pythia-1b's widths (E=2048, F=8192; norm_proj at N=6144,
+    2048 and 256): every branch (norm_proj LayerNorm and RMSNorm; post_attn's
+    nine flag combinations of :data:`POST_ATTN_BRANCHES`) with bf16 weights
+    and W8A16 (128-row groups and one group), at M = 1, 8, 13 and 64 decode
+    rows. Each case within ``w8_limits`` of the plain version and of the
+    fp64 value with the same casts, bit-identical on a second call, and run
+    by the tensor-core GEMV and the norm's kernel alone (the library's own
+    counts); with ``timed``, timed (device ms as the union of the call's
+    kernels) beside the unfused PyTorch chain, which is neither gated nor a
+    yardstick. Returns whether all held."""
+    from deepspeed_tpu_torch.ops import decode_layer as dl
+
+    g = torch.Generator(device="cuda").manual_seed(SEED + 14)
+    bf = torch.bfloat16
+    E, Fh = NEOX_E, NEOX_F
+    ok = True
+
+    def rn(*shape, std=1.0, dtype=bf):
+        return (torch.randn(shape, generator=g, device="cuda") * std).to(dtype)
+
+    for wkind in ("bf16", "w8_g128", "w8_one_group"):
+        cache = {}
+
+        def panel(K, N, tag, wkind=wkind, cache=cache):
+            if (K, N, tag) not in cache:
+                if wkind == "bf16":
+                    cache[(K, N, tag)] = rn(K, N, std=0.02)
+                else:
+                    cache[(K, N, tag)] = w8_panels(torch, g, K, N,
+                                                   128 if wkind == "w8_g128" else K, 1)[0]
+            return cache[(K, N, tag)]
+
+        quant = wkind != "bf16"
+        ns, nb = 1 + rn(E, std=0.1, dtype=torch.float32), rn(E, std=0.1, dtype=torch.float32)
+        cases = [("norm_proj", name, N, kw) for name, N, kw in DECODE_SM90_NORM_PROJ]
+        cases += [("post_attn", branch_label(name, kw), Fh, kw) for name, kw in POST_ATTN_BRANCHES]
+        for M in DECODE_SM90_ROWS:
+            for kind, name, N, kw in cases:
+                rms = kw.get("rms", False)
+                if kind == "norm_proj":   # RMSNorm: no norm bias, a zero bias (llama-1b)
+                    args = (rn(M, E), ns, None if rms else nb, panel(E, N, "qkv"),
+                            torch.zeros(N, dtype=bf, device="cuda") if rms else rn(N, std=0.02))
+
+                    def call(args=args, kw=kw):
+                        return dl.fused_norm_proj(*args, rms=kw.get("rms", False))
+
+                    def plain(args=args, kw=kw):
+                        x, ns_, nb_, w, b = args
+                        return dl.norm_proj_plain(x, ns_, 0 * ns_ if nb_ is None else nb_, w, b,
+                                                  1e-5, kw.get("rms", False))
+                    x_, ns_, nb_, w_, b_ = args
+                    xn = dl._norm_rows(x_.float(), ns_, 0.0 if nb_ is None else nb_, 1e-5,
+                                       rms).to(bf)
+                    mag = xn.float().abs() @ abs_panel(w_) + b_.float().abs()
+                    groups = E // 128 if wkind == "w8_g128" else 1
+                    nbytes = (E * N * (1 if quant else 2) + M * E * 2 + M * N * 2 + E * 8
+                              + (groups * N * 4 if quant else 0))
+                    flops, n_gemv = 2 * M * E * N, 1
+                else:
+                    mlp = ((panel(E, Fh, "up"), panel(E, Fh, "up2"), panel(Fh, E, "down"))
+                           if kw.get("swiglu") else
+                           (panel(E, Fh, "up"), rn(Fh, std=0.02), panel(Fh, E, "down"),
+                            rn(E, std=0.02)))
+                    args = (rn(M, E), rn(M, E), panel(E, E, "o"), rn(E, std=0.02), ns,
+                            None if rms else nb, mlp)
+
+                    def call(args=args, kw=kw):
+                        return dl.fused_post_attn(*args, **kw)
+
+                    def plain(args=args, kw=kw):
+                        return branch_plain(args, kw)
+                    mag = post_attn_mag(torch, args, kw)
+                    n_up = 2 if kw.get("swiglu") else 1
+                    gb = (lambda K, N: 0) if not quant else (
+                        lambda K, N: (K // 128 if wkind == "w8_g128" else 1) * N * 4)
+                    nbytes = ((E * E + (n_up + 1) * E * Fh) * (1 if quant else 2) + gb(E, E)
+                              + n_up * gb(E, Fh) + gb(Fh, E) + 3 * M * E * 2 + E * 8)
+                    flops, n_gemv = 2 * M * (E * E + (n_up + 1) * E * Fh), 3
+                got, ref = call(), plain()
+                torch.cuda.synchronize()
+                err, ratio, _ = w8_limits(torch, got, ref, mag, True)
+                exact = decode_fp64(torch, kind, args, kw)
+                _, ratio64, _ = w8_limits(torch, got, exact, mag, True)
+                _, plain64, _ = w8_limits(torch, ref, exact, mag, True)
+                held = decode_sm90_held(torch, call, got, n_gemv, quant)
+                sum_ms, union_ms = device_union_ms(torch, call, 10) if timed else (None, None)
+                chain_ms = device_ms(torch, lambda args=args, kind=kind, kw=kw: unfused_chain(
+                    torch, F, kind, args, kw), 10) if timed else None
+                b_ms, b_by = bound_ms(nbytes, flops, peaks)
+                res = dict(phase="kernels_decode_sm90", name=name + ("_w8" if quant else ""),
+                           shape=f"M={M} E={E} " + ("N" if kind == "norm_proj" else "F")
+                           + f"={N} {wkind}", max_err=err, err_over_limit=ratio,
+                           kernel_vs_fp64_over_limit=ratio64, plain_vs_fp64_over_limit=plain64,
+                           limit=DECODE_SM90_LIMIT, **held, kernel_ms=union_ms,
+                           kernel_sum_ms=sum_ms, unfused_chain_ms=chain_ms,
+                           bound_ms=b_ms, bound_by=b_by)
+                res["ok"] = bool(ratio <= 1.0 and ratio64 <= 1.0 and held["bitwise_repeat"]
+                                 and held["sm90_ok"] and torch.isfinite(got).all())
+                emit(res)
+                ok &= res["ok"]
+        del cache
+        torch.cuda.empty_cache()
+    return ok
+
+
+def decode_sm90_build(log: str) -> list:
+    """Each tensor-core decode-layer kernel's registers, static shared memory
+    and spill bytes (stores + loads) from the ``-Xptxas -v`` build log of
+    ``decode_layer.cu``."""
+    import re
+
+    rows, cur = [], None
+    for line in log.splitlines():
+        m = re.search(r"Compiling entry function '([^']+)'", line)
+        if m:
+            cur = dict(symbol=m.group(1)) if "gemv90" in m.group(1) else None
+            if cur:
+                rows.append(cur)
+            continue
+        if cur is None:
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
+        if m:
+            cur["spill_bytes"] = int(m.group(1)) + int(m.group(2))
+        m = re.search(r"Used (\d+) registers", line)
+        if m:
+            cur["registers"] = int(m.group(1))
+            sm = re.search(r"(\d+) bytes smem", line)
+            cur["static_smem_bytes"] = int(sm.group(1)) if sm else 0
+    return rows
 
 
 def run_serve_neox(torch, out_dir=None):
@@ -5179,6 +5522,10 @@ def main() -> int:
         with open(os.path.join(args.out, "build.log"), "w") as fh:
             for src, log in logs.items():
                 fh.write(f"==== {src}.cu\n{log}\n")
+    if "decode_layer" in logs:   # the tensor-core decode-layer kernels: no spills
+        sm90_build = decode_sm90_build(logs["decode_layer"])
+        emit(dict(phase="build_decode_sm90", kernels=sm90_build))
+        ok &= bool(sm90_build) and all(r.get("spill_bytes", 1) == 0 for r in sm90_build)
 
     kernel_results = run_kernels(torch, F, peaks)
     ok &= all(r["ok"] for _, r in kernel_results)
@@ -5196,6 +5543,7 @@ def main() -> int:
     ok &= llama_kernels_ok
     neox_rows, neox_at, neox_kernels_ok = run_kernels_neox(torch, F, peaks)
     ok &= neox_kernels_ok
+    ok &= run_kernels_decode_sm90(torch, F, peaks)
     mlp_rows, mlp_kernels_ok = run_kernels_fused_mlp(torch, F, peaks)
     ok &= mlp_kernels_ok
     sparse_rows, sparse_kernels_ok = run_kernels_sparse(torch, F, peaks)

@@ -1,5 +1,6 @@
-// The row-batched GEMV behind the decode-layer kernels (decode_layer.cu) and
-// the W8A16 matmul (w8_matmul.cu).
+// The row-batched CUDA-core GEMV behind the fp32 instantiations of the
+// decode-layer kernels (decode_layer.cu) and the W8A16 matmul (w8_matmul.cu,
+// PERF row 8). The bf16 decode-layer kernels run decode_gemv_sm90.cuh.
 //
 // out[m, n] = epilogue(sum_k a[m, k] * W[k, n]) for M <= 64 decode rows.
 // Bound on the H100: bytes. Each weight element read from memory feeds at

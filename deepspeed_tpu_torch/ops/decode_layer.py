@@ -8,10 +8,14 @@ GPT-NeoX: the MLP's norm reads the block input ``x``); weights in the
 activation dtype or as W8A16 pairs (int8 codes ``(K, N)`` + fp32 scales
 ``(K/g, N)``, the ``ops/w8.py`` layout). The TPU kernels
 ``_norm_proj_kernel`` and ``_post_attn_kernel`` become
-``csrc/decode_layer.cu`` (one launch, and three launches, respectively; see
-its header and ``csrc/rows_gemv.cuh`` for the design and bound), one C
-entry per MLP and weight kind, the norm, the GELU form and the residual
-flags. Each branch has its own launch count: ``NORM_PROJ_RMS`` beside
+``csrc/decode_layer.cu``, one C entry per MLP and weight kind, the norm,
+the GELU form and the residual flags. bf16 runs the tensor-core GEMV of
+``csrc/decode_gemv_sm90.cuh`` split over K (:func:`gemv_plan` picks each
+launch's column tile and K-slice): norm_proj is the norm's launch and one
+GEMV, post_attn the norm's and three GEMVs; fp32 runs the CUDA-core GEMV
+of ``csrc/rows_gemv.cuh`` (one launch, and three). :func:`kernel_launches`
+gives the C library's own counts by kernel. Each branch has its own launch
+count (one a call): ``NORM_PROJ_RMS`` beside
 ``NORM_PROJ``, and one handle per MLP kind (tanh, exact GELU, SwiGLU) ×
 residual × weight kind (:func:`post_attn_handle`; GPT-2's, LLaMA's and
 GPT-NeoX's named ``POST_ATTN``, ``POST_ATTN_SWIGLU``, ``POST_ATTN_ERF``,
@@ -20,28 +24,35 @@ GPT-NeoX's named ``POST_ATTN``, ``POST_ATTN_SWIGLU``, ``POST_ATTN_ERF``,
 :func:`fused_norm_proj` and :func:`fused_post_attn` launch the kernels for
 CUDA tensors and run :func:`norm_proj_plain` / :func:`post_attn_plain`,
 the kernels' arithmetic in plain PyTorch with the same cast points, for CPU
-tensors. :func:`reference_norm_proj` and :func:`reference_post_attn` are
+tensors; :func:`norm_proj_tiled_plain` and :func:`post_attn_tiled_plain`
+add the bf16 kernels' order of summation (:func:`gemv_tiled_plain`).
+:func:`reference_norm_proj` and :func:`reference_post_attn` are
 the unfused op chains the stock module path computes; in a low-precision
 dtype they round at other points than the fused kernels, so each path is
 held against its own JAX counterpart.
 """
 from __future__ import annotations
 
+import ctypes
+import functools
 import math
 from typing import Optional
 
 import torch
 
-from ._build import FLOAT, INT, PTR, Kernel, check_operands, dtype_code, stream_of
+from ._build import FLOAT, INT, PTR, Kernel, check_operands, dtype_code, load, stream_of
 from .fused_ops import gelu_tanh
 from .w8 import w8a16_matmul
 
-_TAIL = [INT, INT, INT, FLOAT, INT, INT, PTR]   # M, K/E, N/F, eps, rms, dtype, stream
-# post_attn: M, E, F, eps, rms, [exact_gelu,] parallel, dtype, stream
-_GELU_TAIL = [INT, INT, INT, FLOAT, INT, INT, INT, INT, PTR]
-_SWIGLU_TAIL = [INT, INT, INT, FLOAT, INT, INT, INT, PTR]
-_NORM_PROJ_ARGS = [PTR] * 6 + _TAIL
-_NORM_PROJ_W8_ARGS = [PTR, PTR, PTR, PTR, PTR, INT, PTR, PTR] + _TAIL
+# the bf16 scratch: the normalised rows, the split partials, the tickets
+_SCRATCH = [PTR, PTR, PTR]
+# M, K/E, N/F, eps, rms, n_tile, k_slice, dtype, stream
+_TAIL = [INT, INT, INT, FLOAT, INT, INT, INT, INT, PTR]
+# post_attn: M, E, F, eps, rms, [exact_gelu,] parallel, three plans, dtype, stream
+_GELU_TAIL = [INT, INT, INT, FLOAT, INT, INT, INT] + [INT] * 6 + [INT, PTR]
+_SWIGLU_TAIL = [INT, INT, INT, FLOAT, INT, INT] + [INT] * 6 + [INT, PTR]
+_NORM_PROJ_ARGS = [PTR] * 6 + _SCRATCH + _TAIL
+_NORM_PROJ_W8_ARGS = [PTR, PTR, PTR, PTR, PTR, INT, PTR, PTR] + _SCRATCH + _TAIL
 # the LayerNorm (GPT-2, GPT-NeoX) and RMSNorm (LLaMA) branches share a C
 # entry and keep separate launch counts
 NORM_PROJ = Kernel("decode_layer", "norm_proj_fwd", _NORM_PROJ_ARGS)
@@ -51,12 +62,12 @@ NORM_PROJ_RMS_W8 = Kernel("decode_layer", "norm_proj_w8_fwd", _NORM_PROJ_W8_ARGS
 
 # the four post_attn C entries, by (swiglu, W8A16)
 _POST_ATTN_ENTRIES = {
-    (False, False): ("post_attn_fwd", [PTR] * 13 + _GELU_TAIL),
+    (False, False): ("post_attn_fwd", [PTR] * 13 + _SCRATCH + _GELU_TAIL),
     (False, True): ("post_attn_w8_fwd", [PTR, PTR, PTR, PTR, INT] + [PTR] * 5
-                    + [INT, PTR, PTR, PTR, INT] + [PTR] * 4 + _GELU_TAIL),
-    (True, False): ("post_attn_swiglu_fwd", [PTR] * 12 + _SWIGLU_TAIL),
+                    + [INT, PTR, PTR, PTR, INT] + [PTR] * 4 + _SCRATCH + _GELU_TAIL),
+    (True, False): ("post_attn_swiglu_fwd", [PTR] * 12 + _SCRATCH + _SWIGLU_TAIL),
     (True, True): ("post_attn_swiglu_w8_fwd", [PTR, PTR, PTR, PTR, INT, PTR, PTR, PTR]
-                   + [PTR, PTR, INT] * 3 + [PTR] * 3 + _SWIGLU_TAIL),
+                   + [PTR, PTR, INT] * 3 + [PTR] * 3 + _SCRATCH + _SWIGLU_TAIL),
 }
 
 # one launch count per branch of _post_attn_kernel: MLP kind (tanh GELU,
@@ -86,6 +97,84 @@ POST_ATTN_ERF_PAR_W8 = post_attn_handle(exact_gelu=True, parallel_residual=True,
 
 MAX_ROWS = 64      # the decode regime; prefill rows take the unfused chain
 _SQRT_HALF = 2.0 ** -0.5
+
+# the kernels behind the C entries, in the order the library counts them
+# (``decode_layer_launched``): the tensor-core GEMV with bf16 weights and
+# with W8A16 codes, the norm's launch (bf16), the CUDA-core GEMV (fp32)
+KERNELS = ("gemv_sm90_kernel", "gemv_sm90_kernel_w8", "norm_rows_kernel", "rows_gemv_kernel")
+
+# the split plan of the bf16 GEMV (csrc/decode_gemv_sm90.cuh)
+SM_COUNT = 132                 # the H100's streaming multiprocessors
+MIN_BLOCKS = 2 * SM_COUNT      # two blocks an SM where the shape allows
+STAGE_ROWS = 128               # k-rows a ring stage holds; K-slices are multiples
+N_TILES = (64, 32, 16)         # output columns a block owns (two panels of them under SwiGLU)
+MAX_BLOCK_COLS = 64            # columns of weight a block streams: 4 warps x 16
+MIN_ROW_BYTES = 32             # a tile's weight row is at least one 32-byte sector
+_TICKETS = {}                  # (device, stream) -> zeroed int32 counters, one per column tile
+_MIN_TICKETS = 4096
+
+
+def kernel_launches() -> dict:
+    """Launches so far of each kernel of :data:`KERNELS`, as the C library
+    counts them where it launches them: which kernels a call took (the bf16
+    tensor-core GEMV or the fp32 CUDA-core one). Loads (and builds) the
+    library."""
+    fn = load("decode_layer").decode_layer_launched
+    fn.argtypes, fn.restype = [INT], ctypes.c_ulonglong
+    return {name: int(fn(i)) for i, name in enumerate(KERNELS)}
+
+
+@functools.lru_cache(maxsize=None)
+def gemv_plan(k: int, n: int, weight_bytes: int, group: Optional[int] = None,
+              pair: bool = False) -> tuple:
+    """``(n_tile, k_slice)`` of one bf16 GEMV launch over a ``(k, n)`` panel:
+    a grid of ``n / n_tile`` column tiles by ``k / k_slice`` K-slices, each
+    block streaming ``n_tile`` columns (of both panels with ``pair``, SwiGLU's
+    gate and up) down its slice.
+
+    The tile's weight row is at least 32 bytes (whole sectors: 16 bf16 or 32
+    int8 columns) and at most 64 columns; slices are whole multiples of the
+    128-row stage and of the scale group ``group`` (``None``, or ``k`` for
+    one group: any multiple of 128, the scale distributing over partial
+    sums). Of the plans with at least :data:`MIN_BLOCKS` blocks, the one with
+    the most work a block (fewest blocks, fewest partials), then the widest
+    tile; where none reaches it, the most blocks. The plan reads no row
+    count: rows only lengthen the products, the operand's stage and the
+    partials."""
+    width = 2 if pair else 1
+    tiles = [nt for nt in N_TILES if nt * width <= MAX_BLOCK_COLS
+             and nt * weight_bytes >= MIN_ROW_BYTES and n % nt == 0]
+    step = STAGE_ROWS if group is None or group >= k else math.lcm(STAGE_ROWS, group)
+    slices = [ks for ks in range(step, k + 1, step) if k % ks == 0]
+    if not tiles or not slices:
+        raise ValueError(f"gemv_plan: no tile for K={k} N={n} ({weight_bytes}-byte weights, "
+                         f"group {group}, pair {pair})")
+    plans = [(nt, ks) for nt in tiles for ks in slices]
+
+    def blocks(p):
+        return (n // p[0]) * (k // p[1])
+    full = [p for p in plans if blocks(p) >= MIN_BLOCKS]
+    if full:
+        return max(full, key=lambda p: (p[0] * p[1], p[0]))
+    return max(plans, key=lambda p: (blocks(p), p[0]))
+
+
+def gemv_partials(m: int, k: int, n: int, plan: tuple, pair: bool = False) -> int:
+    """fp32 elements of one launch's split partials (0 when K is not split)."""
+    splits = k // plan[1]
+    return 0 if splits == 1 else splits * m * n * (2 if pair else 1)
+
+
+def gemv_tickets(device, stream: int, n_tiles: int) -> torch.Tensor:
+    """The zeroed column-tile counters of ``stream`` on ``device``, made once
+    and reused: every launch's last blocks reset theirs, and launches on one
+    stream run in order, so the next launch finds them zero."""
+    key = (device, stream)
+    t = _TICKETS.get(key)
+    if t is None or t.numel() < n_tiles:
+        t = torch.zeros(max(_MIN_TICKETS, n_tiles), dtype=torch.int32, device=device)
+        _TICKETS[key] = t
+    return t
 
 
 def gelu_exact(u: torch.Tensor) -> torch.Tensor:
@@ -151,10 +240,12 @@ def _out_features(w) -> int:
 # The kernels' arithmetic in plain PyTorch
 # ---------------------------------------------------------------------------
 
-def _dot(a, w):
+def _dot(a, w, pair=False):
     """``a @ W`` in fp32 for ``a`` in the activation dtype; a W8A16 pair
     computes ``_qdot_any`` (``decode_layer.py:160``): codes upcast to a's
-    dtype, each group's fp32 partial times its scale, summed in group order."""
+    dtype, each group's fp32 partial times its scale, summed in group order.
+    ``pair`` (SwiGLU's gate and up) is unread: it names the panel for
+    :func:`gemv_tiled_plain`."""
     if not isinstance(w, tuple):
         return a.float() @ w.float()
     codes, scale = w
@@ -168,38 +259,103 @@ def _dot(a, w):
     return out
 
 
-def norm_proj_plain(x, ns, nb, w, b, eps, rms=False):
+def gemv_tiled_plain(a, w, pair=False):
+    """``a @ W`` in fp32 summed in the bf16 kernel's order under
+    :func:`gemv_plan`. Per K-slice, in 128-row stages of 8 k16 steps (a
+    16-row product each): the warps sharing a column group take a stage's
+    steps in turn (warp q steps q, q + n, ...), and each warp deals its
+    steps to :data:`gemv_banks` accumulators in turn, each summing its steps
+    in order (W8: a fresh partial a group, folded times the scale at the
+    group's end, or the slice's); a warp's banks, then the warps, then the
+    slices are summed in order. ``w``: ``(K, N)`` in a's dtype, or a W8A16
+    pair (codes upcast to a's dtype)."""
+    quant = isinstance(w, tuple)
+    codes, scale = w if quant else (w, None)
+    K, N = codes.shape
+    group = K // scale.shape[0] if quant else None
+    n_tile, k_slice = gemv_plan(K, N, 1 if quant else 2, group, pair)
+    n_phase = 4 // ((2 if pair else 1) * n_tile // 16)
+    banks = gemv_banks(a.shape[0])
+    steps = 8 // n_phase                    # a warp's steps in a stage
+    af = a.float()
+    wf = codes.to(a.dtype).float()
+    total = torch.zeros((a.shape[0], N), dtype=torch.float32, device=a.device)
+    for k0 in range(0, K, k_slice):
+        prods = torch.einsum("mjk,jkn->jmn", af[:, k0:k0 + k_slice].reshape(-1, k_slice // 16, 16),
+                             wf[k0:k0 + k_slice].reshape(k_slice // 16, 16, N))
+        block = None
+        for q in range(n_phase):
+            warp = None
+            for bank in range(banks):
+                acc = torch.zeros_like(total)
+                part = torch.zeros_like(total)
+                for st in range(k_slice // STAGE_ROWS):
+                    for i in range(bank, steps, banks):
+                        part = part + prods[st * 8 + q + n_phase * i]
+                    end = k0 + (st + 1) * STAGE_ROWS
+                    if quant and (end % group == 0 or end == k0 + k_slice):
+                        acc = acc + part * scale[(end - 1) // group]
+                        part = torch.zeros_like(total)
+                acc = acc if quant else part
+                warp = acc if warp is None else warp + acc
+            block = warp if block is None else block + warp
+        total = total + block
+    return total
+
+
+def gemv_banks(m: int) -> int:
+    """Accumulators a warp of the bf16 GEMV deals its k16 steps to: 2 for up
+    to 16 rows, else 1 (its 8-row tiles are independent chains already)."""
+    return 2 if m <= 16 else 1
+
+
+def norm_proj_plain(x, ns, nb, w, b, eps, rms=False, dot=_dot):
     """``cast(cast(norm(x)) @ W + b)``: the norm (LayerNorm, or RMSNorm with
     ``rms``, which reads no ``nb``) in fp32, cast to x's dtype before the
     product (``decode_layer.py:195``), fp32 product and bias. ``w``:
-    ``(E, N)`` or a W8A16 pair."""
+    ``(E, N)`` or a W8A16 pair. ``dot``: the product's order of summation."""
     cdt = x.dtype
     xn = _norm_rows(x.float(), ns.float(), nb.float(), eps, rms).to(cdt)
-    return (_dot(xn, w) + b.to(cdt).float()).to(cdt)
+    return (dot(xn, w) + b.to(cdt).float()).to(cdt)
+
+
+def norm_proj_tiled_plain(x, ns, nb, w, b, eps, rms=False):
+    """:func:`norm_proj_plain` summed in the bf16 kernel's order
+    (:func:`gemv_tiled_plain`)."""
+    return norm_proj_plain(x, ns, nb, w, b, eps, rms, dot=gemv_tiled_plain)
+
+
+def post_attn_tiled_plain(y, x, wo, bo, ns, nb, mlp_weights, eps, swiglu=False, rms=False,
+                          exact_gelu=False, parallel_residual=False):
+    """:func:`post_attn_plain` summed in the bf16 kernels' order
+    (:func:`gemv_tiled_plain` for each panel; gate and up as one pair)."""
+    return post_attn_plain(y, x, wo, bo, ns, nb, mlp_weights, eps, swiglu, rms, exact_gelu,
+                           parallel_residual, dot=gemv_tiled_plain)
 
 
 def post_attn_plain(y, x, wo, bo, ns, nb, mlp_weights, eps, swiglu=False, rms=False,
-                    exact_gelu=False, parallel_residual=False):
+                    exact_gelu=False, parallel_residual=False, dot=_dot):
     """o-proj + residual → norm → MLP → residual, with r1 kept in fp32 and
     casts where ``_post_attn_kernel`` casts (:382, :396). ``mlp_weights``:
     ``(w1, b1, w2, b2)`` for the GELU pair (tanh, or the erf form with
     ``exact_gelu``, in fp32), ``(wg, wu, wd)`` with ``swiglu`` (gate and up
     fp32 products, ``silu(gate)·up`` in fp32 and cast before the down
     product, no MLP biases). ``parallel_residual``: the norm reads ``x``
-    upcast to fp32 instead of r1 (:376); the output still adds r1."""
+    upcast to fp32 instead of r1 (:376); the output still adds r1. ``dot``:
+    the products' order of summation."""
     cdt = x.dtype
-    r1 = (x.float() + _dot(y, wo)) + bo.to(cdt).float()
+    r1 = (x.float() + dot(y, wo)) + bo.to(cdt).float()
     src = x.float() if parallel_residual else r1
     hin = _norm_rows(src, ns.float(), nb.float(), eps, rms).to(cdt)
     if swiglu:
         wg, wu, wd = mlp_weights
-        gate, up = _dot(hin, wg), _dot(hin, wu)
+        gate, up = dot(hin, wg, True), dot(hin, wu, True)
         h = ((gate * torch.sigmoid(gate)) * up).to(cdt)
-        return (r1 + _dot(h, wd)).to(cdt)
+        return (r1 + dot(h, wd)).to(cdt)
     w1, b1, w2, b2 = mlp_weights
     gelu = gelu_exact if exact_gelu else gelu_tanh
-    h = gelu(_dot(hin, w1) + b1.to(cdt).float()).to(cdt)
-    return ((r1 + _dot(h, w2)) + b2.to(cdt).float()).to(cdt)
+    h = gelu(dot(hin, w1) + b1.to(cdt).float()).to(cdt)
+    return ((r1 + dot(h, w2)) + b2.to(cdt).float()).to(cdt)
 
 
 # ---------------------------------------------------------------------------
@@ -261,6 +417,57 @@ def _ptrs(items) -> list:
     return [a.data_ptr() if isinstance(a, torch.Tensor) else a for a in items]
 
 
+def _panel_group(w) -> Optional[int]:
+    """A W8A16 pair's rows per scale group; None for a full-width panel."""
+    return w[0].shape[0] // w[1].shape[0] if isinstance(w, tuple) else None
+
+
+def _scratch(x2: torch.Tensor, stream: int, gemvs: tuple, sizes: tuple) -> tuple:
+    """One call's scratch in one allocation (each of ``sizes`` bytes, then,
+    for bf16, the normalised rows ``(M, E)`` bf16 and the split partials'
+    workspace: the largest launch's), the C entries' scratch pointers (the
+    normalised rows, the workspace, the column-tile tickets: null for fp32,
+    whose CUDA-core kernels take none) and plan arguments (each GEMV's
+    :func:`gemv_plan`, ``gemvs``: ``(K, N, weight_bytes, group, pair)`` per
+    launch; zeros for fp32). Returns the buffer (keep it until the launch),
+    the pointers of ``sizes``' regions, the scratch pointers and the plans."""
+    M, E = x2.shape
+    bf16 = x2.dtype == torch.bfloat16
+    if bf16:
+        plans, parts, tiles = _split_layout(M, gemvs)
+        sizes = sizes + (M * E * 2, parts * 4)
+    else:
+        plans = (0,) * (2 * len(gemvs))
+    offsets, total = _scratch_layout(sizes)
+    buf = torch.empty(total, dtype=torch.uint8, device=x2.device)
+    ptrs = [buf.data_ptr() + o for o in offsets]
+    if not bf16:
+        return buf, ptrs, [None] * 3, plans
+    tickets = gemv_tickets(x2.device, stream, tiles)
+    return buf, ptrs[:-2], [*ptrs[-2:], tickets.data_ptr()], plans
+
+
+@functools.lru_cache(maxsize=None)
+def _scratch_layout(sizes: tuple) -> tuple:
+    """Byte offsets of regions of ``sizes`` bytes in one buffer, each
+    256-byte aligned, and the buffer's bytes."""
+    offsets, total = [], 0
+    for n in sizes:
+        offsets.append(total)
+        total += -(-n // 256) * 256
+    return tuple(offsets), max(total, 256)
+
+
+@functools.lru_cache(maxsize=None)
+def _split_layout(m: int, gemvs: tuple) -> tuple:
+    """The flat plan arguments, the workspace's fp32 elements (at least 4)
+    and the most column tiles of a call's GEMVs (``_scratch``)."""
+    plans = [gemv_plan(k, n, wb, g, pair) for k, n, wb, g, pair in gemvs]
+    parts = max(gemv_partials(m, k, n, p, pair) for (k, n, _, _, pair), p in zip(gemvs, plans))
+    tiles = max(n // p[0] for (_, n, *_), p in zip(gemvs, plans))
+    return tuple(v for p in plans for v in p), max(parts, 4), tiles
+
+
 def fused_norm_proj(x: torch.Tensor, norm_scale: torch.Tensor,
                     norm_bias: Optional[torch.Tensor], weight, bias: Optional[torch.Tensor],
                     *, rms: bool = False, eps: float = 1e-5) -> torch.Tensor:
@@ -288,6 +495,7 @@ def fused_norm_proj(x: torch.Tensor, norm_scale: torch.Tensor,
         raise ValueError(f"fused_norm_proj kernel: unsupported shape M={M} E={E} N={N} "
                          f"groups={groups}")
     x2 = x2.contiguous()
+    stream = stream_of(x2)
     out = torch.empty((M, N), dtype=x.dtype, device=x.device)
     if quant:
         dtypes = [x.dtype]
@@ -299,10 +507,13 @@ def fused_norm_proj(x: torch.Tensor, norm_scale: torch.Tensor,
         check_operands(x2, weight, b)
         kernel = NORM_PROJ_RMS if rms else NORM_PROJ
     check_operands(ns, nb)
-    args = _ptrs([x2, ns, nb, *wargs, b, out]) + [M, E, N, float(eps), int(rms),
-                                                 dtype_code(x2), stream_of(x2)]
+    buf, _, scratch, plan = _scratch(
+        x2, stream, ((E, N, 1 if quant else 2, _panel_group(weight), False),), ())
+    args = _ptrs([x2, ns, nb, *wargs, b, out]) + scratch + [M, E, N, float(eps), int(rms), *plan,
+                                                           dtype_code(x2), stream]
     with torch.cuda.device(x.device):
         kernel.launch(*args)
+    del buf   # the scratch is freed once the launches are on the stream
     return out.reshape(*lead, N)
 
 
@@ -356,8 +567,7 @@ def fused_post_attn(y: torch.Tensor, x: torch.Tensor, wo, bo: Optional[torch.Ten
         raise ValueError(f"fused_post_attn kernel: unsupported shape M={M} E={E} F={F} "
                          f"groups={groups}")
     y2, x2 = y2.contiguous(), x2.contiguous()
-    r1 = torch.empty((M, E), dtype=torch.float32, device=x.device)   # scratch
-    h = torch.empty((M, F), dtype=x.dtype, device=x.device)          # scratch
+    stream = stream_of(x2)
     out = torch.empty((M, E), dtype=x.dtype, device=x.device)
     act = x.dtype
     if quant:
@@ -381,8 +591,14 @@ def fused_post_attn(y: torch.Tensor, x: torch.Tensor, wo, bo: Optional[torch.Ten
     check_operands(ns, nb)
     kernel = post_attn_handle(swiglu, exact_gelu, parallel_residual, quant)
     flags = [int(parallel_residual)] if swiglu else [int(exact_gelu), int(parallel_residual)]
-    args = _ptrs([y2, x2, *wargs, r1, h, out]) + [M, E, F, float(eps), int(rms), *flags,
-                                                 dtype_code(x2), stream_of(x2)]
+    wb = 1 if quant else 2
+    # scratch: r1 (M, E) fp32 and h (M, F) in x's dtype
+    buf, (r1, h), scratch, plans = _scratch(
+        x2, stream, ((E, E, wb, _panel_group(wo), False), (E, F, wb, _panel_group(w1), swiglu),
+                     (F, E, wb, _panel_group(w2), False)), (M * E * 4, M * F * x.element_size()))
+    args = _ptrs([y2, x2, *wargs]) + [r1, h, out.data_ptr()] + scratch + [
+        M, E, F, float(eps), int(rms), *flags, *plans, dtype_code(x2), stream]
     with torch.cuda.device(x.device):
         kernel.launch(*args)
+    del buf   # the scratch is freed once the launches are on the stream
     return out.reshape(*lead, E)
