@@ -178,7 +178,13 @@ R = 24576 (the flagship micro-batch), 2048, 8 and 1000 rows against their
 plain versions, timed beside the unfused torch pair (forward, and its
 autograd backward beside dx and dw) and the bound; in fp32 at small
 shapes; and a GELU probe (``kernels_fused_mlp_gelu_probe``) whose control,
-the plain versions with the erf GELU, must miss.
+the plain versions with the erf GELU, must miss. The bf16 dw kernel (the
+Hopper cluster kernel) also against the plain model of its order, bit for
+bit on a second call, with the library's launches by kernel, its registers
+and spills and the floor with du's and h's lo halves, at E = 64, 384 and a
+ragged R (``kernels_fused_mlp_dw``), and where du's hi halves cancel so its
+lo halves carry dw1 (``kernels_fused_mlp_dw_cancel``: a control with du cast
+to bf16 once must miss).
 
 The kernels phase also holds block-sparse attention (``kernels_sparse``)
 at BERT-large's heads (H=16, D=64): the Fixed layout at B=16, S=512, block
@@ -228,12 +234,17 @@ failing kernels with a planted fault; ``scripts/decode_layer_ab.py`` times
 two trees' kernels in turns.
 
 The kernels phase also holds the W8A16 kernels (``kernels_w8``): the w8
-matmul at M = 1, 8, 37, 64 on gpt2-760m's four dense panels and on one
-single-group panel, and the W8 branches of the two decode-layer kernels at
-M=8 and the 760m and 125m widths (125m also with one group per panel),
-each element within its stated limit of the plain version, timed with the
-plain version, the bound and (w8 matmul) the dequantize + ``matmul`` pair;
-then in fp32.
+matmul (the tensor-core decode GEMV's W8 instantiation) at M = 1, 8, 37, 64
+on gpt2-760m's four dense panels and on one single-group panel, and at M =
+8 and 64 on llama-1b's and pythia-1b's, each against its plain version,
+the plain model of its order and the fp64 value, bit for bit on a second
+call, with the library's launches by kernel; the W8 branches of the two
+decode-layer kernels at M=8 and the 760m and 125m widths (125m also with
+one group per panel), each element within its stated limit of the plain
+version; each timed with the plain version, the bound and (w8 matmul) the
+dequantize + ``matmul`` pair; then in fp32. The build log's registers of the
+W8 matmul (``build_w8_matmul``, no spills) and of the dw kernel
+(``build_fused_mlp_dw``) stand beside it.
 
 The ``kernels`` line gives each kernel's launches per path (``generate``,
 ``serve_paged``, ``serve_contiguous``, ``serve_w8_paged``,
@@ -1881,6 +1892,57 @@ def one_ulp_witness(torch, got, ref, mag, *args):
                 plain_vs_fp64_over_1ulp_limit=float(over(ref, exact).max()))
 
 
+def w8_matmul_held(torch, x, c, s) -> dict:
+    """The W8A16 matmul on the card against its plain version, the plain
+    model of its order of summation (``gemv_tiled_plain``) and the fp64
+    value, each within ``w8_limits`` (1e-5 of |x| @ |dequant W| per element);
+    a second call bit for bit; the library's own count, one launch of the
+    tensor-core GEMV's W8 instantiation a call (``w8_matmul.kernel_launches``)."""
+    from deepspeed_tpu_torch.ops import decode_layer as dl
+    from deepspeed_tpu_torch.ops import w8 as w8ops
+    from deepspeed_tpu_torch.ops import w8_matmul as wm
+
+    before = wm.kernel_launches()
+    got = wm.w8a16_matmul_kernel(x, c, s)
+    again = wm.w8a16_matmul_kernel(x, c, s)
+    torch.cuda.synchronize()
+    ran = {k: v - before[k] for k, v in wm.kernel_launches().items()}
+    ref, tiled = wm.w8a16_matmul_plain(x, c, s), dl.gemv_tiled_plain(x, (c, s))
+    exact = x.double() @ (c.double() * s.double().repeat_interleave(c.shape[0] // s.shape[0], 0))
+    mag = x.float().abs() @ w8ops.dequantize_weight(c, s).abs()
+    err, ratio, _ = w8_limits(torch, got, ref, mag, False)
+    _, tiled_ratio, _ = w8_limits(torch, got, tiled, mag, False)
+    _, fp64_ratio, _ = w8_limits(torch, got, exact, mag, False)
+    return dict(max_err=err, err_over_limit=ratio, tiled_err_over_limit=tiled_ratio,
+                fp64_err_over_limit=fp64_ratio,
+                fp64_anchor_ok=fp64_ratio <= 1.0 and tiled_ratio <= 1.0,
+                bitwise_repeat=bool(torch.equal(got, again)), sm90_launches=ran,
+                sm90_ok=ran == {"gemv_sm90_kernel_w8": 2})
+
+
+def run_w8_matmul_checks(torch) -> bool:
+    """The W8A16 matmul untimed (``w8_matmul_held``) on gpt2-760m's panels at
+    M = 1, 8, 37, 64 (128-row groups) and 1536->1536 with one group, and
+    llama-1b's and pythia-1b's at M = 8, 64: one ``kernels_w8_checks`` line
+    each, for ``scripts/w8_planted_faults.py``."""
+    g = torch.Generator(device="cuda").manual_seed(SEED + 5)
+    cases = [(K, N, M, 128) for K, N in PANELS_760M for M in (1, 8, 37, 64)]
+    cases += [(1536, 1536, M, 1536) for M in (8, 64)]
+    cases += [(K, N, M, 128) for K, N in PANELS_LLAMA_1B + PANELS_PYTHIA_1B for M in (8, 64)]
+    ok = True
+    for K, N, M, group in cases:
+        (c, s), = w8_panels(torch, g, K, N, group, 1)
+        x = torch.randn((M, K), generator=g, device="cuda").to(torch.bfloat16)
+        held = w8_matmul_held(torch, x, c, s)
+        row = dict(phase="kernels_w8_checks", name="w8a16_matmul",
+                   shape=f"M={M} K={K} N={N} g={group}", **held,
+                   ok=held["err_over_limit"] <= 1.0 and held["fp64_anchor_ok"]
+                   and held["bitwise_repeat"] and held["sm90_ok"])
+        emit(row)
+        ok &= row["ok"]
+    return ok
+
+
 def w8_panels(torch, g, K, N, group, n_sets):
     """``n_sets`` random W8A16 panels (codes in [-127, 127], scales around
     0.02 / 127) on the card: enough copies that the timed set exceeds L2."""
@@ -1931,34 +1993,38 @@ def run_kernels_w8(torch, peaks):
                     plain_ms=t["plain"], plain_event_ms=t["plain_event"],
                     **({"kernel_sum_ms": t["kernel_sum"]} if "kernel_sum" in t else {}))
 
-    # the w8 matmul on the four 760m panels, and one single-group panel
-    cases = [(K, N, M, 128) for K, N in PANELS_760M for M in (1, 8, 37, 64)]
-    cases.append((1536, 1536, 8, 1536))
+    # the w8 matmul on the four 760m panels, one single-group panel, and the
+    # llama-1b and pythia-1b panels at decode rows and a full 64-row chunk
+    cases = [("gpt2-760m", K, N, M, 128) for K, N in PANELS_760M for M in (1, 8, 37, 64)]
+    cases.append(("gpt2-760m", 1536, 1536, 8, 1536))
+    cases += [(model, K, N, M, 128) for model, panels_of in (("llama-1b", PANELS_LLAMA_1B),
+                                                             ("pythia-1b", PANELS_PYTHIA_1B))
+              for K, N in panels_of for M in (8, 64)]
     panels = {}
-    for K, N, M, group in cases:
+    for model, K, N, M, group in cases:
         key = (K, N, group)
         if key not in panels:
             panels[key] = w8_panels(torch, g, K, N, group, -(-60_000_000 // (K * N)))
         sets = [(torch.randn((M, K), generator=g, device="cuda").to(bf), c, s)
                 for c, s in panels[key]]
-        x, c, s = sets[0]
-        got, ref = wm.w8a16_matmul_kernel(x, c, s), wm.w8a16_matmul_plain(x, c, s)
-        torch.cuda.synchronize()
-        mag = x.float().abs() @ w8ops.dequantize_weight(c, s).abs()
-        err, ratio, _ = w8_limits(torch, got, ref, mag, False)
+        held = w8_matmul_held(torch, *sets[0])
         t = timed(wm.w8a16_matmul_kernel, wm.w8a16_matmul_plain,
                   lambda x, c, s: x @ w8ops.dequantize_weight(c, s, bf), Rotation(sets))
         G = K // group
         b_ms, b_by = bound_ms(K * N + G * N * 4 + M * K * 2 + M * N * 4, 2 * M * K * N, peaks)
-        res = dict(phase="kernels_w8", name="w8a16_matmul", shape=f"M={M} K={K} N={N} g={group}",
-                   max_err=err, err_over_limit=ratio,
-                   limit="1e-5 x |x| @ |dequant W| per element", ok=ratio <= 1.0, **times(t),
+        res = dict(phase="kernels_w8", name="w8a16_matmul", model=model,
+                   shape=f"M={M} K={K} N={N} g={group}", **held,
+                   limit="w8_limits: 1e-5 x |x| @ |dequant W| per element, against the plain "
+                   "version, its tiled order and the fp64 value",
+                   ok=held["err_over_limit"] <= 1.0 and held["fp64_anchor_ok"]
+                   and held["bitwise_repeat"] and held["sm90_ok"], **times(t),
                    dequant_matmul_pair_ms=t["pair"], dequant_matmul_pair_event_ms=t["pair_event"],
                    bound_us=b_ms * 1e3, bound_by=b_by)
         emit(res)
         ok &= res["ok"]
         if (K, N, M, group) == (1536, 4608, 8, 128):
             rows["w8a16_matmul"] = res
+    del panels
 
     # the W8 branches of the decode-layer kernels: 760m (the main rows), 125m,
     # and 125m with one scale group per panel
@@ -2649,18 +2715,16 @@ def run_kernels_llama(torch, F, peaks):
         panels = w8_panels(torch, g, K, N, 128, -(-60_000_000 // (K * N)))
         for Mw in (8, 64):
             sets = [(rn(Mw, K), c, sc) for c, sc in panels]
-            x, c, sc = sets[0]
-            got, ref = wm.w8a16_matmul_kernel(x, c, sc), wm.w8a16_matmul_plain(x, c, sc)
-            torch.cuda.synchronize()
-            mag = x.float().abs() @ w8ops.dequantize_weight(c, sc).abs()
-            err, ratio, _ = w8_limits(torch, got, ref, mag, False)
+            held = w8_matmul_held(torch, *sets[0])
+            err, ratio = held.pop("max_err"), held.pop("err_over_limit")
             t = timed(wm.w8a16_matmul_kernel, wm.w8a16_matmul_plain, None, Rotation(sets))
             rot = Rotation(sets)
             res = row("w8a16_matmul", f"M={Mw} K={K} N={N} g=128", err, ratio,
-                      "1e-5 x |x| @ |dequant W| per element", t,
+                      "w8_limits: 1e-5 x |x| @ |dequant W| per element (plain, tiled, fp64)", t,
                       bound_ms(K * N + K // 128 * N * 4 + Mw * K * 2 + Mw * N * 4,
                                2 * Mw * K * N, peaks),
-                      dequant_matmul_pair_ms=device_ms(torch, lambda: pair(*rot.next()), 50))
+                      dequant_matmul_pair_ms=device_ms(torch, lambda: pair(*rot.next()), 50),
+                      **held)
             ok &= res["ok"]
             if Mw == 8:
                 at["w8a16_matmul"].append(res)
@@ -3083,7 +3147,6 @@ def run_kernels_neox(torch, F, peaks):
     pythia-1b's four panels at M=8. Returns the path branches' rows, the
     earlier kernels' rows at pythia-1b's shapes, and whether all held."""
     from deepspeed_tpu_torch.ops import decode_layer as dl
-    from deepspeed_tpu_torch.ops import w8 as w8ops
     from deepspeed_tpu_torch.ops import w8_matmul as wm
 
     g = torch.Generator(device="cuda").manual_seed(SEED + 10)
@@ -3214,16 +3277,13 @@ def run_kernels_neox(torch, F, peaks):
     for K, N in PANELS_PYTHIA_1B:
         panels = w8_panels(torch, g, K, N, 128, -(-60_000_000 // (K * N)))
         sets = [(make(M, K), c, sc) for c, sc in panels]
-        x, c, sc = sets[0]
-        got, ref = wm.w8a16_matmul_kernel(x, c, sc), wm.w8a16_matmul_plain(x, c, sc)
-        torch.cuda.synchronize()
-        mag = x.float().abs() @ w8ops.dequantize_weight(c, sc).abs()
-        err, ratio, _ = w8_limits(torch, got, ref, mag, False)
+        held = w8_matmul_held(torch, *sets[0])
+        err, ratio = held.pop("max_err"), held.pop("err_over_limit")
         res = row("w8a16_matmul", f"M={M} K={K} N={N} g=128", err, ratio,
-                  "1e-5 x |x| @ |dequant W| per element",
+                  "w8_limits: 1e-5 x |x| @ |dequant W| per element (plain, tiled, fp64)",
                   timed(wm.w8a16_matmul_kernel, wm.w8a16_matmul_plain, None, Rotation(sets)),
                   bound_ms(K * N + K // 128 * N * 4 + M * K * 2 + M * N * 4, 2 * M * K * N,
-                           peaks))
+                           peaks), **held)
         ok &= res["ok"]
         at["w8a16_matmul"].append(res)
         del sets, panels
@@ -3445,17 +3505,17 @@ def run_kernels_decode_sm90(torch, F, peaks, timed=True):
     return ok
 
 
-def decode_sm90_build(log: str) -> list:
-    """Each tensor-core decode-layer kernel's registers, static shared memory
-    and spill bytes (stores + loads) from the ``-Xptxas -v`` build log of
-    ``decode_layer.cu``."""
+def decode_sm90_build(log: str, match: str = "gemv90") -> list:
+    """Each kernel whose symbol holds ``match`` (the tensor-core decode GEMV
+    by default), with its registers, static shared memory and spill bytes
+    (stores + loads), from a library's ``-Xptxas -v`` build log."""
     import re
 
     rows, cur = [], None
     for line in log.splitlines():
         m = re.search(r"Compiling entry function '([^']+)'", line)
         if m:
-            cur = dict(symbol=m.group(1)) if "gemv90" in m.group(1) else None
+            cur = dict(symbol=m.group(1)) if match in m.group(1) else None
             if cur:
                 rows.append(cur)
             continue
@@ -4296,6 +4356,11 @@ FUSED_MLP_LINES = {"fused_mlp_fwd": ":31", "fused_mlp_bwd_dx": ":45", "fused_mlp
 # unfused decode tick (8 rows) and a ragged count
 MLP_SHAPES = ((24576, 768, 3072), (2048, 768, 3072), (8, 768, 3072), (1000, 768, 3072))
 MLP_FP32_SHAPES = ((37, 64, 256), (130, 128, 512), (300, 384, 1536))
+# the bf16 dw kernel's other plans: E = 64 (one CTA a cluster), 384 (two),
+# a ragged row count, a hidden width short of a 64-column tile
+DW_EXTRA_SHAPES = ((300, 64, 256), (2048, 384, 1536), (777, 384, 1536), (130, 768, 160))
+DW_SM90_RAN = {"fwd_kernel": 0, "dx_kernel": 0, "dw_sm90_kernel": 1, "dw_kernel": 0,
+               "reduce_kernel": 2}
 
 
 def mlp_operands(torch, g, R, E, F, dtype, dev="cuda"):
@@ -4380,6 +4445,114 @@ def mlp_held(torch, fm, args):
     return per
 
 
+def dw_held(torch, fm, args) -> dict:
+    """The bf16 dw kernel called twice: identical bits, the library's own
+    counts (one ``dw_sm90_kernel`` and two ``reduce_kernel`` launches a call,
+    no CUDA-core ``dw_kernel``), and its outputs against the plain model of
+    its order of summation (``fused_mlp_bwd_dw_tiled_plain``) under
+    ``mlp_limit``."""
+    x, w1, b1, w2, b2, dy = args
+    before = fm.kernel_launches()
+    got = fm.fused_mlp_bwd_dw(x, w1, b1, w2, dy)
+    again = fm.fused_mlp_bwd_dw(x, w1, b1, w2, dy)
+    torch.cuda.synchronize()
+    ran = {k: v - before[k] for k, v in fm.kernel_launches().items()}
+    resident = fm.dw_resident(x.device, x.shape[1])
+    tiled = fm.fused_mlp_bwd_dw_tiled_plain(x, w1, b1, w2, dy, resident)
+    mags = mlp_mags(torch, fm, *args)
+    ratio = max(mlp_limit(torch, a, t, mags[k], False)[1]
+                for k, a, t in zip(("dw1", "db1", "dw2", "db2"), got, tiled))
+    return dict(tiled_err_over_limit=ratio,
+                bitwise_repeat=all(torch.equal(a, b) for a, b in zip(got, again)),
+                dw_launches=ran, sm90_ok=ran == {k: 2 * v for k, v in DW_SM90_RAN.items()},
+                resident_clusters=resident,
+                plan=dict(zip(("chunk", "cluster", "segments", "tiles_per_segment"),
+                              fm.dw_plan(x.shape[0], x.shape[1], w1.shape[1], resident))))
+
+
+def dw_case(torch, fm, args, peaks=None, regs=None) -> dict:
+    """One bf16 dw case as a ``kernels_fused_mlp_dw`` line: the kernel's four
+    outputs against the plain version under ``mlp_limit``, finite, and
+    ``dw_held``'s checks; with ``peaks``, its device time, bound and floor
+    with the hi + lo products."""
+    x, w1, b1, w2, b2, dy = args
+    R, E, F = x.shape[0], x.shape[1], w1.shape[1]
+    dwh = dw_held(torch, fm, args)
+    got = fm.fused_mlp_bwd_dw(x, w1, b1, w2, dy)
+    ref = fm.fused_mlp_bwd_dw_plain(x, w1, b1, w2, dy)
+    torch.cuda.synchronize()
+    mags = mlp_mags(torch, fm, *args)
+    outs = {k: mlp_limit(torch, a, r, mags[k], False)
+            for k, a, r in zip(("dw1", "db1", "dw2", "db2"), got, ref)}
+    ratio = max(v[1] for v in outs.values())
+    row = dict(phase="kernels_fused_mlp_dw", name="fused_mlp_bwd_dw",
+               shape=f"R={R} E={E} F={F} bfloat16", max_err=max(v[0] for v in outs.values()),
+               err_over_limit=ratio,
+               limit="mlp_limit against the plain version and its tiled order",
+               finite=all(bool(torch.isfinite(a.float()).all()) for a in got), **dwh)
+    if peaks is not None:
+        b_ms, b_by = mlp_bounds(R, E, F, 2, peaks, False)["fused_mlp_bwd_dw"]
+        row.update(registers=(regs or {}).get(str(dwh["plan"]["chunk"] // 64)),
+                   kernel_ms=device_ms(torch, lambda: fm.fused_mlp_bwd_dw(x, w1, b1, w2, dy), 10),
+                   bound_ms=b_ms, bound_by=b_by,
+                   hi_lo_floor_ms=6 * 2.0 * R * E * F / peaks[1] * 1e3)
+    row["ok"] = (ratio <= 1.0 and row["finite"] and dwh["tiled_err_over_limit"] <= 1.0
+                 and dwh["bitwise_repeat"] and dwh["sm90_ok"])
+    emit(row)
+    return row
+
+
+def dw_cancel_probe(torch, fm, R=64, E=768, F=3072, dev="cuda") -> dict:
+    """dw1 where du's bf16 hi parts cancel and its lo parts carry the sum:
+    w1 = 0 (u = b1), w2 a unit selection (dh = dy), dy's rows 0 and 1 two
+    neighbouring bf16 values a and a + ulp(a) per column, x's rows 0 and 1
+    +1 and -1, the rest zero. dw1[e, f] = du[0, f] - du[1, f] = -ulp(a)
+    gelu'(b1[f]): du's two values round to one bf16 value (or one ulp apart)
+    so dropping the lo halves leaves 0 (or an ulp of a gelu'), ~2^-8 of
+    the addends. Returns dw1 against the plain version under ``mlp_limit``
+    (must hold) and against a control whose du is cast to bf16 once (no lo
+    half), which must miss."""
+    g = torch.Generator(device=dev).manual_seed(SEED + 21)
+    bf = torch.bfloat16
+    x = torch.zeros((R, E), device=dev)
+    x[0], x[1] = 1.0, -1.0
+    a = (0.5 + 0.5 * torch.rand(F, generator=g, device=dev)).to(bf)
+    a_next = (a.view(torch.int16) + 1).view(bf)   # the next bf16 value (a > 0)
+    dy = torch.zeros((R, E), device=dev, dtype=bf)
+    dy[0], dy[1] = a[:E], a_next[:E]
+    w2 = torch.zeros((F, E), device=dev)
+    w2[:E] = torch.eye(E, device=dev)
+    b1 = (4 * torch.rand(F, generator=g, device=dev) - 2).to(bf)
+    args = (x.to(bf), torch.zeros((E, F), device=dev, dtype=bf), b1, w2.to(bf),
+            torch.zeros(E, device=dev), dy)
+    got = fm.fused_mlp_bwd_dw(*args[:4], dy)[0]
+    ref = fm.fused_mlp_bwd_dw_plain(*args[:4], dy)[0]
+    du = (dy.float() @ w2.T) * fm.gelu_tanh_grad(b1.float())
+    ctrl = (x.T @ du.to(bf).float()).to(bf)
+    torch.cuda.synchronize()
+    mag = mlp_mags(torch, fm, *args)["dw1"]
+    _, ratio = mlp_limit(torch, got, ref, mag, False)
+    _, control = mlp_limit(torch, got, ctrl, mag, False)
+    return dict(err_over_limit=ratio, control_err_over_limit=control,
+                ok=ratio <= 1.0 and control > 1.0)
+
+
+def run_dw_checks(torch) -> bool:
+    """The bf16 dw kernel untimed at ``MLP_SHAPES`` and ``DW_EXTRA_SHAPES``
+    (``dw_case``), for ``scripts/fused_mlp_planted_faults.py``."""
+    from deepspeed_tpu_torch.ops import fused_mlp as fm
+
+    g = torch.Generator(device="cuda").manual_seed(SEED + 20)
+    ok = True
+    for R, E, F in MLP_SHAPES + DW_EXTRA_SHAPES:
+        ok &= dw_case(torch, fm, mlp_operands(torch, g, R, E, F, torch.bfloat16))["ok"]
+        torch.cuda.empty_cache()
+    probe = dw_cancel_probe(torch, fm)
+    emit(dict(phase="kernels_fused_mlp_dw_cancel", name="fused_mlp_bwd_dw",
+              shape="R=64 E=768 F=3072 bfloat16", max_err=None, **probe))
+    return ok and probe["ok"]
+
+
 def erf_gelu_grad(torch, u):
     """d/du of the exact GELU 0.5·u·(1 + erf(u/√2))."""
     return 0.5 * (1.0 + torch.erf(u * 2 ** -0.5)) + u * torch.exp(-0.5 * u * u) * (
@@ -4433,23 +4606,35 @@ def mlp_bounds(R, E, F, item, peaks, fp32):
                                          fp32)}
 
 
-def run_kernels_fused_mlp(torch, F_, peaks):
+def run_kernels_fused_mlp(torch, F_, peaks, dw_build=()):
     """The three fused FFN kernels against their plain versions on the card:
     bf16 at ``MLP_SHAPES`` (each kernel's device time, its plain version's,
     the library's and the bound), fp32 at ``MLP_FP32_SHAPES`` (checked, not
     timed), then ``fused_mlp_gelu_probe`` in bf16 and fp32. Library: the
     unfused torch pair ``F.linear`` → tanh GELU → ``F.linear`` (forward), and
     that pair's autograd backward (all five gradients) beside dx and dw (no
-    one call computes the fused function). Returns ({kernel: row at the
+    one call computes the fused function). The bf16 dw kernel also against
+    the plain model of its order, bit for bit on a second call, with the
+    library's launches by kernel (``dw_held``), its floor with the hi + lo
+    products (6 of 2·R·E·F flops) and its registers (``dw_build``), at
+    ``MLP_SHAPES`` and ``DW_EXTRA_SHAPES``. Returns ({kernel: row at the
     flagship shape, with the other shapes under ``at_shapes``}, ok)."""
     from deepspeed_tpu_torch.ops import fused_mlp as fm
 
     g = torch.Generator(device="cuda").manual_seed(SEED + 20)
+    regs = {r["symbol"].split("dw_sm90_kernelILi")[1][0]: {
+        k: r.get(k) for k in ("registers", "spill_bytes")} for r in dw_build}
     rows, ok = {}, True
     for R, E, F in MLP_SHAPES:
         args = mlp_operands(torch, g, R, E, F, torch.bfloat16)
         x, w1, b1, w2, b2, dy = args
         held = mlp_held(torch, fm, args)
+        dwh = dw_held(torch, fm, args)
+        held["fused_mlp_bwd_dw"].update(
+            dwh, hi_lo_floor_ms=6 * 2.0 * R * E * F / peaks[1] * 1e3,
+            registers=regs.get(str(dwh["plan"]["chunk"] // 64)))
+        held["fused_mlp_bwd_dw"]["ok"] &= (dwh["tiled_err_over_limit"] <= 1.0
+                                           and dwh["bitwise_repeat"] and dwh["sm90_ok"])
         w1t, w2t, b2b = w1.T.contiguous(), w2.T.contiguous(), b2.to(torch.bfloat16)
         lib_in = [t.clone().requires_grad_() for t in (x, w1t, b1, w2t, b2b)]
 
@@ -4491,9 +4676,17 @@ def run_kernels_fused_mlp(torch, F_, peaks):
             else:
                 rows[name]["at_shapes"].append({k: row[k] for k in (
                     "shape", "max_err", "err_over_limit", "kernel_ms", "plain_ms", "library_ms",
-                    "bound_ms", "bound_by")})
+                    "bound_ms", "bound_by", "hi_lo_floor_ms") if k in row})
         del args, x, w1, b1, w2, b2, dy, lib_in, held
         torch.cuda.empty_cache()
+    # the dw kernel's other plans, checked and timed alone; then du's lo half
+    for R, E, F in DW_EXTRA_SHAPES:
+        ok &= dw_case(torch, fm, mlp_operands(torch, g, R, E, F, torch.bfloat16), peaks,
+                      regs)["ok"]
+    probe = dw_cancel_probe(torch, fm)
+    emit(dict(phase="kernels_fused_mlp_dw_cancel", shape="R=64 E=768 F=3072 bfloat16",
+              limit="mlp_limit on dw1; the control (du cast to bf16 once) must miss", **probe))
+    ok &= probe["ok"]
     for R, E, F in MLP_FP32_SHAPES:
         held = mlp_held(torch, fm, mlp_operands(torch, g, R, E, F, torch.float32))
         for name, h in held.items():
@@ -4674,7 +4867,10 @@ def run_train_fused_mlp(torch, peaks, unfused_peak_gb, out_dir=None):
     step of an engine under ``remat_policy="dots_saveable"`` from the same
     weights (its loss within 1e-3 of the non-remat engine's at those
     weights; the recompute reruns the fused forward and the flash forward:
-    2 × 12 × 4 launches of each, 12 × 4 of each backward kernel)."""
+    2 × 12 × 4 launches of each, 12 × 4 of each backward kernel). The
+    library's own counts show every timed dw call ran the Hopper kernel
+    (``dw_sm90_kernel``) and none the fp32 one; the profiled step gives its
+    dw device ms beside the step's."""
     import dataclasses
 
     import numpy as np
@@ -4682,6 +4878,7 @@ def run_train_fused_mlp(torch, peaks, unfused_peak_gb, out_dir=None):
 
     import deepspeed_tpu_torch as ds
     from deepspeed_tpu_torch.models.gpt2 import GPT2LMHeadModel, gpt2_config
+    from deepspeed_tpu_torch.ops import fused_mlp as fm
 
     cfg = gpt2_config("gpt2-125m", n_positions=1024, loss_chunk=1 << 30, fused_mlp=True)
     L = cfg.n_layer
@@ -4748,11 +4945,13 @@ def run_train_fused_mlp(torch, peaks, unfused_peak_gb, out_dir=None):
     torch.cuda.reset_peak_memory_stats()
     zero_counts()
     steps = 4
+    by_kernel = fm.kernel_launches()
     t0 = time.perf_counter()
     losses = eng.train_batches(batch, steps, stacked=False)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = read_counts()
+    by_kernel = {k: v - by_kernel[k] for k, v in fm.kernel_launches().items()}
     peak_gb = torch.cuda.max_memory_allocated() / 2 ** 30
     losses = [float(x) for x in torch.cat([warm, losses])]
     per_step = {**{k: L * gas for k in FUSED_MLP_KERNELS}, "flash_attention_fwd": L * gas,
@@ -4769,6 +4968,7 @@ def run_train_fused_mlp(torch, peaks, unfused_peak_gb, out_dir=None):
         prof_wall = (time.perf_counter() - t1) * 1e3
     by_name = device_ms_of(prof)
     dev_ms = sum(by_name.values())
+    dw_ms = sum(v for k, v in by_name.items() if "dw_sm90_kernel" in k)
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:12]
     if out_dir:
         with open(os.path.join(out_dir, "profile_train_fused_mlp_step.txt"), "w") as fh:
@@ -4794,6 +4994,9 @@ def run_train_fused_mlp(torch, peaks, unfused_peak_gb, out_dir=None):
         "losses_finite": all(math.isfinite(x) for x in losses + [remat_loss, ref_loss]),
         "loss_falling": losses[-1] < losses[2] and losses[-1] < losses[0],
         "launch_counts": launches == expected,
+        # each step's L x gas dw calls ran the Hopper kernel, none the fp32 one
+        "dw_launches_by_kernel": by_kernel["dw_sm90_kernel"] == steps * L * gas
+        and by_kernel["dw_kernel"] == 0,
         "remat_launch_counts": remat_launches == remat_expected,
         "remat_loss": abs(remat_loss / ref_loss - 1) <= 1e-3})
     emit(dict(phase="train_fused_mlp", model="gpt2-125m", config=train_config(micro, gas),
@@ -4802,8 +5005,10 @@ def run_train_fused_mlp(torch, peaks, unfused_peak_gb, out_dir=None):
               tokens_per_s=tok_s, mfu=model.flops_per_token() * tok_s / peaks[1],
               max_memory_allocated_gb=peak_gb, unfused_train_max_memory_allocated_gb=unfused_peak_gb,
               losses=losses, launches=launches, expected_launches=expected,
+              fused_mlp_launches_by_kernel=by_kernel,
               profile=dict(step_wall_ms=prof_wall,
                            step_device_ms=dev_ms if dev_ms else "not measured",
+                           dw_sm90_device_ms=dw_ms if dev_ms else "not measured",
                            device_busy_share=dev_ms / prof_wall if dev_ms else "not measured",
                            top_device_ms={k[:90]: v for k, v in top}),
               remat=dict(policy="dots_saveable", loss=remat_loss, loss_at_same_weights=ref_loss,
@@ -5522,10 +5727,20 @@ def main() -> int:
         with open(os.path.join(args.out, "build.log"), "w") as fh:
             for src, log in logs.items():
                 fh.write(f"==== {src}.cu\n{log}\n")
-    if "decode_layer" in logs:   # the tensor-core decode-layer kernels: no spills
-        sm90_build = decode_sm90_build(logs["decode_layer"])
-        emit(dict(phase="build_decode_sm90", kernels=sm90_build))
-        ok &= bool(sm90_build) and all(r.get("spill_bytes", 1) == 0 for r in sm90_build)
+    # the tensor-core decode GEMV (decode-layer kernels, the W8 matmul: no
+    # spills) and the Hopper dw kernel: registers and spills
+    dw_build = []
+    for src, match, phase in (("decode_layer", "gemv90", "build_decode_sm90"),
+                              ("w8_matmul", "gemv90", "build_w8_matmul"),
+                              ("fused_mlp", "dw_sm90_kernel", "build_fused_mlp_dw")):
+        if src in logs:
+            built = decode_sm90_build(logs[src], match)
+            emit(dict(phase=phase, kernels=built))
+            ok &= bool(built)
+            if src == "fused_mlp":   # registers and spills reported beside its rows
+                dw_build = built
+            else:
+                ok &= all(r.get("spill_bytes", 1) == 0 for r in built)
 
     kernel_results = run_kernels(torch, F, peaks)
     ok &= all(r["ok"] for _, r in kernel_results)
@@ -5544,7 +5759,7 @@ def main() -> int:
     neox_rows, neox_at, neox_kernels_ok = run_kernels_neox(torch, F, peaks)
     ok &= neox_kernels_ok
     ok &= run_kernels_decode_sm90(torch, F, peaks)
-    mlp_rows, mlp_kernels_ok = run_kernels_fused_mlp(torch, F, peaks)
+    mlp_rows, mlp_kernels_ok = run_kernels_fused_mlp(torch, F, peaks, dw_build)
     ok &= mlp_kernels_ok
     sparse_rows, sparse_kernels_ok = run_kernels_sparse(torch, F, peaks)
     ok &= sparse_kernels_ok
@@ -5713,12 +5928,16 @@ def main() -> int:
         r = mlp_rows.get(kname)
         if r is None:   # the kernels phase failed before timing it (already not ok)
             continue
-        summary.append(dict(
+        row = dict(
             name=kname, route="cuda", source="deepspeed_tpu_torch/ops/csrc/fused_mlp.cu",
             replaces="deepspeed_tpu/ops/pallas/fused_mlp.py" + FUSED_MLP_LINES[kname],
             **path_counts(kname), max_abs_err=r["max_err"], ms=r["kernel_ms"],
             plain_ms=r["plain_ms"], bound_ms=r["bound_ms"], bound_by=r["bound_by"],
-            library_ms=r["library_ms"], shape=r["shape"], at_shapes=r["at_shapes"]))
+            library_ms=r["library_ms"], shape=r["shape"], at_shapes=r["at_shapes"])
+        for extra in ("hi_lo_floor_ms", "registers"):   # the bf16 dw kernel's
+            if extra in r:
+                row[extra] = r[extra]
+        summary.append(row)
         ok &= all(by_path[p][kname] > 0 for p in paths)
     ok &= all(k in mlp_rows for k in mlp_paths)
 

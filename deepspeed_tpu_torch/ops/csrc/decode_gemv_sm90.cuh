@@ -1,8 +1,8 @@
 // The bf16 decode-row GEMV on Hopper's tensor cores, behind the bf16
 // branches of the fused decode-layer kernels (decode_layer.cu), dense bf16
 // and W8A16 weights. It replaces, for bf16 activations, the CUDA-core GEMV
-// of rows_gemv.cuh; Args and launch() also carry the plain matmul (kMatmul)
-// that the W8A16 matmul (w8_matmul.cu) can take over.
+// of rows_gemv.cuh; Args and launch() also carry the plain matmul (kMatmul,
+// fp32 out, no epilogue) that the W8A16 matmul (w8_matmul.cu) runs.
 //
 // out[m, n] = epilogue(sum_k a[m, k] W[k, n]) for M <= 64 decode rows, a
 // the bf16 operand in device memory (the attention output, the normalised

@@ -1,5 +1,6 @@
 // Hopper building blocks of the bf16 flash-attention kernels
-// (flash_attention.cu, flash_attention_bwd.cu): tensor-core products
+// (flash_attention.cu, flash_attention_bwd.cu) and of the fused FFN's dw
+// kernel (fused_mlp.cu, matrix_map's tiles): tensor-core products
 // (wgmma), TMA tile copies completed on mbarriers, the 128-byte swizzled
 // shared-memory layout both of them use, and the row reductions of the
 // accumulator fragment. sm_90a only: wgmma exists nowhere else.
@@ -385,6 +386,21 @@ inline bool head_map(CUtensorMap* map, const void* base, int B, int S, int H, in
              const_cast<void*>(base), dims, strides, box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE,
              CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
              CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+// A row-major (rows, cols) bf16 matrix as it lies: boxes of 64 columns (128
+// bytes) x 64 rows, 128-byte swizzle. Elements past either edge read as
+// zeros (a box may lie wholly past one).
+inline bool matrix_map(CUtensorMap* map, const void* base, int rows, int cols) {
+  const EncodeTiled enc = encode_tiled();
+  if (!enc) return false;
+  const cuuint64_t dims[2] = {(cuuint64_t)cols, (cuuint64_t)rows};
+  const cuuint64_t strides[1] = {(cuuint64_t)cols * 2};
+  const cuuint32_t box[2] = {64, 64};
+  const cuuint32_t unit[2] = {1, 1};
+  return enc(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, const_cast<void*>(base), dims, strides,
+             box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+             CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
 // n fp32 values as one row: boxes of 64, zeros past n. (A rank-2 map of

@@ -20,11 +20,12 @@
 //
 // Bound on the H100: operations at the training shapes. One product is
 // 2 R E F flops (1.160e11 at R = 24576, E = 768, F = 3072: 0.117 ms at 989
-// TFLOP/s); the forward does 2, dx 3 and dw 4. At decode rows (R = 8) the
+// TFLOP/s); the forward does 2, dx 3 and dw 4 (6 with the lo halves of the
+// bf16 dw's du and h: a floor of 0.70 ms there). At decode rows (R = 8) the
 // forward is bytes-bound on its 9.4 MB of weight panels (2.8 us).
 //
-// Design. The products run on the tensor cores with mma.sync m16n8k16 (bf16
-// in, fp32 sums), fragments loaded from shared memory by ldmatrix (with
+// fwd and dx. The products run on the tensor cores with mma.sync m16n8k16
+// (bf16 in, fp32 sums), fragments loaded from shared memory by ldmatrix (with
 // .trans where an operand is stored k-major); the fp32 instantiation does the
 // same tiles with fp32 FMAs on the CUDA cores (no TF32), so its sums are
 // exact to fp32. A 16 x 8 tile with K = E (u, dh) runs four independent
@@ -42,22 +43,55 @@
 //   du = dh * gelu'(u) in the registers of the tile that holds both, du cast
 //   to the dtype in shared memory, dx += du w1[:, chunk]^T (w1 staged
 //   row-major is the B operand as stored).
-// - dw: a block owns 16 hidden columns and a segment of the rows, which it
-//   walks in 16-row tiles of x and dy, double-buffered (the next tile loads
-//   by cp.async while this one computes). Per tile: warps 0-3 compute u and
-//   warps 4-7 dh, each a 16 x 8 tile over one half of K = E, the halves
-//   added in order; du and h in fp32 into shared memory; dw1[:, 16] += x^T du and
-//   dw2[16, :] += h^T dy on the tensor cores with du and h split into bf16
-//   hi + lo parts (x and dy are exact in bf16), which keeps the fp32
-//   operands to about 16 bits. Accumulators in registers (96 floats); each
-//   segment writes fp32 partials and a second kernel sums the segments in
-//   order and casts: no atomics, so a repeated step gives the same bits.
+//
+// dw, bf16: dw_sm90_kernel. Both accumulators over all of E for 64 hidden
+// columns (2 x 64 x 768 fp32 = 393 KB) exceed the register file, so a
+// thread-block cluster of n = ceil(E / BE) CTAs shares one hidden tile of
+// 64 columns, each CTA owning one E-chunk of BE = 64, 128 or 192 columns
+// (the host's plan: ops/fused_mlp.dw_plan; 192, n = 4, at E = 768). Two
+// warpgroups; per 64-row tile:
+// - TMA brings the CTA's chunk of the x and dy rows into a two-stage
+//   mbarrier ring (128-byte swizzle, rows past R and columns past E read as
+//   zeros); the weight slices w1[chunk, tile]^T and w2[tile, chunk] sit in
+//   registers as the A operands of the partial products;
+// - wgmma: partial u^T = w1^T x^T (warpgroup 0) and dh^T = w2 dy^T
+//   (warpgroup 1) over the chunk;
+// - the exchange, with no cluster-wide barrier: each CTA stages its partial
+//   and sends every CTA its rows (rank q owns rows [64 q / n, 64 (q + 1) /
+//   n)) by bulk copies through distributed shared memory that complete on
+//   the owner's mbarrier; the owner sums the n partials of its rows in rank
+//   order (bits independent of timing), adds b1, forms du = dh gelu'(u) and
+//   h = gelu(u) in fp32, writes them as bf16 hi + lo pairs (hi = bf16(v), lo
+//   = bf16(v - hi); x and dy are exact in bf16, so the products keep du and
+//   h to about 16 bits) and copies its rows into every CTA;
+// - wgmma: dw1[chunk, tile] += x^T (du_hi + du_lo) (warpgroup 0) and
+//   dw2[tile, chunk] += (h_hi + h_lo)^T dy (warpgroup 1), accumulated in
+//   registers (3 x 32 fp32 a thread at BE = 192).
+// The loop keeps two tiles in flight (double-buffered du/h and receive
+// buffers): the next tile's partial products and exchange overlap this
+// tile's. x and dy are read from L2 ceil(F / 64) times (48 at F = 3072,
+// against 192 for a CTA of 16 hidden columns over all of E); u and dh are
+// computed once (no recompute over E). The clusters of the first hidden
+// tile also sum db2 from their dy chunks. The rows split into segments,
+// their count by the waves of clusters the card holds at once; each segment
+// writes fp32 partials, summed in segment order by reduce_kernel: no
+// atomics, so a repeated call gives the same bits. db1: each thread's
+// column sums, then the threads in order, then the cluster's CTAs in rank
+// order.
+// dw, fp32: dw_kernel, CUDA cores: a block owns 16 hidden columns and a
+// segment of the rows, which it walks in 16-row tiles of x and dy,
+// double-buffered (the next tile loads by cp.async while this one
+// computes). Per tile: warps 0-3 compute u and warps 4-7 dh, each a 16 x 8
+// tile over one half of K = E, the halves added in order; du and h in fp32
+// into shared memory; dw1[:, 16] += x^T du and dw2[16, :] += h^T dy.
+// Accumulators in registers (96 floats); segments as above.
 #include <stdint.h>
 
 #include <algorithm>
-#include <type_traits>
+#include <atomic>
 
 #include "common.cuh"
+#include "flash_sm90.cuh"
 
 namespace {
 
@@ -426,27 +460,24 @@ dx_kernel(const T* __restrict__ x, const T* __restrict__ w1, const T* __restrict
 }
 
 // ---------------------------------------------------------------------------
-// dw: 16 hidden columns per block, the rows split into segments
+// dw, fp32: 16 hidden columns per block, the rows split into segments
 // ---------------------------------------------------------------------------
 
-template <typename T>
 __global__ void __launch_bounds__(kThreads, 1)
-dw_kernel(const T* __restrict__ x, const T* __restrict__ w1, const T* __restrict__ b1,
-          const T* __restrict__ w2, const T* __restrict__ dy, float* __restrict__ part, int R,
-          int E, int F, int tiles_per_seg) {
-  constexpr bool kSplit = std::is_same<T, bf16>::value;   // hi + lo parts of du and h
+dw_kernel(const float* __restrict__ x, const float* __restrict__ w1, const float* __restrict__ b1,
+          const float* __restrict__ w2, const float* __restrict__ dy, float* __restrict__ part,
+          int R, int E, int F, int tiles_per_seg) {
+  using T = float;
   extern __shared__ __align__(16) unsigned char smem[];
   const int ldx = E + kPad, ldw = kBFW + kPad;
   T* xs = reinterpret_cast<T*>(smem);   // [2][16][ldx]   x row tiles (double-buffered)
   T* dys = xs + 2 * kBRW * ldx;         // [2][16][ldx]   dy row tiles
   T* w1s = dys + 2 * kBRW * ldx;        // [E][ldw]       w1[:, f0:f0+16]
   T* w2s = w1s + E * ldw;               // [16][ldx]      w2[f0:f0+16, :]
-  T* du_hi = w2s + kBFW * ldx;          // [16][ldw] each
-  T* du_lo = du_hi + kBRW * ldw;
-  T* h_hi = du_lo + kBRW * ldw;
-  T* h_lo = h_hi + kBRW * ldw;
-  float* ps = reinterpret_cast<float*>(h_lo + kBRW * ldw);   // [u, dh][K half][16][16]
-  float* dus = ps + 4 * kBRW * kBFW;                         // [16][16] du (fp32)
+  T* dut = w2s + kBFW * ldx;            // [16][ldw] du, then h
+  T* ht = dut + kBRW * ldw;
+  float* ps = reinterpret_cast<float*>(ht + kBRW * ldw);   // [u, dh][K half][16][16]
+  float* dus = ps + 4 * kBRW * kBFW;                       // [16][16] du
   const int warp = threadIdx.x >> 5, tid = threadIdx.x;
   const int f0 = blockIdx.x * kBFW, seg = blockIdx.y, ntiles = E / 8;
   const int row_tiles = (R + kBRW - 1) / kBRW;
@@ -489,18 +520,13 @@ dw_kernel(const T* __restrict__ x, const T* __restrict__ w1, const T* __restrict
       for (int e = 0; e < 4; ++e) out[frag_row(e) * kBFW + n0 + frag_col(e)] = c[e];
     }
     __syncthreads();
-    {  // one element per thread: du and h in fp32, then their bf16 hi + lo parts
+    {  // one element per thread: du and h in fp32
       const int r = tid / kBFW, f = tid % kBFW, n = kBRW * kBFW;
-      const float v = (ps[tid] + ps[n + tid]) + ds::to_float(b1[f0 + f]);
-      const float du = (ps[2 * n + tid] + ps[3 * n + tid]) * gelu_tanh_grad(v), h = gelu_tanh(v);
+      const float v = (ps[tid] + ps[n + tid]) + b1[f0 + f];
+      const float du = (ps[2 * n + tid] + ps[3 * n + tid]) * gelu_tanh_grad(v);
       dus[tid] = du;
-      const T du_t = ds::from_float<T>(du), h_t = ds::from_float<T>(h);
-      du_hi[r * ldw + f] = du_t;
-      h_hi[r * ldw + f] = h_t;
-      if constexpr (kSplit) {
-        du_lo[r * ldw + f] = ds::from_float<T>(du - ds::to_float(du_t));
-        h_lo[r * ldw + f] = ds::from_float<T>(h - ds::to_float(h_t));
-      }
+      dut[r * ldw + f] = du;
+      ht[r * ldw + f] = gelu_tanh(v);
     }
     __syncthreads();
     if (tid < kBFW)
@@ -510,13 +536,12 @@ dw_kernel(const T* __restrict__ x, const T* __restrict__ w1, const T* __restrict
       for (int j = 0; j < kMaxE / kThreads; ++j) {
         const int col = tid + j * kThreads;
         if (col < E)
-          for (int r = 0; r < kBRW; ++r) db2[j] += ds::to_float(dyt[r * ldx + col]);
+          for (int r = 0; r < kBRW; ++r) db2[j] += dyt[r * ldx + col];
       }
     {  // dw1 (E x 16) += x^T du: tile t = warp + 8 i at rows 16 (t / 2), columns 8 (t % 2);
        // x stored [r][e] and du [r][f] are the k-major A and B operands (K = 16 rows)
-      FragB<T> bh, bl;
-      load_b(bh, Smem<T>{du_hi, ldw, true}, (warp & 1) * 8, 0);
-      if constexpr (kSplit) load_b(bl, Smem<T>{du_lo, ldw, true}, (warp & 1) * 8, 0);
+      FragB<T> bh;
+      load_b(bh, Smem<T>{dut, ldw, true}, (warp & 1) * 8, 0);
 #pragma unroll
       for (int i = 0; i < kMaxNT; ++i) {
         const int tt = warp + 8 * i;
@@ -524,13 +549,11 @@ dw_kernel(const T* __restrict__ x, const T* __restrict__ w1, const T* __restrict
           FragA<T> fa;
           load_a(fa, Smem<T>{xt, ldx, true}, (tt >> 1) * 16, 0);
           mma(a1[i], fa, bh);
-          if constexpr (kSplit) mma(a1[i], fa, bl);
         }
       }
       // dw2 (16 x E) += h^T dy: tile t = warp + 8 i at columns 8 t
-      FragA<T> ah, al;
-      load_a(ah, Smem<T>{h_hi, ldw, true}, 0, 0);
-      if constexpr (kSplit) load_a(al, Smem<T>{h_lo, ldw, true}, 0, 0);
+      FragA<T> ah;
+      load_a(ah, Smem<T>{ht, ldw, true}, 0, 0);
 #pragma unroll
       for (int i = 0; i < kMaxNT; ++i) {
         const int tt = warp + 8 * i;
@@ -538,7 +561,6 @@ dw_kernel(const T* __restrict__ x, const T* __restrict__ w1, const T* __restrict
           FragB<T> fb;
           load_b(fb, Smem<T>{dyt, ldx, true}, tt * 8, 0);
           mma(a2[i], ah, fb);
-          if constexpr (kSplit) mma(a2[i], al, fb);
         }
       }
     }
@@ -568,6 +590,435 @@ dw_kernel(const T* __restrict__ x, const T* __restrict__ w1, const T* __restrict
     }
 }
 
+// ---------------------------------------------------------------------------
+// dw, bf16: dw_sm90_kernel (wgmma, TMA, a thread-block cluster over E)
+// ---------------------------------------------------------------------------
+
+namespace s9 = ds::sm90;
+
+constexpr int kDwRows = 64;       // rows per tile
+constexpr int kDwHidden = 64;     // hidden columns per cluster
+constexpr int kDwThreads = 256;   // two warpgroups
+constexpr int kDwStages = 2;      // the x / dy ring
+constexpr int kDwMaxCluster = 8;  // the portable cluster size
+constexpr int kBlock = 64 * 64;   // elements of one swizzled [64][64] bf16 block
+constexpr int kDwMaxSmem = 232448;   // a block's shared memory on the H100
+
+// Shared memory of one CTA, byte offsets from the 1024-aligned base; every
+// bf16 block starts on a 1024-byte boundary (the swizzle's phase). The
+// receive buffers' size follows the cluster's size n.
+template <int NB>
+struct DwSm90 {
+  static constexpr int BE = 64 * NB;                    // the E-chunk a CTA owns
+  static constexpr int TILE = NB * kBlock * 2;          // a 64-row tile of x or dy over the chunk
+  static constexpr int STAGE = 2 * TILE;                // x, then dy: NB blocks [64 r][64 e] each
+  // two buffers of du hi, du lo, h hi, h lo ([64 r][64 f] bf16 each). A
+  // buffer first holds the partials this CTA sends for its tile (part k of
+  // row r in the bytes of row r of tile k, so an owner's rows of du and h
+  // land only on bytes already delivered to it); at the start, the weight
+  // slices as TMA lands them
+  static constexpr int HL = kDwStages * STAGE;
+  static constexpr int HL_BYTES = 4 * kBlock * 2;
+  static constexpr int RCV = HL + 2 * HL_BYTES;         // two receive buffers
+  // a receive buffer: the cluster's partials of this CTA's rows,
+  // [source rank][part][row][32] fp32, parts 0-1 u's columns 0-31 and
+  // 32-63, parts 2-3 dh's
+  __host__ __device__ static constexpr int rcv_bytes(int n) {
+    return n * 4 * ((kDwRows + n - 1) / n) * 128;
+  }
+  __host__ __device__ static constexpr int bars(int n) { return RCV + 2 * rcv_bytes(n); }
+  // full[2], the weights, pfull[2], hfull[2]
+  __host__ __device__ static constexpr int smem(int n) { return 1024 + bars(n) + 7 * 8; }
+};
+
+__device__ __forceinline__ int cluster_rank() {
+  uint32_t r;
+  asm volatile("mov.u32 %0, %%cluster_ctarank;" : "=r"(r));
+  return static_cast<int>(r);
+}
+__device__ __forceinline__ int cluster_size() {
+  uint32_t r;
+  asm volatile("mov.u32 %0, %%cluster_nctarank;" : "=r"(r));
+  return static_cast<int>(r);
+}
+// Every thread of every CTA of the cluster: writes before it (shared memory
+// of any CTA of the cluster) are visible to reads after it.
+__device__ __forceinline__ void cluster_sync() {
+  asm volatile("barrier.cluster.arrive.release.aligned;\nbarrier.cluster.wait.acquire.aligned;"
+               ::: "memory");
+}
+// The address in CTA `rank`'s shared memory of the local shared address `a`.
+__device__ __forceinline__ uint32_t cluster_addr(uint32_t a, int rank) {
+  uint32_t r;
+  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;" : "=r"(r) : "r"(a), "r"(rank));
+  return r;
+}
+__device__ __forceinline__ float ld_cluster(uint32_t a) {
+  float v;
+  asm volatile("ld.shared::cluster.f32 %0, [%1];" : "=f"(v) : "r"(a) : "memory");
+  return v;
+}
+// `bytes` (a multiple of 16) of this CTA's shared memory at `src` to the
+// cluster shared address `dst`, completing that many bytes of transactions
+// on the mbarrier `bar` (of dst's CTA): one copy by the bulk-copy engine, no
+// round trip, no cluster-wide barrier
+__device__ __forceinline__ void bulk_copy_cluster(uint32_t dst, uint32_t src, int bytes,
+                                                  uint32_t bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.shared::cta.mbarrier::complete_tx::bytes [%0], [%1], %2, "
+      "[%3];" ::"r"(dst), "r"(src), "r"(bytes), "r"(bar)
+      : "memory");
+}
+// Waits for the phase of parity `parity` of a local mbarrier whose
+// transactions other CTAs of the cluster complete.
+__device__ __forceinline__ void mbar_wait_cluster(uint64_t* bar, uint32_t parity) {
+  uint32_t done;
+  do {
+    asm volatile(
+        "{\n.reg .pred p;\nmbarrier.try_wait.parity.acquire.cluster.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(smem_u32(bar)), "r"(parity)
+        : "memory");
+  } while (!done);
+}
+
+__device__ __forceinline__ void ldsm_x4(uint32_t (&d)[4], uint32_t addr) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+               : "=r"(d[0]), "=r"(d[1]), "=r"(d[2]), "=r"(d[3])
+               : "r"(addr));
+}
+__device__ __forceinline__ void ldsm_x4_trans(uint32_t (&d)[4], uint32_t addr) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+               : "=r"(d[0]), "=r"(d[1]), "=r"(d[2]), "=r"(d[3])
+               : "r"(addr));
+}
+
+// Launches: grid (n x ceil(F / 64), segments), clusters of n = ceil(E / BE)
+// CTAs along x; CTA rank c of cluster k owns hidden columns [64 k, 64 k +
+// 64) and E-chunk [c BE, c BE + BE); blockIdx.y is the row segment.
+//
+// The tile loop runs two tiles at once. Iteration i: (B) tile i's partials
+// have landed: sum them, form du and h, send this CTA's rows of them;
+// (A) tile i + 1's partial products, into the other buffer, sent to their
+// owners; (D) tile i's du and h have landed: dw1 and dw2 products. Tile
+// i + 1's exchange overlaps tile i's products, tile i's the next tile's.
+template <int NB>
+__global__ void __launch_bounds__(kDwThreads, 1)
+dw_sm90_kernel(const __grid_constant__ CUtensorMap tm_x, const __grid_constant__ CUtensorMap tm_dy,
+               const __grid_constant__ CUtensorMap tm_w1,
+               const __grid_constant__ CUtensorMap tm_w2, const bf16* __restrict__ b1,
+               float* __restrict__ part, int R, int E, int F, int tiles_per_seg) {
+  using L = DwSm90<NB>;
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* sm = s9::align1024(smem_raw);
+  const int n = cluster_size(), c = cluster_rank();
+  const int rcv_bytes = L::rcv_bytes(n);
+  uint64_t* full = reinterpret_cast<uint64_t*>(sm + L::bars(n));
+  uint64_t* wbar = full + kDwStages;
+  uint64_t* pfull = wbar + 1;   // [2] this CTA's rows of every CTA's partials have landed
+  uint64_t* hfull = pfull + 2;  // [2] the other owners' rows of du and h have landed
+
+  const int f0 = (blockIdx.x / n) * kDwHidden, e0 = c * L::BE;
+  const int row_tiles = (R + kDwRows - 1) / kDwRows;
+  const int t0 = blockIdx.y * tiles_per_seg, t1 = min(row_tiles, t0 + tiles_per_seg);
+  const int T = max(t1 - t0, 0);
+  const int tid = threadIdx.x, wg = tid / 128, warp = tid / 32, lane = tid % 32;
+  const bool db2_cta = f0 == 0;   // the first hidden tile's clusters also sum dy
+
+  auto stage_x = [&](int i) { return reinterpret_cast<bf16*>(sm + (i % kDwStages) * L::STAGE); };
+  auto hl = [&](int b) { return reinterpret_cast<bf16*>(sm + L::HL + b * L::HL_BYTES); };
+  auto rcv = [&](int b) { return sm + L::RCV + b * rcv_bytes; };
+
+  // 64-column blocks of the chunk that lie inside E (the last chunk may end
+  // early); the others are zeros, written once, never loaded
+  const int live = min(NB, (E - e0) / 64);
+  auto load_tile = [&](int i) {   // local tile i into stage i % 2
+    bf16* xs = stage_x(i);
+    bf16* dys = xs + NB * kBlock;
+    uint64_t* bar = &full[i % kDwStages];
+    s9::mbar_expect_tx(bar, 2 * live * kBlock * 2);
+    for (int b = 0; b < live; ++b) {
+      s9::tma_load_2d(xs + b * kBlock, &tm_x, bar, e0 + 64 * b, (t0 + i) * kDwRows);
+      s9::tma_load_2d(dys + b * kBlock, &tm_dy, bar, e0 + 64 * b, (t0 + i) * kDwRows);
+    }
+  };
+  if (live < NB) {
+    const int per = (NB - live) * kBlock / 8;   // uint4s of one operand's dead blocks
+    for (int i = tid; i < per; i += kDwThreads)
+#pragma unroll
+      for (int k = 0; k < 2 * kDwStages; ++k)   // x and dy of each stage
+        reinterpret_cast<uint4*>(sm + k * L::TILE + live * kBlock * 2)[i] = make_uint4(0, 0, 0, 0);
+    s9::fence_proxy_async();
+  }
+  if (tid == 0) {
+    for (int s = 0; s < kDwStages; ++s) s9::mbar_init(&full[s], 1);
+    s9::mbar_init(wbar, 1);
+    for (int b = 0; b < 2; ++b) {
+      s9::mbar_init(&pfull[b], 1);
+      s9::mbar_init(&hfull[b], 1);
+    }
+    s9::mbar_fence_init();
+  }
+  // the cluster's mbarriers are initialised before any CTA completes
+  // transactions on another's
+  cluster_sync();
+  if (tid == 0) {   // the weight slices, then the first tiles
+    s9::mbar_expect_tx(wbar, 2 * live * kBlock * 2);
+    for (int b = 0; b < live; ++b) {
+      s9::tma_load_2d(hl(0) + b * kBlock, &tm_w1, wbar, f0, e0 + 64 * b);
+      s9::tma_load_2d(hl(0) + (NB + b) * kBlock, &tm_w2, wbar, e0 + 64 * b, f0);
+    }
+    for (int i = 0; i < kDwStages && i < T; ++i) load_tile(i);
+  }
+
+  // wg 0: dw1 rows e0 + 64 j + m, columns f0 + n; wg 1: dw2 rows f0 + m,
+  // columns e0 + 64 j + n (m, n the accumulator fragment's row and column)
+  float acc[NB][32];
+#pragma unroll
+  for (int j = 0; j < NB; ++j)
+#pragma unroll
+    for (int i = 0; i < 32; ++i) acc[j][i] = 0.f;
+  float db1v[4] = {0.f, 0.f, 0.f, 0.f}, db2v = 0.f;
+  // the rows whose u and dh this CTA sums and activates, and its four hidden
+  // columns; rank q owns rows [64 q / n, 64 (q + 1) / n)
+  const int ra = kDwRows * c / n, rb = kDwRows * (c + 1) / n, fq = 4 * (tid % 16);
+  const int rows_max = (kDwRows + n - 1) / n;
+  float b1v[4];
+#pragma unroll
+  for (int e = 0; e < 4; ++e) b1v[e] = f0 + fq + e < F ? ds::to_float(b1[f0 + fq + e]) : 0.f;
+  const int g = lane / 4, tq = lane % 4, m0 = 16 * (warp % 4);
+  const int fr = m0 + g, fc = 2 * tq;   // the P3/P4 accumulator's rows and columns
+  const uint32_t pfull_a = smem_u32(pfull), hfull_a = smem_u32(hfull);
+  // a partial's row r, part k, float p (of 32) as sent: the row's 16-byte
+  // chunks XOR-swizzled by r
+  auto part_off = [](int k, int r, int p) {
+    return k * kBlock * 2 + r * 128 + ((((p >> 2) ^ r) & 7) << 4) + (p & 3) * 4;
+  };
+
+  // the A operand of the partial products in registers, for every tile:
+  // wg 0 w1[chunk, tile]^T (f x e; TMA lands w1 as [e][f]), wg 1
+  // w2[tile, chunk] (f x e as it lands), 16 k16 columns a step
+  s9::mbar_wait(wbar, 0);
+  uint32_t wa[4 * NB][4];
+#pragma unroll
+  for (int kk = 0; kk < 4 * NB; ++kk) {
+    const int j = lane >> 3, r8 = lane & 7;
+    if (kk / 4 >= live) {
+      wa[kk][0] = wa[kk][1] = wa[kk][2] = wa[kk][3] = 0u;
+    } else if (wg == 0) {
+      const int k = kk * 16 + (j >> 1) * 8 + r8;
+      ldsm_x4_trans(wa[kk], smem_u32(hl(0) + (k / 64) * kBlock +
+                                     s9::sw128_offset(k % 64, m0 + (j & 1) * 8)));
+    } else {
+      const int k = kk * 16 + (j >> 1) * 8;
+      ldsm_x4(wa[kk], smem_u32(hl(0) + (NB + k / 64) * kBlock +
+                               s9::sw128_offset(m0 + (j & 1) * 8 + r8, k % 64)));
+    }
+  }
+  __syncthreads();   // the weight slices are read: the buffers are free
+
+  float pa[32];
+  // A: the partial u^T = w1^T x^T (wg 0) or dh^T = w2 dy^T (wg 1) of local
+  // tile i over the chunk (fragment rows f, columns r), db2 meanwhile;
+  // then into buffer i % 2 as sent, and to each owner its rows: four bulk
+  // copies into the slot of this rank
+  auto partials = [&](int i) {
+    const bf16* xs = stage_x(i);
+    const bf16* dys = xs + NB * kBlock;
+    const bf16* bop = wg == 0 ? xs : dys;
+    s9::mbar_wait(&full[i % kDwStages], (i / kDwStages) & 1);
+    s9::wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < 4 * NB; ++kk)
+      s9::wgmma_rs<64, 0>(pa, wa[kk], s9::kmajor_desc(bop + (kk / 4) * kBlock + (kk % 4) * 16),
+                          kk > 0);
+    s9::wgmma_commit();
+    if (db2_cta && tid < L::BE) {   // db2 over the chunk, while the products run
+      const bf16* col = dys + (tid / 64) * kBlock;
+      float part4[4] = {0.f, 0.f, 0.f, 0.f};   // rows r = 4 i + k into part4[k], then in order
+#pragma unroll 4
+      for (int r = 0; r < kDwRows; ++r)
+        part4[r % 4] += ds::to_float(col[s9::sw128_offset(r, tid % 64)]);
+      db2v += (part4[0] + part4[1]) + (part4[2] + part4[3]);
+    }
+    s9::wgmma_wait_all();
+    s9::fence_regs(pa);
+    uint8_t* snd = reinterpret_cast<uint8_t*>(hl(i & 1));
+#pragma unroll
+    for (int j = 0; j < 8; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int f = fr + 8 * (e >> 1), r = 8 * j + fc + (e & 1);
+        *reinterpret_cast<float*>(snd + part_off(2 * wg + f / 32, r, f % 32)) = pa[4 * j + e];
+      }
+    s9::fence_proxy_async();
+    __syncthreads();
+    if (tid < 4 * n) {   // one copy a thread of warp 0: (owner q, part k)
+      const int b = i & 1, q = tid / 4, k = tid % 4;
+      if (tid == 0) s9::mbar_expect_tx(&pfull[b], n * (rb - ra) * 4 * 128);
+      const int qa = kDwRows * q / n, qrows = kDwRows * (q + 1) / n - qa;
+      bulk_copy_cluster(cluster_addr(smem_u32(rcv(b)) + ((c * 4 + k) * rows_max) * 128, q),
+                        smem_u32(snd) + k * kBlock * 2 + qa * 128, qrows * 128,
+                        cluster_addr(pfull_a + 8 * b, q));
+      s9::bulk_commit();
+    }
+  };
+
+  if (T > 0) partials(0);
+  for (int i = 0; i < T; ++i) {
+    const int b = i & 1;
+    bf16* hlb = hl(b);
+    // B: rows [ra, rb) of tile i: u and dh summed over the cluster in rank
+    // order, du and h in fp32, written as bf16 hi + lo over the partial rows
+    // this CTA sent itself, then copied into every other CTA's buffer
+    mbar_wait_cluster(&pfull[b], (i >> 1) & 1);
+    const uint8_t* rv = rcv(b);
+    for (int it = tid; it < (rb - ra) * 16; it += kDwThreads) {
+      const int rl = it / 16, r = ra + rl;
+      // the n partials of u and of dh, each summed in rank order
+      const uint8_t* src = rv + rl * 128 + ((((fq % 32) >> 2) ^ r) & 7) * 16;
+      const int ku = fq / 32, stride = 4 * rows_max * 128;
+      float4 u = *reinterpret_cast<const float4*>(src + ku * rows_max * 128);
+      float4 d = *reinterpret_cast<const float4*>(src + (2 + ku) * rows_max * 128);
+      for (int q = 1; q < n; ++q) {
+        const float4 uq = *reinterpret_cast<const float4*>(src + q * stride + ku * rows_max * 128);
+        const float4 dq =
+            *reinterpret_cast<const float4*>(src + q * stride + (2 + ku) * rows_max * 128);
+        u.x += uq.x;
+        u.y += uq.y;
+        u.z += uq.z;
+        u.w += uq.w;
+        d.x += dq.x;
+        d.y += dq.y;
+        d.z += dq.z;
+        d.w += dq.w;
+      }
+      const float uv[4] = {u.x + b1v[0], u.y + b1v[1], u.z + b1v[2], u.w + b1v[3]};
+      const float dv[4] = {d.x, d.y, d.z, d.w};
+      float du[4], h[4];
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        du[e] = dv[e] * gelu_tanh_grad(uv[e]);
+        h[e] = gelu_tanh(uv[e]);
+        db1v[e] += du[e];
+      }
+      uint32_t w[4][2];   // du hi, du lo, h hi, h lo: two bf16 pairs each
+      s9::split_hi_lo(du[0], du[1], w[0][0], w[1][0]);
+      s9::split_hi_lo(du[2], du[3], w[0][1], w[1][1]);
+      s9::split_hi_lo(h[0], h[1], w[2][0], w[3][0]);
+      s9::split_hi_lo(h[2], h[3], w[2][1], w[3][1]);
+      const int o = s9::sw128_offset(r, fq);
+#pragma unroll
+      for (int k = 0; k < 4; ++k)
+        *reinterpret_cast<uint2*>(hlb + k * kBlock + o) = make_uint2(w[k][0], w[k][1]);
+    }
+    s9::fence_proxy_async();
+    __syncthreads();
+    if (tid < 4 * n) {   // one copy a thread of warp 0: (CTA q, tile k)
+      const int q = tid / 4, k = tid % 4;
+      if (tid == 0) s9::mbar_expect_tx(&hfull[b], (kDwRows - (rb - ra)) * 4 * 128);
+      if (q != c) {
+        const uint32_t off = smem_u32(hlb) + k * kBlock * 2 + ra * 128;
+        bulk_copy_cluster(cluster_addr(off, q), off, (rb - ra) * 128,
+                          cluster_addr(hfull_a + 8 * b, q));
+      }
+      s9::bulk_commit();
+    }
+
+    // A: the next tile's partials, while tile i's du and h travel
+    if (i + 1 < T) partials(i + 1);
+
+    // D: dw1 += x^T (du_hi + du_lo) (wg 0), dw2 += (h_hi + h_lo)^T dy (wg 1),
+    // 16 rows a step; x, dy, du and h all MN-major
+    mbar_wait_cluster(&hfull[b], (i >> 1) & 1);
+    const bf16* xs = stage_x(i);
+    const bf16* dys = xs + NB * kBlock;
+#pragma unroll
+    for (int j = 0; j < NB; ++j) s9::fence_regs(acc[j]);
+    s9::wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) {
+#pragma unroll
+      for (int j = 0; j < NB; ++j) {
+        // wg 0: x_j^T du_hi, x_j^T du_lo; wg 1: h_hi^T dy_j, h_lo^T dy_j
+        const bf16* op = (wg == 0 ? xs : dys) + j * kBlock;
+        const bf16* hi = hlb + (wg == 0 ? 0 : 2 * kBlock);
+        const bf16* a_hi = wg == 0 ? op : hi;
+        const bf16* a_lo = wg == 0 ? op : hi + kBlock;
+        const bf16* b_hi = wg == 0 ? hi : op;
+        const bf16* b_lo = wg == 0 ? hi + kBlock : op;
+        const int o = kk * 16 * 64;
+        s9::wgmma_ss<64, 1, 1>(acc[j], s9::mnmajor_desc(a_hi + o, 64 * 128),
+                               s9::mnmajor_desc(b_hi + o, 64 * 128), 1);
+        s9::wgmma_ss<64, 1, 1>(acc[j], s9::mnmajor_desc(a_lo + o, 64 * 128),
+                               s9::mnmajor_desc(b_lo + o, 64 * 128), 1);
+      }
+    }
+    s9::wgmma_commit();
+    s9::wgmma_wait_all();
+#pragma unroll
+    for (int j = 0; j < NB; ++j) s9::fence_regs(acc[j]);
+    // stage i % 2 and buffer b are free once this CTA's copies out of them
+    // have been read
+    if (tid < 4 * n) s9::bulk_wait_read();
+    __syncthreads();
+    if (tid == 0 && i + kDwStages < T) load_tile(i + kDwStages);
+  }
+
+  // this segment's partials: [dw1 (E, F) | dw2 (F, E) | db1 (F) | db2 (E)];
+  // columns past F and E-chunk columns past E are left out
+  float* pp = part + (size_t)blockIdx.y * (2 * (size_t)E * F + F + E);
+#pragma unroll
+  for (int j = 0; j < NB; ++j)
+#pragma unroll
+    for (int jj = 0; jj < 8; ++jj)
+#pragma unroll
+      for (int hf = 0; hf < 2; ++hf) {
+        const int m = fr + 8 * hf, nn = 8 * jj + fc;
+        const float2 v = make_float2(acc[j][4 * jj + 2 * hf], acc[j][4 * jj + 2 * hf + 1]);
+        if (wg == 0) {
+          const int e = e0 + 64 * j + m, f = f0 + nn;
+          if (e < E && f < F) *reinterpret_cast<float2*>(pp + (size_t)e * F + f) = v;
+        } else {
+          const int f = f0 + m, e = e0 + 64 * j + nn;
+          if (f < F && e < E)
+            *reinterpret_cast<float2*>(pp + (size_t)E * F + (size_t)f * E + e) = v;
+        }
+      }
+  if (db2_cta && tid < L::BE && e0 + tid < E) pp[2 * (size_t)E * F + F + e0 + tid] = db2v;
+  // db1: the threads of each column in thread order, then the CTAs in rank
+  // order (in the first receive buffer: every copy into it has landed)
+  float* db1_thr = reinterpret_cast<float*>(rcv(0));
+  float* db1_cta = db1_thr + kDwThreads * 4;
+#pragma unroll
+  for (int e = 0; e < 4; ++e) db1_thr[tid * 4 + e] = db1v[e];
+  __syncthreads();
+  if (tid < 64) {
+    float v = 0.f;
+    for (int k = 0; k < kDwThreads / 16; ++k) v += db1_thr[(tid / 4 + 16 * k) * 4 + tid % 4];
+    db1_cta[tid] = v;
+  }
+  cluster_sync();
+  if (c == 0 && tid < 64) {
+    float v = 0.f;
+    for (int q = 0; q < n; ++q) v += ld_cluster(cluster_addr(smem_u32(db1_cta + tid), q));
+    if (f0 + tid < F) pp[2 * (size_t)E * F + f0 + tid] = v;
+  }
+  cluster_sync();   // no CTA leaves while rank 0 reads its shared memory
+}
+
+// launches by kernel: 0 fwd_kernel, 1 dx_kernel, 2 dw_sm90_kernel (bf16),
+// 3 dw_kernel (fp32), 4 reduce_kernel; counted on the host where each is
+// launched
+std::atomic<unsigned long long> g_launched[5];
+enum Which : int { kFwd, kDx, kDwSm90, kDw, kReduce };
+
+cudaError_t counted(cudaError_t err, int which) {
+  if (err == cudaSuccess) ++g_launched[which];
+  return err;
+}
+
 // out[i] = cast(sum_s part[s * stride + i] (+ bias[i % bias_n])), s in order
 template <typename T>
 __global__ void reduce_kernel(const float* __restrict__ part, int nseg, size_t n, size_t stride,
@@ -586,7 +1037,7 @@ cudaError_t reduce(const float* part, int nseg, size_t n, size_t stride, const f
                    int bias_n, T* out, cudaStream_t st) {
   const int blocks = (int)std::min<size_t>((n + 255) / 256, 132 * 16);
   reduce_kernel<T><<<blocks, 256, 0, st>>>(part, nseg, n, stride, bias, bias_n, out);
-  return cudaGetLastError();
+  return counted(cudaGetLastError(), kReduce);
 }
 
 template <typename K>
@@ -606,13 +1057,12 @@ size_t dx_smem(int E) {
   return sizeof(T) * ((size_t)(2 * kBR + kBF) * (E + kPad) + (size_t)E * (kBF + kPad) +
                       kBR * (kBF + kPad));
 }
-template <typename T>
 size_t dw_smem(int E) {
-  // two x and two dy row tiles, the w1 and w2 chunks, du and h (hi, lo); fp32
-  // u and dh halves and du
-  return sizeof(T) * ((size_t)4 * kBRW * (E + kPad) + (size_t)E * (kBFW + kPad) +
-                      (size_t)kBFW * (E + kPad) + 4 * kBRW * (kBFW + kPad)) +
-         sizeof(float) * 5 * kBRW * kBFW;
+  // fp32: two x and two dy row tiles, the w1 and w2 chunks, du and h; the u
+  // and dh halves and du
+  return sizeof(float) * ((size_t)4 * kBRW * (E + kPad) + (size_t)E * (kBFW + kPad) +
+                          (size_t)kBFW * (E + kPad) + 2 * kBRW * (kBFW + kPad) +
+                          5 * kBRW * kBFW);
 }
 
 template <typename T>
@@ -626,7 +1076,7 @@ cudaError_t fwd(const void* x, const void* w1, const void* b1, const void* w2, c
       static_cast<const T*>(x), static_cast<const T*>(w1), static_cast<const T*>(b1),
       static_cast<const T*>(w2), b2, static_cast<T*>(y), nsplit > 1 ? part : nullptr, R, E, F,
       cps);
-  err = cudaGetLastError();
+  err = counted(cudaGetLastError(), kFwd);
   if (err != cudaSuccess || nsplit == 1) return err;
   return reduce<T>(part, nsplit, (size_t)R * E, (size_t)R * E, b2, E, static_cast<T*>(y), st);
 }
@@ -643,27 +1093,101 @@ cudaError_t bwd_dx(const void* x, const void* w1, const void* b1, const void* w2
       static_cast<const T*>(x), static_cast<const T*>(w1), static_cast<const T*>(b1),
       static_cast<const T*>(w2), static_cast<const T*>(dy), static_cast<T*>(dx),
       nsplit > 1 ? part : nullptr, R, E, F, cps);
-  err = cudaGetLastError();
+  err = counted(cudaGetLastError(), kDx);
   if (err != cudaSuccess || nsplit == 1) return err;
   return reduce<T>(part, nsplit, (size_t)R * E, (size_t)R * E, nullptr, 1, static_cast<T*>(dx),
                    st);
 }
 
-template <typename T>
-cudaError_t bwd_dw(const void* x, const void* w1, const void* b1, const void* w2, const void* dy,
-                   void* out, float* db2, float* part, int R, int E, int F, int nseg, int tps,
-                   cudaStream_t st) {
-  const size_t smem = dw_smem<T>(E);
-  cudaError_t err = set_smem(dw_kernel<T>, smem);
+// fp32: dw_kernel over 16-row tiles, tps of them a segment
+cudaError_t dw_fp32(const void* x, const void* w1, const void* b1, const void* w2, const void* dy,
+                    float* part, int R, int E, int F, int nseg, int tps, cudaStream_t st) {
+  const size_t smem = dw_smem(E);
+  cudaError_t err = set_smem(dw_kernel, smem);
   if (err != cudaSuccess) return err;
   const dim3 grid(F / kBFW, nseg);
-  dw_kernel<T><<<grid, kThreads, smem, st>>>(
-      static_cast<const T*>(x), static_cast<const T*>(w1), static_cast<const T*>(b1),
-      static_cast<const T*>(w2), static_cast<const T*>(dy), part, R, E, F, tps);
-  err = cudaGetLastError();
+  dw_kernel<<<grid, kThreads, smem, st>>>(
+      static_cast<const float*>(x), static_cast<const float*>(w1), static_cast<const float*>(b1),
+      static_cast<const float*>(w2), static_cast<const float*>(dy), part, R, E, F, tps);
+  return counted(cudaGetLastError(), kDw);
+}
+
+// bf16: dw_sm90_kernel over 64-row tiles, tps of them a segment, E-chunks
+// of 64 NB columns
+template <int NB>
+cudaError_t dw_sm90(const void* x, const void* w1, const void* b1, const void* w2, const void* dy,
+                    float* part, int R, int E, int F, int nseg, int tps, cudaStream_t st) {
+  using L = DwSm90<NB>;
+  const int n = (E + L::BE - 1) / L::BE;
+  if (n > kDwMaxCluster || L::smem(n) > kDwMaxSmem) return cudaErrorInvalidValue;
+  CUtensorMap mx, mdy, mw1, mw2;
+  if (!s9::matrix_map(&mx, x, R, E) || !s9::matrix_map(&mdy, dy, R, E) ||
+      !s9::matrix_map(&mw1, w1, E, F) || !s9::matrix_map(&mw2, w2, F, E))
+    return cudaErrorInvalidValue;
+  const auto kernel = dw_sm90_kernel<NB>;
+  cudaError_t err = set_smem(kernel, L::smem(n));
+  if (err != cudaSuccess) return err;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(n * ((F + kDwHidden - 1) / kDwHidden), nseg);
+  cfg.blockDim = dim3(kDwThreads);
+  cfg.dynamicSmemBytes = L::smem(n);
+  cfg.stream = st;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = n;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  err = cudaLaunchKernelEx(&cfg, kernel, mx, mdy, mw1, mw2, static_cast<const bf16*>(b1), part, R,
+                           E, F, tps);
+  if (err == cudaSuccess) err = cudaGetLastError();
+  return counted(err, kDwSm90);
+}
+
+// Clusters of the bf16 dw kernel's launch at this E that the card can hold
+// at once (cudaOccupancyMaxActiveClusters), or -1.
+template <int NB>
+int dw_sm90_active_clusters(int E) {
+  using L = DwSm90<NB>;
+  const int n = (E + L::BE - 1) / L::BE;
+  const auto kernel = dw_sm90_kernel<NB>;
+  if (n > kDwMaxCluster || L::smem(n) > kDwMaxSmem || set_smem(kernel, L::smem(n)) != cudaSuccess)
+    return -1;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(n * 64, 1);
+  cfg.blockDim = dim3(kDwThreads);
+  cfg.dynamicSmemBytes = L::smem(n);
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = n;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  int count = -1;
+  return cudaOccupancyMaxActiveClusters(&count, kernel, &cfg) == cudaSuccess ? count : -1;
+}
+
+// the dw kernel of the dtype, then the segments summed in order and cast
+cudaError_t bwd_dw(const void* x, const void* w1, const void* b1, const void* w2, const void* dy,
+                   void* out, float* db2, float* part, int R, int E, int F, int nseg, int tps,
+                   int chunk, int dtype, cudaStream_t st) {
+  cudaError_t err = cudaErrorInvalidValue;
+  if (dtype == ds::kFloat32) {
+    err = dw_fp32(x, w1, b1, w2, dy, part, R, E, F, nseg, tps, st);
+  } else if (chunk == 64) {
+    err = dw_sm90<1>(x, w1, b1, w2, dy, part, R, E, F, nseg, tps, st);
+  } else if (chunk == 128) {
+    err = dw_sm90<2>(x, w1, b1, w2, dy, part, R, E, F, nseg, tps, st);
+  } else if (chunk == 192) {
+    err = dw_sm90<3>(x, w1, b1, w2, dy, part, R, E, F, nseg, tps, st);
+  }
   if (err != cudaSuccess) return err;
   const size_t stride = 2 * (size_t)E * F + F + E, n_w = 2 * (size_t)E * F + F;
-  err = reduce<T>(part, nseg, n_w, stride, nullptr, 1, static_cast<T*>(out), st);
+  err = dtype == ds::kFloat32
+            ? reduce<float>(part, nseg, n_w, stride, nullptr, 1, static_cast<float*>(out), st)
+            : reduce<bf16>(part, nseg, n_w, stride, nullptr, 1, static_cast<bf16*>(out), st);
   if (err != cudaSuccess) return err;
   return reduce<float>(part + n_w, nseg, (size_t)E, stride, nullptr, 1, db2, st);
 }
@@ -711,16 +1235,31 @@ DS_EXPORT int fused_mlp_bwd_dx(const void* x, const void* w1, const void* b1, co
 
 // out: [dw1 (E, F) | dw2 (F, E) | db1 (F,)] in the dtype; db2 (E,) fp32;
 // part (nseg, 2 E F + F + E) fp32 scratch, segment s taking row tiles
-// [s * tiles_per_seg, (s + 1) * tiles_per_seg) of 16 rows.
+// [s * tiles_per_seg, (s + 1) * tiles_per_seg): 16 rows (fp32) or 64 (bf16).
+// chunk: the bf16 kernel's E-chunk (64, 128 or 192 columns; a cluster of
+// ceil(E / chunk) CTAs); unread for fp32.
 DS_EXPORT int fused_mlp_bwd_dw(const void* x, const void* w1, const void* b1, const void* w2,
                                const void* dy, void* out, void* db2, void* part, int R, int E,
-                               int F, int nseg, int tiles_per_seg, int dtype, void* stream) {
-  if (!shape_ok(R, E, F, dtype) || nseg < 1) return cudaErrorInvalidValue;
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  float *pf = static_cast<float*>(part), *d2 = static_cast<float*>(db2);
-  if (dtype == ds::kBFloat16)
-    return bwd_dw<bf16>(x, w1, b1, w2, dy, out, d2, pf, R, E, F, nseg, tiles_per_seg, st);
-  if (dtype == ds::kFloat32)
-    return bwd_dw<float>(x, w1, b1, w2, dy, out, d2, pf, R, E, F, nseg, tiles_per_seg, st);
-  return cudaErrorInvalidValue;
+                               int F, int nseg, int tiles_per_seg, int chunk, int dtype,
+                               void* stream) {
+  if (!shape_ok(R, E, F, dtype) || nseg < 1 || tiles_per_seg < 1 ||
+      (dtype != ds::kFloat32 && dtype != ds::kBFloat16))
+    return cudaErrorInvalidValue;
+  return bwd_dw(x, w1, b1, w2, dy, out, static_cast<float*>(db2), static_cast<float*>(part), R, E,
+                F, nseg, tiles_per_seg, chunk, dtype, static_cast<cudaStream_t>(stream));
+}
+
+// Clusters of dw_sm90_kernel's launch at (chunk, E) the card holds at once;
+// -1 where the launch is not possible.
+DS_EXPORT int fused_mlp_dw_active_clusters(int chunk, int E) {
+  if (chunk == 64) return dw_sm90_active_clusters<1>(E);
+  if (chunk == 128) return dw_sm90_active_clusters<2>(E);
+  if (chunk == 192) return dw_sm90_active_clusters<3>(E);
+  return -1;
+}
+
+// Launches so far of kernel `which` (0 fwd_kernel, 1 dx_kernel, 2
+// dw_sm90_kernel, 3 dw_kernel, 4 reduce_kernel).
+DS_EXPORT unsigned long long fused_mlp_launched(int which) {
+  return which >= 0 && which < 5 ? g_launched[which].load() : 0;
 }

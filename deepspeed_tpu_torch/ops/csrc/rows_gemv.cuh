@@ -1,6 +1,6 @@
 // The row-batched CUDA-core GEMV behind the fp32 instantiations of the
-// decode-layer kernels (decode_layer.cu) and the W8A16 matmul (w8_matmul.cu,
-// PERF row 8). The bf16 decode-layer kernels run decode_gemv_sm90.cuh.
+// decode-layer kernels (decode_layer.cu). The bf16 decode-layer kernels and
+// the W8A16 matmul (w8_matmul.cu) run decode_gemv_sm90.cuh.
 //
 // out[m, n] = epilogue(sum_k a[m, k] * W[k, n]) for M <= 64 decode rows.
 // Bound on the H100: bytes. Each weight element read from memory feeds at
@@ -60,7 +60,7 @@ constexpr int kSteps = kChunk / kKGroups;        // rows a thread takes from a c
 
 constexpr float kSqrt2OverPi = 0.7978845608028654f;
 
-enum Mode : int { kNormProj, kOProjResidual, kNormUpGelu, kDownResidual, kMatmul, kNormGateUp };
+enum Mode : int { kNormProj, kOProjResidual, kNormUpGelu, kDownResidual, kNormGateUp };
 
 // Output columns a block writes: kNormGateUp spends its 16 on 8 of each panel.
 __host__ __device__ constexpr int block_cols(int mode) { return mode == kNormGateUp ? 8 : kCols; }
@@ -85,7 +85,7 @@ struct Args {
   const T* bias;          // (N,); may be null in kDownResidual (no bias)
   const T* resid;         // (M, N) x, kOProjResidual
   const float* resid_f;   // (M, N) r1, kDownResidual
-  void* out;              // (M, N): fp32 for kOProjResidual and kMatmul, else T
+  void* out;              // (M, N): fp32 for kOProjResidual, else T
   int M, K, N;
 };
 
@@ -283,9 +283,7 @@ __global__ void __launch_bounds__(kThreads) rows_gemv_kernel(const Args<T, S, W>
       for (int w = 0; w < kWarps; ++w) v += red_sm[w][r][c];
       const int n = n0 + c;
       const size_t o = (size_t)(m0 + r) * a.N + n;
-      if constexpr (MODE == kMatmul) {
-        static_cast<float*>(a.out)[o] = v;
-      } else if constexpr (MODE == kDownResidual) {
+      if constexpr (MODE == kDownResidual) {
         float out = a.resid_f[o] + v;
         if (a.bias) out += ds::to_float(a.bias[n]);
         static_cast<T*>(a.out)[o] = ds::from_float<T>(out);

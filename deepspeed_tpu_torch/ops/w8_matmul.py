@@ -1,21 +1,32 @@
 """The W8A16 matmul kernel for decode rows: ``x @ dequant(codes, scale)``.
 
 Port of ``deepspeed_tpu/ops/pallas/w8_matmul.py``: the TPU kernel
-``_kernel`` becomes ``csrc/w8_matmul.cu`` (see its header for the design
-and the bound). :func:`w8a16_matmul_kernel` launches it for CUDA tensors
-and runs :func:`w8a16_matmul_plain`, the kernel's arithmetic in plain
-PyTorch, for CPU tensors. :func:`supported` is the JAX package's dispatch
-guard; ``ops/w8.w8a16_matmul`` consults it.
+``_kernel`` becomes ``csrc/w8_matmul.cu``, the W8 instantiation of the
+tensor-core decode GEMV (``csrc/decode_gemv_sm90.cuh``) in its plain matmul
+mode (see the .cu's header for the design and the bound): one launch a
+call, K split over blocks by :func:`~.decode_layer.gemv_plan`.
+:func:`w8a16_matmul_kernel` launches it for CUDA tensors and runs
+:func:`w8a16_matmul_plain`, the kernel's arithmetic in plain PyTorch, for
+CPU tensors; :func:`~.decode_layer.gemv_tiled_plain` over the pair
+``(codes, scale)`` adds the kernel's order of summation. :func:`supported`
+is the JAX package's dispatch guard; ``ops/w8.w8a16_matmul`` consults it.
+:func:`kernel_launches` gives the C library's own count of the kernel.
 """
 from __future__ import annotations
 
+import ctypes
 import math
 
 import torch
 
-from ._build import INT, PTR, Kernel, check_operands, stream_of
+from . import decode_layer as dl
+from ._build import INT, PTR, Kernel, check_operands, load, stream_of
 
-KERNEL = Kernel("w8_matmul", "w8a16_matmul_fwd", [PTR, PTR, PTR, INT, PTR, INT, INT, INT, PTR])
+# x, codes, scale, group, out, workspace, tickets, M, K, N, n_tile, k_slice, stream
+KERNEL = Kernel("w8_matmul", "w8a16_matmul_fwd",
+                [PTR, PTR, PTR, INT, PTR, PTR, PTR] + [INT] * 5 + [PTR])
+# the kernel behind the C entry, as the library counts it (``w8_matmul_launched``)
+KERNELS = ("gemv_sm90_kernel_w8",)
 
 MAX_ROWS = 64     # decode rows (batched slots fold to M = n_slots)
 
@@ -28,6 +39,14 @@ def supported(x_shape, codes_shape, n_groups: int) -> bool:
     g = K // max(n_groups, 1)
     return (K % 128 == 0 and N % 128 == 0 and (n_groups == 1 or g % 128 == 0)
             and K % max(g, 1) == 0 and M <= MAX_ROWS)
+
+
+def kernel_launches() -> dict:
+    """Launches so far of each kernel of :data:`KERNELS`, as the C library
+    counts them where it launches them. Loads (and builds) the library."""
+    fn = load("w8_matmul").w8_matmul_launched
+    fn.argtypes, fn.restype = [INT], ctypes.c_ulonglong
+    return {name: int(fn(i)) for i, name in enumerate(KERNELS)}
 
 
 def w8a16_matmul_plain(x: torch.Tensor, codes: torch.Tensor, scale: torch.Tensor):
@@ -58,8 +77,14 @@ def w8a16_matmul_kernel(x: torch.Tensor, codes: torch.Tensor, scale: torch.Tenso
         raise ValueError(f"w8a16_matmul kernel: unsupported shape M={M} K={K} N={N} G={G}")
     x = x.contiguous()
     check_operands(x, codes, scale, dtypes=(torch.bfloat16, torch.int8, torch.float32))
+    g = K // G
+    n_tile, k_slice = dl.gemv_plan(K, N, 1, g)
+    stream = stream_of(x)
     out = torch.empty((M, N), dtype=torch.float32, device=x.device)
+    ws = torch.empty(max(dl.gemv_partials(M, K, N, (n_tile, k_slice)), 4), dtype=torch.float32,
+                     device=x.device)
+    tickets = dl.gemv_tickets(x.device, stream, N // n_tile)
     with torch.cuda.device(x.device):
-        KERNEL.launch(x.data_ptr(), codes.data_ptr(), scale.data_ptr(), K // G, out.data_ptr(),
-                      M, K, N, stream_of(x))
+        KERNEL.launch(x.data_ptr(), codes.data_ptr(), scale.data_ptr(), g, out.data_ptr(),
+                      ws.data_ptr(), tickets.data_ptr(), M, K, N, n_tile, k_slice, stream)
     return out
