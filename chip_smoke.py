@@ -116,6 +116,16 @@ Run from the root of the repository. Phases, each printing JSON lines:
             and 4 timed steps (12 × 4 launches of each fused FFN kernel per
             step, peak memory beside the train phase's), a profiled step,
             and one step under ``dots_saveable`` from the same weights.
+7c. train_loss_pallas  the train phase's model, config, seeded weights and
+            batch with ``loss_pallas=True`` (the fused CE head on the tensor
+            cores): its loss and the gradients of ``wte`` and ``ln_f``'s scale
+            on the first micro-batch against the chunked head's at the same
+            weights (loss within 1e-3 relative, cosine >= 0.9999), one warm-up
+            and 3 timed steps (exactly 4 launches of each tensor-core entry
+            per step, flash as the chunked step), a profiled step beside one
+            of the chunked engine (device ms each); then the fp32 engine at
+            micro 1 (the CUDA-core route: one launch of each of its entries),
+            the same gate.
 8. train_1p5b  GPT-2-1.5B at full width and depth through ``initialize``
             with the JAX package's north-star recipe (S=1024, micro 2,
             adamw8bit lr 1e-4 wd 0.1 with the fused update kernel, ZeRO
@@ -128,13 +138,28 @@ Run from the root of the repository. Phases, each printing JSON lines:
             from the same state and gradients (and their times), one
             profiled step, and one step each of engines built from the same
             weights under ``dots_saveable`` (96 flash forwards) and
-            ``loss_pallas`` (one launch of each fused CE kernel), their
-            losses held against the chunked head's at those weights.
+            ``loss_pallas`` (one launch of each tensor-core fused CE entry),
+            their losses held against the chunked head's at those weights
+            (``loss_pallas`` also its head gradients, as in 7c).
 
 The kernels phase also holds the fused adam8bit update at the 1.5B leaf
-shapes (and a 100000-wide row, and three steps in place) and the three
-fused CE kernels at the 1.5B head in bf16 and a ragged fp32 shape against
-their plain versions. It also holds the flash backward kernels (merged, and the
+shapes (and a 100000-wide row, and three steps in place) against its plain
+version, and the fused CE head's two routes (``kernels_fused_ce``): the
+tensor-core forward and backward at the 1.5B head, gpt2-125m's micro-batch
+(N=24576, E=768: ten vocab chunks) and a ragged bf16 shape, the CUDA-core
+kernels at the ragged shape in fp32. Each is held against the plain
+version (nll and lse within 1e-4 of max(1, |lse|); dh and dw element by
+element within ``ce_reference``'s limits, half a bf16 ulp added where the
+kernel casts, with the limits' power gated), repeats bit for bit (the
+tensor-core route has no atomics), launches its route's entry once a call
+and the library's device kernels as the plan implies, and is timed beside
+the plain version, the chunked head and the bound (the backward's by
+device kernel). ``kernels_fused_ce_mask_probe`` scales W's padded rows so
+that an unmasked softmax would move lse past 100 limits;
+``kernels_fused_ce_cancel`` builds logits from cancelling 64-wide K blocks,
+whose control (partials rounded to bf16 per K step) must miss.
+``scripts/fused_ce_planted_faults.py`` shows these checks failing kernels
+with a planted fault; ``scripts/fused_ce_ab.py`` times two trees in turns. It also holds the flash backward kernels (merged, and the
 split dq/dkv pair) against their plain version: bf16 (the tensor-core
 forward, merged backward and split pair) at the train shapes, at D=128 and
 D=256, at S=200 and S=1000 and at a non-causal S=384, Sk=640, and fp32 (the
@@ -256,7 +281,7 @@ The ``kernels`` line gives each kernel's launches per path (``generate``,
 ``forward_fused_mlp``, ``generate_fused_mlp{,_unfused_ticks}``,
 ``serve_fused_mlp_paged``, ``sparse_attention_api{,_fp32}``, ``fused_ops_train``,
 ``train``, ``train_flash_precision_{merged,merged_again,split,fp32}``,
-``train_fused_mlp{,_remat}``,
+``train_loss_pallas{,_fp32}``, ``train_fused_mlp{,_remat}``,
 ``train_split``, ``train_1p5b``,
 ``train_1p5b_dots``, ``train_1p5b_pallas``: each zeroed before its run and
 read after it) and their sum; the rows of kernels that llama-1b and
@@ -1236,9 +1261,40 @@ def run_adam8bit_kernel(torch, peaks):
     return max(max_err, max(e["p_max_err"] for e in steps)), ok and steps_ok
 
 
-def ce_bwd_limits(torch, ce, h, wteT, labels, lse, V, delta=1e-4):
-    """Per-element limits of dh (N, E) and dw (E, Vp) against
-    ``fused_ce_bwd_plain``, and the dlog matrix they come from.
+# the fused CE head's entries: the tensor-core route (bf16, E % 8 == 0) and
+# the CUDA-core one (fp32, other E), each counted by its own wrapper
+CE_SM90 = ("fused_ce_fwd_sm90", "fused_ce_bwd_sm90")
+CE_CUDA_CORE = ("fused_ce_fwd", "fused_ce_dh", "fused_ce_dw")
+CE_LINES = {"fused_ce_fwd_sm90": ":37", "fused_ce_bwd_sm90": ":72", "fused_ce_fwd": ":37",
+            "fused_ce_dh": ":72", "fused_ce_dw": ":101"}
+# (case, dtype, N, E, Vp, vocab, ignored tokens): the 1.5B head (the shifted
+# labels' last position of each 1024-token row ignored), gpt2-125m's
+# micro-batch, a ragged bf16 shape on the tensor-core route and the same in
+# fp32 on the CUDA-core one
+CE_CASES = (("gpt2-1.5b head", "bfloat16", 2048, 1600, 50304, 50257, "row_end"),
+            ("gpt2-125m micro-batch", "bfloat16", 24576, 768, 50304, 50257, "row_end"),
+            ("ragged", "bfloat16", 300, 200, 1000, 990, "every_7th"),
+            ("ragged fp32", "float32", 300, 200, 1000, 990, "every_7th"))
+# the tensor-core route's device kernels (profiler names contain these)
+CE_DEVICE_KERNELS = ("ce_fwd_sm90_kernel", "ce_dlog_sm90_kernel", "ce_dh_sm90_kernel",
+                     "ce_dw_sm90_kernel", "ce_fwd_combine")
+CE_BLOCK = 2048   # tokens a block of the plain references: (block, Vp) fp32 temporaries
+
+
+def ce_operands(torch, g, N, E, Vp, V, dtype, ignored, dev="cuda"):
+    h = torch.randn((N, E), generator=g, device=dev).to(dtype)
+    w = (torch.randn((Vp, E), generator=g, device=dev) * 0.02).to(dtype)
+    labels = torch.randint(0, V, (N,), generator=g, device=dev)
+    if ignored == "every_7th":
+        labels[::7] = -100
+    else:
+        labels[1023::1024] = -100
+    return h, w, labels
+
+
+def ce_reference(torch, ce, h, wteT, labels, V, g: float, delta=1e-4):
+    """The plain forward and backward (``fused_ce_plain``, ``fused_ce_bwd_plain``
+    scaled by g) in blocks of tokens, and the backward's per-element limits.
 
     Each product sums ``dlog_c · x`` in fp32 in another order than the
     plain version: 1e-4 of ``Σ|dlog_c|·|x|``, element by element, with
@@ -1248,108 +1304,236 @@ def ce_bwd_limits(torch, ce, h, wteT, labels, lse, V, delta=1e-4):
     rounding midpoint of bf16 then tips. For logit errors up to ``delta``,
     p lies within a factor exp(±delta) of the plain p; each dlog element
     whose two ends round apart may be off by that spread ``A``, which adds
-    ``A·|x|`` to the element's limit (in fp32, A = 0)."""
-    logits = ce._logits_plain(h, wteT, V)
-    t = logits - lse[:, None]
-    del logits
-    vpos = torch.arange(wteT.shape[1], device=h.device)
-    onehot = (vpos[None, :] == labels[:, None].long()).float()
-    valid = (labels != -100).float()[:, None]
-    d0 = (torch.exp(t) - onehot) * valid
-    b0 = d0.to(h.dtype).float()
-    m = 1e-4 * b0.abs()
-    spread = torch.zeros_like(m)
-    if h.dtype != torch.float32:
-        for sgn in (-1.0, 1.0):
-            dd = ((torch.exp(t + sgn * delta) - onehot) * valid).to(h.dtype).float()
-            spread = torch.maximum(spread, (dd - b0).abs())
-            del dd
-        m += spread
-    del t, onehot, d0
-    w_abs, h_abs = wteT.float().T.abs(), h.float().abs()
-    lim_dh, lim_dw = m @ w_abs, h_abs.T @ m
-    info = dict(logit_delta=delta, dlog_elements_that_may_round_apart=int((spread > 0).sum()),
-                dlog_elements=spread.numel())
-    return lim_dh, lim_dw, info
+    ``A·|x|`` to the element's limit (in fp32, A = 0). All scaled by g."""
+    N, E = h.shape
+    Vp = wteT.shape[1]
+    dev = h.device
+    w = wteT.float().T          # (Vp, E)
+    w_abs = w.abs()
+    vpos = torch.arange(Vp, device=dev)
+    out = dict(nll=torch.empty(N, device=dev), lse=torch.empty(N, device=dev),
+               dh=torch.empty((N, E), device=dev), lim_dh=torch.empty((N, E), device=dev),
+               dw=torch.zeros((E, Vp), device=dev), lim_dw=torch.zeros((E, Vp), device=dev))
+    may_tip = 0
+    for i in range(0, N, CE_BLOCK):
+        hb, lb = h[i:i + CE_BLOCK], labels[i:i + CE_BLOCK]
+        nll_b, lse_b = ce.fused_ce_plain(hb, wteT, lb, V, -100)
+        out["nll"][i:i + CE_BLOCK], out["lse"][i:i + CE_BLOCK] = nll_b, lse_b
+        t = ce._logits_plain(hb, wteT, V) - lse_b[:, None]
+        onehot = (vpos[None, :] == lb[:, None].long()).float()
+        valid = (lb != -100).float()[:, None]
+        b0 = ((torch.exp(t) - onehot) * valid).to(h.dtype).float()
+        m = 1e-4 * b0.abs()
+        if h.dtype != torch.float32:
+            spread = torch.zeros_like(m)
+            for sgn in (-1.0, 1.0):
+                dd = ((torch.exp(t + sgn * delta) - onehot) * valid).to(h.dtype).float()
+                spread = torch.maximum(spread, (dd - b0).abs())
+                del dd
+            may_tip += int((spread > 0).sum())
+            m += spread
+            del spread
+        del t, onehot
+        hf = hb.float()
+        out["dh"][i:i + CE_BLOCK] = b0 @ w
+        out["lim_dh"][i:i + CE_BLOCK] = m @ w_abs
+        out["dw"] += hf.T @ b0
+        out["lim_dw"] += hf.abs().T @ m
+        del b0, m, hf
+    for k in ("dh", "dw", "lim_dh", "lim_dw"):
+        out[k] *= g
+    out["info"] = dict(logit_delta=delta, dlog_elements_that_may_round_apart=may_tip,
+                       dlog_elements=N * Vp)
+    return out
 
 
-def run_fused_ce_kernels(torch, peaks):
-    """The three fused CE kernels against ``fused_ce_plain`` /
-    ``fused_ce_bwd_plain``: bf16 at the 1.5B head (N = 2048 tokens, E =
-    1600, Vp = 50304, vocab 50257, the last token of each 1024-token row
-    labelled ignore_index, as shifted labels are) and fp32 at a ragged shape
-    (N = 300, E = 200, Vp = 1000, vocab 990, every 7th token ignored). dh
-    and dw take the plain version's lse, so each kernel is held alone.
+def ce_held(torch, got, ref, lim, cast: bool, mask=None):
+    """``got`` against ``ref`` element by element within ``lim``, plus half a
+    bf16 ulp of the larger of the two where the kernel casts its output to
+    bf16 (``cast``), one fp32 ulp where it scales in fp32."""
+    got = got.float()
+    err = (got - ref).abs()
+    big = torch.maximum(got.abs(), ref.abs())
+    lim = lim + (0.5 * bf16_ulp_t(torch, big) if cast else 2.0 ** -23 * big)
+    if mask is not None:
+        err, lim = err[:, mask], lim[:, mask]
+    tiny = torch.finfo(torch.float32).tiny
+    i = int(err.argmax())
+    return dict(max_err=float(err.max()), tol_at_max_err=float(lim.flatten()[i]),
+                err_over_limit=float((err / lim.clamp(min=tiny)).max()),
+                ok=bool((err <= lim).all()))
 
-    Tolerances: nll and lse 1e-4 of max(1, |lse|) (fp32 sums over E in
-    another order); dh and dw element by element, from ``ce_bwd_limits``.
-    Each limit's power is shown too: a dh without its softmax term (only
-    the label column's −W[label]) and a dw with the rows of vocab entries
-    that no token labels zeroed must each exceed its limit somewhere.
-    Times: each kernel (device time; dh and dw from one ``fused_ce_bwd``
-    call, split by kernel name), the plain version (dh and dw together),
-    and the chunked head (``chunked_lm_loss``, one chunk: ``torch.mm`` +
-    logsumexp) forward, and its backward (dh and dw together) beside dh and
-    dw. Bound: 2·N·E·Vp flops for the forward, 4·N·E·Vp for dh and for dw
-    (rebuild the logits, one more product), at the dtype's peak."""
+
+def ce_check(torch, ce, h, w, labels, V, g: float, ref=None):
+    """The operands' route (the forward, then the backward on the plain lse,
+    each held alone) against ``ce_reference``: nll and lse within 1e-4 of
+    max(1, |lse|), dh and dw by ``ce_held``, the limits' power (a dh without
+    its softmax term, a dw with its unlabelled vocab rows lost, must each
+    miss), finite outputs, a bitwise repeat, the route's launch counter and
+    the library's device kernels per call."""
+    N, E = h.shape
+    Vp = w.shape[0]
+    wteT = w.T
+    sm90 = ce.sm90_route(h.dtype, E)
+    ref = ref or ce_reference(torch, ce, h, wteT, labels, V, g)
+    gt = torch.tensor([g], device=h.device)
+    counters_ = (ce.FWD_SM90, ce.BWD_SM90) if sm90 else (ce.FWD, ce.DH, ce.DW)
+    before, lib_before = [k.launches for k in counters_], ce.kernel_launches()
+    nll, lse = ce.fused_ce_fwd(h, wteT, labels, V, -100)
+    dh, dw = ce.fused_ce_bwd(h, wteT, labels, ref["lse"], V, -100, gt)
+    torch.cuda.synchronize()
+    calls = [k.launches - b for k, b in zip(counters_, before)]
+    lib = {n: c - lib_before[n] for n, c in ce.kernel_launches().items()}
+    chunk, chunks = ce.chunk_plan(N, Vp)
+    if sm90:
+        want_lib = {"ce_fwd_sm90_kernel": 1, "ce_fwd_combine": 1, "ce_dlog_sm90_kernel": chunks,
+                    "ce_dh_sm90_kernel": chunks, "ce_dw_sm90_kernel": chunks}
+    else:
+        want_lib = {"ce_fwd_kernel": 1, "ce_fwd_combine": 1, "ce_dh_kernel": 1, "ce_dw_kernel": 1}
+    nll2, lse2 = ce.fused_ce_fwd(h, wteT, labels, V, -100)
+    dh2, dw2 = ce.fused_ce_bwd(h, wteT, labels, ref["lse"], V, -100, gt)
+    torch.cuda.synchronize()
+    bitwise = all(bool(torch.equal(a, b)) for a, b in ((nll, nll2), (lse, lse2), (dh, dh2),
+                                                        (dw, dw2)))
+    del nll2, lse2, dh2, dw2
+    z_tol = 1e-4 * max(1.0, float(ref["lse"].abs().max()))
+    fwd_err = max(float((nll - ref["nll"]).abs().max()), float((lse - ref["lse"]).abs().max()))
+    labelled = torch.zeros(Vp, dtype=torch.bool, device=h.device)
+    labelled[labels[labels != -100]] = True
+    cast = h.dtype != torch.float32
+    held_dh = ce_held(torch, dh, ref["dh"], ref["lim_dh"], cast)
+    held_dw = dict(ce_held(torch, dw, ref["dw"], ref["lim_dw"], cast),
+                   labelled_rows=ce_held(torch, dw, ref["dw"], ref["lim_dw"], cast, labelled),
+                   other_rows=ce_held(torch, dw, ref["dw"], ref["lim_dw"], cast, ~labelled))
+    # the limits' power: what a backward without the softmax term (dh: only
+    # the label column's -W[label]) or with the unlabelled vocab rows lost
+    # (dw) would be off by, in units of the limit at the plain value
+    valid = (labels != -100)
+    dh_label_only = (-(w.float()[labels.clamp(min=0)] * valid[:, None]).to(h.dtype).float()
+                     * g)
+    power = dict(dh=ce_held(torch, dh_label_only, ref["dh"], ref["lim_dh"], cast)
+                 ["err_over_limit"],
+                 dw=ce_held(torch, torch.zeros_like(ref["dw"]), ref["dw"], ref["lim_dw"], cast,
+                            ~labelled)["err_over_limit"])
+    del dh_label_only
+    finite = all(bool(torch.isfinite(x.float()).all()) for x in (nll, lse, dh, dw))
+    res = dict(route="sm90" if sm90 else "cuda_core", chunk=chunk if sm90 else None,
+               chunks=chunks if sm90 else None,
+               fwd=dict(max_err=fwd_err, tol=z_tol, ok=fwd_err <= z_tol), dh=held_dh, dw=held_dw,
+               limit_power=power, limits=ref["info"], g=g, finite=finite,
+               bitwise_repeat=bitwise, entry_calls=calls, library_kernels=lib,
+               expected_library_kernels=want_lib)
+    res["ok"] = (res["fwd"]["ok"] and held_dh["ok"] and held_dw["ok"] and power["dh"] > 1
+                 and power["dw"] > 1 and finite and calls == [1] * len(counters_)
+                 and lib == {n: want_lib.get(n, 0) for n in lib}
+                 # the CUDA-core dh adds vocab segments with atomics
+                 and (bitwise or not sm90))
+    return res, ref["lse"]
+
+
+def ce_mask_probe(torch, ce, dev="cuda"):
+    """The padded vocab rows of W (vocab 50257 of Vp 50304) scaled 16x, so
+    that a softmax over them moves lse past 100 limits: the tensor-core
+    route must hold nll, lse, dh and dw (dw's padded rows exactly 0), and
+    the plain forward without the mask must miss by more than 100 limits."""
+    g = torch.Generator(device=dev).manual_seed(SEED + 61)
+    N, E, Vp, V = 512, 1600, 50304, 50257
+    h, w, labels = ce_operands(torch, g, N, E, Vp, V, torch.bfloat16, "every_7th", dev)
+    w[V:] = (w[:Vp - V].float() * 16).to(torch.bfloat16)
+    res, _ = ce_check(torch, ce, h, w, labels, V, 1.0 / N)
+    _, lse_unmasked = ce.fused_ce_plain(h, w.T, labels, Vp, -100)
+    shift = float((lse_unmasked - ce.fused_ce_plain(h, w.T, labels, V, -100)[1]).abs().max())
+    res["unmasked_lse_shift_over_limit"] = shift / res["fwd"]["tol"]
+    res["ok"] = res["ok"] and res["unmasked_lse_shift_over_limit"] > 100
+    return dict(phase="kernels_fused_ce_mask_probe", shape=f"N={N} E={E} Vp={Vp} vocab={V} "
+                "bfloat16, padded rows 16x", **res)
+
+
+def ce_cancel_probe(torch, ce, dev="cuda"):
+    """Logits built from cancelling terms: h = [a, a, c, 0], W = [b, -b, d,
+    0] in 64-wide blocks, a and b of magnitude 2-4 (a first block's partial
+    of ~±200, cancelled by the second), c and d of ~0.5 (the logit). The
+    tensor-core route must hold nll, lse, dh and dw; the control, the plain
+    version with its partial sums rounded to bf16 after each 64-wide K step,
+    must miss lse and dh."""
+    g = torch.Generator(device=dev).manual_seed(SEED + 62)
+    N, E, Vp, V = 256, 256, 1024, 1000
+
+    def mag(rows):
+        sign = torch.where(torch.rand((rows, 64), generator=g, device=dev) < 0.5, -1.0, 1.0)
+        return (2 + 2 * torch.rand((rows, 64), generator=g, device=dev)) * sign
+
+    a, b = mag(N), mag(Vp)
+    c = 0.5 * torch.randn((N, 64), generator=g, device=dev)
+    d = 0.5 * torch.randn((Vp, 64), generator=g, device=dev)
+    h = torch.cat([a, a, c, torch.zeros_like(c)], 1).to(torch.bfloat16)
+    w = torch.cat([b, -b, d, torch.zeros_like(d)], 1).to(torch.bfloat16)
+    labels = torch.randint(0, V, (N,), generator=g, device=dev)
+    labels[::7] = -100
+    gs = 1.0 / N
+    ref = ce_reference(torch, ce, h, w.T, labels, V, gs)
+    res, _ = ce_check(torch, ce, h, w, labels, V, gs, ref)
+    # the control: partials rounded to bf16 per 64-wide K step
+    hf, wf = h.float(), w.float()
+    s = torch.zeros((N, Vp), device=dev)
+    for k in range(0, E, 64):
+        s = (s + hf[:, k:k + 64] @ wf[:, k:k + 64].T).to(torch.bfloat16).float()
+    s = torch.where(torch.arange(Vp, device=dev) < V, s, ce.NEG)
+    lse_ctl = torch.logsumexp(s, -1)
+    onehot = (torch.arange(Vp, device=dev)[None, :] == labels[:, None].long()).float()
+    dlog_ctl = ((torch.exp(s - ref["lse"][:, None]) - onehot)
+                * (labels != -100).float()[:, None]).to(torch.bfloat16).float()
+    dh_ctl = (dlog_ctl @ wf) * gs
+    res["control_lse_over_limit"] = float((lse_ctl - ref["lse"]).abs().max()) / res["fwd"]["tol"]
+    res["control_dh_over_limit"] = ce_held(torch, dh_ctl, ref["dh"], ref["lim_dh"],
+                                           True)["err_over_limit"]
+    res["ok"] = (res["ok"] and res["control_lse_over_limit"] > 1
+                 and res["control_dh_over_limit"] > 1)
+    return dict(phase="kernels_fused_ce_cancel", shape=f"N={N} E={E} Vp={Vp} vocab={V} "
+                "bfloat16, partials of ~±200 cancelling", **res)
+
+
+def ce_case_rows(torch, ce, peaks, case, timed=True):
+    """One case of ``CE_CASES``: ``ce_check`` and, with ``timed``, each
+    entry's device time beside the plain version's (where its (N, Vp) fp32
+    temporaries fit: always at these shapes), the chunked head's
+    (``chunked_lm_loss``, one chunk: ``torch.mm`` + logsumexp; its backward
+    beside the backward) and the bound: operations, 2·N·E·Vp flops a
+    product, the forward one product, the tensor-core backward three
+    (``bound_four_products_ms``: the TPU kernels' four), each CUDA-core
+    kernel of the backward two (it rebuilds the logits). Rows: the
+    tensor-core route's forward and backward (its device kernels by name),
+    or the CUDA-core route's forward, dh and dw (one backward call split by
+    kernel name)."""
     from deepspeed_tpu_torch.models.common import chunked_lm_loss
-    from deepspeed_tpu_torch.ops import fused_ce as ce
 
+    label, dname, N, E, Vp, V, ignored = case
+    dt = getattr(torch, dname)
     g = torch.Generator(device="cuda").manual_seed(SEED + 12)
-    rows, ok = {}, True
-    for dt, N, E, Vp, V in ((torch.bfloat16, 2048, 1600, 50304, 50257),
-                            (torch.float32, 300, 200, 1000, 990)):
-        fp32 = dt == torch.float32
-        h = torch.randn((N, E), generator=g, device="cuda").to(dt)
-        w = (torch.randn((Vp, E), generator=g, device="cuda") * 0.02).to(dt)
-        labels = torch.randint(0, V, (N,), generator=g, device="cuda")
-        if fp32:
-            labels[::7] = -100
-        else:
-            labels[1023::1024] = -100
+    h, w, labels = ce_operands(torch, g, N, E, Vp, V, dt, ignored)
+    gs = 1.0 / float((labels != -100).sum())    # the mean loss's incoming gradient
+    res, lse_p = ce_check(torch, ce, h, w, labels, V, gs)
+    shape = f"{label}: N={N} E={E} Vp={Vp} vocab={V} {dname}"
+    sm90 = res["route"] == "sm90"
+    held = dict(res)
+    for k in ("fwd", "dh", "dw"):
+        held.pop(k)
+    rows = {}
+    if sm90:
+        rows["fused_ce_fwd_sm90"] = dict(res["fwd"])
+        rows["fused_ce_bwd_sm90"] = dict(
+            max_err=max(res["dh"]["max_err"], res["dw"]["max_err"]),
+            err_over_limit=max(res["dh"]["err_over_limit"], res["dw"]["err_over_limit"]),
+            dh=res["dh"], dw=res["dw"])
+    else:
+        rows = {"fused_ce_fwd": dict(res["fwd"]), "fused_ce_dh": dict(res["dh"]),
+                "fused_ce_dw": dict(res["dw"])}
+    if timed:
         wteT = w.T
-        shape = f"N={N} E={E} Vp={Vp} vocab={V} {str(dt)[6:]}"
-        nll_p, lse_p = ce.fused_ce_plain(h, wteT, labels, V, -100)
-        nll, lse = ce.fused_ce_fwd(h, wteT, labels, V, -100)
-        dh_p, dw_p = ce.fused_ce_bwd_plain(h, wteT, labels, lse_p, V, -100)
-        dh, dw = ce.fused_ce_bwd(h, wteT, labels, lse_p, V, -100)
-        torch.cuda.synchronize()
-        z_tol = 1e-4 * max(1.0, float(lse_p.abs().max()))
-        fwd_err = max(float((nll - nll_p).abs().max()), float((lse - lse_p).abs().max()))
-        lim_dh, lim_dw, lim_info = ce_bwd_limits(torch, ce, h, wteT, labels, lse_p, V)
-        labelled = torch.zeros(Vp, dtype=torch.bool, device="cuda")
-        labelled[labels[labels != -100]] = True
-        tiny = torch.finfo(torch.float32).tiny
-
-        def held(err, lim):
-            i = int(err.argmax())
-            return dict(max_err=float(err.max()), tol_at_max_err=float(lim.flatten()[i]),
-                        max_err_over_tol=float((err / lim.clamp(min=tiny)).max()),
-                        ok=bool((err <= lim).all()))
-
-        e_dh, e_dw = (dh - dh_p).abs(), (dw - dw_p).abs()
-        errs = {"fused_ce_fwd": dict(max_err=fwd_err, tol=z_tol, ok=fwd_err <= z_tol),
-                "fused_ce_dh": held(e_dh, lim_dh),
-                "fused_ce_dw": dict(held(e_dw, lim_dw),
-                                    labelled_rows=held(e_dw[:, labelled], lim_dw[:, labelled]),
-                                    other_rows=held(e_dw[:, ~labelled], lim_dw[:, ~labelled]))}
-        # the limits' power: what a kernel without the softmax term (dh) or
-        # with the unlabelled vocab rows lost (dw) would be off by
-        valid = (labels != -100)
-        dh_label_only = -(w.float()[labels.clamp(min=0)] * valid[:, None]).to(dt).float()
-        power = {"fused_ce_dh": float(((dh_p - dh_label_only).abs()
-                                       / lim_dh.clamp(min=tiny)).max()),
-                 "fused_ce_dw": float((dw_p[:, ~labelled].abs()
-                                       / lim_dw[:, ~labelled].clamp(min=tiny)).max())}
-        finite = all(bool(torch.isfinite(x).all()) for x in (nll, lse, dh, dw))
-        del nll_p, dh_p, dw_p, nll, dh, dw, e_dh, e_dw, lim_dh, lim_dw, dh_label_only
-        torch.cuda.empty_cache()
-        item = h.element_size()
+        gt = torch.tensor([gs], device="cuda")
+        item, fp32 = h.element_size(), dt == torch.float32
         ins = N * E * item + Vp * E * item + N * 8
         flops = 2.0 * N * E * Vp
-        bounds = {"fused_ce_fwd": bound_ms(ins + 2 * N * 4, flops, peaks, fp32),
-                  "fused_ce_dh": bound_ms(ins + N * 4 + N * E * 4, 2 * flops, peaks, fp32),
-                  "fused_ce_dw": bound_ms(ins + N * 4 + Vp * E * 4, 2 * flops, peaks, fp32)}
         hl = h[None].clone().requires_grad_()
         wl = w.clone().requires_grad_()
         lab2 = labels[None]
@@ -1358,57 +1542,239 @@ def run_fused_ce_kernels(torch, peaks):
             return chunked_lm_loss(hl, wl, lab2, vocab_size=V, padded_vocab_size=Vp,
                                    chunk=1 << 30, dtype=dt)
 
-        def lib_fwd_bwd():
-            return torch.autograd.grad(lib_fwd(), (hl, wl))
+        def fwd():
+            return ce.fused_ce_fwd(h, wteT, labels, V, -100)
 
         def bwd():
-            return ce.fused_ce_bwd(h, wteT, labels, lse_p, V, -100)
+            return ce.fused_ce_bwd(h, wteT, labels, lse_p, V, -100, gt)
 
-        def bwd_plain():
-            return ce.fused_ce_bwd_plain(h, wteT, labels, lse_p, V, -100)
-
-        iters = 5
+        iters = 3 if N > CE_BLOCK else 5
         lib_f = device_ms(torch, lib_fwd, iters)
-        lib_fb = device_ms(torch, lib_fwd_bwd, iters)
+        lib_fb = device_ms(torch, lambda: torch.autograd.grad(lib_fwd(), (hl, wl)), iters)
         lib_b = lib_fb - lib_f if lib_fb and lib_f else None
-        _, bwd_by_name = device_ms_by_name(torch, bwd, iters)
-        bwd_plain_ms = device_ms(torch, bwd_plain, 3)
-        bwd_event_ms = cuda_ms(torch, bwd, iters)
+        del hl, wl
+        fwd_ms = device_ms(torch, fwd, iters)
+        bwd_ms, by_name = device_ms_by_name(torch, bwd, iters)
+        plain_f = device_ms(torch, lambda: ce.fused_ce_plain(h, wteT, labels, V, -100), 3)
+        plain_b = device_ms(torch, lambda: ce.fused_ce_bwd_plain(h, wteT, labels, lse_p, V,
+                                                                 -100), 3)
+        torch.cuda.empty_cache()
 
         def kernel_time(sub):
-            return sum(v for k, v in bwd_by_name.items() if sub in k) or None
+            return sum(v for k, v in by_name.items() if sub in k) or None
 
-        timing = {
-            "fused_ce_fwd": dict(
-                kernel_ms=device_ms(torch, lambda: ce.fused_ce_fwd(h, wteT, labels, V, -100),
-                                    iters),
-                plain_ms=device_ms(torch, lambda: ce.fused_ce_plain(h, wteT, labels, V, -100),
-                                   3),
-                kernel_event_ms=cuda_ms(torch, lambda: ce.fused_ce_fwd(h, wteT, labels, V, -100),
-                                        iters),
-                library_ms=lib_f, library="chunked_lm_loss forward"),
-            "fused_ce_dh": dict(kernel_ms=kernel_time("ce_dh_kernel"), plain_ms=bwd_plain_ms),
-            "fused_ce_dw": dict(kernel_ms=kernel_time("ce_dw_kernel"), plain_ms=bwd_plain_ms)}
-        for name in ("fused_ce_dh", "fused_ce_dw"):
-            timing[name].update(
-                bwd_event_ms=bwd_event_ms, library_ms=lib_b,
-                plain="fused_ce_bwd_plain (dh and dw together)",
-                library="chunked_lm_loss backward (dh and dw together)")
-        for name, held_ in errs.items():
-            b_ms, b_by = bounds[name]
-            row = dict(phase="kernels_fused_ce", name=name, shape=shape, **held_,
-                       **timing[name], bound_ms=b_ms, bound_by=b_by)
-            if name in power:
-                row.update(limit_power=power[name], limits=lim_info)
-                row["ok"] = row["ok"] and power[name] > 1
-            row["ok"] = row["ok"] and finite and row["kernel_ms"] is not None
+        common = dict(plain="fused_ce_bwd_plain (dh and dw together)",
+                      library="chunked_lm_loss backward (dh and dw together)")
+        rows[next(iter(rows))].update(
+            kernel_ms=fwd_ms, kernel_event_ms=cuda_ms(torch, fwd, iters), plain_ms=plain_f,
+            library_ms=lib_f, library="chunked_lm_loss forward")
+        b_fwd = bound_ms(ins + 2 * N * 4, flops, peaks, fp32)
+        rows[next(iter(rows))].update(bound_ms=b_fwd[0], bound_by=b_fwd[1])
+        if sm90:
+            b = bound_ms(ins + N * 4 + (N + Vp) * E * item, 3 * flops, peaks)
+            rows["fused_ce_bwd_sm90"].update(
+                kernel_ms=bwd_ms, kernel_event_ms=cuda_ms(torch, bwd, iters),
+                device_kernels_ms={k: kernel_time(k) for k in ("ce_dlog_sm90", "ce_dh_sm90",
+                                                               "ce_dw_sm90")},
+                other_ms=bwd_ms - sum(kernel_time(k) or 0.0 for k in (
+                    "ce_dlog_sm90", "ce_dh_sm90", "ce_dw_sm90")) if bwd_ms else None,
+                plain_ms=plain_b, library_ms=lib_b, bound_ms=b[0], bound_by=b[1],
+                bound_four_products_ms=4 * flops / peaks[1] * 1e3, **common)
+        else:
+            for name, kern, out_b in (("fused_ce_dh", "ce_dh_kernel", N * E * 4),
+                                      ("fused_ce_dw", "ce_dw_kernel", Vp * E * 4)):
+                b = bound_ms(ins + N * 4 + out_b, 2 * flops, peaks, fp32)
+                rows[name].update(kernel_ms=kernel_time(kern), bwd_ms=bwd_ms,
+                                  bwd_event_ms=cuda_ms(torch, bwd, iters), plain_ms=plain_b,
+                                  library_ms=lib_b, bound_ms=b[0], bound_by=b[1], **common)
+        del gt
+    del lse_p
+    out = {}
+    for name, row in rows.items():
+        row = dict(phase="kernels_fused_ce", name=name, case=label, shape=shape, **row,
+                   checks=held)
+        row["ok"] = res["ok"] and (not timed or row.get("kernel_ms") is not None)
+        out[name] = row
+    del h, w, labels
+    torch.cuda.empty_cache()
+    return out
+
+
+def run_fused_ce_checks(torch, timed=False, peaks=None):
+    """Every case of ``CE_CASES`` and both probes; ``(rows by case and
+    name, ok)``. Each row is emitted."""
+    from deepspeed_tpu_torch.ops import fused_ce as ce
+
+    by_case, ok = {}, True
+    for case in CE_CASES:
+        rows = ce_case_rows(torch, ce, peaks, case, timed)
+        for row in rows.values():
             emit(row)
             ok &= row["ok"]
-            if not fp32:
-                rows[name] = row
-        del h, w, labels, wteT, lse_p, lse, hl, wl
+        by_case[case[0]] = rows
+    for probe in (ce_mask_probe, ce_cancel_probe):
+        row = probe(torch, ce)
+        emit(row)
+        ok &= row["ok"]
         torch.cuda.empty_cache()
+    return by_case, ok
+
+
+def run_fused_ce_kernels(torch, peaks):
+    """The fused CE head's two routes against ``fused_ce_plain`` /
+    ``fused_ce_bwd_plain`` (``ce_check``), timed, at ``CE_CASES`` (bf16: the
+    1.5B head, gpt2-125m's micro-batch and a ragged shape on the tensor-core
+    route; fp32: the ragged shape on the CUDA-core route), and the mask and
+    cancellation probes. The backward takes the plain version's lse, so each
+    kernel is held alone. Returns the kernels line's rows: the tensor-core
+    entries at the 1.5B head (the other bf16 shapes under ``at_shapes``),
+    the CUDA-core ones at the fp32 shape."""
+    by_case, ok = run_fused_ce_checks(torch, timed=True, peaks=peaks)
+    keys = ("case", "shape", "max_err", "kernel_ms", "plain_ms", "library_ms", "bound_ms",
+            "bound_by")
+    rows = {}
+    for name in CE_SM90:
+        row = dict(by_case["gpt2-1.5b head"][name])
+        row["at_shapes"] = [{k: by_case[c][name].get(k) for k in keys}
+                            for c in ("gpt2-125m micro-batch", "ragged")]
+        rows[name] = row
+    rows.update(by_case["ragged fp32"])
     return rows, ok
+
+
+GRAD_LEAVES = ("wte", "ln_f.scale")   # the tied head's weight and the last norm's scale
+
+
+def head_grads(eng, batch) -> tuple:
+    """``(loss, {leaf: fp32 gradient})`` of one micro-batch at the engine's
+    current weights, for ``GRAD_LEAVES``."""
+    loss, grads = eng._grads_of(batch)
+    keep = {n: g.float() for n, g in zip(eng._names, grads) if n in GRAD_LEAVES}
+    return float(loss), keep
+
+
+def head_gate(torch, ref, got) -> dict:
+    """A fused head's loss and gradients against the chunked head's at the
+    same weights: the loss's relative difference and each leaf's cosine."""
+    (l0, g0), (l1, g1) = ref, got
+    cos = {n: float(torch.nn.functional.cosine_similarity(g1[n].flatten(), g0[n].flatten(),
+                                                            dim=0)) for n in GRAD_LEAVES}
+    return dict(loss=l1, chunked_loss=l0, loss_rel_diff=abs(l1 / l0 - 1), grad_cosine=cos)
+
+
+def head_gate_ok(gate) -> bool:
+    # bf16 heads sum in fp32 in other orders: the loss within 1e-3 of the
+    # chunked head's, each gradient's direction within cosine 0.9999
+    return (math.isfinite(gate["loss"]) and gate["loss_rel_diff"] <= 1e-3
+            and all(c >= 0.9999 for c in gate["grad_cosine"].values()))
+
+
+def run_train_loss_pallas(torch, peaks):
+    """gpt2-125m at the train phase's flagship config (micro 24 × gas 4, S =
+    1024, the same seeded weights and batch) with ``loss_pallas=True``: the
+    fused CE head on the tensor-core route. Its loss and the gradients of
+    ``GRAD_LEAVES`` on the first micro-batch against the chunked head's at
+    the same weights (``head_gate``), then one warm-up and 3 timed steps
+    (exact launches: each fused CE entry once per micro-batch, flash as the
+    chunked step), one profiled step beside one profiled step of the
+    chunked engine (device ms). Then ``train_loss_pallas_fp32``: the fp32
+    engine at micro 1 (the CUDA-core route), the same gate and one step's
+    exact launches."""
+    import dataclasses
+
+    import numpy as np
+    from torch.profiler import ProfilerActivity, profile
+
+    import deepspeed_tpu_torch as ds
+    from deepspeed_tpu_torch.models.gpt2 import GPT2LMHeadModel, gpt2_config
+
+    cfg = gpt2_config("gpt2-125m", n_positions=1024, loss_chunk=1 << 30)
+    micro, gas, S, L = 24, 4, 1024, cfg.n_layer
+    ids = text_like_ids(np.random.default_rng(SEED + 8), micro * gas, S, cfg.vocab_size)
+    batch = {"input_ids": ids, "labels": ids}
+    engines = {}
+    for name, c in (("chunked", cfg), ("pallas", dataclasses.replace(cfg, loss_pallas=True))):
+        eng, *_ = ds.initialize(model=GPT2LMHeadModel(c, device="meta"),
+                                config=train_config(micro, gas))
+        eng.init_params()   # the same seeded weights for both
+        engines[name] = eng
+    mb = engines["chunked"]._to_device({"input_ids": ids[:micro], "labels": ids[:micro]})
+    gate = head_gate(torch, head_grads(engines["chunked"], mb), head_grads(engines["pallas"], mb))
+    del mb
+    dev_batch = engines["pallas"]._to_device(batch)
+
+    def profiled(eng):
+        eng.train_batch(dev_batch)
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            t1 = time.perf_counter()
+            eng.train_batch(dev_batch)
+            torch.cuda.synchronize()
+            wall = (time.perf_counter() - t1) * 1e3
+        by_name = device_ms_of(prof)
+        return wall, sum(by_name.values()), by_name
+
+    eng = engines["pallas"]
+    eng.train_batch(dev_batch)
+    torch.cuda.synchronize()
+    zero_counts()
+    t0 = time.perf_counter()
+    losses = eng.train_batches(dev_batch, 3, stacked=False)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = read_counts()
+    per_step = {"flash_attention_fwd": L * gas, "flash_attention_bwd_merged": L * gas,
+                "fused_ce_fwd_sm90": gas, "fused_ce_bwd_sm90": gas}
+    expected = {n: 3 * per_step.get(n, 0) for n in launches}
+    p_wall, p_dev, p_by = profiled(eng)
+    c_wall, c_dev, _ = profiled(engines["chunked"])
+    ce_dev = sum(v for k, v in p_by.items() if any(n in k for n in CE_DEVICE_KERNELS))
+    top = sorted(p_by.items(), key=lambda kv: -kv[1])[:10]
+    losses = [float(x) for x in losses]
+    del engines, eng, dev_batch
+    torch.cuda.empty_cache()
+
+    # fp32, micro 1: the CUDA-core route
+    fp32 = {}
+    ids1 = ids[:1]
+    for name, c in (("chunked", cfg), ("pallas", dataclasses.replace(cfg, loss_pallas=True))):
+        e, *_ = ds.initialize(model=GPT2LMHeadModel(dataclasses.replace(c, dtype=torch.float32),
+                                                    device="meta"),
+                              config=train_config(1, 1, "fp32"))
+        e.init_params()
+        fp32[name] = e
+    mb1 = fp32["chunked"]._to_device({"input_ids": ids1, "labels": ids1})
+    gate32 = head_gate(torch, head_grads(fp32["chunked"], mb1), head_grads(fp32["pallas"], mb1))
+    zero_counts()
+    loss32 = float(fp32["pallas"].train_batch({"input_ids": ids1, "labels": ids1}))
+    torch.cuda.synchronize()
+    launches32 = read_counts()
+    expected32 = {n: {"flash_attention_fwd": L, "flash_attention_bwd_merged": L,
+                      "fused_ce_fwd": 1, "fused_ce_dh": 1, "fused_ce_dw": 1}.get(n, 0)
+                  for n in launches32}
+    del fp32, mb1
+    torch.cuda.empty_cache()
+
+    tokens = 3 * micro * gas * S
+    checks = {"losses_finite": all(math.isfinite(x) for x in losses),
+              "launch_counts": launches == expected, "head_gate": head_gate_ok(gate),
+              "fp32_launch_counts": launches32 == expected32, "fp32_head_gate": head_gate_ok(gate32),
+              "fp32_loss_finite": math.isfinite(loss32)}
+    emit(dict(phase="train_loss_pallas", model="gpt2-125m", config=train_config(micro, gas),
+              dtype="bfloat16", batch=[micro * gas, S], timed_steps=3,
+              ms_per_step=wall * 1e3 / 3, tokens_per_s=tokens / wall, losses=losses,
+              head_gate=gate, launches=launches, expected_launches=expected,
+              profile=dict(step_wall_ms=p_wall, step_device_ms=p_dev or "not measured",
+                           fused_ce_device_ms=ce_dev or "not measured",
+                           chunked_step_wall_ms=c_wall,
+                           chunked_step_device_ms=c_dev or "not measured",
+                           device_ms_saved=c_dev - p_dev if c_dev and p_dev else "not measured",
+                           top_device_ms={k[:90]: v for k, v in top}),
+              fp32=dict(batch=[1, S], head_gate=gate32, loss=loss32, launches=launches32,
+                        expected_launches=expected32),
+              checks=checks))
+    return ({"train_loss_pallas": launches, "train_loss_pallas_fp32": launches32},
+            all(checks.values()))
 
 
 # ---------------------------------------------------------------------------
@@ -1432,7 +1798,8 @@ def counters():
             "norm_qkv": dl.NORM_PROJ, "post_attn": dl.POST_ATTN,
             "paged_attention": pa.KERNEL, "flash_attention_bwd_merged": fa.BWD_MERGED,
             "flash_attention_bwd_dq": fa.BWD_DQ, "flash_attention_bwd_dkv": fa.BWD_DKV,
-            "adam8bit_update": a8.KERNEL, "fused_ce_fwd": ce.FWD, "fused_ce_dh": ce.DH,
+            "adam8bit_update": a8.KERNEL, "fused_ce_fwd_sm90": ce.FWD_SM90,
+            "fused_ce_bwd_sm90": ce.BWD_SM90, "fused_ce_fwd": ce.FWD, "fused_ce_dh": ce.DH,
             "fused_ce_dw": ce.DW, "w8a16_matmul": wm.KERNEL,
             "decode_norm_proj_w8": dl.NORM_PROJ_W8, "decode_post_attn_w8": dl.POST_ATTN_W8,
             "norm_proj_rms": dl.NORM_PROJ_RMS, "post_attn_swiglu": dl.POST_ATTN_SWIGLU,
@@ -1456,8 +1823,8 @@ def counters():
 
 # serving runs no backward, no optimizer and no loss head
 NO_BACKWARD = {"flash_attention_bwd_merged": 0, "flash_attention_bwd_dq": 0,
-               "flash_attention_bwd_dkv": 0, "adam8bit_update": 0, "fused_ce_fwd": 0,
-               "fused_ce_dh": 0, "fused_ce_dw": 0}
+               "flash_attention_bwd_dkv": 0, "adam8bit_update": 0,
+               **{n: 0 for n in CE_SM90 + CE_CUDA_CORE}}
 
 
 def zero_counts() -> None:
@@ -4285,17 +4652,21 @@ def run_train_1p5b(torch, peaks, out_dir=None):
             fh.write(prof.key_averages().table(sort_by="self_cuda_time_total", row_limit=50))
 
     # two variants from the same weights: the loss each reports is the loss
-    # at these weights, which the chunked head gives too
+    # at these weights, which the chunked head gives too; the fused head's
+    # variant also holds its head gradients against the chunked head's
     ref_loss = float(eng.eval_batch(batch))
+    ref_grads = head_grads(eng, batch)
     variants, var_launches = {}, {}
     for path, over, want in (
             ("train_1p5b_dots", {"remat_policy": "dots_saveable"},
              {"adam8bit_update": per_step["adam8bit_update"], "flash_attention_fwd": 2 * L,
               "flash_attention_bwd_merged": L}),
             ("train_1p5b_pallas", {"loss_pallas": True},
-             {**per_step, "fused_ce_fwd": 1, "fused_ce_dh": 1, "fused_ce_dw": 1})):
+             {**per_step, "fused_ce_fwd_sm90": 1, "fused_ce_bwd_sm90": 1})):
         e2, *_ = ds.initialize(model=GPT2LMHeadModel(cfg, device="meta"),
                                config=northstar_config(**over), model_parameters=eng.params)
+        gate = head_gate(torch, ref_grads, head_grads(e2, batch)) if over.get("loss_pallas") \
+            else None
         zero_counts()
         t1 = time.perf_counter()
         loss = float(e2.train_batch(batch))
@@ -4306,6 +4677,8 @@ def run_train_1p5b(torch, peaks, out_dir=None):
         variants[path] = dict(overrides=over, loss=loss, loss_rel_diff=abs(loss / ref_loss - 1),
                               step_ms_first=step_ms, launches=counts,
                               expected_launches={n: want.get(n, 0) for n in counts})
+        if gate is not None:
+            variants[path]["head_gate"] = gate
         del e2
         torch.cuda.empty_cache()
 
@@ -4319,6 +4692,8 @@ def run_train_1p5b(torch, peaks, out_dir=None):
         # bf16 heads against the chunked head at the same weights: the fused
         # head sums in fp32 in another order (and remat changes nothing)
         checks[f"{path}_loss"] = math.isfinite(v["loss"]) and v["loss_rel_diff"] <= 1e-3
+        if "head_gate" in v:
+            checks[f"{path}_head_gate"] = head_gate_ok(v["head_gate"])
     state = eng.optimizer.state_bytes()
     emit(dict(phase="train_1p5b", model="gpt2-1.5b", config=northstar_config(),
               remat_policy=cfg.remat_policy, loss_chunk=cfg.loss_chunk, dtype="bfloat16",
@@ -4339,7 +4714,7 @@ def run_train_1p5b(torch, peaks, out_dir=None):
                            device_busy_share=dev_ms / prof_wall if dev_ms else "not measured",
                            top_device_ms={k[:90]: v for k, v in top}),
               checks=checks))
-    del eng, batch
+    del eng, batch, ref_grads
     torch.cuda.empty_cache()
     return ({"train_1p5b": launches, **var_launches}, opt_res, all(checks.values()))
 
@@ -5790,12 +6165,15 @@ def main() -> int:
     ok &= precision_ok
     mlp_train_launches, mlp_train_ok = run_train_fused_mlp(torch, peaks, train_peak_gb, args.out)
     ok &= mlp_train_ok
+    ce_train_launches, ce_train_ok = run_train_loss_pallas(torch, peaks)
+    ok &= ce_train_ok
     big_launches, opt_res, big_ok = run_train_1p5b(torch, peaks, args.out)
     ok &= big_ok
     # each path's counts were zeroed before it and read after it
     by_path = {"generate": launches, **serve_launches, **w8_launches, **llama_launches,
                **neox_launches, **mlp_launches, **train_launches, **precision_launches,
-               **mlp_train_launches, **big_launches, **sparse_launches, **fops_launches}
+               **ce_train_launches, **mlp_train_launches, **big_launches, **sparse_launches,
+               **fops_launches}
 
     # the kernels' rows at gpt2-760m's heads, which the serve_w8 and
     # generate_w8 paths run
@@ -5846,18 +6224,33 @@ def main() -> int:
         plain_ms=opt_res["plain_event_ms"], bound_ms=opt_res["bound_ms"],
         bound_by=opt_res["bound_by"], library_ms=None,
         shape=f"gpt2-1.5b leaf set: {opt_res['leaves']} leaves, {opt_res['elements']} elements"))
-    ce_lines = {"fused_ce_fwd": ":37", "fused_ce_dh": ":72", "fused_ce_dw": ":101"}
-    for kname, line in ce_lines.items():
+    # the fused CE head: the tensor-core entries at the 1.5B head (the other
+    # bf16 shapes under at_shapes), launched on the loss_pallas paths; the
+    # CUDA-core entries at the fp32 shape, launched on the fp32 path
+    ce_paths = {"fused_ce_fwd_sm90": ("train_loss_pallas", "train_1p5b_pallas"),
+                "fused_ce_bwd_sm90": ("train_loss_pallas", "train_1p5b_pallas"),
+                "fused_ce_fwd": ("train_loss_pallas_fp32",),
+                "fused_ce_dh": ("train_loss_pallas_fp32",),
+                "fused_ce_dw": ("train_loss_pallas_fp32",)}
+    for kname, paths in ce_paths.items():
         r = ce_rows.get(kname)
         if r is None:   # the kernels phase failed before timing it (already not ok)
             continue
-        summary.append(dict(
+        row = dict(
             name=kname, route="cuda", source="deepspeed_tpu_torch/ops/csrc/fused_ce.cu",
-            replaces="deepspeed_tpu/ops/pallas/fused_ce.py" + line, **path_counts(kname),
-            max_abs_err=r["max_err"], ms=r["kernel_ms"], plain_ms=r["plain_ms"],
-            bound_ms=r["bound_ms"], bound_by=r["bound_by"], library_ms=r["library_ms"],
-            shape=r["shape"]))
-    ok &= all(k in ce_rows for k in ce_lines)
+            replaces="deepspeed_tpu/ops/pallas/fused_ce.py" + CE_LINES[kname],
+            **path_counts(kname), max_abs_err=r["max_err"], ms=r["kernel_ms"],
+            plain_ms=r["plain_ms"], bound_ms=r["bound_ms"], bound_by=r["bound_by"],
+            library_ms=r["library_ms"], shape=r["shape"])
+        if kname == "fused_ce_bwd_sm90":   # dlog, then dh and dw: both TPU kernels' work
+            row.update(also_replaces="deepspeed_tpu/ops/pallas/fused_ce.py:101",
+                       device_kernels_ms=r["device_kernels_ms"],
+                       bound_four_products_ms=r["bound_four_products_ms"])
+        if "at_shapes" in r:
+            row["at_shapes"] = r["at_shapes"]
+        summary.append(row)
+        ok &= all(by_path[p][kname] > 0 for p in paths)
+    ok &= all(k in ce_rows for k in ce_paths)
     w8_src = {"w8a16_matmul": ("w8_matmul.cu", "deepspeed_tpu/ops/pallas/w8_matmul.py:35"),
               "decode_norm_proj_w8": ("decode_layer.cu",
                                       "deepspeed_tpu/ops/pallas/decode_layer.py:185"),
