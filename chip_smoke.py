@@ -1269,12 +1269,14 @@ CE_LINES = {"fused_ce_fwd_sm90": ":37", "fused_ce_bwd_sm90": ":72", "fused_ce_fw
             "fused_ce_dh": ":72", "fused_ce_dw": ":101"}
 # (case, dtype, N, E, Vp, vocab, ignored tokens): the 1.5B head (the shifted
 # labels' last position of each 1024-token row ignored), gpt2-125m's
-# micro-batch, a ragged bf16 shape on the tensor-core route and the same in
-# fp32 on the CUDA-core one
+# micro-batch, a ragged bf16 shape on the tensor-core route, the same in
+# fp32 on the CUDA-core one, and a ragged bf16 shape with E % 8 != 0 (the
+# CUDA-core kernels' bf16 builds)
 CE_CASES = (("gpt2-1.5b head", "bfloat16", 2048, 1600, 50304, 50257, "row_end"),
             ("gpt2-125m micro-batch", "bfloat16", 24576, 768, 50304, 50257, "row_end"),
             ("ragged", "bfloat16", 300, 200, 1000, 990, "every_7th"),
-            ("ragged fp32", "float32", 300, 200, 1000, 990, "every_7th"))
+            ("ragged fp32", "float32", 300, 200, 1000, 990, "every_7th"),
+            ("ragged bf16 E%8!=0", "bfloat16", 300, 196, 1000, 990, "every_7th"))
 # the tensor-core route's device kernels (profiler names contain these)
 CE_DEVICE_KERNELS = ("ce_fwd_sm90_kernel", "ce_dlog_sm90_kernel", "ce_dh_sm90_kernel",
                      "ce_dw_sm90_kernel", "ce_fwd_combine")
@@ -1624,11 +1626,12 @@ def run_fused_ce_kernels(torch, peaks):
     """The fused CE head's two routes against ``fused_ce_plain`` /
     ``fused_ce_bwd_plain`` (``ce_check``), timed, at ``CE_CASES`` (bf16: the
     1.5B head, gpt2-125m's micro-batch and a ragged shape on the tensor-core
-    route; fp32: the ragged shape on the CUDA-core route), and the mask and
-    cancellation probes. The backward takes the plain version's lse, so each
-    kernel is held alone. Returns the kernels line's rows: the tensor-core
-    entries at the 1.5B head (the other bf16 shapes under ``at_shapes``),
-    the CUDA-core ones at the fp32 shape."""
+    route; fp32 and bf16 with E % 8 != 0: ragged shapes on the CUDA-core
+    route), and the mask and cancellation probes. The backward takes the
+    plain version's lse, so each kernel is held alone. Returns the kernels
+    line's rows: the tensor-core entries at the 1.5B head (the other bf16
+    shapes under ``at_shapes``), the CUDA-core ones at the fp32 shape (the
+    bf16 build under ``at_shapes``)."""
     by_case, ok = run_fused_ce_checks(torch, timed=True, peaks=peaks)
     keys = ("case", "shape", "max_err", "kernel_ms", "plain_ms", "library_ms", "bound_ms",
             "bound_by")
@@ -1638,7 +1641,10 @@ def run_fused_ce_kernels(torch, peaks):
         row["at_shapes"] = [{k: by_case[c][name].get(k) for k in keys}
                             for c in ("gpt2-125m micro-batch", "ragged")]
         rows[name] = row
-    rows.update(by_case["ragged fp32"])
+    for name in CE_CUDA_CORE:
+        row = dict(by_case["ragged fp32"][name])
+        row["at_shapes"] = [{k: by_case["ragged bf16 E%8!=0"][name].get(k) for k in keys}]
+        rows[name] = row
     return rows, ok
 
 

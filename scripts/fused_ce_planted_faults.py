@@ -20,7 +20,8 @@ all at once, then each variant runs in a process of its own:
 - ``ignored_rows_not_zeroed``: ignore_index rows keep their dlog.
 
 The cases are ``chip_smoke.run_fused_ce_checks``: the smoke's shapes (the
-1.5B head, gpt2-125m's micro-batch, a ragged shape in bf16 and in fp32),
+1.5B head, gpt2-125m's micro-batch, a ragged shape in bf16 and in fp32,
+a ragged bf16 shape with E % 8 != 0 on the CUDA-core kernels),
 each held as the smoke holds it (nll and lse within 1e-4 of max(1, |lse|),
 dh and dw element by element within their limits, the limits' power,
 finite, a bitwise repeat, exact launches), the mask probe and the
