@@ -113,9 +113,11 @@ Run from the root of the repository. Phases, each printing JSON lines:
 7b. train_fused_mlp  the train phase's model and config with
             ``fused_mlp=True``: a gradient gate at micro 2 (the bf16 fused
             engine against the fp32 and the bf16 unfused engines), 2 warm-up
-            and 4 timed steps (12 × 4 launches of each fused FFN kernel per
-            step, peak memory beside the train phase's), a profiled step,
-            and one step under ``dots_saveable`` from the same weights.
+            and 4 timed steps (12 × 4 launches of each fused FFN entry per
+            step: the tensor-core forward and dx, and dw; peak memory beside
+            the train phase's), a profiled step (the forward's, dx's and dw's
+            device ms), and one step under ``dots_saveable`` from the same
+            weights.
 7c. train_loss_pallas  the train phase's model, config, seeded weights and
             batch with ``loss_pallas=True`` (the fused CE head on the tensor
             cores): its loss and the gradients of ``wte`` and ``ln_f``'s scale
@@ -197,19 +199,25 @@ plain version and, as a control that must miss, against the other form's
 decode, paged and flash attention at H=KV=8, D=256 beside SDPA; the w8
 matmul on pythia-1b's four panels.
 
-The kernels phase also holds the fused FFN's three kernels
+The kernels phase also holds the fused FFN's kernels
 (``kernels_fused_mlp``): forward, dx and dw at E=768, F=3072 in bf16 for
 R = 24576 (the flagship micro-batch), 2048, 8 and 1000 rows against their
-plain versions, timed beside the unfused torch pair (forward, and its
-autograd backward beside dx and dw) and the bound; in fp32 at small
-shapes; and a GELU probe (``kernels_fused_mlp_gelu_probe``) whose control,
-the plain versions with the erf GELU, must miss. The bf16 dw kernel (the
-Hopper cluster kernel) also against the plain model of its order, bit for
-bit on a second call, with the library's launches by kernel, its registers
-and spills and the floor with du's and h's lo halves, at E = 64, 384 and a
-ragged R (``kernels_fused_mlp_dw``), and where du's hi halves cancel so its
-lo halves carry dw1 (``kernels_fused_mlp_dw_cancel``: a control with du cast
-to bf16 once must miss).
+plain versions, the forward and dx on both routes (the tensor-core GEMMs
+and the mma.sync kernels; ``main_route`` marks the one the row rule
+gives), timed beside the unfused torch pair (forward, and its autograd
+backward beside dx and dw), dx's own unfused chain and the bound; in fp32
+at small shapes; and a GELU probe (``kernels_fused_mlp_gelu_probe``, both
+bf16 routes) whose control, the plain versions with the erf GELU, must
+miss. The Hopper kernels (the tensor-core forward and dx, the dw cluster
+kernel) also against the plain models of their order, bit for bit on a
+second call, with the library's launches by kernel and their registers and
+spills (``build_fused_mlp_sm90``); dw also with the floor with du's and h's
+lo halves, at E = 64, 384 and a ragged R (``kernels_fused_mlp_dw``). Three
+probes hold fp32 intermediates through cancellation, each with a control
+that rounds the intermediate to bf16 and must miss: du's lo halves in dw1
+(``kernels_fused_mlp_dw_cancel``), u + b1 and the splits' partials in the
+forward (``kernels_fused_mlp_fwd_cancel``), dh across the blocks of E and
+the splits' partials in dx (``kernels_fused_mlp_dx_cancel``).
 
 The kernels phase also holds block-sparse attention (``kernels_sparse``)
 at BERT-large's heads (H=16, D=64): the Fixed layout at B=16, S=512, block
@@ -268,8 +276,8 @@ decode-layer kernels at M=8 and the 760m and 125m widths (125m also with
 one group per panel), each element within its stated limit of the plain
 version; each timed with the plain version, the bound and (w8 matmul) the
 dequantize + ``matmul`` pair; then in fp32. The build log's registers of the
-W8 matmul (``build_w8_matmul``, no spills) and of the dw kernel
-(``build_fused_mlp_dw``) stand beside it.
+W8 matmul (``build_w8_matmul``, no spills) and of the fused FFN's Hopper
+kernels (``build_fused_mlp_sm90``) stand beside it.
 
 The ``kernels`` line gives each kernel's launches per path (``generate``,
 ``serve_paged``, ``serve_contiguous``, ``serve_w8_paged``,
@@ -296,6 +304,7 @@ JSON line (``smoke.jsonl``) there.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import json
 import math
 import os
@@ -1820,6 +1829,7 @@ def counters():
             "post_attn_swiglu_par_w8": dl.post_attn_handle(swiglu=True, parallel_residual=True,
                                                            quant=True),
             "fused_mlp_fwd": fm.FWD, "fused_mlp_bwd_dx": fm.DX, "fused_mlp_bwd_dw": fm.DW,
+            "fused_mlp_fwd_sm90": fm.FWD_SM90, "fused_mlp_bwd_dx_sm90": fm.DX_SM90,
             "sparse_attention_fwd": ssa.KERNEL, "sparse_attention_fwd_fp32": ssa.KERNEL_FP32,
             "layer_norm_fwd": fo.LN_FWD,
             "layer_norm_bwd": fo.LN_BWD, "bias_gelu_fwd": fo.GELU_FWD,
@@ -4729,9 +4739,16 @@ def run_train_1p5b(torch, peaks, out_dir=None):
 # the fused FFN (GPT-2 fused_mlp=True): kernels, serving, training
 # ---------------------------------------------------------------------------
 
-FUSED_MLP_KERNELS = ("fused_mlp_fwd", "fused_mlp_bwd_dx", "fused_mlp_bwd_dw")
+# the wrappers' counters: the mma.sync forward and dx (fp32, and bf16 below
+# fused_mlp.SM90_MIN_ROWS rows), dw, and the tensor-core forward and dx
+FUSED_MLP_KERNELS = ("fused_mlp_fwd", "fused_mlp_bwd_dx", "fused_mlp_bwd_dw",
+                     "fused_mlp_fwd_sm90", "fused_mlp_bwd_dx_sm90")
 NO_FUSED_MLP = {n: 0 for n in FUSED_MLP_KERNELS}
-FUSED_MLP_LINES = {"fused_mlp_fwd": ":31", "fused_mlp_bwd_dx": ":45", "fused_mlp_bwd_dw": ":72"}
+FUSED_MLP_LINES = {"fused_mlp_fwd": ":31", "fused_mlp_bwd_dx": ":45", "fused_mlp_bwd_dw": ":72",
+                   "fused_mlp_fwd_sm90": ":31", "fused_mlp_bwd_dx_sm90": ":45"}
+# the library's kernels behind each tensor-core entry (fused_mlp.KERNELS)
+MLP_SM90_KERNELS = {"fused_mlp_fwd_sm90": ("h_sm90_kernel", "y_sm90_kernel"),
+                    "fused_mlp_bwd_dx_sm90": ("du_sm90_kernel", "dx_sm90_kernel")}
 # gpt2-125m's FFN (the widest the JAX rule fuses in bf16) at the flagship
 # micro-batch (24 x 1024 rows), B=2 x 1024 (the forward and a prefill), an
 # unfused decode tick (8 rows) and a ragged count
@@ -4741,7 +4758,10 @@ MLP_FP32_SHAPES = ((37, 64, 256), (130, 128, 512), (300, 384, 1536))
 # a ragged row count, a hidden width short of a 64-column tile
 DW_EXTRA_SHAPES = ((300, 64, 256), (2048, 384, 1536), (777, 384, 1536), (130, 768, 160))
 DW_SM90_RAN = {"fwd_kernel": 0, "dx_kernel": 0, "dw_sm90_kernel": 1, "dw_kernel": 0,
-               "reduce_kernel": 2}
+               "reduce_kernel": 2, "h_sm90_kernel": 0, "y_sm90_kernel": 0, "du_sm90_kernel": 0,
+               "dx_sm90_kernel": 0}
+# gpt2-125m's FFN, the width of every fused_mlp path
+MLP_E, MLP_F = 768, 3072
 
 
 def mlp_operands(torch, g, R, E, F, dtype, dev="cuda"):
@@ -4785,37 +4805,78 @@ def mlp_limit(torch, got, ref, mag, cast_row: bool):
     return float(d.max()), float((d / lim.clamp(min=1e-30)).max())
 
 
-def mlp_outputs(fm, args, kernels: bool):
-    """``{y, dx, dw1, db1, dw2, db2}`` of the three wrappers or their plain versions."""
+def mlp_outputs(fm, args, kernels: bool, with_dw: bool = True):
+    """``{y, dx, dw1, db1, dw2, db2}`` of the three wrappers or their plain
+    versions (without dw's four when ``with_dw`` is False)."""
     x, w1, b1, w2, b2, dy = args
     if kernels:
-        y = fm.fused_mlp_fwd_op(x, w1, b1, w2, b2)
-        dx = fm.fused_mlp_bwd_dx(x, w1, b1, w2, dy)
-        dw = fm.fused_mlp_bwd_dw(x, w1, b1, w2, dy)
+        out = dict(y=fm.fused_mlp_fwd_op(x, w1, b1, w2, b2),
+                   dx=fm.fused_mlp_bwd_dx(x, w1, b1, w2, dy))
+        dw = fm.fused_mlp_bwd_dw(x, w1, b1, w2, dy) if with_dw else ()
     else:
-        y = fm.fused_mlp_plain(x, w1, b1, w2, b2)
-        dx = fm.fused_mlp_bwd_dx_plain(x, w1, b1, w2, dy)
-        dw = fm.fused_mlp_bwd_dw_plain(x, w1, b1, w2, dy)
-    return dict(y=y, dx=dx, **dict(zip(("dw1", "db1", "dw2", "db2"), dw)))
+        out = dict(y=fm.fused_mlp_plain(x, w1, b1, w2, b2),
+                   dx=fm.fused_mlp_bwd_dx_plain(x, w1, b1, w2, dy))
+        dw = fm.fused_mlp_bwd_dw_plain(x, w1, b1, w2, dy) if with_dw else ()
+    return dict(out, **dict(zip(("dw1", "db1", "dw2", "db2"), dw)))
 
 
-# which kernel produces each output, and whether a bf16 cast sits inside it
+# which kernel produces each output (the forward and dx: their mma.sync
+# entries' names, which mlp_names maps to the route a call takes), and
+# whether a bf16 cast sits inside it
 MLP_OUTPUTS = {"y": ("fused_mlp_fwd", True), "dx": ("fused_mlp_bwd_dx", True),
                "dw1": ("fused_mlp_bwd_dw", False), "db1": ("fused_mlp_bwd_dw", False),
                "dw2": ("fused_mlp_bwd_dw", False), "db2": ("fused_mlp_bwd_dw", False)}
 
 
-def mlp_held(torch, fm, args):
-    """Each kernel's outputs against its plain version: per kernel the
-    largest error, the largest error / limit (over its outputs) and ok."""
-    got, ref = mlp_outputs(fm, args, True), mlp_outputs(fm, args, False)
+def mlp_names(fm, x, w1) -> dict:
+    """The wrapper counters a forward and a dx call on these operands
+    launch: the tensor-core entries where ``mlp_plan`` routes the rows (bf16
+    from ``SM90_MIN_ROWS``), else the mma.sync ones; dw as it is."""
+    sm90 = fm._sm90_plan(x, w1) is not None
+    return {"fused_mlp_fwd": "fused_mlp_fwd_sm90" if sm90 else "fused_mlp_fwd",
+            "fused_mlp_bwd_dx": "fused_mlp_bwd_dx_sm90" if sm90 else "fused_mlp_bwd_dx",
+            "fused_mlp_bwd_dw": "fused_mlp_bwd_dw"}
+
+
+def mlp_path_names(fm, rows: dict, kind: str = "fused_mlp_fwd") -> dict:
+    """Forward (or, with ``kind="fused_mlp_bwd_dx"``, dx) calls by wrapper
+    counter on a gpt2-125m path, from ``{rows of a call: calls}``: each call
+    takes the route ``mlp_plan`` gives its rows (bf16)."""
+    out = {}
+    for R, n in rows.items():
+        name = kind + "_sm90" if fm.mlp_plan(R, MLP_E, MLP_F).sm90 else kind
+        out[name] = out.get(name, 0) + n
+    return out
+
+
+@contextlib.contextmanager
+def forced_route(fm, sm90: bool):
+    """The bf16 forward and dx on the tensor-core entries (``sm90``) or the
+    mma.sync ones at every row count, whatever the row rule says."""
+    saved = fm.SM90_MIN_ROWS
+    fm.SM90_MIN_ROWS = 1 if sm90 else 1 << 62
+    try:
+        yield
+    finally:
+        fm.SM90_MIN_ROWS = saved
+
+
+def mlp_held(torch, fm, args, with_dw: bool = True):
+    """Each kernel's outputs against its plain version: per kernel (named by
+    the route the call takes) the largest error, the largest error / limit
+    (over its outputs) and ok."""
+    names = mlp_names(fm, args[0], args[1])
+    got = mlp_outputs(fm, args, True, with_dw)
+    ref = mlp_outputs(fm, args, False, with_dw)
     torch.cuda.synchronize()
     mags = mlp_mags(torch, fm, *args)
-    per = {k: dict(max_err=0.0, err_over_limit=0.0, outputs={}) for k in FUSED_MLP_KERNELS}
-    for out, (kname, cast_row) in MLP_OUTPUTS.items():
+    per = {}
+    for out, (base, cast_row) in MLP_OUTPUTS.items():
+        if out not in got:
+            continue
         err, ratio = mlp_limit(torch, got[out], ref[out], mags[out], cast_row)
         finite = bool(torch.isfinite(got[out].float()).all())
-        p = per[kname]
+        p = per.setdefault(names[base], dict(max_err=0.0, err_over_limit=0.0, outputs={}))
         p["outputs"][out] = dict(max_err=err, err_over_limit=ratio, finite=finite,
                                  dtype=str(got[out].dtype)[6:],
                                  dtype_ok=got[out].dtype == ref[out].dtype)
@@ -4824,6 +4885,40 @@ def mlp_held(torch, fm, args):
         p["ok"] = all(o["finite"] and o["dtype_ok"] and o["err_over_limit"] <= 1.0
                       for o in p["outputs"].values())
     return per
+
+
+def sm90_held(torch, fm, args) -> dict:
+    """The tensor-core forward and dx, each called twice: identical bits,
+    the library's own counts (per call h_sm90_kernel and y_sm90_kernel, or
+    du_sm90_kernel and dx_sm90_kernel, once a row chunk, and reduce_kernel
+    once where F is split; nothing else), and the output against the plain
+    model of the entry's order (``fused_mlp_tiled_plain``,
+    ``fused_mlp_bwd_dx_tiled_plain``) under ``mlp_limit``. Returns
+    ``{entry: checks}``."""
+    x, w1, b1, w2, b2, dy = args
+    plan = fm.mlp_plan(x.shape[0], x.shape[1], w1.shape[1])
+    chunks = -(-x.shape[0] // plan.chunk_rows)
+    mags = mlp_mags(torch, fm, *args)
+    calls = {"fused_mlp_fwd_sm90": (lambda: fm.fused_mlp_fwd_op(x, w1, b1, w2, b2),
+                                    lambda: fm.fused_mlp_tiled_plain(x, w1, b1, w2, b2), "y"),
+             "fused_mlp_bwd_dx_sm90": (lambda: fm.fused_mlp_bwd_dx(x, w1, b1, w2, dy),
+                                       lambda: fm.fused_mlp_bwd_dx_tiled_plain(x, w1, b1, w2, dy),
+                                       "dx")}
+    res = {}
+    for name, (call, tiled, out) in calls.items():
+        before = fm.kernel_launches()
+        got, again = call(), call()
+        torch.cuda.synchronize()
+        ran = {k: v - before[k] for k, v in fm.kernel_launches().items()}
+        want = {k: 0 for k in ran}
+        want.update({k: 2 * chunks for k in MLP_SM90_KERNELS[name]},
+                    reduce_kernel=2 if plan.splits > 1 else 0)
+        _, ratio = mlp_limit(torch, got, tiled(), mags[out], True)
+        res[name] = dict(tiled_err_over_limit=ratio, bitwise_repeat=torch.equal(got, again),
+                         launches_by_kernel={k: v for k, v in ran.items() if v},
+                         sm90_ok=ran == want, plan=plan._asdict())
+        res[name]["ok"] = ratio <= 1.0 and res[name]["bitwise_repeat"] and res[name]["sm90_ok"]
+    return res
 
 
 def dw_held(torch, fm, args) -> dict:
@@ -4918,6 +5013,123 @@ def dw_cancel_probe(torch, fm, R=64, E=768, F=3072, dev="cuda") -> dict:
                 ok=ratio <= 1.0 and control > 1.0)
 
 
+def _split_plan(fm, R):
+    """``mlp_plan(R)`` at gpt2-125m's FFN, which must split F on the
+    tensor-core route: its second split starts at hidden column
+    ``k_blocks * K_BLOCK``."""
+    plan = fm.mlp_plan(R, MLP_E, MLP_F)
+    if not (plan.sm90 and plan.splits > 1):
+        raise ValueError(f"mlp_plan({R}) does not split F on the tensor-core route: {plan}")
+    return plan
+
+
+def fwd_cancel_probe(torch, fm, R=2048, dev="cuda") -> dict:
+    """y where fp32 intermediates carry the result through cancellation.
+    x's columns 0-2 are 1 (the rest 0). Hidden columns A (64 in each of the
+    first two splits of F): w1[0] = 256, w1[1] = d (bf16 in [-3, 3]), b1 =
+    -256, so u + b1 = d only in fp32 (bf16(256 + d) is a multiple of 2).
+    Columns fa (first split) and fb (second): w1[2] = G = 128, b1 = 0, so h
+    = gelu(G) = G. w2 selects y[:, e] = (h[A0[e]] + G) + (h[A1[e]] - G) for
+    e < 64: each split's fp32 partial holds G + h, which bf16 rounds to a
+    multiple of 1. Returns y against the plain version under ``mlp_limit``
+    (must hold) and against two controls that must miss: u rounded to bf16
+    before b1, and the splits' partials rounded to bf16 before their sum."""
+    bf = torch.bfloat16
+    g = torch.Generator(device=dev).manual_seed(SEED + 22)
+    plan = _split_plan(fm, R)
+    n, G, b = 64, 128.0, plan.k_blocks * fm.K_BLOCK
+    A0, A1 = torch.arange(n, device=dev), torch.arange(b, b + n, device=dev)
+    fa, fb = n, b + n
+    x = torch.zeros((R, MLP_E), device=dev)
+    x[:, :3] = 1.0
+    w1 = torch.zeros((MLP_E, MLP_F), device=dev)
+    b1 = torch.zeros(MLP_F, device=dev)
+    d = (6 * torch.rand(2 * n, generator=g, device=dev) - 3).to(bf).float()
+    for cols, dv in ((A0, d[:n]), (A1, d[n:])):
+        w1[0, cols], w1[1, cols], b1[cols] = 256.0, dv, -256.0
+    w1[2, fa] = w1[2, fb] = G
+    w2 = torch.zeros((MLP_F, MLP_E), device=dev)
+    e = torch.arange(n, device=dev)
+    w2[A0, e] = w2[A1, e] = 1.0
+    w2[fa, :n], w2[fb, :n] = 1.0, -1.0
+    args = (x.to(bf), w1.to(bf), b1.to(bf), w2.to(bf), torch.zeros(MLP_E, device=dev),
+            torch.zeros((R, MLP_E), device=dev, dtype=bf))
+    got = fm.fused_mlp_fwd_op(*args[:5])
+    ref = fm.fused_mlp_plain(*args[:5])
+    xf, w1f, b1f, w2f = (t.float() for t in args[:4])
+    u = (xf @ w1f).to(bf).float() + b1f        # control 1: u in bf16 before b1
+    ctrl_u = (fm.gelu_tanh(u).to(bf).float() @ w2f).to(bf)
+    h = fm.gelu_tanh(xf @ w1f + b1f).to(bf).float()
+    width = plan.k_blocks * fm.K_BLOCK       # control 2: each split's partial in bf16
+    parts = [(h[:, c:c + width] @ w2f[c:c + width]).to(bf).float() for c in range(0, MLP_F, width)]
+    ctrl_split = sum(parts).to(bf)
+    torch.cuda.synchronize()
+    mag = mlp_mags(torch, fm, *args)["y"]
+    _, ratio = mlp_limit(torch, got, ref, mag, True)
+    _, c_u = mlp_limit(torch, got, ctrl_u, mag, True)
+    _, c_split = mlp_limit(torch, got, ctrl_split, mag, True)
+    return dict(err_over_limit=ratio, control_u_bf16_err_over_limit=c_u,
+                control_split_bf16_err_over_limit=c_split, plan=plan._asdict(),
+                ok=ratio <= 1.0 and c_u > 1.0 and c_split > 1.0)
+
+
+def dx_cancel_probe(torch, fm, R=2048, dev="cuda") -> dict:
+    """dx where fp32 intermediates carry the result through cancellation.
+    x = 0 (u = b1, b1 in [-3, 3] on hidden columns A: 64 in each of the
+    first two splits of F). dy's columns 0, 1 and 64 are 1 (two 64-wide
+    blocks of the contraction over E): w2[A, 0] = 64, w2[A, 1] = c (bf16 in
+    [-0.25, 0.25]), w2[A, 64] = -64, so dh = c only in fp32 across the
+    blocks (bf16(64 + c) - 64 is 0). Columns fa (first split) and fb
+    (second): w2[., 2] = 32 with dy's column 2 = 1 and b1 = 10 (gelu' = 1),
+    so du = 32. w1 selects dx[:, e] = (du[A0[e]] + 32) + (du[A1[e]] - 32) for
+    e < 64, each split's fp32 partial holding 32 + du, which bf16 rounds to
+    a multiple of 0.25. Returns dx against the plain version under
+    ``mlp_limit`` (must hold) and against two controls that must miss: dh's
+    first block rounded to bf16 before the second's, and the splits'
+    partials rounded to bf16 before their sum."""
+    bf = torch.bfloat16
+    g = torch.Generator(device=dev).manual_seed(SEED + 23)
+    plan = _split_plan(fm, R)
+    n, b = 64, plan.k_blocks * fm.K_BLOCK
+    A = torch.cat([torch.arange(n, device=dev), torch.arange(b, b + n, device=dev)])
+    fa, fb = n, b + n
+    b1 = torch.zeros(MLP_F, device=dev)
+    b1[A] = (6 * torch.rand(2 * n, generator=g, device=dev) - 3).to(bf).float()
+    b1[fa] = b1[fb] = 10.0
+    dy = torch.zeros((R, MLP_E), device=dev)
+    dy[:, [0, 1, 2, 64]] = 1.0
+    w2 = torch.zeros((MLP_F, MLP_E), device=dev)
+    c = (0.5 * torch.rand(2 * n, generator=g, device=dev) - 0.25).to(bf).float()
+    w2[A, 0], w2[A, 1], w2[A, 64] = 64.0, c, -64.0
+    w2[fa, 2] = w2[fb, 2] = 32.0
+    w1 = torch.zeros((MLP_E, MLP_F), device=dev)
+    e = torch.arange(n, device=dev)
+    w1[e, A[:n]] = w1[e, A[n:]] = 1.0
+    w1[:n, fa], w1[:n, fb] = 1.0, -1.0
+    args = (torch.zeros((R, MLP_E), device=dev, dtype=bf), w1.to(bf), b1.to(bf), w2.to(bf),
+            torch.zeros(MLP_E, device=dev), dy.to(bf))
+    got = fm.fused_mlp_bwd_dx(*args[:4], args[5])
+    ref = fm.fused_mlp_bwd_dx_plain(*args[:4], args[5])
+    w1f, b1f, w2f, dyf = args[1].float(), args[2].float(), args[3].float(), args[5].float()
+    gp = fm.gelu_tanh_grad(b1f)
+    # control 1: dh's first 64-wide block of E in bf16, then the rest added
+    dh = (dyf[:, :64] @ w2f[:, :64].T).to(bf).float() + dyf[:, 64:] @ w2f[:, 64:].T
+    ctrl_dh = ((dh * gp).to(bf).float() @ w1f.T).to(bf)
+    du = ((dyf @ w2f.T) * gp).to(bf).float()
+    width = plan.k_blocks * fm.K_BLOCK       # control 2: each split's partial in bf16
+    parts = [(du[:, c:c + width] @ w1f[:, c:c + width].T).to(bf).float()
+             for c in range(0, MLP_F, width)]
+    ctrl_split = sum(parts).to(bf)
+    torch.cuda.synchronize()
+    mag = mlp_mags(torch, fm, *args)["dx"]
+    _, ratio = mlp_limit(torch, got, ref, mag, True)
+    _, c_dh = mlp_limit(torch, got, ctrl_dh, mag, True)
+    _, c_split = mlp_limit(torch, got, ctrl_split, mag, True)
+    return dict(err_over_limit=ratio, control_dh_bf16_err_over_limit=c_dh,
+                control_split_bf16_err_over_limit=c_split, plan=plan._asdict(),
+                ok=ratio <= 1.0 and c_dh > 1.0 and c_split > 1.0)
+
+
 def run_dw_checks(torch) -> bool:
     """The bf16 dw kernel untimed at ``MLP_SHAPES`` and ``DW_EXTRA_SHAPES``
     (``dw_case``), for ``scripts/fused_mlp_planted_faults.py``."""
@@ -4987,35 +5199,50 @@ def mlp_bounds(R, E, F, item, peaks, fp32):
                                          fp32)}
 
 
-def run_kernels_fused_mlp(torch, F_, peaks, dw_build=()):
-    """The three fused FFN kernels against their plain versions on the card:
-    bf16 at ``MLP_SHAPES`` (each kernel's device time, its plain version's,
-    the library's and the bound), fp32 at ``MLP_FP32_SHAPES`` (checked, not
-    timed), then ``fused_mlp_gelu_probe`` in bf16 and fp32. Library: the
-    unfused torch pair ``F.linear`` → tanh GELU → ``F.linear`` (forward), and
-    that pair's autograd backward (all five gradients) beside dx and dw (no
-    one call computes the fused function). The bf16 dw kernel also against
-    the plain model of its order, bit for bit on a second call, with the
-    library's launches by kernel (``dw_held``), its floor with the hi + lo
-    products (6 of 2·R·E·F flops) and its registers (``dw_build``), at
-    ``MLP_SHAPES`` and ``DW_EXTRA_SHAPES``. Returns ({kernel: row at the
-    flagship shape, with the other shapes under ``at_shapes``}, ok)."""
+def mlp_build_regs(mlp_build) -> tuple[dict, dict]:
+    """Registers and spill bytes from the fused_mlp library's ``-Xptxas -v``
+    log: the bf16 dw kernel's by E-chunk (``"3"``: 192 columns), and the
+    tensor-core forward's and dx's kernels by entry and instantiation."""
+    def short(sym, k):
+        rest = sym.split(k, 1)[1]
+        return k + (f"<{rest[3:rest.index('E')]}>" if rest.startswith("ILi") else "")
+    dw = {r["symbol"].split("dw_sm90_kernelILi")[1][0]: {
+        k: r.get(k) for k in ("registers", "spill_bytes")}
+        for r in mlp_build if "dw_sm90_kernelILi" in r["symbol"]}
+    sm90 = {entry: {short(r["symbol"], k): {x: r.get(x) for x in ("registers", "spill_bytes")}
+                    for k in kernels for r in mlp_build if k in r["symbol"]}
+            for entry, kernels in MLP_SM90_KERNELS.items()}
+    return dw, sm90
+
+
+def run_kernels_fused_mlp(torch, F_, peaks, mlp_build=()):
+    """The fused FFN kernels against their plain versions on the card. bf16
+    at ``MLP_SHAPES``: the forward and dx on both routes (the tensor-core
+    entries and the mma.sync ones; ``main_route`` marks the one the row rule
+    gives the wrappers), every output held against the plain version; the
+    tensor-core entries also against the plain models of their order, bit
+    for bit on a second call, with the library's launches by kernel
+    (``sm90_held``) and their registers and spills (``mlp_build``); dw held
+    as before (``dw_held``, its floor with the hi + lo products, its
+    registers). Each row carries its device time, its plain version's, the
+    library's and the bound; dx's rows also dx's own unfused chain
+    (``unfused_chain_ms``: ``F.linear(x, w1ᵀ, b1)``, ``dy @ w2ᵀ``,
+    ``aten.gelu_backward(..., approximate="tanh")``, ``@ w1ᵀ``). Library:
+    the unfused torch pair ``F.linear`` → tanh GELU → ``F.linear`` (forward),
+    and that pair's autograd backward (all five gradients) beside dx and dw
+    (no one call computes the fused function). Then dw's other plans
+    (``DW_EXTRA_SHAPES``), the cancellation probes of dw, the forward and dx,
+    fp32 at ``MLP_FP32_SHAPES`` (checked, not timed) and the GELU probes in
+    bf16 and fp32. Returns ({kernel: row at the flagship shape, with the
+    other shapes under ``at_shapes``}, ok)."""
     from deepspeed_tpu_torch.ops import fused_mlp as fm
 
     g = torch.Generator(device="cuda").manual_seed(SEED + 20)
-    regs = {r["symbol"].split("dw_sm90_kernelILi")[1][0]: {
-        k: r.get(k) for k in ("registers", "spill_bytes")} for r in dw_build}
+    regs, sm90_regs = mlp_build_regs(mlp_build)
     rows, ok = {}, True
     for R, E, F in MLP_SHAPES:
         args = mlp_operands(torch, g, R, E, F, torch.bfloat16)
         x, w1, b1, w2, b2, dy = args
-        held = mlp_held(torch, fm, args)
-        dwh = dw_held(torch, fm, args)
-        held["fused_mlp_bwd_dw"].update(
-            dwh, hi_lo_floor_ms=6 * 2.0 * R * E * F / peaks[1] * 1e3,
-            registers=regs.get(str(dwh["plan"]["chunk"] // 64)))
-        held["fused_mlp_bwd_dw"]["ok"] &= (dwh["tiled_err_over_limit"] <= 1.0
-                                           and dwh["bitwise_repeat"] and dwh["sm90_ok"])
         w1t, w2t, b2b = w1.T.contiguous(), w2.T.contiguous(), b2.to(torch.bfloat16)
         lib_in = [t.clone().requires_grad_() for t in (x, w1t, b1, w2t, b2b)]
 
@@ -5025,42 +5252,72 @@ def run_kernels_fused_mlp(torch, F_, peaks, dw_build=()):
         def lib_fwd_bwd():
             return torch.autograd.grad(lib_fwd(), lib_in, dy)
 
+        def dx_chain():
+            u = F_.linear(x, w1t, b1)
+            return torch.ops.aten.gelu_backward(dy @ w2t, u, approximate="tanh") @ w1t
+
         iters = 5 if R >= 2048 else 20
         lib_f = device_ms(torch, lib_fwd, iters)
         lib_fb = device_ms(torch, lib_fwd_bwd, iters)
         lib_b = lib_fb - lib_f if lib_fb and lib_f else None
-        timing = {
-            "fused_mlp_fwd": (lambda: fm.fused_mlp_fwd_op(x, w1, b1, w2, b2),
-                              lambda: fm.fused_mlp_plain(x, w1, b1, w2, b2), lib_f),
-            "fused_mlp_bwd_dx": (lambda: fm.fused_mlp_bwd_dx(x, w1, b1, w2, dy),
-                                 lambda: fm.fused_mlp_bwd_dx_plain(x, w1, b1, w2, dy), lib_b),
-            "fused_mlp_bwd_dw": (lambda: fm.fused_mlp_bwd_dw(x, w1, b1, w2, dy),
-                                 lambda: fm.fused_mlp_bwd_dw_plain(x, w1, b1, w2, dy), lib_b)}
+        chain_ms = device_ms(torch, dx_chain, iters)
+        calls = {"fwd": (lambda: fm.fused_mlp_fwd_op(x, w1, b1, w2, b2),
+                         lambda: fm.fused_mlp_plain(x, w1, b1, w2, b2), lib_f),
+                 "dx": (lambda: fm.fused_mlp_bwd_dx(x, w1, b1, w2, dy),
+                        lambda: fm.fused_mlp_bwd_dx_plain(x, w1, b1, w2, dy), lib_b),
+                 "dw": (lambda: fm.fused_mlp_bwd_dw(x, w1, b1, w2, dy),
+                        lambda: fm.fused_mlp_bwd_dw_plain(x, w1, b1, w2, dy), lib_b)}
+        plain_ms = {k: device_ms(torch, c[1], 3) for k, c in calls.items()}
         bounds = mlp_bounds(R, E, F, 2, peaks, False)
-        for name, (kern, plain, lib) in timing.items():
-            b_ms, b_by = bounds[name]
-            row = dict(phase="kernels_fused_mlp", name=name, shape=f"R={R} E={E} F={F} bfloat16",
-                       **held[name], limit="mlp_limit: 1e-5 of the fp32 addends' magnitudes + "
-                       "one bf16 ulp (+ half an ulp of the row's largest output in y and dx)",
-                       kernel_ms=device_ms(torch, kern, iters),
-                       kernel_event_ms=cuda_ms(torch, kern, iters),
-                       plain_ms=device_ms(torch, plain, 3), library_ms=lib,
-                       library="unfused pair F.linear -> gelu(tanh) -> F.linear" + (
-                           " forward" if name == "fused_mlp_fwd" else
-                           ", autograd backward (all five gradients)"),
-                       bound_ms=b_ms, bound_by=b_by)
-            row["ok"] = row["ok"] and row["kernel_ms"] is not None
-            emit(row)
-            ok &= row["ok"]
-            if R == MLP_SHAPES[0][0]:
-                rows[name] = dict(row, at_shapes=[])
-            else:
-                rows[name]["at_shapes"].append({k: row[k] for k in (
-                    "shape", "max_err", "err_over_limit", "kernel_ms", "plain_ms", "library_ms",
-                    "bound_ms", "bound_by", "hi_lo_floor_ms") if k in row})
-        del args, x, w1, b1, w2, b2, dy, lib_in, held
+        main = set(mlp_names(fm, x, w1).values())
+        for sm90 in (True, False):
+            with forced_route(fm, sm90):
+                held = mlp_held(torch, fm, args, with_dw=sm90)
+                extra = sm90_held(torch, fm, args) if sm90 else {}
+                if sm90:
+                    dwh = dw_held(torch, fm, args)
+                    held["fused_mlp_bwd_dw"].update(
+                        dwh, hi_lo_floor_ms=6 * 2.0 * R * E * F / peaks[1] * 1e3,
+                        registers=regs.get(str(dwh["plan"]["chunk"] // 64)))
+                    held["fused_mlp_bwd_dw"]["ok"] &= (dwh["tiled_err_over_limit"] <= 1.0
+                                                       and dwh["bitwise_repeat"] and dwh["sm90_ok"])
+                for name, h in held.items():
+                    kind = "dw" if name.endswith("dw") else "dx" if "dx" in name else "fwd"
+                    kern, _, lib = calls[kind]
+                    base = {"fwd": "fused_mlp_fwd", "dx": "fused_mlp_bwd_dx",
+                            "dw": "fused_mlp_bwd_dw"}[kind]
+                    b_ms, b_by = bounds[base]
+                    row = dict(phase="kernels_fused_mlp", name=name, shape=f"R={R} E={E} F={F} bfloat16",
+                               route="mma.sync" if name in ("fused_mlp_fwd", "fused_mlp_bwd_dx")
+                               else "sm90", main_route=name in main, **h,
+                               limit="mlp_limit: 1e-5 of the fp32 addends' magnitudes + "
+                               "one bf16 ulp (+ half an ulp of the row's largest output in y and dx)",
+                               kernel_ms=device_ms(torch, kern, iters),
+                               kernel_event_ms=cuda_ms(torch, kern, iters),
+                               plain_ms=plain_ms[kind], library_ms=lib,
+                               library="unfused pair F.linear -> gelu(tanh) -> F.linear" + (
+                                   " forward" if kind == "fwd" else
+                                   ", autograd backward (all five gradients)"),
+                               bound_ms=b_ms, bound_by=b_by)
+                    if name in extra:
+                        row.update(extra[name], ok=h["ok"] and extra[name]["ok"],
+                                   registers=sm90_regs.get(name))
+                    if kind == "dx":
+                        row["unfused_chain_ms"] = chain_ms
+                    row["ok"] = row["ok"] and row["kernel_ms"] is not None
+                    emit(row)
+                    ok &= row["ok"]
+                    if R == MLP_SHAPES[0][0]:
+                        rows[name] = dict(row, at_shapes=[])
+                    else:
+                        rows[name]["at_shapes"].append({k: row[k] for k in (
+                            "shape", "main_route", "max_err", "err_over_limit",
+                            "tiled_err_over_limit", "kernel_ms", "plain_ms", "library_ms",
+                            "unfused_chain_ms", "bound_ms", "bound_by", "hi_lo_floor_ms")
+                            if k in row})
+        del args, x, w1, b1, w2, b2, dy, lib_in, held, w1t, w2t
         torch.cuda.empty_cache()
-    # the dw kernel's other plans, checked and timed alone; then du's lo half
+    # the dw kernel's other plans, checked and timed alone; then the probes
     for R, E, F in DW_EXTRA_SHAPES:
         ok &= dw_case(torch, fm, mlp_operands(torch, g, R, E, F, torch.bfloat16), peaks,
                       regs)["ok"]
@@ -5068,20 +5325,70 @@ def run_kernels_fused_mlp(torch, F_, peaks, dw_build=()):
     emit(dict(phase="kernels_fused_mlp_dw_cancel", shape="R=64 E=768 F=3072 bfloat16",
               limit="mlp_limit on dw1; the control (du cast to bf16 once) must miss", **probe))
     ok &= probe["ok"]
+    ok &= run_fwd_dx_probes(torch, fm)
     for R, E, F in MLP_FP32_SHAPES:
         held = mlp_held(torch, fm, mlp_operands(torch, g, R, E, F, torch.float32))
         for name, h in held.items():
             emit(dict(phase="kernels_fused_mlp_fp32", name=name, shape=f"R={R} E={E} F={F}", **h,
                       limit="mlp_limit: 1e-5 of the fp32 addends' magnitudes"))
             ok &= h["ok"]
-    for dt, R, E, F, band in ((torch.bfloat16, 8, 768, 3072, (-3.2, -2.6)),
-                              (torch.float32, 3, 64, 256, (2.3, 3.2))):
-        probe = fused_mlp_gelu_probe(torch, fm, R, E, F, dt, band)
+    # the GELU's form on both bf16 routes (R = 8 takes the mma.sync kernels
+    # by the row rule; forced, the tensor-core ones) and in fp32
+    for dt, R, E, F, band, sm90 in ((torch.bfloat16, 8, 768, 3072, (-3.2, -2.6), False),
+                                    (torch.bfloat16, 8, 768, 3072, (-3.2, -2.6), True),
+                                    (torch.float32, 3, 64, 256, (2.3, 3.2), False)):
+        with forced_route(fm, sm90):
+            probe = fused_mlp_gelu_probe(torch, fm, R, E, F, dt, band)
         row_ok = all(p["ok"] for p in probe.values())
         emit(dict(phase="kernels_fused_mlp_gelu_probe", shape=f"R={R} E={E} F={F} {str(dt)[6:]}",
-                  b1_band=band, outputs=probe, ok=row_ok))
+                  route="sm90" if sm90 else "mma.sync", b1_band=band, outputs=probe, ok=row_ok))
         ok &= row_ok
     return rows, ok
+
+
+def run_fwd_dx_probes(torch, fm) -> bool:
+    """The tensor-core forward's and dx's cancellation probes
+    (``kernels_fused_mlp_fwd_cancel``, ``kernels_fused_mlp_dx_cancel``)."""
+    ok = True
+    for phase, name, probe, carried in (
+            ("kernels_fused_mlp_fwd_cancel", "fused_mlp_fwd_sm90", fwd_cancel_probe,
+             "u + b1 before the GELU, the splits' partials"),
+            ("kernels_fused_mlp_dx_cancel", "fused_mlp_bwd_dx_sm90", dx_cancel_probe,
+             "dh across the blocks of E, the splits' partials")):
+        res = probe(torch, fm)
+        emit(dict(phase=phase, name=name, shape=f"R=2048 E={MLP_E} F={MLP_F} bfloat16",
+                  max_err=None, carried_in_fp32=carried,
+                  limit="mlp_limit; each control (that intermediate rounded to bf16) must miss",
+                  **res))
+        ok &= res["ok"]
+    return ok
+
+
+def run_fwd_dx_checks(torch) -> bool:
+    """The tensor-core forward and dx untimed at ``MLP_SHAPES``: every
+    output within ``mlp_limit`` of the plain version and of the plain model
+    of the entry's order, finite, a bitwise repeat, exact launches by kernel
+    (``sm90_held``); then their cancellation probes. For
+    ``scripts/fused_mlp_planted_faults.py``."""
+    from deepspeed_tpu_torch.ops import fused_mlp as fm
+
+    g = torch.Generator(device="cuda").manual_seed(SEED + 20)
+    ok = True
+    with forced_route(fm, True):
+        for R, E, F in MLP_SHAPES:
+            args = mlp_operands(torch, g, R, E, F, torch.bfloat16)
+            held = mlp_held(torch, fm, args, with_dw=False)
+            extra = sm90_held(torch, fm, args)
+            for name, h in held.items():
+                row = dict(phase="kernels_fused_mlp", name=name, shape=f"R={R} E={E} F={F} bfloat16",
+                           **h, **{k: v for k, v in extra[name].items() if k != "ok"})
+                row["ok"] = h["ok"] and extra[name]["ok"]
+                emit(row)
+                ok &= row["ok"]
+            del args
+            torch.cuda.empty_cache()
+        ok &= run_fwd_dx_probes(torch, fm)
+    return ok
 
 
 def run_slice_fused_mlp(torch, out_dir=None):
@@ -5103,6 +5410,7 @@ def run_slice_fused_mlp(torch, out_dir=None):
 
     import deepspeed_tpu_torch as ds
     from deepspeed_tpu_torch.models.gpt2 import GPT2LMHeadModel, gpt2_config
+    from deepspeed_tpu_torch.ops import fused_mlp as fm
 
     cfg = gpt2_config("gpt2-125m", fused_mlp=True)
     L, V = cfg.n_layer, cfg.vocab_size
@@ -5135,7 +5443,7 @@ def run_slice_fused_mlp(torch, out_dir=None):
     launches = read_counts()
     by_path["forward_fused_mlp"] = launches
     expected = {n: 0 for n in launches}
-    expected.update({"flash_attention_fwd": 2 * L, "fused_mlp_fwd": 2 * L})
+    expected.update({"flash_attention_fwd": 2 * L, **mlp_path_names(fm, {2 * 1024: 2 * L})})
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     lu = unfused(ids)
@@ -5188,8 +5496,9 @@ def run_slice_fused_mlp(torch, out_dir=None):
         by_path[path] = launches
         ticks = new - 1
         expected = {n: 0 for n in launches}
+        # the prompt's prefill (8 x 256 rows), then every unfused tick's 8 rows
         expected.update({"decode_attention": L * ticks,
-                         "fused_mlp_fwd": L * (1 + (0 if fused else ticks))})
+                         **mlp_path_names(fm, {8 * 256: L, **({} if fused else {8: L * ticks})})})
         if fused:
             expected.update({"norm_qkv": L * ticks, "post_attn": L * ticks})
         tf = teacher_forced(torch, ref32, [(s, 256) for s in out], V)
@@ -5214,9 +5523,13 @@ def run_slice_fused_mlp(torch, out_dir=None):
     chunks = batcher.prefill_chunks - chunks0
     singles = nums["ticks"] + nums["one_token_prefills"]
     multi = sum(n for (B, S), n in chunks.items() if S > 1)
+    mlp_rows = {}   # each multi-token chunk's B x S rows, once a layer
+    for (B, S), n in chunks.items():
+        if S > 1:
+            mlp_rows[B * S] = mlp_rows.get(B * S, 0) + L * n
     expected = {n: 0 for n in launches}
     expected.update({"paged_attention": L * singles, "norm_qkv": L * singles,
-                     "post_attn": L * singles, "fused_mlp_fwd": L * multi})
+                     "post_attn": L * singles, **mlp_path_names(fm, mlp_rows)})
     tf = teacher_forced(torch, ref32, [(outs[i], len(reqs[i]["prompt"]))
                                        for i in range(0, len(reqs), 2)], V)
     checks["serve_launch_counts"] = launches == expected and multi > 0
@@ -5243,15 +5556,18 @@ def run_train_fused_mlp(torch, peaks, unfused_peak_gb, out_dir=None):
     cosine with fp32 ≥ 0.99, and a relative L2 distance from fp32 at most
     twice the unfused bf16 engine's plus 1e-3), 2 warm-up and 4 timed
     steps (losses finite and falling; exactly 12 × 4 launches per step of
-    each fused FFN kernel and of the flash forward and merged backward; peak
-    memory beside the unfused train phase's), one profiled step, and one
-    step of an engine under ``remat_policy="dots_saveable"`` from the same
-    weights (its loss within 1e-3 of the non-remat engine's at those
+    each fused FFN entry the row rule gives 24576 rows, the tensor-core
+    forward and dx, and dw, and of the flash forward and merged backward;
+    peak memory beside the unfused train phase's), one profiled step, and
+    one step of an engine under ``remat_policy="dots_saveable"`` from the
+    same weights (its loss within 1e-3 of the non-remat engine's at those
     weights; the recompute reruns the fused forward and the flash forward:
     2 × 12 × 4 launches of each, 12 × 4 of each backward kernel). The
-    library's own counts show every timed dw call ran the Hopper kernel
-    (``dw_sm90_kernel``) and none the fp32 one; the profiled step gives its
-    dw device ms beside the step's."""
+    library's own counts show every timed call ran the Hopper kernels
+    (``dw_sm90_kernel``; ``h_sm90_kernel`` and ``y_sm90_kernel``,
+    ``du_sm90_kernel`` and ``dx_sm90_kernel`` once a row chunk) and none
+    of the others; the profiled step gives the forward's, dx's and dw's
+    device ms beside the step's."""
     import dataclasses
 
     import numpy as np
@@ -5300,7 +5616,8 @@ def run_train_fused_mlp(torch, peaks, unfused_peak_gb, out_dir=None):
                   for v in leaves.values())
     worst = max(leaves, key=lambda n: leaves[n]["rel_fused_fp32"] / max(
         leaves[n]["rel_unfused_fp32"], 1e-12))
-    one = {"fused_mlp_fwd": L, "fused_mlp_bwd_dx": L, "fused_mlp_bwd_dw": L}
+    one = {**mlp_path_names(fm, {2 * 1024: L}),
+           **mlp_path_names(fm, {2 * 1024: L}, "fused_mlp_bwd_dx"), "fused_mlp_bwd_dw": L}
     checks = {"grad_gate": gate_ok,
               "grad_gate_launches": all(cf[k] == v for k, v in one.items())
               and all(c32[k] == 0 and cu[k] == 0 for k in one)}
@@ -5335,10 +5652,13 @@ def run_train_fused_mlp(torch, peaks, unfused_peak_gb, out_dir=None):
     by_kernel = {k: v - by_kernel[k] for k, v in fm.kernel_launches().items()}
     peak_gb = torch.cuda.max_memory_allocated() / 2 ** 30
     losses = [float(x) for x in torch.cat([warm, losses])]
-    per_step = {**{k: L * gas for k in FUSED_MLP_KERNELS}, "flash_attention_fwd": L * gas,
+    per_step = {**mlp_path_names(fm, {micro * S: L * gas}),
+                **mlp_path_names(fm, {micro * S: L * gas}, "fused_mlp_bwd_dx"),
+                "fused_mlp_bwd_dw": L * gas, "flash_attention_fwd": L * gas,
                 "flash_attention_bwd_merged": L * gas}
     expected = {n: steps * per_step.get(n, 0) for n in launches}
     tok_s = steps * micro * gas * S / wall
+    chunks = -(-micro * S // fm.mlp_plan(micro * S, MLP_E, MLP_F).chunk_rows)
 
     eng.train_batch(batch)
     torch.cuda.synchronize()
@@ -5350,6 +5670,8 @@ def run_train_fused_mlp(torch, peaks, unfused_peak_gb, out_dir=None):
     by_name = device_ms_of(prof)
     dev_ms = sum(by_name.values())
     dw_ms = sum(v for k, v in by_name.items() if "dw_sm90_kernel" in k)
+    fwd_ms = sum(v for k, v in by_name.items() if "h_sm90_kernel" in k or "y_sm90_kernel" in k)
+    dx_ms = sum(v for k, v in by_name.items() if "du_sm90_kernel" in k or "dx_sm90_kernel" in k)
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:12]
     if out_dir:
         with open(os.path.join(out_dir, "profile_train_fused_mlp_step.txt"), "w") as fh:
@@ -5368,16 +5690,22 @@ def run_train_fused_mlp(torch, peaks, unfused_peak_gb, out_dir=None):
     torch.cuda.synchronize()
     remat_ms = (time.perf_counter() - t1) * 1e3
     remat_launches = read_counts()
-    remat_want = {**per_step, "fused_mlp_fwd": 2 * L * gas, "flash_attention_fwd": 2 * L * gas}
+    remat_want = {**per_step, **mlp_path_names(fm, {micro * S: 2 * L * gas}),
+                  "flash_attention_fwd": 2 * L * gas}
     remat_expected = {n: remat_want.get(n, 0) for n in remat_launches}
     del e2
     checks.update({
         "losses_finite": all(math.isfinite(x) for x in losses + [remat_loss, ref_loss]),
         "loss_falling": losses[-1] < losses[2] and losses[-1] < losses[0],
         "launch_counts": launches == expected,
-        # each step's L x gas dw calls ran the Hopper kernel, none the fp32 one
+        # each step's L x gas dw calls ran the Hopper kernel, none the fp32 one;
+        # the forward and dx calls their tensor-core GEMMs, once a row chunk
         "dw_launches_by_kernel": by_kernel["dw_sm90_kernel"] == steps * L * gas
         and by_kernel["dw_kernel"] == 0,
+        "fwd_dx_launches_by_kernel": all(
+            by_kernel[k] == steps * L * gas * chunks for k in (
+                "h_sm90_kernel", "y_sm90_kernel", "du_sm90_kernel", "dx_sm90_kernel"))
+        and by_kernel["fwd_kernel"] == 0 and by_kernel["dx_kernel"] == 0,
         "remat_launch_counts": remat_launches == remat_expected,
         "remat_loss": abs(remat_loss / ref_loss - 1) <= 1e-3})
     emit(dict(phase="train_fused_mlp", model="gpt2-125m", config=train_config(micro, gas),
@@ -5390,6 +5718,8 @@ def run_train_fused_mlp(torch, peaks, unfused_peak_gb, out_dir=None):
               profile=dict(step_wall_ms=prof_wall,
                            step_device_ms=dev_ms if dev_ms else "not measured",
                            dw_sm90_device_ms=dw_ms if dev_ms else "not measured",
+                           fwd_sm90_device_ms=fwd_ms if dev_ms else "not measured",
+                           dx_sm90_device_ms=dx_ms if dev_ms else "not measured",
                            device_busy_share=dev_ms / prof_wall if dev_ms else "not measured",
                            top_device_ms={k[:90]: v for k, v in top}),
               remat=dict(policy="dots_saveable", loss=remat_loss, loss_at_same_weights=ref_loss,
@@ -6109,17 +6439,18 @@ def main() -> int:
             for src, log in logs.items():
                 fh.write(f"==== {src}.cu\n{log}\n")
     # the tensor-core decode GEMV (decode-layer kernels, the W8 matmul: no
-    # spills) and the Hopper dw kernel: registers and spills
-    dw_build = []
+    # spills) and the fused FFN's Hopper kernels (dw, and the forward's and
+    # dx's GEMMs): registers and spills
+    mlp_build = []
     for src, match, phase in (("decode_layer", "gemv90", "build_decode_sm90"),
                               ("w8_matmul", "gemv90", "build_w8_matmul"),
-                              ("fused_mlp", "dw_sm90_kernel", "build_fused_mlp_dw")):
+                              ("fused_mlp", "sm90_kernel", "build_fused_mlp_sm90")):
         if src in logs:
             built = decode_sm90_build(logs[src], match)
             emit(dict(phase=phase, kernels=built))
             ok &= bool(built)
             if src == "fused_mlp":   # registers and spills reported beside its rows
-                dw_build = built
+                mlp_build = built
             else:
                 ok &= all(r.get("spill_bytes", 1) == 0 for r in built)
 
@@ -6140,7 +6471,7 @@ def main() -> int:
     neox_rows, neox_at, neox_kernels_ok = run_kernels_neox(torch, F, peaks)
     ok &= neox_kernels_ok
     ok &= run_kernels_decode_sm90(torch, F, peaks)
-    mlp_rows, mlp_kernels_ok = run_kernels_fused_mlp(torch, F, peaks, dw_build)
+    mlp_rows, mlp_kernels_ok = run_kernels_fused_mlp(torch, F, peaks, mlp_build)
     ok &= mlp_kernels_ok
     sparse_rows, sparse_kernels_ok = run_kernels_sparse(torch, F, peaks)
     ok &= sparse_kernels_ok
@@ -6317,12 +6648,19 @@ def main() -> int:
     ok &= all(k in neox_rows for k in neox_paths)
 
     # the fused FFN kernels at the flagship micro-batch (the train path), the
-    # other shapes under at_shapes; each launched on every path that runs it
-    mlp_paths = {"fused_mlp_fwd": ("forward_fused_mlp", "generate_fused_mlp",
-                                   "generate_fused_mlp_unfused_ticks", "serve_fused_mlp_paged",
-                                   "train_fused_mlp", "train_fused_mlp_remat"),
-                 "fused_mlp_bwd_dx": ("train_fused_mlp", "train_fused_mlp_remat"),
-                 "fused_mlp_bwd_dw": ("train_fused_mlp", "train_fused_mlp_remat")}
+    # other shapes under at_shapes; each launched on every path whose rows
+    # the row rule gives it (the mma.sync forward and dx: bf16 rows below
+    # fused_mlp.SM90_MIN_ROWS, the unfused decode ticks' 8 if any)
+    from deepspeed_tpu_torch.ops import fused_mlp as fm
+    ticks_sm90 = fm.mlp_plan(8, MLP_E, MLP_F).sm90
+    mlp_paths = {"fused_mlp_fwd_sm90": ("forward_fused_mlp", "generate_fused_mlp",
+                                        "generate_fused_mlp_unfused_ticks",
+                                        "serve_fused_mlp_paged", "train_fused_mlp",
+                                        "train_fused_mlp_remat"),
+                 "fused_mlp_bwd_dx_sm90": ("train_fused_mlp", "train_fused_mlp_remat"),
+                 "fused_mlp_bwd_dw": ("train_fused_mlp", "train_fused_mlp_remat"),
+                 "fused_mlp_fwd": () if ticks_sm90 else ("generate_fused_mlp_unfused_ticks",),
+                 "fused_mlp_bwd_dx": ()}
     for kname, paths in mlp_paths.items():
         r = mlp_rows.get(kname)
         if r is None:   # the kernels phase failed before timing it (already not ok)
@@ -6333,7 +6671,8 @@ def main() -> int:
             **path_counts(kname), max_abs_err=r["max_err"], ms=r["kernel_ms"],
             plain_ms=r["plain_ms"], bound_ms=r["bound_ms"], bound_by=r["bound_by"],
             library_ms=r["library_ms"], shape=r["shape"], at_shapes=r["at_shapes"])
-        for extra in ("hi_lo_floor_ms", "registers"):   # the bf16 dw kernel's
+        for extra in ("hi_lo_floor_ms", "registers", "unfused_chain_ms",
+                      "plan"):   # the Hopper kernels' and dx's
             if extra in r:
                 row[extra] = r[extra]
         summary.append(row)

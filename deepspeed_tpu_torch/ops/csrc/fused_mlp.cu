@@ -1,6 +1,6 @@
-// Fused transformer MLP: y = gelu_tanh(x w1 + b1) w2 + b2 with the hidden
-// (R, F) never written to device memory, and its two gradient kernels, which
-// recompute the hidden chunk by chunk.
+// Fused transformer MLP: y = gelu_tanh(x w1 + b1) w2 + b2, and its two
+// gradient kernels, which recompute the hidden (R, F): it is never saved for
+// the backward.
 //
 // Replaces the TPU kernels of deepspeed_tpu/ops/pallas/fused_mlp.py:
 //   _fwd_kernel (:31)     -> fused_mlp_fwd: u = x w1 + b1 (fp32 sums),
@@ -24,7 +24,42 @@
 // bf16 dw's du and h: a floor of 0.70 ms there). At decode rows (R = 8) the
 // forward is bytes-bound on its 9.4 MB of weight panels (2.8 us).
 //
-// fwd and dx. The products run on the tensor cores with mma.sync m16n8k16
+// fwd and dx, bf16 from ops/fused_mlp.SM90_MIN_ROWS rows: two tensor-core
+// GEMMs each on gemm_sm90.cuh's mainloop (wgmma + TMA; 128-row CTAs of two
+// consumer warpgroups and a producer warp), through a bf16 scratch of the
+// hidden at the TPU kernels' cast point (h before the second forward
+// product, du before dx's), a chunk of rows at a time (ops/fused_mlp.py,
+// mlp_plan: at most 256 MiB, one chunk at R = 24576). A Hopper CTA cannot
+// keep the whole (rows, F) hidden on chip as the TPU kernel keeps it in
+// VMEM: y's accumulator over all of E for 64 rows is 384 fp32 registers a
+// thread, and splitting E recomputes u or exchanges h between CTAs. The
+// scratch holds exactly what the second product reads (the cast happens
+// there anyway), and its write and read cost 302 MB of traffic at R =
+// 24576, part of it in L2.
+// - h_sm90_kernel: u = x w1 over K = E (w1 MN-major through the transpose
+//   bit), the CTA walking f_tps tiles of 256 columns of F as 128 x 128
+//   tiles that its two consumer warpgroups take in turns (ping-pong: one
+//   warpgroup's epilogue runs under the other's products): + b1 (fp32),
+//   gelu_tanh, bf16, staged in swizzled shared memory and stored by TMA.
+// - y_sm90_kernel: y = h w2 + b2 over K = F, 128 x e_tile tiles (192 or
+//   256; n128 + n64 for 192), w2 MN-major; F split into fp32 partials where
+//   few row tiles leave the card idle (decode, prefill), summed in split
+//   order by reduce_kernel: no atomics, a repeated call gives the same bits.
+// - du_sm90_kernel: u = x w1 and dh = dy w2^T (w2 K-major) over K = E into
+//   two accumulators of one 128 x 128 tile (64 + 64 registers a thread);
+//   du = dh gelu_tanh'(u + b1), bf16, stored by TMA.
+// - dx_sm90_kernel: dx = du w1^T over K = F (w1 K-major), all of F summed
+//   in fp32 (or split as y), cast once.
+// The CTAs of one row tile (and its F segments or E tiles) are consecutive,
+// so the CTAs in flight share a few row tiles of x and dy in L2. Measured on
+// an H100 (PERF.md, row 11): y and dx run at 59% of the tensor cores' rate;
+// du loses a sixth more to its GELU-derivative epilogue, which the tensor
+// cores wait out (h's ping-pong hides its own). Neither L2 (two-CTA
+// clusters sharing B by TMA multicast read a third less from it and ran no
+// faster) nor the ring's depth (a fifth stage) is the limit.
+//
+// fwd and dx, fp32 and bf16 below SM90_MIN_ROWS rows. The products run on
+// the tensor cores with mma.sync m16n8k16
 // (bf16 in, fp32 sums), fragments loaded from shared memory by ldmatrix (with
 // .trans where an operand is stored k-major); the fp32 instantiation does the
 // same tiles with fp32 FMAs on the CUDA cores (no TF32), so its sums are
@@ -89,9 +124,11 @@
 
 #include <algorithm>
 #include <atomic>
+#include <climits>
 
 #include "common.cuh"
 #include "flash_sm90.cuh"
+#include "gemm_sm90.cuh"
 
 namespace {
 
@@ -1008,11 +1045,158 @@ dw_sm90_kernel(const __grid_constant__ CUtensorMap tm_x, const __grid_constant__
   cluster_sync();   // no CTA leaves while rank 0 reads its shared memory
 }
 
+// ---------------------------------------------------------------------------
+// fwd and dx, bf16: two tensor-core GEMMs each (gemm_sm90.cuh) through a
+// bf16 scratch at the TPU kernels' cast point
+// ---------------------------------------------------------------------------
+
+namespace g9 = ds::gemm90;
+
+constexpr int kHTile = 256;    // hidden columns of the plan's F tiles (f_tps counts these)
+constexpr int kHPpTile = 128;  // ... of an h_sm90_kernel tile (one warpgroup's, ping-pong)
+constexpr int kDuTile = 128;   // ... of a du_sm90_kernel tile (two accumulators a thread)
+
+// h: x w1 (w1 (E, F) MN-major), ping-pong 128 x 128 tiles a warpgroup, 5
+// stages of 32 KB and a 32 KB store tile a warpgroup; du: x w1 and dy w2^T
+// (w2 (F, E) K-major), 3 stages of 64 KB and a 32 KB store tile; the E-wide
+// products h w2 (w2 MN-major: TB 1) and du w1^T (w1 K-major: TB 0), 4 stages
+using HCfg = g9::Config<kHPpTile, 1, 1, 0, 5, 2 * 2 * kHPpTile / 64>;
+using DuCfg = g9::Config<kDuTile, 2, 1, 0, 3, 2 * kDuTile / 64>;
+template <int BN, int TB>
+using ECfg = g9::Config<BN, 1, TB, 0, 4, 0>;
+
+// The CTA's row tile and its F segment [t0, t1) of tps tiles of `tile`
+// columns: the segments of a row tile are consecutive CTAs, so the CTAs in
+// flight share a few row tiles of x (and dy) in L2 and walk all of F.
+struct FSeg {
+  int m0, t0, t1;
+};
+__device__ __forceinline__ FSeg f_segment(int F, int tile, int tps) {
+  const int tiles = (F + tile - 1) / tile, nseg = (tiles + tps - 1) / tps;
+  const int seg = blockIdx.x % nseg, t0 = seg * tps;
+  return {static_cast<int>(blockIdx.x / nseg) * g9::kTM, t0, min(tiles, t0 + tps)};
+}
+
+// The chunk's h = bf16(gelu_tanh(x w1 + b1)) into the scratch (rows, F):
+// one CTA a row tile and F segment of tps tiles of 256 columns, which its
+// warpgroups take in turns of 128 (gemm_pingpong): one's GELU epilogue
+// runs under the other's products.
+__global__ void __launch_bounds__(g9::kThreads, 1)
+h_sm90_kernel(const __grid_constant__ CUtensorMap tm_x, const __grid_constant__ CUtensorMap tm_w1,
+              const __grid_constant__ CUtensorMap tm_h, const bf16* __restrict__ b1, int E, int F,
+              int tps) {
+  const g9::Product prod = {&tm_x, &tm_w1};
+  const FSeg sg = f_segment(F, kHPpTile, tps * (kHTile / kHPpTile));
+  auto epilogue = [&](float (&acc)[2][kHPpTile / 2], int n0, const g9::Frag& fr, bf16* buf) {
+#pragma unroll
+    for (int j = 0; j < kHPpTile / 8; ++j)
+#pragma unroll
+      for (int c = 0; c < 2; ++c) {
+        const int f = n0 + 8 * j + 2 * fr.t + c;
+        const float b = f < F ? ds::to_float(b1[f]) : 0.f;
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          acc[h][4 * j + c] = gelu_tanh(acc[h][4 * j + c] + b);
+          acc[h][4 * j + 2 + c] = gelu_tanh(acc[h][4 * j + 2 + c] + b);
+        }
+      }
+    g9::store_bf16_pp<kHPpTile>(acc, buf, &tm_h, n0, fr);
+  };
+  g9::gemm_pingpong<HCfg>(prod, sg.m0, sg.t0, sg.t1, 0, E / g9::kTK, epilogue);
+  g9::store_done();
+}
+
+// The chunk's du = bf16((dy w2^T) gelu_tanh'(x w1 + b1)) into the scratch
+// (rows, F), u and dh in two accumulators of one tile: one CTA a row tile
+// and F segment of tps tiles of 128 columns.
+__global__ void __launch_bounds__(g9::kThreads, 1)
+du_sm90_kernel(const __grid_constant__ CUtensorMap tm_x, const __grid_constant__ CUtensorMap tm_w1,
+               const __grid_constant__ CUtensorMap tm_dy, const __grid_constant__ CUtensorMap tm_w2,
+               const __grid_constant__ CUtensorMap tm_du, const bf16* __restrict__ b1, int E, int F,
+               int tps) {
+  const g9::Product prod[2] = {{&tm_x, &tm_w1}, {&tm_dy, &tm_w2}};
+  const FSeg sg = f_segment(F, kDuTile, tps);
+  g9::gemm<DuCfg>(prod, sg.m0, sg.t0, sg.t1, 0, E / g9::kTK,
+                  [&](float (&acc)[2][kDuTile / 2], int n0, const g9::Frag& fr, bf16* buf) {
+#pragma unroll
+                    for (int j = 0; j < kDuTile / 8; ++j)
+#pragma unroll
+                      for (int c = 0; c < 2; ++c) {
+                        const int f = n0 + 8 * j + 2 * fr.t + c;
+                        const float b = f < F ? ds::to_float(b1[f]) : 0.f;
+                        acc[0][4 * j + c] = acc[1][4 * j + c] * gelu_tanh_grad(acc[0][4 * j + c] + b);
+                        acc[0][4 * j + 2 + c] =
+                            acc[1][4 * j + 2 + c] * gelu_tanh_grad(acc[0][4 * j + 2 + c] + b);
+                      }
+                    g9::store_bf16<kDuTile>(acc[0], buf, &tm_du, n0, fr);
+                  });
+  g9::store_done();
+}
+
+// The E-wide product of the chunk's rows, out (rows, E) = A (rows, F) B
+// over the split's k-blocks [kbs y, kbs (y + 1)) of 64: grid (row tiles x
+// E tiles, splits). One split: out = bf16(sum (+ bias)); more: the fp32
+// sum into part + y * split_stride (reduce_kernel adds them in order).
+template <int BN, int TB>
+__device__ __forceinline__ void ewide(const CUtensorMap* tm_a, const CUtensorMap* tm_b,
+                                      const float* __restrict__ bias, bf16* __restrict__ out,
+                                      float* __restrict__ part, size_t split_stride, int rows,
+                                      int E, int F, int kbs) {
+  const int nt = (E + BN - 1) / BN, m = blockIdx.x / nt, n = blockIdx.x % nt;
+  const int kb0 = blockIdx.y * kbs, KB = min(kbs, (F + g9::kTK - 1) / g9::kTK - kb0);
+  float* pp = part ? part + blockIdx.y * split_stride : nullptr;
+  const g9::Product prod[1] = {{tm_a, tm_b}};
+  g9::gemm<ECfg<BN, TB>>(prod, m * g9::kTM, n, n + 1, kb0 * g9::kTK, KB,
+                         [&](float (&acc)[1][BN / 2], int n0, const g9::Frag& fr, bf16*) {
+#pragma unroll
+                           for (int rr = 0; rr < 2; ++rr) {
+                             const int r = fr.row0 + fr.rw + 8 * rr;
+                             if (r >= rows) continue;
+#pragma unroll
+                             for (int j = 0; j < BN / 8; ++j) {
+                               const int e = n0 + 8 * j + 2 * fr.t;
+                               if (e >= E) continue;
+                               const size_t o = (size_t)r * E + e;
+                               float v0 = acc[0][4 * j + 2 * rr], v1 = acc[0][4 * j + 2 * rr + 1];
+                               if (pp) {
+                                 *reinterpret_cast<float2*>(pp + o) = make_float2(v0, v1);
+                               } else {
+                                 if (bias) {
+                                   v0 += bias[e];
+                                   v1 += bias[e + 1];
+                                 }
+                                 *reinterpret_cast<__nv_bfloat162*>(out + o) =
+                                     __floats2bfloat162_rn(v0, v1);
+                               }
+                             }
+                           }
+                         });
+}
+
+// y = h w2 + b2 (the forward's second product), and dx = du w1^T: kernels
+// of their own names, so that a profile tells them apart
+template <int BN>
+__global__ void __launch_bounds__(g9::kThreads, 1)
+y_sm90_kernel(const __grid_constant__ CUtensorMap tm_h, const __grid_constant__ CUtensorMap tm_w2,
+              const float* __restrict__ b2, bf16* __restrict__ y, float* __restrict__ part,
+              size_t split_stride, int rows, int E, int F, int kbs) {
+  ewide<BN, 1>(&tm_h, &tm_w2, b2, y, part, split_stride, rows, E, F, kbs);
+}
+
+template <int BN>
+__global__ void __launch_bounds__(g9::kThreads, 1)
+dx_sm90_kernel(const __grid_constant__ CUtensorMap tm_du, const __grid_constant__ CUtensorMap tm_w1,
+               bf16* __restrict__ dx, float* __restrict__ part, size_t split_stride, int rows, int E,
+               int F, int kbs) {
+  ewide<BN, 0>(&tm_du, &tm_w1, nullptr, dx, part, split_stride, rows, E, F, kbs);
+}
+
 // launches by kernel: 0 fwd_kernel, 1 dx_kernel, 2 dw_sm90_kernel (bf16),
-// 3 dw_kernel (fp32), 4 reduce_kernel; counted on the host where each is
+// 3 dw_kernel (fp32), 4 reduce_kernel, 5 h_sm90_kernel, 6 y_sm90_kernel,
+// 7 du_sm90_kernel, 8 dx_sm90_kernel; counted on the host where each is
 // launched
-std::atomic<unsigned long long> g_launched[5];
-enum Which : int { kFwd, kDx, kDwSm90, kDw, kReduce };
+enum Which : int { kFwd, kDx, kDwSm90, kDw, kReduce, kHSm90, kYSm90, kDuSm90, kDxSm90, kWhich };
+std::atomic<unsigned long long> g_launched[kWhich];
 
 cudaError_t counted(cudaError_t err, int which) {
   if (err == cudaSuccess) ++g_launched[which];
@@ -1192,6 +1376,85 @@ cudaError_t bwd_dw(const void* x, const void* w1, const void* b1, const void* w2
   return reduce<float>(part + n_w, nseg, (size_t)E, stride, nullptr, 1, db2, st);
 }
 
+// One launch of a gemm_sm90.cuh kernel, counted as `which`.
+template <class C, typename K, typename... Args>
+cudaError_t launch_g9(K kernel, dim3 grid, int which, cudaStream_t st, Args... args) {
+  cudaError_t err = set_smem(kernel, C::SMEM);
+  if (err != cudaSuccess) return err;
+  kernel<<<grid, g9::kThreads, C::SMEM, st>>>(args...);
+  return counted(cudaGetLastError(), which);
+}
+
+// The host's plan (ops/fused_mlp.py, mlp_plan) as the bf16 entries take it:
+// row chunks of chunk_rows (a multiple of 128, or all of R), F segments of
+// f_tps tiles of 256 hidden columns, the E-wide products' tile e_tile (192
+// or 256) and their splits of kbs k-blocks of 64 hidden columns, none empty.
+bool sm90_plan_ok(int R, int E, int F, int chunk_rows, int f_tps, int e_tile, int splits,
+                  int kbs) {
+  const int kb_all = (F + g9::kTK - 1) / g9::kTK, f_tiles = (F + kHTile - 1) / kHTile;
+  return R > 0 && E > 0 && E % 64 == 0 && E <= kMaxE && F > 0 && F % kBF == 0 &&
+         chunk_rows > 0 && (chunk_rows % g9::kTM == 0 || chunk_rows >= R) && f_tps > 0 &&
+         (long long)((chunk_rows + g9::kTM - 1) / g9::kTM) * ((f_tiles + f_tps - 1) / f_tps) <
+             INT_MAX &&
+         (e_tile == 192 || e_tile == 256) &&
+         splits > 0 && splits <= 65535 && kbs > 0 && (long long)splits * kbs >= kb_all &&
+         (long long)(splits - 1) * kbs < kb_all &&
+         (long long)((chunk_rows + g9::kTM - 1) / g9::kTM) * ((E + e_tile - 1) / e_tile) < INT_MAX;
+}
+
+// The E-wide product of a chunk: y_sm90_kernel (fwd) or dx_sm90_kernel.
+template <int BN>
+cudaError_t ewide_launch(bool fwd, const CUtensorMap& ma, const CUtensorMap& mb, const float* b2,
+                         bf16* out, float* part, size_t stride, int rows, int E, int F, int splits,
+                         int kbs, cudaStream_t st) {
+  const dim3 grid(((rows + g9::kTM - 1) / g9::kTM) * ((E + BN - 1) / BN), splits);
+  if (splits == 1) part = nullptr;
+  if (fwd)
+    return launch_g9<ECfg<BN, 1>>(y_sm90_kernel<BN>, grid, kYSm90, st, ma, mb, b2, out, part,
+                                  stride, rows, E, F, kbs);
+  return launch_g9<ECfg<BN, 0>>(dx_sm90_kernel<BN>, grid, kDxSm90, st, ma, mb, out, part, stride,
+                                rows, E, F, kbs);
+}
+
+// The bf16 forward (fwd) or dx on the tensor cores, chunk by chunk of rows:
+// h_sm90_kernel (du_sm90_kernel) writes the chunk's hidden into the
+// scratch, then y_sm90_kernel (dx_sm90_kernel) its rows of the output or,
+// split over F, of the fp32 partials; reduce_kernel sums the splits in
+// order (adding b2) and casts.
+cudaError_t mlp_sm90(bool fwd, const bf16* x, const bf16* w1, const bf16* b1, const bf16* w2,
+                     const bf16* dy, const float* b2, bf16* out, bf16* scratch, float* part, int R,
+                     int E, int F, int chunk_rows, int f_tps, int e_tile, int splits, int kbs,
+                     cudaStream_t st) {
+  CUtensorMap mw1, mw2;
+  if (!s9::matrix_map(&mw1, w1, E, F) || !s9::matrix_map(&mw2, w2, F, E))
+    return cudaErrorInvalidValue;
+  const size_t stride = (size_t)R * E;
+  for (int c0 = 0; c0 < R; c0 += chunk_rows) {
+    const int rows = min(chunk_rows, R - c0);
+    const size_t off = (size_t)c0 * E;
+    CUtensorMap mx, mdy, ms;
+    if (!s9::matrix_map(&mx, x + off, rows, E) || !s9::matrix_map(&ms, scratch, rows, F) ||
+        (!fwd && !s9::matrix_map(&mdy, dy + off, rows, E)))
+      return cudaErrorInvalidValue;
+    const int mt = (rows + g9::kTM - 1) / g9::kTM;
+    const int segs = ((F + kHTile - 1) / kHTile + f_tps - 1) / f_tps;
+    cudaError_t err =
+        fwd ? launch_g9<HCfg>(h_sm90_kernel, dim3(mt * segs), kHSm90, st, mx, mw1, ms, b1, E, F,
+                              f_tps)
+            : launch_g9<DuCfg>(du_sm90_kernel, dim3(mt * segs), kDuSm90, st, mx, mw1, mdy, mw2,
+                               ms, b1, E, F, f_tps * (kHTile / kDuTile));
+    if (err != cudaSuccess) return err;
+    float* pc = part ? part + off : nullptr;
+    err = e_tile == 256 ? ewide_launch<256>(fwd, ms, fwd ? mw2 : mw1, b2, out + off, pc, stride,
+                                            rows, E, F, splits, kbs, st)
+                        : ewide_launch<192>(fwd, ms, fwd ? mw2 : mw1, b2, out + off, pc, stride,
+                                            rows, E, F, splits, kbs, st);
+    if (err != cudaSuccess) return err;
+  }
+  if (splits == 1) return cudaSuccess;
+  return reduce<bf16>(part, splits, stride, stride, b2, E, out, st);
+}
+
 bool shape_ok(int R, int E, int F, int dtype) {
   const int max_e = dtype == ds::kBFloat16 ? kMaxE : kMaxE / 2;
   return R > 0 && E > 0 && E % 64 == 0 && E <= max_e && F > 0 && F % kBF == 0;
@@ -1258,8 +1521,44 @@ DS_EXPORT int fused_mlp_dw_active_clusters(int chunk, int E) {
   return -1;
 }
 
+// The bf16 forward on the tensor cores: x (R, E), w1 (E, F), b1 (F,), w2
+// (F, E) bf16; b2 (E,) fp32; y (R, E) bf16; scratch (chunk_rows, F) bf16;
+// part (splits, R, E) fp32 when splits > 1. The plan's numbers as
+// sm90_plan_ok takes them (ops/fused_mlp.py, mlp_plan). Returns the
+// cudaGetLastError() of the launches (h_sm90_kernel and y_sm90_kernel a
+// chunk, then reduce_kernel when split).
+DS_EXPORT int fused_mlp_fwd_sm90(const void* x, const void* w1, const void* b1, const void* w2,
+                                 const void* b2, void* y, void* scratch, void* part, int R, int E,
+                                 int F, int chunk_rows, int f_tps, int e_tile, int splits, int kbs,
+                                 void* stream) {
+  if (!sm90_plan_ok(R, E, F, chunk_rows, f_tps, e_tile, splits, kbs) || (splits > 1 && !part))
+    return cudaErrorInvalidValue;
+  return mlp_sm90(true, static_cast<const bf16*>(x), static_cast<const bf16*>(w1),
+                  static_cast<const bf16*>(b1), static_cast<const bf16*>(w2), nullptr,
+                  static_cast<const float*>(b2), static_cast<bf16*>(y),
+                  static_cast<bf16*>(scratch), static_cast<float*>(part), R, E, F, chunk_rows,
+                  f_tps, e_tile, splits, kbs, static_cast<cudaStream_t>(stream));
+}
+
+// The bf16 dx on the tensor cores: dy and dx (R, E) bf16; the rest as for
+// fused_mlp_fwd_sm90 (du_sm90_kernel and dx_sm90_kernel a chunk, then
+// reduce_kernel when split).
+DS_EXPORT int fused_mlp_bwd_dx_sm90(const void* x, const void* w1, const void* b1, const void* w2,
+                                    const void* dy, void* dx, void* scratch, void* part, int R,
+                                    int E, int F, int chunk_rows, int f_tps, int e_tile,
+                                    int splits, int kbs, void* stream) {
+  if (!sm90_plan_ok(R, E, F, chunk_rows, f_tps, e_tile, splits, kbs) || (splits > 1 && !part))
+    return cudaErrorInvalidValue;
+  return mlp_sm90(false, static_cast<const bf16*>(x), static_cast<const bf16*>(w1),
+                  static_cast<const bf16*>(b1), static_cast<const bf16*>(w2),
+                  static_cast<const bf16*>(dy), nullptr, static_cast<bf16*>(dx),
+                  static_cast<bf16*>(scratch), static_cast<float*>(part), R, E, F, chunk_rows,
+                  f_tps, e_tile, splits, kbs, static_cast<cudaStream_t>(stream));
+}
+
 // Launches so far of kernel `which` (0 fwd_kernel, 1 dx_kernel, 2
-// dw_sm90_kernel, 3 dw_kernel, 4 reduce_kernel).
+// dw_sm90_kernel, 3 dw_kernel, 4 reduce_kernel, 5 h_sm90_kernel, 6
+// y_sm90_kernel, 7 du_sm90_kernel, 8 dx_sm90_kernel).
 DS_EXPORT unsigned long long fused_mlp_launched(int which) {
-  return which >= 0 && which < 5 ? g_launched[which].load() : 0;
+  return which >= 0 && which < kWhich ? g_launched[which].load() : 0;
 }

@@ -1,5 +1,5 @@
-"""Fused transformer MLP: ``gelu_tanh(x @ w1 + b1) @ w2 + b2`` with the hidden
-never in device memory, forward and backward.
+"""Fused transformer MLP: ``gelu_tanh(x @ w1 + b1) @ w2 + b2``, forward and
+backward, the hidden never saved for the backward (which recomputes it).
 
 Port of ``deepspeed_tpu/ops/pallas/fused_mlp.py``: the TPU kernels
 ``_fwd_kernel`` (:31), ``_bwd_dx_kernel`` (:45) and ``_bwd_dw_kernel`` (:72)
@@ -28,11 +28,20 @@ fp32). Gradients come back as the JAX backward returns them: dx, dw1, db1,
 dw2 in their inputs' dtypes, db2 fp32. The bf16 dw kernel runs on Hopper's
 tensor cores (``wgmma``, TMA, a thread-block cluster over E: :func:`dw_plan`);
 :func:`fused_mlp_bwd_dw_tiled_plain` follows its order of summation, with du
-and h entering its products as bf16 hi + lo pairs. :func:`kernel_launches`
-gives the C library's own counts by kernel.
+and h entering its products as bf16 hi + lo pairs. The bf16 forward and dx
+run as two tensor-core GEMMs each (``wgmma`` + TMA, ``csrc/gemm_sm90.cuh``)
+through a bf16 scratch of the hidden at the TPU kernels' cast point (h in
+the forward, du in dx), row chunk by row chunk so that the scratch stays
+within :data:`SCRATCH_BYTES`: the hidden lies in device memory, a chunk at a
+time, between the two products of a call (:func:`mlp_plan`;
+:func:`fused_mlp_tiled_plain` and :func:`fused_mlp_bwd_dx_tiled_plain`
+follow their order). :func:`kernel_launches` gives the C library's own
+counts by kernel.
 
-CUDA tensors launch the kernels; CPU tensors run the plain versions; a CUDA
-tensor never falls back (a build or launch failure raises). The kernels take
+CUDA tensors launch the kernels (bf16 forward and dx: the tensor-core
+entries where :func:`mlp_plan` says so, the ``mma.sync`` ones below
+:data:`SM90_MIN_ROWS` rows and in fp32); CPU tensors run the plain versions;
+a CUDA tensor never falls back (a build or launch failure raises). The kernels take
 E a multiple of 64 up to :data:`MAX_E` (768 in bf16, 384 in fp32, their
 shared-memory tiles), F a multiple of 32 and any R ≥ 1 (ragged row tiles are
 masked, where the JAX wrapper pads); other shapes raise on the card. The JAX
@@ -43,6 +52,7 @@ here. :func:`fits_vmem` is the JAX package's dispatch rule, kept as it is.
 from __future__ import annotations
 
 import ctypes
+from typing import NamedTuple
 
 import torch
 
@@ -55,10 +65,17 @@ DX = Kernel("fused_mlp", "fused_mlp_bwd_dx", [PTR] * 7 + _ARGS)
 # R E F segments tiles_per_segment chunk dtype stream
 DW = Kernel("fused_mlp", "fused_mlp_bwd_dw", [PTR] * 8 + [INT] * 7 + [PTR])
 
+# R E F chunk_rows f_tiles e_tile splits k_blocks stream
+_SM90_ARGS = [INT] * 8 + [PTR]
+FWD_SM90 = Kernel("fused_mlp", "fused_mlp_fwd_sm90", [PTR] * 8 + _SM90_ARGS)
+DX_SM90 = Kernel("fused_mlp", "fused_mlp_bwd_dx_sm90", [PTR] * 8 + _SM90_ARGS)
+
 # the kernels behind the C entries, in the order the library counts them
 # (``fused_mlp_launched``): the forward, dx, the bf16 dw on Hopper, the fp32
-# dw, and the pass that sums split partials in order and casts
-KERNELS = ("fwd_kernel", "dx_kernel", "dw_sm90_kernel", "dw_kernel", "reduce_kernel")
+# dw, the pass that sums split partials in order and casts, then the bf16
+# forward's two GEMMs (h, y) and dx's (du, dx) on the tensor cores
+KERNELS = ("fwd_kernel", "dx_kernel", "dw_sm90_kernel", "dw_kernel", "reduce_kernel",
+           "h_sm90_kernel", "y_sm90_kernel", "du_sm90_kernel", "dx_sm90_kernel")
 
 MAX_E = {torch.bfloat16: 768, torch.float32: 384}
 ROWS = 32          # the kernels' row tile
@@ -70,6 +87,22 @@ DW_HIDDEN = 64             # hidden columns a cluster of it owns
 DW_CHUNKS = (192, 128, 64)   # E-chunk widths a CTA of it may own
 DW_MAX_CLUSTER = 8         # the portable cluster size
 _SM_COUNT = 132    # splits and segments aim at a few blocks per SM of an H100
+
+# the bf16 forward and dx on the tensor cores (``mlp_plan``)
+SCRATCH_BYTES = 256 * 1024 * 1024   # the hidden's bf16 scratch at most (as fused_ce.py's)
+TILE_ROWS = 128    # rows a CTA: two warpgroups of 64
+H_TILE = 256       # hidden columns a tile of h_sm90_kernel (du_sm90_kernel: 128, twice as many)
+E_TILES = (256, 192)   # tile widths of the E-wide products (y, dx)
+K_BLOCK = 64       # contraction a pipeline stage
+# rows from which bf16 takes the tensor-core entries: below, their latency
+# loses to fwd_kernel / dx_kernel (an H100 at 8 rows: 0.023 / 0.033 ms against
+# 0.013 / 0.015; at 64 they win: scripts/fused_mlp_ab.py)
+SM90_MIN_ROWS = 64
+# the plan's cost model, in k-block times (one 64-deep k-block of a 128 x 256
+# tile at the card's bf16 rate: 0.56 us on an H100)
+CTA_START = 2.0          # a CTA's start: barriers, the first TMA round trip
+REDUCE_START = 3.0       # reduce_kernel's launch
+BYTES_PER_KBLOCK = 1.88e6   # device-memory bytes in a k-block time (3.35 TB/s)
 
 
 def kernel_launches() -> dict:
@@ -157,6 +190,60 @@ def fits_vmem(e: int, f: int, block_rows: int, itemsize: int) -> bool:
     return weights + tiles <= 15 * 1024 * 1024
 
 
+class MlpPlan(NamedTuple):
+    """The bf16 forward and dx on the tensor cores (``fused_mlp.cu``,
+    ``mlp_sm90``): a call walks the rows in chunks of ``chunk_rows``, its
+    hidden a ``(chunk_rows, F)`` bf16 scratch; a CTA of the F-wide kernel (h
+    or du) computes ``f_tiles`` tiles of 256 hidden columns of 128 rows (h's
+    two warpgroups take them as 128-column halves in turns); the
+    E-wide product (y or dx) takes ``e_tile`` columns of 128 rows a CTA and
+    splits F into ``splits`` ranges of ``k_blocks`` blocks of 64, summed in
+    order by ``reduce_kernel`` when more than one. ``sm90`` False: the rows
+    go to ``fwd_kernel`` / ``dx_kernel`` (the ``mma.sync`` entries)."""
+    sm90: bool
+    chunk_rows: int
+    f_tiles: int
+    e_tile: int
+    splits: int
+    k_blocks: int
+
+
+def mlp_plan(R: int, E: int, F: int) -> MlpPlan:
+    """The plan of a bf16 forward or dx call of ``R`` rows, from the shapes
+    alone. Row chunks: the most whole 128-row tiles whose bf16 hidden fits
+    :data:`SCRATCH_BYTES` (one chunk at R = 24576, F = 3072). Then, of a
+    chunk's CTAs (one an SM: their shared memory), the counts that take the
+    fewest k-block times in waves of :data:`_SM_COUNT`, plus
+    :data:`CTA_START` a CTA: the F-wide kernel's tiles a CTA (each E / 64
+    k-blocks), and the E-wide product's tile width (:data:`E_TILES`) with its
+    splits of F (each split's fp32 partials cost their bytes and
+    :data:`REDUCE_START`). Ties go to fewer tiles a CTA, the wider tile and
+    fewer splits."""
+    cap = max(TILE_ROWS, SCRATCH_BYTES // (2 * F) // TILE_ROWS * TILE_ROWS)
+    chunk = R if R <= cap else cap
+    m = -(-chunk // TILE_ROWS)
+
+    def waves(ctas):
+        return -(-ctas // _SM_COUNT)
+
+    nt = -(-F // H_TILE)
+    f_tiles = min(range(1, nt + 1),
+                  key=lambda p: (waves(m * -(-nt // p)) * (p * E // K_BLOCK + CTA_START), p))
+    kb = -(-F // K_BLOCK)
+    best = None
+    for bn in E_TILES:
+        for per in range(kb, 0, -1):
+            s = -(-kb // per)
+            cost = waves(m * -(-E // bn) * s) * (per * bn / H_TILE + CTA_START)
+            if s > 1:
+                cost += REDUCE_START + (s * R * E * 4 + R * E * 2) / BYTES_PER_KBLOCK
+            key = (cost, -bn, s)
+            if best is None or key < best[0]:
+                best = (key, bn, s, per)
+    _, e_tile, splits, k_blocks = best
+    return MlpPlan(R >= SM90_MIN_ROWS, chunk, f_tiles, e_tile, splits, k_blocks)
+
+
 def _u(x, w1, b1):
     return x.float() @ w1.float() + b1.float()
 
@@ -183,6 +270,49 @@ def fused_mlp_bwd_dw_plain(x, w1, b1, w2, dy):
     dw1 = x.float().T @ du
     dw2 = gelu_tanh(u).T @ dyf
     return dw1.to(w1.dtype), du.sum(0).to(b1.dtype), dw2.to(w2.dtype), dyf.sum(0)
+
+
+def _mlp_tiled(x, w1, b1, w2, last, fwd: bool, plan=None):
+    """The forward (``last`` = b2) or dx (``last`` = dy) in the tensor-core
+    entries' order under ``plan`` (:func:`mlp_plan`'s from the shapes when
+    not given): per row chunk the hidden in fp32 from fp32 products, cast to
+    x's dtype (h = gelu_tanh(u); du = dh · gelu_tanh'(u)); then per split of
+    F, in order, the fp32 product of its hidden columns, the splits summed
+    in that order, b2 added (forward), cast once."""
+    R, E = x.shape
+    F = w1.shape[1]
+    plan = plan or mlp_plan(R, E, F)
+    dt = x.dtype
+    w1f, w2f, b1f = w1.float(), w2.float(), b1.float()
+    b = w2f if fwd else w1f.T
+    width = plan.k_blocks * K_BLOCK
+    outs = []
+    for r0 in range(0, R, plan.chunk_rows):
+        rows = slice(r0, r0 + plan.chunk_rows)
+        u = x[rows].float() @ w1f + b1f
+        if fwd:
+            hid = gelu_tanh(u).to(dt).float()
+        else:
+            hid = ((last[rows].float() @ w2f.T) * gelu_tanh_grad(u)).to(dt).float()
+        acc = None
+        for c0 in range(0, F, width):
+            p = hid[:, c0:c0 + width] @ b[c0:c0 + width]
+            acc = p if acc is None else acc + p
+        if fwd:
+            acc = acc + last.float()
+        outs.append(acc.to(dt))
+    return torch.cat(outs)
+
+
+def fused_mlp_tiled_plain(x, w1, b1, w2, b2, plan=None):
+    """:func:`fused_mlp_plain` in ``fused_mlp_fwd_sm90``'s order (row chunks,
+    the splits of F summed in order, then b2)."""
+    return _mlp_tiled(x, w1, b1, w2, b2, True, plan)
+
+
+def fused_mlp_bwd_dx_tiled_plain(x, w1, b1, w2, dy, plan=None):
+    """:func:`fused_mlp_bwd_dx_plain` in ``fused_mlp_bwd_dx_sm90``'s order."""
+    return _mlp_tiled(x, w1, b1, w2, dy, False, plan)
 
 
 def _hi_lo(v):
@@ -270,14 +400,42 @@ def _launch_rows(kernel, x, w1, b1, w2, last, out):
     return out
 
 
+def _sm90_plan(x, w1):
+    """:func:`mlp_plan` of a bf16 call the tensor-core entries take, else None."""
+    if x.dtype != torch.bfloat16:
+        return None
+    plan = mlp_plan(x.shape[0], x.shape[1], w1.shape[1])
+    return plan if plan.sm90 else None
+
+
+def _launch_sm90(kernel, x, w1, b1, w2, last, out, plan):
+    """The tensor-core forward or dx: ``last`` is b2 (fp32) or dy; the
+    hidden's bf16 scratch and the splits' fp32 partials from the plan."""
+    R, E = x.shape
+    F = w1.shape[1]
+    scratch = torch.empty((plan.chunk_rows, F), dtype=x.dtype, device=x.device)
+    part = torch.empty((plan.splits, R, E) if plan.splits > 1 else (1,), dtype=torch.float32,
+                       device=x.device)
+    with torch.cuda.device(x.device):
+        kernel.launch(x.data_ptr(), w1.data_ptr(), b1.data_ptr(), w2.data_ptr(), last.data_ptr(),
+                      out.data_ptr(), scratch.data_ptr(), part.data_ptr(), R, E, F,
+                      plan.chunk_rows, plan.f_tiles, plan.e_tile, plan.splits, plan.k_blocks,
+                      stream_of(x))
+    return out
+
+
 def fused_mlp_bwd_dx(x, w1, b1, w2, dy):
-    """dx ``(R, E)`` in x's dtype: the dx kernel on CUDA tensors,
-    :func:`fused_mlp_bwd_dx_plain` on CPU tensors."""
+    """dx ``(R, E)`` in x's dtype: on CUDA tensors the tensor-core entry
+    (bf16, :func:`mlp_plan`) or the dx kernel, :func:`fused_mlp_bwd_dx_plain`
+    on CPU tensors."""
     _check(x, w1, b1, w2, dy)
     if not x.is_cuda:
         return fused_mlp_bwd_dx_plain(x, w1, b1, w2, dy)
     x, w1, b1, w2, dy = (t.contiguous() for t in (x, w1, b1, w2, dy))
     check_operands(x, w1, b1, w2, dy)
+    plan = _sm90_plan(x, w1)
+    if plan is not None:
+        return _launch_sm90(DX_SM90, x, w1, b1, w2, dy, torch.empty_like(x), plan)
     return _launch_rows(DX, x, w1, b1, w2, dy, torch.empty_like(x))
 
 
@@ -312,9 +470,10 @@ def fused_mlp_bwd_dw(x, w1, b1, w2, dy):
 @torch.library.custom_op("ds_tpu_torch::fused_mlp_fwd", mutates_args=())
 def fused_mlp_fwd_op(x: torch.Tensor, w1: torch.Tensor, b1: torch.Tensor, w2: torch.Tensor,
                      b2: torch.Tensor) -> torch.Tensor:
-    """The forward as one dispatcher op, ``(R, E)`` in x's dtype: the kernel
-    on CUDA tensors, :func:`fused_mlp_plain` on CPU tensors (its products stay
-    inside the op, so a checkpoint policy sees one op on both devices)."""
+    """The forward as one dispatcher op, ``(R, E)`` in x's dtype: on CUDA
+    tensors the tensor-core entry (bf16, :func:`mlp_plan`) or the forward
+    kernel, :func:`fused_mlp_plain` on CPU tensors (its products stay inside
+    the op, so a checkpoint policy sees one op on both devices)."""
     _check(x, w1, b1, w2)
     if not x.is_cuda:
         return fused_mlp_plain(x, w1, b1, w2, b2)
@@ -322,6 +481,9 @@ def fused_mlp_fwd_op(x: torch.Tensor, w1: torch.Tensor, b1: torch.Tensor, w2: to
     b2 = b2.float().contiguous()
     check_operands(x, w1, b1, w2)
     check_operands(b2)
+    plan = _sm90_plan(x, w1)
+    if plan is not None:
+        return _launch_sm90(FWD_SM90, x, w1, b1, w2, b2, torch.empty_like(x), plan)
     return _launch_rows(FWD, x, w1, b1, w2, b2, torch.empty_like(x))
 
 
@@ -349,8 +511,8 @@ class _FusedMLP(torch.autograd.Function):
 def fused_mlp(x: torch.Tensor, w1: torch.Tensor, b1: torch.Tensor, w2: torch.Tensor,
               b2: torch.Tensor) -> torch.Tensor:
     """``gelu_tanh(x @ w1 + b1) @ w2 + b2`` over ``(..., E)`` inputs, in x's
-    dtype, the hidden never in device memory; differentiable in all five
-    (b2's gradient is taken in fp32 and cast back by autograd)."""
+    dtype, the hidden never saved for the backward; differentiable in all
+    five (b2's gradient is taken in fp32 and cast back by autograd)."""
     lead, E = x.shape[:-1], x.shape[-1]
     y = _FusedMLP.apply(x.reshape(-1, E), w1, b1, w2, b2.float())
     return y.reshape(*lead, E)

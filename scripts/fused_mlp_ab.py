@@ -1,7 +1,6 @@
 #!/usr/bin/env python3
-"""Time one tree's fused-FFN dw kernel (``fused_mlp_bwd_dw``, bf16) at the
-training and serving shapes, beside the bound and the cuBLAS pair's
-backward.
+"""Time one tree's fused-FFN forward, dx and dw kernels (bf16) at the
+training and serving shapes, beside the bound and the cuBLAS pair.
 
     python3 scripts/fused_mlp_ab.py [--tree DIR] [--label NAME] [--out FILE]
 
@@ -14,15 +13,22 @@ own. Both trees are driven through the public entry point; the helpers
 repository's ``chip_smoke.py``.
 
 Cases: gpt2-125m's FFN (E=768, F=3072) at R = 24576 (micro 24 x 1024, the
-train step's), 2048, 1000 and 8 rows, and E=384, F=1536 at R = 2048. One
-JSON line per case, ms per call: the call's device time (``device_ms``: the
-dw kernel and the passes that sum its segments and cast) and by kernel
-name, CUDA events around back-to-back calls (``event_ms``), the bound
-(``bound_ms``: 4 products of 2 R E F flops at the card's bf16 rate, or the
-bytes) and the floor with the lo halves of du and h (``hi_lo_floor_ms``: 6
-products); with ``--library``, the autograd backward of the unfused pair
-``F.linear`` -> tanh GELU -> ``F.linear`` (all five gradients) on the same
-inputs (``library_ms``).
+train step's), 2048, 1000, 256, 64 and 8 rows (8: an unfused decode tick;
+64 and 256: prefill chunks), and E=384, F=1536 at R = 2048. One JSON line
+per case and call (``case``: ``fwd``, ``dx``, ``dw``), ms per call: the
+call's device time (``device_ms``: its kernels and the passes that sum
+splits or segments and cast) and by kernel name, CUDA events around
+back-to-back calls (``event_ms``), the bound (``bound_ms``: 2, 3 or 4
+products of 2 R E F flops at the card's bf16 rate, or the bytes) and, for
+dw, the floor with the lo halves of du and h (``hi_lo_floor_ms``: 6
+products). Where the tree routes bf16 rows by ``fused_mlp.SM90_MIN_ROWS``,
+the forward and dx are timed on both routes (``route``: ``sm90``, the
+tensor-core entries; ``mma.sync``, the others), which decides the row
+rule. With ``--library``: the unfused pair ``F.linear`` -> tanh GELU ->
+``F.linear`` (forward), its autograd backward (all five gradients) beside
+dx and dw (``library_ms``), and dx's own unfused chain (``F.linear(x, w1ᵀ,
+b1)``, ``dy @ w2ᵀ``, ``aten.gelu_backward(tanh)``, ``@ w1ᵀ``:
+``unfused_chain_ms``).
 """
 from __future__ import annotations
 
@@ -33,8 +39,8 @@ import subprocess
 import sys
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-SHAPES = ((24576, 768, 3072), (2048, 768, 3072), (1000, 768, 3072), (8, 768, 3072),
-          (2048, 384, 1536))
+SHAPES = ((24576, 768, 3072), (2048, 768, 3072), (1000, 768, 3072), (256, 768, 3072),
+          (64, 768, 3072), (8, 768, 3072), (2048, 384, 1536))
 
 
 def main() -> int:
@@ -73,22 +79,16 @@ def main() -> int:
             out.write(line + "\n")
 
     g = torch.Generator(device="cuda").manual_seed(cs.SEED + 42)
+    routes = (True, False) if hasattr(fm, "SM90_MIN_ROWS") else (None,)
     for R, E, F in SHAPES:
         x, w1, b1, w2, b2, dy = cs.mlp_operands(torch, g, R, E, F, torch.bfloat16)
         iters = 5 if R >= 2048 else 20
-
-        def call():
-            return fm.fused_mlp_bwd_dw(x, w1, b1, w2, dy)
-
-        total, by_kernel = cs.device_ms_by_name(torch, call, iters)
-        b_ms, b_by = cs.mlp_bounds(R, E, F, 2, peaks, False)["fused_mlp_bwd_dw"]
-        row = dict(case="dw", shape=f"R={R} E={E} F={F} bfloat16", device_ms=total,
-                   by_kernel={k[:80]: v for k, v in by_kernel.items()},
-                   event_ms=cs.cuda_ms(torch, call, iters), bound_ms=b_ms, bound_by=b_by,
-                   hi_lo_floor_ms=6 * 2.0 * R * E * F / peaks[1] * 1e3)
+        bounds = cs.mlp_bounds(R, E, F, 2, peaks, False)
+        shape = f"R={R} E={E} F={F} bfloat16"
+        lib = {}
         if args.library:
-            lib_in = [t.clone().requires_grad_() for t in (x, w1.T.contiguous(), b1,
-                                                           w2.T.contiguous(),
+            w1t, w2t = w1.T.contiguous(), w2.T.contiguous()
+            lib_in = [t.clone().requires_grad_() for t in (x, w1t, b1, w2t,
                                                            b2.to(torch.bfloat16))]
 
             def lib_fwd():
@@ -96,11 +96,44 @@ def main() -> int:
                 return F_.linear(F_.gelu(F_.linear(a[0], a[1], a[2]), approximate="tanh"),
                                  a[3], a[4])
 
+            def dx_chain():
+                u = F_.linear(x, w1t, b1)
+                return torch.ops.aten.gelu_backward(dy @ w2t, u, approximate="tanh") @ w1t
+
             fwd_ms = cs.device_ms(torch, lib_fwd, iters)
             both = cs.device_ms(torch, lambda: torch.autograd.grad(lib_fwd(), lib_in, dy), iters)
-            row["library_ms"] = both - fwd_ms if both and fwd_ms else None
-            del lib_in
-        emit(row)
+            lib = dict(fwd=fwd_ms, bwd=both - fwd_ms if both and fwd_ms else None,
+                       chain=cs.device_ms(torch, dx_chain, iters))
+            del lib_in, w1t, w2t
+        calls = {"fwd": lambda: fm.fused_mlp_fwd_op(x, w1, b1, w2, b2),
+                 "dx": lambda: fm.fused_mlp_bwd_dx(x, w1, b1, w2, dy),
+                 "dw": lambda: fm.fused_mlp_bwd_dw(x, w1, b1, w2, dy)}
+        base = {"fwd": "fused_mlp_fwd", "dx": "fused_mlp_bwd_dx", "dw": "fused_mlp_bwd_dw"}
+        for case, call in calls.items():
+            for sm90 in (routes if case != "dw" else (None,)):
+                if sm90 is not None:
+                    saved = fm.SM90_MIN_ROWS
+                    fm.SM90_MIN_ROWS = 1 if sm90 else 1 << 62
+                try:
+                    total, by_kernel = cs.device_ms_by_name(torch, call, iters)
+                    event = cs.cuda_ms(torch, call, iters)
+                finally:
+                    if sm90 is not None:
+                        fm.SM90_MIN_ROWS = saved
+                b_ms, b_by = bounds[base[case]]
+                row = dict(case=case, shape=shape, device_ms=total,
+                           by_kernel={k[:80]: v for k, v in by_kernel.items()}, event_ms=event,
+                           bound_ms=b_ms, bound_by=b_by)
+                if case != "dw":
+                    row["route"] = "mma.sync" if sm90 is None or not sm90 else "sm90"
+                    row["main_route"] = sm90 is None or sm90 == fm.mlp_plan(R, E, F).sm90
+                else:
+                    row["hi_lo_floor_ms"] = 6 * 2.0 * R * E * F / peaks[1] * 1e3
+                if lib:
+                    row["library_ms"] = lib["fwd"] if case == "fwd" else lib["bwd"]
+                    if case == "dx":
+                        row["unfused_chain_ms"] = lib["chain"]
+                emit(row)
         del x, w1, b1, w2, b2, dy
         torch.cuda.empty_cache()
     if out:

@@ -1,30 +1,44 @@
 #!/usr/bin/env python3
-"""Plant faults in copies of the fused FFN's bf16 dw kernel (dw_sm90_kernel)
-and show whether the chip smoke's checks catch them.
+"""Plant faults in copies of the fused FFN's bf16 Hopper kernels (dw_sm90_kernel,
+and the forward's and dx's tensor-core GEMMs) and show whether the chip
+smoke's checks catch them.
 
     python3 scripts/fused_mlp_planted_faults.py [--out DIR]
 
 Run from the root of the repository on a machine with an NVIDIA Hopper card.
 Each variant is a copy of ``deepspeed_tpu_torch`` and ``chip_smoke.py`` in a
 temporary directory (outside the repository), with at most one kind of
-edit to ``csrc/fused_mlp.cu``; the copies' ``fused_mlp`` libraries are
-built all at once, then each variant runs in a process of its own:
+edit to ``csrc/fused_mlp.cu`` or ``csrc/gemm_sm90.cuh``; the copies'
+``fused_mlp`` libraries are built all at once, then each variant runs in a
+process of its own. In dw_sm90_kernel:
 
-- ``clean``: no edit; every case must pass.
 - ``du_lo_dropped``: du enters dw1's products as its bf16 hi half alone.
 - ``chunk_u_partial_dropped``: the cluster's sum of u leaves out the last
   E-chunk's partial (dh keeps every chunk's).
 - ``last_segment_dropped``: the CTAs of the last row segment take no tiles.
 
-The cases are ``chip_smoke.run_dw_checks``: the dw kernel at the smoke's
-bf16 shapes (gpt2-125m's FFN at R = 24576, 2048, 8 and 1000; E = 64, 384
-and 768 at other rows and hidden widths), each held as the smoke holds it
-(every output within ``mlp_limit`` of the plain version and of the plain
-model of the kernel's order, finite, a bitwise repeat, exact launches by
-kernel), and the cancellation probe (``dw_cancel_probe``: du's hi halves
-cancel, its lo halves carry dw1). One JSON line per variant and case; each
-fault must fail one case at least. The last line is the verdict; the exit
-code is 0 when the clean copy passes and every fault is caught.
+In the forward's and dx's tensor-core GEMMs:
+
+- ``h_b1_dropped``: h_sm90_kernel's epilogue adds no b1 before the GELU.
+- ``k_stage_dropped``: both mainloops (gemm_sm90.cuh) overwrite their sums
+  at the second stage of every tile, dropping the first stage's products.
+- ``du_gelu_for_grad``: du_sm90_kernel multiplies dh by gelu_tanh, not its
+  derivative.
+- ``last_split_dropped``: the sum of the splits of F leaves out the last.
+- ``u_rounded_bf16``: h_sm90_kernel rounds u to bf16 before adding b1.
+
+The cases: for the dw faults ``chip_smoke.run_dw_checks`` (the dw kernel at
+the smoke's bf16 shapes, gpt2-125m's FFN at R = 24576, 2048, 8 and 1000 and
+E = 64, 384 and 768 at other rows and hidden widths, each held as the smoke
+holds it: every output within ``mlp_limit`` of the plain version and of
+the plain model of the kernel's order, finite, a bitwise repeat, exact
+launches by kernel; and ``dw_cancel_probe``); for the forward and dx faults
+``chip_smoke.run_fwd_dx_checks`` (both entries at gpt2-125m's shapes held
+the same way, and ``fwd_cancel_probe`` and ``dx_cancel_probe``, where fp32
+intermediates carry the result through cancellation); the clean copy runs
+both. One JSON line per variant and case; each fault must fail one case at
+least. The last line is the verdict; the exit code is 0 when the clean copy
+passes and every fault is caught.
 """
 from __future__ import annotations
 
@@ -38,7 +52,8 @@ import tempfile
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 SOURCE = "fused_mlp.cu"
-# variant: [(text, replacement)] in SOURCE
+# variant: [(text, replacement)] in SOURCE, or [(file, text, replacement)]
+# in another file of csrc/
 FAULTS = {
     "clean": [],
     "du_lo_dropped": [("      s9::split_hi_lo(h[0], h[1], w[2][0], w[3][0]);\n",
@@ -53,7 +68,34 @@ FAULTS = {
          "  const int t0 = blockIdx.y * tiles_per_seg,\n"
          "            t1 = gridDim.y > 1 && blockIdx.y == gridDim.y - 1\n"
          "                     ? t0 : min(row_tiles, t0 + tiles_per_seg);\n")],
+    "h_b1_dropped": [
+        ("acc[h][4 * j + c] = gelu_tanh(acc[h][4 * j + c] + b);",
+         "acc[h][4 * j + c] = gelu_tanh(acc[h][4 * j + c]);"),
+        ("acc[h][4 * j + 2 + c] = gelu_tanh(acc[h][4 * j + 2 + c] + b);",
+         "acc[h][4 * j + 2 + c] = gelu_tanh(acc[h][4 * j + 2 + c]);")],
+    "k_stage_dropped": [   # in both schedules (gemm, gemm_pingpong)
+        ("gemm_sm90.cuh", "const int scale = (kb | kk) != 0;\n        const bf16* s0 = st;",
+         "const int scale = (kb | kk) != 0 && !(kb == 1 && kk == 0);\n"
+         "        const bf16* s0 = st;"),
+        ("gemm_sm90.cuh", "const int scale = (kb | kk) != 0;\n        mma_k16<C::BN, C::TB0>(acc[0]",
+         "const int scale = (kb | kk) != 0 && !(kb == 1 && kk == 0);\n"
+         "        mma_k16<C::BN, C::TB0>(acc[0]")],
+    "du_gelu_for_grad": [
+        ("gelu_tanh_grad(acc[0][4 * j + c] + b)", "gelu_tanh(acc[0][4 * j + c] + b)"),
+        ("gelu_tanh_grad(acc[0][4 * j + 2 + c] + b)", "gelu_tanh(acc[0][4 * j + 2 + c] + b)")],
+    "last_split_dropped": [
+        ("return reduce<bf16>(part, splits, stride, stride, b2, E, out, st);",
+         "return reduce<bf16>(part, splits - 1, stride, stride, b2, E, out, st);")],
+    "u_rounded_bf16": [
+        ("acc[h][4 * j + c] = gelu_tanh(acc[h][4 * j + c] + b);",
+         "acc[h][4 * j + c] = gelu_tanh(ds::round_to<bf16>(acc[h][4 * j + c]) + b);"),
+        ("acc[h][4 * j + 2 + c] = gelu_tanh(acc[h][4 * j + 2 + c] + b);",
+         "acc[h][4 * j + 2 + c] = gelu_tanh(ds::round_to<bf16>(acc[h][4 * j + 2 + c]) + b);")],
 }
+# the checks each variant runs: the dw kernel's, the forward's and dx's, or both
+DW_FAULTS = ("du_lo_dropped", "chunk_u_partial_dropped", "last_segment_dropped")
+CHECKS = {v: ("dw",) if v in DW_FAULTS else ("dw", "fwd_dx") if v == "clean" else ("fwd_dx",)
+          for v in FAULTS}
 BUILD = ("import sys; sys.path.insert(0, '.'); from deepspeed_tpu_torch.ops import _build; "
          "_build.build_all(['fused_mlp'])")
 
@@ -65,17 +107,18 @@ def make_copy(variant: str) -> str:
                     os.path.join(tmp, "deepspeed_tpu_torch"),
                     ignore=shutil.ignore_patterns("_build", "__pycache__"))
     shutil.copy(os.path.join(ROOT, "chip_smoke.py"), tmp)
-    path = os.path.join(tmp, "deepspeed_tpu_torch", "ops", "csrc", SOURCE)
-    with open(path) as fh:
-        src = fh.read()
-    for text, repl in FAULTS[variant]:
+    csrc = os.path.join(tmp, "deepspeed_tpu_torch", "ops", "csrc")
+    for edit in FAULTS[variant]:
+        name, text, repl = edit if len(edit) == 3 else (SOURCE, *edit)
+        path = os.path.join(csrc, name)
+        with open(path) as fh:
+            src = fh.read()
         if src.count(text) != 1:
             shutil.rmtree(tmp, ignore_errors=True)
             raise RuntimeError(f"{variant}: the text to edit occurs {src.count(text)} times "
-                               f"in {SOURCE}")
-        src = src.replace(text, repl)
-    with open(path, "w") as fh:
-        fh.write(src)
+                               f"in {name}")
+        with open(path, "w") as fh:
+            fh.write(src.replace(text, repl))
     return tmp
 
 
@@ -90,7 +133,10 @@ def run_cases(variant: str) -> None:
     if not fm.__file__.startswith(os.getcwd()):
         raise RuntimeError(f"imported {fm.__file__}, not the copy in {os.getcwd()}")
     cs.emit = lambda obj: print(json.dumps(dict(variant=variant, **obj)), flush=True)
-    cs.run_dw_checks(torch)
+    if "dw" in CHECKS[variant]:
+        cs.run_dw_checks(torch)
+    if "fwd_dx" in CHECKS[variant]:
+        cs.run_fwd_dx_checks(torch)
 
 
 def main() -> int:
