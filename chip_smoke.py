@@ -200,24 +200,27 @@ decode, paged and flash attention at H=KV=8, D=256 beside SDPA; the w8
 matmul on pythia-1b's four panels.
 
 The kernels phase also holds the fused FFN's kernels
-(``kernels_fused_mlp``): forward, dx and dw at E=768, F=3072 in bf16 for
-R = 24576 (the flagship micro-batch), 2048, 8 and 1000 rows against their
-plain versions, the forward and dx on both routes (the tensor-core GEMMs
-and the mma.sync kernels; ``main_route`` marks the one the row rule
-gives), timed beside the unfused torch pair (forward, and its autograd
-backward beside dx and dw), dx's own unfused chain and the bound; in fp32
-at small shapes; and a GELU probe (``kernels_fused_mlp_gelu_probe``, both
-bf16 routes) whose control, the plain versions with the erf GELU, must
-miss. The Hopper kernels (the tensor-core forward and dx, the dw cluster
-kernel) also against the plain models of their order, bit for bit on a
-second call, with the library's launches by kernel and their registers and
-spills (``build_fused_mlp_sm90``); dw also with the floor with du's and h's
-lo halves, at E = 64, 384 and a ragged R (``kernels_fused_mlp_dw``). Three
-probes hold fp32 intermediates through cancellation, each with a control
-that rounds the intermediate to bf16 and must miss: du's lo halves in dw1
-(``kernels_fused_mlp_dw_cancel``), u + b1 and the splits' partials in the
-forward (``kernels_fused_mlp_fwd_cancel``), dh across the blocks of E and
-the splits' partials in dx (``kernels_fused_mlp_dx_cancel``).
+(``kernels_fused_mlp``): forward, dx and dw at E=768, F=3072 in bf16 for R
+= 24576 (the flagship micro-batch), 2048, 8 and 1000 rows against their
+plain versions, the forward on both routes (the tensor-core GEMMs and the
+mma.sync kernel; ``main_route`` marks the one the row rule gives) and dx on
+its tensor-core GEMMs, timed beside the unfused torch pair (forward, and
+its autograd backward beside dx and dw), dx's own unfused chain and the
+bound; in fp32 at small shapes; and a GELU probe
+(``kernels_fused_mlp_gelu_probe``, both bf16 routes) whose control, the
+plain versions with the erf GELU, must miss. The Hopper kernels (the
+tensor-core forward and dx, the dw cluster kernel) also against the plain
+models of their order, bit for bit on a second call, with the library's
+launches by kernel (the forward and dx also under a plan forced to three
+row chunks, their loop that keeps a larger call's scratch within 256 MiB)
+and their registers and spills (``build_fused_mlp_sm90``); dw also with the
+floor with du's and h's lo halves, at E = 64, 384 and a ragged R
+(``kernels_fused_mlp_dw``). Three probes hold fp32 intermediates through
+cancellation, each with a control that rounds the intermediate to bf16 and
+must miss: du's lo halves in dw1 (``kernels_fused_mlp_dw_cancel``), u + b1
+and the splits' partials in the forward (``kernels_fused_mlp_fwd_cancel``),
+dh across the blocks of E and the splits' partials in dx
+(``kernels_fused_mlp_dx_cancel``).
 
 The kernels phase also holds block-sparse attention (``kernels_sparse``)
 at BERT-large's heads (H=16, D=64): the Fixed layout at B=16, S=512, block
@@ -4739,8 +4742,9 @@ def run_train_1p5b(torch, peaks, out_dir=None):
 # the fused FFN (GPT-2 fused_mlp=True): kernels, serving, training
 # ---------------------------------------------------------------------------
 
-# the wrappers' counters: the mma.sync forward and dx (fp32, and bf16 below
-# fused_mlp.SM90_MIN_ROWS rows), dw, and the tensor-core forward and dx
+# the wrappers' counters: the mma.sync forward and dx (fp32, and the bf16
+# forward below fused_mlp.SM90_MIN_ROWS rows), dw, and the tensor-core
+# forward and dx
 FUSED_MLP_KERNELS = ("fused_mlp_fwd", "fused_mlp_bwd_dx", "fused_mlp_bwd_dw",
                      "fused_mlp_fwd_sm90", "fused_mlp_bwd_dx_sm90")
 NO_FUSED_MLP = {n: 0 for n in FUSED_MLP_KERNELS}
@@ -4805,19 +4809,20 @@ def mlp_limit(torch, got, ref, mag, cast_row: bool):
     return float(d.max()), float((d / lim.clamp(min=1e-30)).max())
 
 
-def mlp_outputs(fm, args, kernels: bool, with_dw: bool = True):
+def mlp_outputs(fm, args, kernels: bool, parts=("y", "dx", "dw")):
     """``{y, dx, dw1, db1, dw2, db2}`` of the three wrappers or their plain
-    versions (without dw's four when ``with_dw`` is False)."""
+    versions, those of the calls named in ``parts`` (``y``: the forward,
+    ``dx``, ``dw``: its four)."""
     x, w1, b1, w2, b2, dy = args
-    if kernels:
-        out = dict(y=fm.fused_mlp_fwd_op(x, w1, b1, w2, b2),
-                   dx=fm.fused_mlp_bwd_dx(x, w1, b1, w2, dy))
-        dw = fm.fused_mlp_bwd_dw(x, w1, b1, w2, dy) if with_dw else ()
-    else:
-        out = dict(y=fm.fused_mlp_plain(x, w1, b1, w2, b2),
-                   dx=fm.fused_mlp_bwd_dx_plain(x, w1, b1, w2, dy))
-        dw = fm.fused_mlp_bwd_dw_plain(x, w1, b1, w2, dy) if with_dw else ()
-    return dict(out, **dict(zip(("dw1", "db1", "dw2", "db2"), dw)))
+    calls = {"y": (fm.fused_mlp_fwd_op, fm.fused_mlp_plain, b2),
+             "dx": (fm.fused_mlp_bwd_dx, fm.fused_mlp_bwd_dx_plain, dy),
+             "dw": (fm.fused_mlp_bwd_dw, fm.fused_mlp_bwd_dw_plain, dy)}
+    out = {}
+    for part in parts:
+        kern, plain, last = calls[part]
+        got = (kern if kernels else plain)(x, w1, b1, w2, last)
+        out.update(dict(zip(("dw1", "db1", "dw2", "db2"), got)) if part == "dw" else {part: got})
+    return out
 
 
 # which kernel produces each output (the forward and dx: their mma.sync
@@ -4830,29 +4835,32 @@ MLP_OUTPUTS = {"y": ("fused_mlp_fwd", True), "dx": ("fused_mlp_bwd_dx", True),
 
 def mlp_names(fm, x, w1) -> dict:
     """The wrapper counters a forward and a dx call on these operands
-    launch: the tensor-core entries where ``mlp_plan`` routes the rows (bf16
-    from ``SM90_MIN_ROWS``), else the mma.sync ones; dw as it is."""
-    sm90 = fm._sm90_plan(x, w1) is not None
-    return {"fused_mlp_fwd": "fused_mlp_fwd_sm90" if sm90 else "fused_mlp_fwd",
-            "fused_mlp_bwd_dx": "fused_mlp_bwd_dx_sm90" if sm90 else "fused_mlp_bwd_dx",
+    launch: the tensor-core entries where ``sm90_route`` takes the rows
+    (bf16 dx; the bf16 forward from ``SM90_MIN_ROWS``), else the mma.sync
+    ones; dw as it is."""
+    def name(base, fwd):
+        return base + "_sm90" if fm._sm90_plan(x, w1, fwd) is not None else base
+    return {"fused_mlp_fwd": name("fused_mlp_fwd", True),
+            "fused_mlp_bwd_dx": name("fused_mlp_bwd_dx", False),
             "fused_mlp_bwd_dw": "fused_mlp_bwd_dw"}
 
 
 def mlp_path_names(fm, rows: dict, kind: str = "fused_mlp_fwd") -> dict:
     """Forward (or, with ``kind="fused_mlp_bwd_dx"``, dx) calls by wrapper
     counter on a gpt2-125m path, from ``{rows of a call: calls}``: each call
-    takes the route ``mlp_plan`` gives its rows (bf16)."""
+    takes the route ``sm90_route`` gives its rows (bf16)."""
     out = {}
     for R, n in rows.items():
-        name = kind + "_sm90" if fm.mlp_plan(R, MLP_E, MLP_F).sm90 else kind
+        name = kind + "_sm90" if fm.sm90_route(R, kind == "fused_mlp_fwd") else kind
         out[name] = out.get(name, 0) + n
     return out
 
 
 @contextlib.contextmanager
 def forced_route(fm, sm90: bool):
-    """The bf16 forward and dx on the tensor-core entries (``sm90``) or the
-    mma.sync ones at every row count, whatever the row rule says."""
+    """The bf16 forward on the tensor-core entry (``sm90``) or the mma.sync
+    one at every row count, whatever the row rule says (bf16 dx takes its
+    tensor-core entry at every row count either way)."""
     saved = fm.SM90_MIN_ROWS
     fm.SM90_MIN_ROWS = 1 if sm90 else 1 << 62
     try:
@@ -4861,13 +4869,14 @@ def forced_route(fm, sm90: bool):
         fm.SM90_MIN_ROWS = saved
 
 
-def mlp_held(torch, fm, args, with_dw: bool = True):
-    """Each kernel's outputs against its plain version: per kernel (named by
-    the route the call takes) the largest error, the largest error / limit
-    (over its outputs) and ok."""
+def mlp_held(torch, fm, args, parts=("y", "dx", "dw")):
+    """Each kernel's outputs against its plain version (the calls named in
+    ``parts``, as ``mlp_outputs``): per kernel (named by the route the call
+    takes) the largest error, the largest error / limit (over its outputs)
+    and ok."""
     names = mlp_names(fm, args[0], args[1])
-    got = mlp_outputs(fm, args, True, with_dw)
-    ref = mlp_outputs(fm, args, False, with_dw)
+    got = mlp_outputs(fm, args, True, parts)
+    ref = mlp_outputs(fm, args, False, parts)
     torch.cuda.synchronize()
     mags = mlp_mags(torch, fm, *args)
     per = {}
@@ -4887,37 +4896,72 @@ def mlp_held(torch, fm, args, with_dw: bool = True):
     return per
 
 
+def sm90_launches(fm, name, call, calls, chunks, splits):
+    """``call()`` and the library's own counts of its launches by kernel;
+    whether they are exactly those of ``calls`` calls of the tensor-core
+    entry ``name`` under a plan of ``chunks`` row chunks and ``splits``
+    splits of F (a call: per chunk h_sm90_kernel and y_sm90_kernel, or
+    du_sm90_kernel and dx_sm90_kernel; reduce_kernel once where F is split;
+    nothing else)."""
+    before = fm.kernel_launches()
+    got = call()
+    ran = {k: v - before[k] for k, v in fm.kernel_launches().items()}
+    want = {k: 0 for k in ran}
+    want.update({k: calls * chunks for k in MLP_SM90_KERNELS[name]},
+                reduce_kernel=calls * int(splits > 1))
+    return got, {k: v for k, v in ran.items() if v}, ran == want
+
+
+def forced_chunks(fm, plan, R):
+    """``plan`` with the rows walked in three chunks of whole 128-row
+    tiles, the last one shorter (the row-chunk loop that keeps a larger
+    call's scratch within ``SCRATCH_BYTES``); None below three tiles."""
+    tiles = -(-R // fm.TILE_ROWS)
+    return plan._replace(chunk_rows=(tiles // 3 + 1) * fm.TILE_ROWS) if tiles >= 3 else None
+
+
 def sm90_held(torch, fm, args) -> dict:
     """The tensor-core forward and dx, each called twice: identical bits,
-    the library's own counts (per call h_sm90_kernel and y_sm90_kernel, or
-    du_sm90_kernel and dx_sm90_kernel, once a row chunk, and reduce_kernel
-    once where F is split; nothing else), and the output against the plain
-    model of the entry's order (``fused_mlp_tiled_plain``,
-    ``fused_mlp_bwd_dx_tiled_plain``) under ``mlp_limit``. Returns
+    the library's own counts (``sm90_launches``), and the output against the
+    plain model of the entry's order (``fused_mlp_tiled_plain``,
+    ``fused_mlp_bwd_dx_tiled_plain``) under ``mlp_limit``. Then, from three
+    128-row tiles, each entry once more under its plan forced to several
+    row chunks (``forced_chunks``): against the tiled order under that plan,
+    the same bits as in one chunk, launches a chunk. Returns
     ``{entry: checks}``."""
     x, w1, b1, w2, b2, dy = args
-    plan = fm.mlp_plan(x.shape[0], x.shape[1], w1.shape[1])
-    chunks = -(-x.shape[0] // plan.chunk_rows)
+    R = x.shape[0]
+    plan = fm.mlp_plan(R, x.shape[1], w1.shape[1])
+    cplan = forced_chunks(fm, plan, R)
     mags = mlp_mags(torch, fm, *args)
-    calls = {"fused_mlp_fwd_sm90": (lambda: fm.fused_mlp_fwd_op(x, w1, b1, w2, b2),
-                                    lambda: fm.fused_mlp_tiled_plain(x, w1, b1, w2, b2), "y"),
-             "fused_mlp_bwd_dx_sm90": (lambda: fm.fused_mlp_bwd_dx(x, w1, b1, w2, dy),
-                                       lambda: fm.fused_mlp_bwd_dx_tiled_plain(x, w1, b1, w2, dy),
-                                       "dx")}
+    calls = {"fused_mlp_fwd_sm90": (fm.fused_mlp_fwd_op, fm.FWD_SM90, fm.fused_mlp_tiled_plain,
+                                    b2, "y"),
+             "fused_mlp_bwd_dx_sm90": (fm.fused_mlp_bwd_dx, fm.DX_SM90,
+                                       fm.fused_mlp_bwd_dx_tiled_plain, dy, "dx")}
     res = {}
-    for name, (call, tiled, out) in calls.items():
-        before = fm.kernel_launches()
-        got, again = call(), call()
+    for name, (wrapper, entry, tiled, last, out) in calls.items():
+        (got, again), ran, sm90_ok = sm90_launches(
+            fm, name, lambda: (wrapper(x, w1, b1, w2, last), wrapper(x, w1, b1, w2, last)),
+            2, -(-R // plan.chunk_rows), plan.splits)
         torch.cuda.synchronize()
-        ran = {k: v - before[k] for k, v in fm.kernel_launches().items()}
-        want = {k: 0 for k in ran}
-        want.update({k: 2 * chunks for k in MLP_SM90_KERNELS[name]},
-                    reduce_kernel=2 if plan.splits > 1 else 0)
-        _, ratio = mlp_limit(torch, got, tiled(), mags[out], True)
+        _, ratio = mlp_limit(torch, got, tiled(x, w1, b1, w2, last), mags[out], True)
         res[name] = dict(tiled_err_over_limit=ratio, bitwise_repeat=torch.equal(got, again),
-                         launches_by_kernel={k: v for k, v in ran.items() if v},
-                         sm90_ok=ran == want, plan=plan._asdict())
-        res[name]["ok"] = ratio <= 1.0 and res[name]["bitwise_repeat"] and res[name]["sm90_ok"]
+                         launches_by_kernel=ran, sm90_ok=sm90_ok, plan=plan._asdict())
+        res[name]["ok"] = ratio <= 1.0 and res[name]["bitwise_repeat"] and sm90_ok
+        if cplan is None:
+            continue
+        n = -(-R // cplan.chunk_rows)
+        got_c, ran_c, c_ok = sm90_launches(
+            fm, name, lambda: fm._launch_sm90(entry, x, w1, b1, w2, last, torch.empty_like(x),
+                                              cplan), 1, n, cplan.splits)
+        torch.cuda.synchronize()
+        _, c_ratio = mlp_limit(torch, got_c, tiled(x, w1, b1, w2, last, cplan), mags[out], True)
+        res[name]["chunked"] = dict(
+            chunk_rows=cplan.chunk_rows, chunks=n, last_chunk_rows=R - (n - 1) * cplan.chunk_rows,
+            tiled_err_over_limit=c_ratio, same_bits_as_one_chunk=torch.equal(got_c, got),
+            launches_by_kernel=ran_c, sm90_ok=c_ok)
+        res[name]["chunked"]["ok"] = c_ok and c_ratio <= 1.0 and torch.equal(got_c, got)
+        res[name]["ok"] &= res[name]["chunked"]["ok"]
     return res
 
 
@@ -5018,7 +5062,7 @@ def _split_plan(fm, R):
     tensor-core route: its second split starts at hidden column
     ``k_blocks * K_BLOCK``."""
     plan = fm.mlp_plan(R, MLP_E, MLP_F)
-    if not (plan.sm90 and plan.splits > 1):
+    if not (fm.sm90_route(R, True) and plan.splits > 1):
         raise ValueError(f"mlp_plan({R}) does not split F on the tensor-core route: {plan}")
     return plan
 
@@ -5217,12 +5261,13 @@ def mlp_build_regs(mlp_build) -> tuple[dict, dict]:
 
 def run_kernels_fused_mlp(torch, F_, peaks, mlp_build=()):
     """The fused FFN kernels against their plain versions on the card. bf16
-    at ``MLP_SHAPES``: the forward and dx on both routes (the tensor-core
-    entries and the mma.sync ones; ``main_route`` marks the one the row rule
-    gives the wrappers), every output held against the plain version; the
-    tensor-core entries also against the plain models of their order, bit
-    for bit on a second call, with the library's launches by kernel
-    (``sm90_held``) and their registers and spills (``mlp_build``); dw held
+    at ``MLP_SHAPES``: the forward on both routes (the tensor-core entry and
+    the mma.sync one; ``main_route`` marks the one the row rule gives the
+    wrapper) and dx on its tensor-core entry, every output held against the
+    plain version; the tensor-core entries also against the plain models of
+    their order, bit for bit on a second call, with the library's launches
+    by kernel, and under a plan forced to several row chunks
+    (``sm90_held``), and their registers and spills (``mlp_build``); dw held
     as before (``dw_held``, its floor with the hi + lo products, its
     registers). Each row carries its device time, its plain version's, the
     library's and the bound; dx's rows also dx's own unfused chain
@@ -5272,7 +5317,7 @@ def run_kernels_fused_mlp(torch, F_, peaks, mlp_build=()):
         main = set(mlp_names(fm, x, w1).values())
         for sm90 in (True, False):
             with forced_route(fm, sm90):
-                held = mlp_held(torch, fm, args, with_dw=sm90)
+                held = mlp_held(torch, fm, args, ("y", "dx", "dw") if sm90 else ("y",))
                 extra = sm90_held(torch, fm, args) if sm90 else {}
                 if sm90:
                     dwh = dw_held(torch, fm, args)
@@ -5332,8 +5377,9 @@ def run_kernels_fused_mlp(torch, F_, peaks, mlp_build=()):
             emit(dict(phase="kernels_fused_mlp_fp32", name=name, shape=f"R={R} E={E} F={F}", **h,
                       limit="mlp_limit: 1e-5 of the fp32 addends' magnitudes"))
             ok &= h["ok"]
-    # the GELU's form on both bf16 routes (R = 8 takes the mma.sync kernels
-    # by the row rule; forced, the tensor-core ones) and in fp32
+    # the GELU's form on both bf16 routes of the forward (R = 8 takes the
+    # mma.sync forward by the row rule; forced, the tensor-core one; dx takes
+    # its tensor-core entry in both) and in fp32
     for dt, R, E, F, band, sm90 in ((torch.bfloat16, 8, 768, 3072, (-3.2, -2.6), False),
                                     (torch.bfloat16, 8, 768, 3072, (-3.2, -2.6), True),
                                     (torch.float32, 3, 64, 256, (2.3, 3.2), False)):
@@ -5377,7 +5423,7 @@ def run_fwd_dx_checks(torch) -> bool:
     with forced_route(fm, True):
         for R, E, F in MLP_SHAPES:
             args = mlp_operands(torch, g, R, E, F, torch.bfloat16)
-            held = mlp_held(torch, fm, args, with_dw=False)
+            held = mlp_held(torch, fm, args, ("y", "dx"))
             extra = sm90_held(torch, fm, args)
             for name, h in held.items():
                 row = dict(phase="kernels_fused_mlp", name=name, shape=f"R={R} E={E} F={F} bfloat16",
@@ -6649,18 +6695,18 @@ def main() -> int:
 
     # the fused FFN kernels at the flagship micro-batch (the train path), the
     # other shapes under at_shapes; each launched on every path whose rows
-    # the row rule gives it (the mma.sync forward and dx: bf16 rows below
-    # fused_mlp.SM90_MIN_ROWS, the unfused decode ticks' 8 if any)
+    # the row rule gives it (the mma.sync forward: bf16 rows below
+    # fused_mlp.SM90_MIN_ROWS, the unfused decode ticks' 8 if any; bf16 dx
+    # takes its tensor-core entry at every row count)
     from deepspeed_tpu_torch.ops import fused_mlp as fm
-    ticks_sm90 = fm.mlp_plan(8, MLP_E, MLP_F).sm90
+    ticks_sm90 = fm.sm90_route(8, True)
     mlp_paths = {"fused_mlp_fwd_sm90": ("forward_fused_mlp", "generate_fused_mlp",
                                         "generate_fused_mlp_unfused_ticks",
                                         "serve_fused_mlp_paged", "train_fused_mlp",
                                         "train_fused_mlp_remat"),
                  "fused_mlp_bwd_dx_sm90": ("train_fused_mlp", "train_fused_mlp_remat"),
                  "fused_mlp_bwd_dw": ("train_fused_mlp", "train_fused_mlp_remat"),
-                 "fused_mlp_fwd": () if ticks_sm90 else ("generate_fused_mlp_unfused_ticks",),
-                 "fused_mlp_bwd_dx": ()}
+                 "fused_mlp_fwd": () if ticks_sm90 else ("generate_fused_mlp_unfused_ticks",)}
     for kname, paths in mlp_paths.items():
         r = mlp_rows.get(kname)
         if r is None:   # the kernels phase failed before timing it (already not ok)

@@ -24,27 +24,27 @@
 // bf16 dw's du and h: a floor of 0.70 ms there). At decode rows (R = 8) the
 // forward is bytes-bound on its 9.4 MB of weight panels (2.8 us).
 //
-// fwd and dx, bf16 from ops/fused_mlp.SM90_MIN_ROWS rows: two tensor-core
-// GEMMs each on gemm_sm90.cuh's mainloop (wgmma + TMA; 128-row CTAs of two
-// consumer warpgroups and a producer warp), through a bf16 scratch of the
-// hidden at the TPU kernels' cast point (h before the second forward
-// product, du before dx's), a chunk of rows at a time (ops/fused_mlp.py,
-// mlp_plan: at most 256 MiB, one chunk at R = 24576). A Hopper CTA cannot
-// keep the whole (rows, F) hidden on chip as the TPU kernel keeps it in
-// VMEM: y's accumulator over all of E for 64 rows is 384 fp32 registers a
-// thread, and splitting E recomputes u or exchanges h between CTAs. The
-// scratch holds exactly what the second product reads (the cast happens
-// there anyway), and its write and read cost 302 MB of traffic at R =
-// 24576, part of it in L2.
+// The bf16 forward from ops/fused_mlp.SM90_MIN_ROWS rows, and the bf16 dx at
+// any row count: two tensor-core GEMMs each on gemm_sm90.cuh's mainloop
+// (wgmma + TMA; 128-row CTAs of two consumer warpgroups and a producer warp),
+// through a bf16 scratch of the hidden at the TPU kernels' cast point (h
+// before the second forward product, du before dx's), a chunk of rows at a
+// time (ops/fused_mlp.py, mlp_plan: at most 256 MiB, one chunk at R = 24576).
+// A Hopper CTA cannot keep the whole (rows, F) hidden on chip as the TPU
+// kernel keeps it in VMEM: y's accumulator over all of E for 64 rows is 384
+// fp32 registers a thread, and splitting E recomputes u or exchanges h
+// between CTAs. The scratch holds exactly what the second product reads (the
+// cast happens there anyway), and its write and read cost 302 MB of traffic
+// at R = 24576, part of it in L2.
 // - h_sm90_kernel: u = x w1 over K = E (w1 MN-major through the transpose
 //   bit), the CTA walking f_tps tiles of 256 columns of F as 128 x 128
 //   tiles that its two consumer warpgroups take in turns (ping-pong: one
 //   warpgroup's epilogue runs under the other's products): + b1 (fp32),
 //   gelu_tanh, bf16, staged in swizzled shared memory and stored by TMA.
-// - y_sm90_kernel: y = h w2 + b2 over K = F, 128 x e_tile tiles (192 or
-//   256; n128 + n64 for 192), w2 MN-major; F split into fp32 partials where
-//   few row tiles leave the card idle (decode, prefill), summed in split
-//   order by reduce_kernel: no atomics, a repeated call gives the same bits.
+// - y_sm90_kernel: y = h w2 + b2 over K = F, 128 x 192 tiles (kETile; n128
+//   + n64), w2 MN-major; F split into fp32 partials where few row tiles
+//   leave the card idle (decode, prefill), summed in split order by
+//   reduce_kernel: no atomics, a repeated call gives the same bits.
 // - du_sm90_kernel: u = x w1 and dh = dy w2^T (w2 K-major) over K = E into
 //   two accumulators of one 128 x 128 tile (64 + 64 registers a thread);
 //   du = dh gelu_tanh'(u + b1), bf16, stored by TMA.
@@ -58,9 +58,9 @@
 // clusters sharing B by TMA multicast read a third less from it and ran no
 // faster) nor the ring's depth (a fifth stage) is the limit.
 //
-// fwd and dx, fp32 and bf16 below SM90_MIN_ROWS rows. The products run on
-// the tensor cores with mma.sync m16n8k16
-// (bf16 in, fp32 sums), fragments loaded from shared memory by ldmatrix (with
+// fwd and dx in fp32, and the bf16 fwd below SM90_MIN_ROWS rows (the decode
+// ticks'). The products run on the tensor cores with mma.sync m16n8k16 (bf16
+// in, fp32 sums), fragments loaded from shared memory by ldmatrix (with
 // .trans where an operand is stored k-major); the fp32 instantiation does the
 // same tiles with fp32 FMAs on the CUDA cores (no TF32), so its sums are
 // exact to fp32. A 16 x 8 tile with K = E (u, dh) runs four independent
@@ -1055,6 +1055,7 @@ namespace g9 = ds::gemm90;
 constexpr int kHTile = 256;    // hidden columns of the plan's F tiles (f_tps counts these)
 constexpr int kHPpTile = 128;  // ... of an h_sm90_kernel tile (one warpgroup's, ping-pong)
 constexpr int kDuTile = 128;   // ... of a du_sm90_kernel tile (two accumulators a thread)
+constexpr int kETile = 192;    // output columns of a y_sm90_kernel / dx_sm90_kernel tile
 
 // h: x w1 (w1 (E, F) MN-major), ping-pong 128 x 128 tiles a warpgroup, 5
 // stages of 32 KB and a 32 KB store tile a warpgroup; du: x w1 and dy w2^T
@@ -1062,8 +1063,8 @@ constexpr int kDuTile = 128;   // ... of a du_sm90_kernel tile (two accumulators
 // products h w2 (w2 MN-major: TB 1) and du w1^T (w1 K-major: TB 0), 4 stages
 using HCfg = g9::Config<kHPpTile, 1, 1, 0, 5, 2 * 2 * kHPpTile / 64>;
 using DuCfg = g9::Config<kDuTile, 2, 1, 0, 3, 2 * kDuTile / 64>;
-template <int BN, int TB>
-using ECfg = g9::Config<BN, 1, TB, 0, 4, 0>;
+template <int TB>
+using ECfg = g9::Config<kETile, 1, TB, 0, 4, 0>;
 
 // The CTA's row tile and its F segment [t0, t1) of tps tiles of `tile`
 // columns: the segments of a row tile are consecutive CTAs, so the CTAs in
@@ -1137,58 +1138,56 @@ du_sm90_kernel(const __grid_constant__ CUtensorMap tm_x, const __grid_constant__
 // over the split's k-blocks [kbs y, kbs (y + 1)) of 64: grid (row tiles x
 // E tiles, splits). One split: out = bf16(sum (+ bias)); more: the fp32
 // sum into part + y * split_stride (reduce_kernel adds them in order).
-template <int BN, int TB>
+template <int TB>
 __device__ __forceinline__ void ewide(const CUtensorMap* tm_a, const CUtensorMap* tm_b,
                                       const float* __restrict__ bias, bf16* __restrict__ out,
                                       float* __restrict__ part, size_t split_stride, int rows,
                                       int E, int F, int kbs) {
-  const int nt = (E + BN - 1) / BN, m = blockIdx.x / nt, n = blockIdx.x % nt;
+  const int nt = (E + kETile - 1) / kETile, m = blockIdx.x / nt, n = blockIdx.x % nt;
   const int kb0 = blockIdx.y * kbs, KB = min(kbs, (F + g9::kTK - 1) / g9::kTK - kb0);
   float* pp = part ? part + blockIdx.y * split_stride : nullptr;
   const g9::Product prod[1] = {{tm_a, tm_b}};
-  g9::gemm<ECfg<BN, TB>>(prod, m * g9::kTM, n, n + 1, kb0 * g9::kTK, KB,
-                         [&](float (&acc)[1][BN / 2], int n0, const g9::Frag& fr, bf16*) {
+  g9::gemm<ECfg<TB>>(prod, m * g9::kTM, n, n + 1, kb0 * g9::kTK, KB,
+                     [&](float (&acc)[1][kETile / 2], int n0, const g9::Frag& fr, bf16*) {
 #pragma unroll
-                           for (int rr = 0; rr < 2; ++rr) {
-                             const int r = fr.row0 + fr.rw + 8 * rr;
-                             if (r >= rows) continue;
+                       for (int rr = 0; rr < 2; ++rr) {
+                         const int r = fr.row0 + fr.rw + 8 * rr;
+                         if (r >= rows) continue;
 #pragma unroll
-                             for (int j = 0; j < BN / 8; ++j) {
-                               const int e = n0 + 8 * j + 2 * fr.t;
-                               if (e >= E) continue;
-                               const size_t o = (size_t)r * E + e;
-                               float v0 = acc[0][4 * j + 2 * rr], v1 = acc[0][4 * j + 2 * rr + 1];
-                               if (pp) {
-                                 *reinterpret_cast<float2*>(pp + o) = make_float2(v0, v1);
-                               } else {
-                                 if (bias) {
-                                   v0 += bias[e];
-                                   v1 += bias[e + 1];
-                                 }
-                                 *reinterpret_cast<__nv_bfloat162*>(out + o) =
-                                     __floats2bfloat162_rn(v0, v1);
-                               }
+                         for (int j = 0; j < kETile / 8; ++j) {
+                           const int e = n0 + 8 * j + 2 * fr.t;
+                           if (e >= E) continue;
+                           const size_t o = (size_t)r * E + e;
+                           float v0 = acc[0][4 * j + 2 * rr], v1 = acc[0][4 * j + 2 * rr + 1];
+                           if (pp) {
+                             *reinterpret_cast<float2*>(pp + o) = make_float2(v0, v1);
+                           } else {
+                             if (bias) {
+                               v0 += bias[e];
+                               v1 += bias[e + 1];
                              }
+                             *reinterpret_cast<__nv_bfloat162*>(out + o) =
+                                 __floats2bfloat162_rn(v0, v1);
                            }
-                         });
+                         }
+                       }
+                     });
 }
 
 // y = h w2 + b2 (the forward's second product), and dx = du w1^T: kernels
 // of their own names, so that a profile tells them apart
-template <int BN>
 __global__ void __launch_bounds__(g9::kThreads, 1)
 y_sm90_kernel(const __grid_constant__ CUtensorMap tm_h, const __grid_constant__ CUtensorMap tm_w2,
               const float* __restrict__ b2, bf16* __restrict__ y, float* __restrict__ part,
               size_t split_stride, int rows, int E, int F, int kbs) {
-  ewide<BN, 1>(&tm_h, &tm_w2, b2, y, part, split_stride, rows, E, F, kbs);
+  ewide<1>(&tm_h, &tm_w2, b2, y, part, split_stride, rows, E, F, kbs);
 }
 
-template <int BN>
 __global__ void __launch_bounds__(g9::kThreads, 1)
 dx_sm90_kernel(const __grid_constant__ CUtensorMap tm_du, const __grid_constant__ CUtensorMap tm_w1,
                bf16* __restrict__ dx, float* __restrict__ part, size_t split_stride, int rows, int E,
                int F, int kbs) {
-  ewide<BN, 0>(&tm_du, &tm_w1, nullptr, dx, part, split_stride, rows, E, F, kbs);
+  ewide<0>(&tm_du, &tm_w1, nullptr, dx, part, split_stride, rows, E, F, kbs);
 }
 
 // launches by kernel: 0 fwd_kernel, 1 dx_kernel, 2 dw_sm90_kernel (bf16),
@@ -1387,33 +1386,30 @@ cudaError_t launch_g9(K kernel, dim3 grid, int which, cudaStream_t st, Args... a
 
 // The host's plan (ops/fused_mlp.py, mlp_plan) as the bf16 entries take it:
 // row chunks of chunk_rows (a multiple of 128, or all of R), F segments of
-// f_tps tiles of 256 hidden columns, the E-wide products' tile e_tile (192
-// or 256) and their splits of kbs k-blocks of 64 hidden columns, none empty.
-bool sm90_plan_ok(int R, int E, int F, int chunk_rows, int f_tps, int e_tile, int splits,
-                  int kbs) {
+// f_tps tiles of 256 hidden columns, the E-wide products' splits of kbs
+// k-blocks of 64 hidden columns, none empty.
+bool sm90_plan_ok(int R, int E, int F, int chunk_rows, int f_tps, int splits, int kbs) {
   const int kb_all = (F + g9::kTK - 1) / g9::kTK, f_tiles = (F + kHTile - 1) / kHTile;
   return R > 0 && E > 0 && E % 64 == 0 && E <= kMaxE && F > 0 && F % kBF == 0 &&
          chunk_rows > 0 && (chunk_rows % g9::kTM == 0 || chunk_rows >= R) && f_tps > 0 &&
          (long long)((chunk_rows + g9::kTM - 1) / g9::kTM) * ((f_tiles + f_tps - 1) / f_tps) <
              INT_MAX &&
-         (e_tile == 192 || e_tile == 256) &&
          splits > 0 && splits <= 65535 && kbs > 0 && (long long)splits * kbs >= kb_all &&
          (long long)(splits - 1) * kbs < kb_all &&
-         (long long)((chunk_rows + g9::kTM - 1) / g9::kTM) * ((E + e_tile - 1) / e_tile) < INT_MAX;
+         (long long)((chunk_rows + g9::kTM - 1) / g9::kTM) * ((E + kETile - 1) / kETile) < INT_MAX;
 }
 
 // The E-wide product of a chunk: y_sm90_kernel (fwd) or dx_sm90_kernel.
-template <int BN>
 cudaError_t ewide_launch(bool fwd, const CUtensorMap& ma, const CUtensorMap& mb, const float* b2,
                          bf16* out, float* part, size_t stride, int rows, int E, int F, int splits,
                          int kbs, cudaStream_t st) {
-  const dim3 grid(((rows + g9::kTM - 1) / g9::kTM) * ((E + BN - 1) / BN), splits);
+  const dim3 grid(((rows + g9::kTM - 1) / g9::kTM) * ((E + kETile - 1) / kETile), splits);
   if (splits == 1) part = nullptr;
   if (fwd)
-    return launch_g9<ECfg<BN, 1>>(y_sm90_kernel<BN>, grid, kYSm90, st, ma, mb, b2, out, part,
-                                  stride, rows, E, F, kbs);
-  return launch_g9<ECfg<BN, 0>>(dx_sm90_kernel<BN>, grid, kDxSm90, st, ma, mb, out, part, stride,
-                                rows, E, F, kbs);
+    return launch_g9<ECfg<1>>(y_sm90_kernel, grid, kYSm90, st, ma, mb, b2, out, part, stride,
+                              rows, E, F, kbs);
+  return launch_g9<ECfg<0>>(dx_sm90_kernel, grid, kDxSm90, st, ma, mb, out, part, stride, rows,
+                            E, F, kbs);
 }
 
 // The bf16 forward (fwd) or dx on the tensor cores, chunk by chunk of rows:
@@ -1423,7 +1419,7 @@ cudaError_t ewide_launch(bool fwd, const CUtensorMap& ma, const CUtensorMap& mb,
 // order (adding b2) and casts.
 cudaError_t mlp_sm90(bool fwd, const bf16* x, const bf16* w1, const bf16* b1, const bf16* w2,
                      const bf16* dy, const float* b2, bf16* out, bf16* scratch, float* part, int R,
-                     int E, int F, int chunk_rows, int f_tps, int e_tile, int splits, int kbs,
+                     int E, int F, int chunk_rows, int f_tps, int splits, int kbs,
                      cudaStream_t st) {
   CUtensorMap mw1, mw2;
   if (!s9::matrix_map(&mw1, w1, E, F) || !s9::matrix_map(&mw2, w2, F, E))
@@ -1445,10 +1441,8 @@ cudaError_t mlp_sm90(bool fwd, const bf16* x, const bf16* w1, const bf16* b1, co
                                ms, b1, E, F, f_tps * (kHTile / kDuTile));
     if (err != cudaSuccess) return err;
     float* pc = part ? part + off : nullptr;
-    err = e_tile == 256 ? ewide_launch<256>(fwd, ms, fwd ? mw2 : mw1, b2, out + off, pc, stride,
-                                            rows, E, F, splits, kbs, st)
-                        : ewide_launch<192>(fwd, ms, fwd ? mw2 : mw1, b2, out + off, pc, stride,
-                                            rows, E, F, splits, kbs, st);
+    err = ewide_launch(fwd, ms, fwd ? mw2 : mw1, b2, out + off, pc, stride, rows, E, F, splits,
+                       kbs, st);
     if (err != cudaSuccess) return err;
   }
   if (splits == 1) return cudaSuccess;
@@ -1482,15 +1476,14 @@ DS_EXPORT int fused_mlp_fwd(const void* x, const void* w1, const void* b1, const
   return cudaErrorInvalidValue;
 }
 
-// dy (R, E) and dx (R, E) in x's dtype; part as for fused_mlp_fwd.
+// dy (R, E) and dx (R, E) fp32; part as for fused_mlp_fwd. fp32 only: bf16
+// dx takes fused_mlp_bwd_dx_sm90 at every row count.
 DS_EXPORT int fused_mlp_bwd_dx(const void* x, const void* w1, const void* b1, const void* w2,
                                const void* dy, void* dx, void* part, int R, int E, int F,
                                int nsplit, int chunks_per_split, int dtype, void* stream) {
   if (!shape_ok(R, E, F, dtype) || nsplit < 1) return cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   float* pf = static_cast<float*>(part);
-  if (dtype == ds::kBFloat16)
-    return bwd_dx<bf16>(x, w1, b1, w2, dy, dx, pf, R, E, F, nsplit, chunks_per_split, st);
   if (dtype == ds::kFloat32)
     return bwd_dx<float>(x, w1, b1, w2, dy, dx, pf, R, E, F, nsplit, chunks_per_split, st);
   return cudaErrorInvalidValue;
@@ -1529,15 +1522,15 @@ DS_EXPORT int fused_mlp_dw_active_clusters(int chunk, int E) {
 // chunk, then reduce_kernel when split).
 DS_EXPORT int fused_mlp_fwd_sm90(const void* x, const void* w1, const void* b1, const void* w2,
                                  const void* b2, void* y, void* scratch, void* part, int R, int E,
-                                 int F, int chunk_rows, int f_tps, int e_tile, int splits, int kbs,
+                                 int F, int chunk_rows, int f_tps, int splits, int kbs,
                                  void* stream) {
-  if (!sm90_plan_ok(R, E, F, chunk_rows, f_tps, e_tile, splits, kbs) || (splits > 1 && !part))
+  if (!sm90_plan_ok(R, E, F, chunk_rows, f_tps, splits, kbs) || (splits > 1 && !part))
     return cudaErrorInvalidValue;
   return mlp_sm90(true, static_cast<const bf16*>(x), static_cast<const bf16*>(w1),
                   static_cast<const bf16*>(b1), static_cast<const bf16*>(w2), nullptr,
                   static_cast<const float*>(b2), static_cast<bf16*>(y),
                   static_cast<bf16*>(scratch), static_cast<float*>(part), R, E, F, chunk_rows,
-                  f_tps, e_tile, splits, kbs, static_cast<cudaStream_t>(stream));
+                  f_tps, splits, kbs, static_cast<cudaStream_t>(stream));
 }
 
 // The bf16 dx on the tensor cores: dy and dx (R, E) bf16; the rest as for
@@ -1545,15 +1538,15 @@ DS_EXPORT int fused_mlp_fwd_sm90(const void* x, const void* w1, const void* b1, 
 // reduce_kernel when split).
 DS_EXPORT int fused_mlp_bwd_dx_sm90(const void* x, const void* w1, const void* b1, const void* w2,
                                     const void* dy, void* dx, void* scratch, void* part, int R,
-                                    int E, int F, int chunk_rows, int f_tps, int e_tile,
-                                    int splits, int kbs, void* stream) {
-  if (!sm90_plan_ok(R, E, F, chunk_rows, f_tps, e_tile, splits, kbs) || (splits > 1 && !part))
+                                    int E, int F, int chunk_rows, int f_tps, int splits,
+                                    int kbs, void* stream) {
+  if (!sm90_plan_ok(R, E, F, chunk_rows, f_tps, splits, kbs) || (splits > 1 && !part))
     return cudaErrorInvalidValue;
   return mlp_sm90(false, static_cast<const bf16*>(x), static_cast<const bf16*>(w1),
                   static_cast<const bf16*>(b1), static_cast<const bf16*>(w2),
                   static_cast<const bf16*>(dy), nullptr, static_cast<bf16*>(dx),
                   static_cast<bf16*>(scratch), static_cast<float*>(part), R, E, F, chunk_rows,
-                  f_tps, e_tile, splits, kbs, static_cast<cudaStream_t>(stream));
+                  f_tps, splits, kbs, static_cast<cudaStream_t>(stream));
 }
 
 // Launches so far of kernel `which` (0 fwd_kernel, 1 dx_kernel, 2

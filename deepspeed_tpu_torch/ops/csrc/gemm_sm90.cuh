@@ -58,7 +58,7 @@ struct Config {
   static constexpr int OUT = STAGES * STAGE;                 // the epilogue's buffer
   static constexpr int BAR = OUT + OUT_BOXES_ * kBox * 2;    // the mbarriers
   static constexpr int SMEM = 1024 + BAR + (2 * STAGES + 1) * 8;   // 1024: alignment
-  static_assert(BN == 128 || BN == 192 || BN == 256, "tile width");
+  static_assert(BN == 128 || BN == 192, "tile width");
   static_assert(NP == 1 || NP == 2, "products");
   static_assert(SMEM <= 232448, "a CTA's shared memory on the H100");
 };

@@ -38,16 +38,17 @@ time, between the two products of a call (:func:`mlp_plan`;
 follow their order). :func:`kernel_launches` gives the C library's own
 counts by kernel.
 
-CUDA tensors launch the kernels (bf16 forward and dx: the tensor-core
-entries where :func:`mlp_plan` says so, the ``mma.sync`` ones below
-:data:`SM90_MIN_ROWS` rows and in fp32); CPU tensors run the plain versions;
-a CUDA tensor never falls back (a build or launch failure raises). The kernels take
-E a multiple of 64 up to :data:`MAX_E` (768 in bf16, 384 in fp32, their
-shared-memory tiles), F a multiple of 32 and any R ≥ 1 (ragged row tiles are
-masked, where the JAX wrapper pads); other shapes raise on the card. The JAX
-wrapper's tiling error (``_pick_block_f``) and its mesh plan
-(``fused_mlp_spmd``) are TPU and multi-device matters with no counterpart
-here. :func:`fits_vmem` is the JAX package's dispatch rule, kept as it is.
+CUDA tensors launch the kernels (:func:`sm90_route`: bf16 dx, and the bf16
+forward from :data:`SM90_MIN_ROWS` rows, on the tensor-core entries; the
+``mma.sync`` ones for the bf16 forward below it and in fp32); CPU tensors
+run the plain versions; a CUDA tensor never falls back (a build or launch
+failure raises). The kernels take E a multiple of 64 up to :data:`MAX_E`
+(768 in bf16, 384 in fp32, their shared-memory tiles), F a multiple of 32
+and any R ≥ 1 (ragged row tiles are masked, where the JAX wrapper pads);
+other shapes raise on the card. The JAX wrapper's tiling error
+(``_pick_block_f``) and its mesh plan (``fused_mlp_spmd``) are TPU and
+multi-device matters with no counterpart here.
+:func:`fits_vmem` is the JAX package's dispatch rule, kept as it is.
 """
 from __future__ import annotations
 
@@ -65,14 +66,14 @@ DX = Kernel("fused_mlp", "fused_mlp_bwd_dx", [PTR] * 7 + _ARGS)
 # R E F segments tiles_per_segment chunk dtype stream
 DW = Kernel("fused_mlp", "fused_mlp_bwd_dw", [PTR] * 8 + [INT] * 7 + [PTR])
 
-# R E F chunk_rows f_tiles e_tile splits k_blocks stream
-_SM90_ARGS = [INT] * 8 + [PTR]
+# R E F chunk_rows f_tiles splits k_blocks stream
+_SM90_ARGS = [INT] * 7 + [PTR]
 FWD_SM90 = Kernel("fused_mlp", "fused_mlp_fwd_sm90", [PTR] * 8 + _SM90_ARGS)
 DX_SM90 = Kernel("fused_mlp", "fused_mlp_bwd_dx_sm90", [PTR] * 8 + _SM90_ARGS)
 
 # the kernels behind the C entries, in the order the library counts them
-# (``fused_mlp_launched``): the forward, dx, the bf16 dw on Hopper, the fp32
-# dw, the pass that sums split partials in order and casts, then the bf16
+# (``fused_mlp_launched``): the forward, dx (fp32), the bf16 dw on Hopper, the
+# fp32 dw, the pass that sums split partials in order and casts, then the bf16
 # forward's two GEMMs (h, y) and dx's (du, dx) on the tensor cores
 KERNELS = ("fwd_kernel", "dx_kernel", "dw_sm90_kernel", "dw_kernel", "reduce_kernel",
            "h_sm90_kernel", "y_sm90_kernel", "du_sm90_kernel", "dx_sm90_kernel")
@@ -92,11 +93,14 @@ _SM_COUNT = 132    # splits and segments aim at a few blocks per SM of an H100
 SCRATCH_BYTES = 256 * 1024 * 1024   # the hidden's bf16 scratch at most (as fused_ce.py's)
 TILE_ROWS = 128    # rows a CTA: two warpgroups of 64
 H_TILE = 256       # hidden columns a tile of h_sm90_kernel (du_sm90_kernel: 128, twice as many)
-E_TILES = (256, 192)   # tile widths of the E-wide products (y, dx)
+# output columns a CTA of the E-wide products (y, dx): on an H100 as fast as
+# 256 at 24576 rows and 4-7% faster at 2048 (scripts/fused_mlp_ab.py)
+E_TILE = 192
 K_BLOCK = 64       # contraction a pipeline stage
-# rows from which bf16 takes the tensor-core entries: below, their latency
-# loses to fwd_kernel / dx_kernel (an H100 at 8 rows: 0.023 / 0.033 ms against
-# 0.013 / 0.015; at 64 they win: scripts/fused_mlp_ab.py)
+# rows from which the bf16 forward takes the tensor-core entry: below, its
+# latency loses to fwd_kernel (an H100 at 8 rows: 0.025 ms against 0.013; at
+# 64 it wins: scripts/fused_mlp_ab.py). bf16 dx takes its tensor-core entry
+# at every row count: every path calls it with thousands of rows.
 SM90_MIN_ROWS = 64
 # the plan's cost model, in k-block times (one 64-deep k-block of a 128 x 256
 # tile at the card's bf16 rate: 0.56 us on an H100)
@@ -196,14 +200,11 @@ class MlpPlan(NamedTuple):
     hidden a ``(chunk_rows, F)`` bf16 scratch; a CTA of the F-wide kernel (h
     or du) computes ``f_tiles`` tiles of 256 hidden columns of 128 rows (h's
     two warpgroups take them as 128-column halves in turns); the
-    E-wide product (y or dx) takes ``e_tile`` columns of 128 rows a CTA and
-    splits F into ``splits`` ranges of ``k_blocks`` blocks of 64, summed in
-    order by ``reduce_kernel`` when more than one. ``sm90`` False: the rows
-    go to ``fwd_kernel`` / ``dx_kernel`` (the ``mma.sync`` entries)."""
-    sm90: bool
+    E-wide product (y or dx) takes :data:`E_TILE` columns of 128 rows a CTA
+    and splits F into ``splits`` ranges of ``k_blocks`` blocks of 64, summed
+    in order by ``reduce_kernel`` when more than one."""
     chunk_rows: int
     f_tiles: int
-    e_tile: int
     splits: int
     k_blocks: int
 
@@ -215,10 +216,9 @@ def mlp_plan(R: int, E: int, F: int) -> MlpPlan:
     chunk's CTAs (one an SM: their shared memory), the counts that take the
     fewest k-block times in waves of :data:`_SM_COUNT`, plus
     :data:`CTA_START` a CTA: the F-wide kernel's tiles a CTA (each E / 64
-    k-blocks), and the E-wide product's tile width (:data:`E_TILES`) with its
-    splits of F (each split's fp32 partials cost their bytes and
-    :data:`REDUCE_START`). Ties go to fewer tiles a CTA, the wider tile and
-    fewer splits."""
+    k-blocks), and the E-wide product's splits of F (each split's fp32
+    partials cost their bytes and :data:`REDUCE_START`). Ties go to fewer
+    tiles a CTA and fewer splits."""
     cap = max(TILE_ROWS, SCRATCH_BYTES // (2 * F) // TILE_ROWS * TILE_ROWS)
     chunk = R if R <= cap else cap
     m = -(-chunk // TILE_ROWS)
@@ -231,17 +231,21 @@ def mlp_plan(R: int, E: int, F: int) -> MlpPlan:
                   key=lambda p: (waves(m * -(-nt // p)) * (p * E // K_BLOCK + CTA_START), p))
     kb = -(-F // K_BLOCK)
     best = None
-    for bn in E_TILES:
-        for per in range(kb, 0, -1):
-            s = -(-kb // per)
-            cost = waves(m * -(-E // bn) * s) * (per * bn / H_TILE + CTA_START)
-            if s > 1:
-                cost += REDUCE_START + (s * R * E * 4 + R * E * 2) / BYTES_PER_KBLOCK
-            key = (cost, -bn, s)
-            if best is None or key < best[0]:
-                best = (key, bn, s, per)
-    _, e_tile, splits, k_blocks = best
-    return MlpPlan(R >= SM90_MIN_ROWS, chunk, f_tiles, e_tile, splits, k_blocks)
+    for per in range(kb, 0, -1):
+        s = -(-kb // per)
+        cost = waves(m * -(-E // E_TILE) * s) * (per * E_TILE / H_TILE + CTA_START)
+        if s > 1:
+            cost += REDUCE_START + (s * R * E * 4 + R * E * 2) / BYTES_PER_KBLOCK
+        if best is None or (cost, s) < best[0]:
+            best = ((cost, s), s, per)
+    return MlpPlan(chunk, f_tiles, best[1], best[2])
+
+
+def sm90_route(R: int, fwd: bool, dtype=torch.bfloat16) -> bool:
+    """Whether a call of ``R`` rows takes the tensor-core entry: bf16 dx
+    always, the bf16 forward from :data:`SM90_MIN_ROWS` rows, fp32 never
+    (the ``mma.sync`` ``fwd_kernel`` / ``dx_kernel`` otherwise)."""
+    return dtype == torch.bfloat16 and (not fwd or R >= SM90_MIN_ROWS)
 
 
 def _u(x, w1, b1):
@@ -400,12 +404,12 @@ def _launch_rows(kernel, x, w1, b1, w2, last, out):
     return out
 
 
-def _sm90_plan(x, w1):
-    """:func:`mlp_plan` of a bf16 call the tensor-core entries take, else None."""
-    if x.dtype != torch.bfloat16:
+def _sm90_plan(x, w1, fwd: bool):
+    """:func:`mlp_plan` of a call the tensor-core entries take
+    (:func:`sm90_route`), else None."""
+    if not sm90_route(x.shape[0], fwd, x.dtype):
         return None
-    plan = mlp_plan(x.shape[0], x.shape[1], w1.shape[1])
-    return plan if plan.sm90 else None
+    return mlp_plan(x.shape[0], x.shape[1], w1.shape[1])
 
 
 def _launch_sm90(kernel, x, w1, b1, w2, last, out, plan):
@@ -419,21 +423,20 @@ def _launch_sm90(kernel, x, w1, b1, w2, last, out, plan):
     with torch.cuda.device(x.device):
         kernel.launch(x.data_ptr(), w1.data_ptr(), b1.data_ptr(), w2.data_ptr(), last.data_ptr(),
                       out.data_ptr(), scratch.data_ptr(), part.data_ptr(), R, E, F,
-                      plan.chunk_rows, plan.f_tiles, plan.e_tile, plan.splits, plan.k_blocks,
-                      stream_of(x))
+                      plan.chunk_rows, plan.f_tiles, plan.splits, plan.k_blocks, stream_of(x))
     return out
 
 
 def fused_mlp_bwd_dx(x, w1, b1, w2, dy):
     """dx ``(R, E)`` in x's dtype: on CUDA tensors the tensor-core entry
-    (bf16, :func:`mlp_plan`) or the dx kernel, :func:`fused_mlp_bwd_dx_plain`
-    on CPU tensors."""
+    (bf16, :func:`mlp_plan`) or the dx kernel (fp32),
+    :func:`fused_mlp_bwd_dx_plain` on CPU tensors."""
     _check(x, w1, b1, w2, dy)
     if not x.is_cuda:
         return fused_mlp_bwd_dx_plain(x, w1, b1, w2, dy)
     x, w1, b1, w2, dy = (t.contiguous() for t in (x, w1, b1, w2, dy))
     check_operands(x, w1, b1, w2, dy)
-    plan = _sm90_plan(x, w1)
+    plan = _sm90_plan(x, w1, False)
     if plan is not None:
         return _launch_sm90(DX_SM90, x, w1, b1, w2, dy, torch.empty_like(x), plan)
     return _launch_rows(DX, x, w1, b1, w2, dy, torch.empty_like(x))
@@ -471,8 +474,8 @@ def fused_mlp_bwd_dw(x, w1, b1, w2, dy):
 def fused_mlp_fwd_op(x: torch.Tensor, w1: torch.Tensor, b1: torch.Tensor, w2: torch.Tensor,
                      b2: torch.Tensor) -> torch.Tensor:
     """The forward as one dispatcher op, ``(R, E)`` in x's dtype: on CUDA
-    tensors the tensor-core entry (bf16, :func:`mlp_plan`) or the forward
-    kernel, :func:`fused_mlp_plain` on CPU tensors (its products stay inside
+    tensors the tensor-core entry (bf16 from :data:`SM90_MIN_ROWS` rows,
+    :func:`mlp_plan`) or the forward kernel, :func:`fused_mlp_plain` on CPU tensors (its products stay inside
     the op, so a checkpoint policy sees one op on both devices)."""
     _check(x, w1, b1, w2)
     if not x.is_cuda:
@@ -481,7 +484,7 @@ def fused_mlp_fwd_op(x: torch.Tensor, w1: torch.Tensor, b1: torch.Tensor, w2: to
     b2 = b2.float().contiguous()
     check_operands(x, w1, b1, w2)
     check_operands(b2)
-    plan = _sm90_plan(x, w1)
+    plan = _sm90_plan(x, w1, True)
     if plan is not None:
         return _launch_sm90(FWD_SM90, x, w1, b1, w2, b2, torch.empty_like(x), plan)
     return _launch_rows(FWD, x, w1, b1, w2, b2, torch.empty_like(x))

@@ -22,9 +22,9 @@ back-to-back calls (``event_ms``), the bound (``bound_ms``: 2, 3 or 4
 products of 2 R E F flops at the card's bf16 rate, or the bytes) and, for
 dw, the floor with the lo halves of du and h (``hi_lo_floor_ms``: 6
 products). Where the tree routes bf16 rows by ``fused_mlp.SM90_MIN_ROWS``,
-the forward and dx are timed on both routes (``route``: ``sm90``, the
-tensor-core entries; ``mma.sync``, the others), which decides the row
-rule. With ``--library``: the unfused pair ``F.linear`` -> tanh GELU ->
+the forward is timed on both routes (``route``: ``sm90``, the tensor-core
+entry; ``mma.sync``, the other), which decides the row rule; dx takes its
+tensor-core entry at every row count there. With ``--library``: the unfused pair ``F.linear`` -> tanh GELU ->
 ``F.linear`` (forward), its autograd backward (all five gradients) beside
 dx and dw (``library_ms``), and dx's own unfused chain (``F.linear(x, w1ᵀ,
 b1)``, ``dy @ w2ᵀ``, ``aten.gelu_backward(tanh)``, ``@ w1ᵀ``:
@@ -33,6 +33,7 @@ b1)``, ``dy @ w2ᵀ``, ``aten.gelu_backward(tanh)``, ``@ w1ᵀ``:
 from __future__ import annotations
 
 import argparse
+import contextlib
 import json
 import os
 import subprocess
@@ -80,6 +81,7 @@ def main() -> int:
 
     g = torch.Generator(device="cuda").manual_seed(cs.SEED + 42)
     routes = (True, False) if hasattr(fm, "SM90_MIN_ROWS") else (None,)
+    case_routes = {"fwd": routes, "dx": routes[:1], "dw": (None,)}
     for R, E, F in SHAPES:
         x, w1, b1, w2, b2, dy = cs.mlp_operands(torch, g, R, E, F, torch.bfloat16)
         iters = 5 if R >= 2048 else 20
@@ -110,23 +112,17 @@ def main() -> int:
                  "dw": lambda: fm.fused_mlp_bwd_dw(x, w1, b1, w2, dy)}
         base = {"fwd": "fused_mlp_fwd", "dx": "fused_mlp_bwd_dx", "dw": "fused_mlp_bwd_dw"}
         for case, call in calls.items():
-            for sm90 in (routes if case != "dw" else (None,)):
-                if sm90 is not None:
-                    saved = fm.SM90_MIN_ROWS
-                    fm.SM90_MIN_ROWS = 1 if sm90 else 1 << 62
-                try:
+            for sm90 in case_routes[case]:
+                with (contextlib.nullcontext() if sm90 is None else cs.forced_route(fm, sm90)):
                     total, by_kernel = cs.device_ms_by_name(torch, call, iters)
                     event = cs.cuda_ms(torch, call, iters)
-                finally:
-                    if sm90 is not None:
-                        fm.SM90_MIN_ROWS = saved
                 b_ms, b_by = bounds[base[case]]
                 row = dict(case=case, shape=shape, device_ms=total,
                            by_kernel={k[:80]: v for k, v in by_kernel.items()}, event_ms=event,
                            bound_ms=b_ms, bound_by=b_by)
                 if case != "dw":
                     row["route"] = "mma.sync" if sm90 is None or not sm90 else "sm90"
-                    row["main_route"] = sm90 is None or sm90 == fm.mlp_plan(R, E, F).sm90
+                    row["main_route"] = sm90 is None or sm90 == fm.sm90_route(R, case == "fwd")
                 else:
                     row["hi_lo_floor_ms"] = 6 * 2.0 * R * E * F / peaks[1] * 1e3
                 if lib:

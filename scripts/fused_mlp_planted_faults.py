@@ -34,7 +34,7 @@ holds it: every output within ``mlp_limit`` of the plain version and of
 the plain model of the kernel's order, finite, a bitwise repeat, exact
 launches by kernel; and ``dw_cancel_probe``); for the forward and dx faults
 ``chip_smoke.run_fwd_dx_checks`` (both entries at gpt2-125m's shapes held
-the same way, and ``fwd_cancel_probe`` and ``dx_cancel_probe``, where fp32
+the same way, also under plans forced to three row chunks, and ``fwd_cancel_probe`` and ``dx_cancel_probe``, where fp32
 intermediates carry the result through cancellation); the clean copy runs
 both. One JSON line per variant and case; each fault must fail one case at
 least. The last line is the verdict; the exit code is 0 when the clean copy

@@ -5,8 +5,9 @@
 The plan: row chunks of whole 128-row tiles covering the rows once, the
 hidden's bf16 scratch within ``SCRATCH_BYTES``; F segments and splits of F
 covering every hidden column once, none empty; at gpt2-125m's FFN the plan
-``PERF.md`` states. The route rule (bf16 from ``SM90_MIN_ROWS`` rows on the
-tensor-core entries, fp32 never) is pinned. The tiled plain versions (row
+``PERF.md`` states. The route rule (the bf16 forward from ``SM90_MIN_ROWS``
+rows and bf16 dx at every row count on the tensor-core entries, fp32
+never) is pinned. The tiled plain versions (row
 chunks, the hidden cast to x's dtype, the splits' fp32 products summed in
 order) against the JAX package's ``_fwd_kernel`` and ``_bwd_dx_kernel`` run
 with ``interpret=True``, in fp32 and bf16, with the tolerances of
@@ -90,7 +91,7 @@ def test_tiled_plain_is_the_plain_version_in_one_piece():
     # one chunk, one split: the plain versions' own sums, bit for bit
     args = [torch.from_numpy(a) for a in _operands(70, 64, 256, 4)]
     x, w1, b1, w2, b2, dy = args
-    plan = fm.MlpPlan(True, 70, 1, 256, 1, 4)
+    plan = fm.MlpPlan(70, 1, 1, 4)
     assert torch.equal(fm.fused_mlp_tiled_plain(x, w1, b1, w2, b2, plan),
                        fm.fused_mlp_plain(x, w1, b1, w2, b2))
     assert torch.equal(fm.fused_mlp_bwd_dx_tiled_plain(x, w1, b1, w2, dy, plan),
@@ -114,7 +115,6 @@ def test_mlp_plan_covers_rows_and_hidden(E):
             assert 1 <= p.f_tiles <= nt and (segs - 1) * p.f_tiles < nt
             # splits of F in the E-wide products: every k-block once, none empty
             kb = -(-F // fm.K_BLOCK)
-            assert p.e_tile in fm.E_TILES
             assert p.splits * p.k_blocks >= kb and (p.splits - 1) * p.k_blocks < kb
             assert p.splits <= 65535
 
@@ -125,22 +125,29 @@ def test_mlp_plan_at_the_stated_shapes():
     # the E-wide products over all of F (768 CTAs); B=2 x 1024 rows: 2
     # hidden tiles a CTA (96 CTAs), 192-column tiles in 2 splits of 24
     # k-blocks (128 CTAs) summed by reduce_kernel
-    assert fm.mlp_plan(24576, 768, 3072) == fm.MlpPlan(True, 24576, 6, 192, 1, 48)
-    assert fm.mlp_plan(2048, 768, 3072) == fm.MlpPlan(True, 2048, 2, 192, 2, 24)
+    assert fm.E_TILE == 192
+    assert fm.mlp_plan(24576, 768, 3072) == fm.MlpPlan(24576, 6, 1, 48)
+    assert fm.mlp_plan(2048, 768, 3072) == fm.MlpPlan(2048, 2, 2, 24)
     # past the scratch's bound: chunks of 43648 rows (341 tiles)
     assert fm.mlp_plan(60000, 768, 3072).chunk_rows == 43648
 
 
 def test_route_rule_is_pinned():
-    # bf16 below 64 rows (the unfused decode ticks' 8, small prefill
-    # chunks) keeps the mma.sync kernels; fp32 always does
+    # the bf16 forward below 64 rows (the unfused decode ticks' 8, small
+    # prefill chunks) keeps the mma.sync kernel; bf16 dx takes the
+    # tensor-core entry at every row count; fp32 keeps the mma.sync kernels
     assert fm.SM90_MIN_ROWS == 64
     for R in (1, 8, 63, 64, 1000, 2048, 24576):
-        assert fm.mlp_plan(R, 768, 3072).sm90 == (R >= 64)
+        assert fm.sm90_route(R, True) == (R >= 64)
+        assert fm.sm90_route(R, False)
+        assert not fm.sm90_route(R, True, torch.float32)
+        assert not fm.sm90_route(R, False, torch.float32)
     x32, w32 = torch.zeros(64, 64), torch.zeros(64, 256)
-    assert fm._sm90_plan(x32, w32) is None
-    assert fm._sm90_plan(x32.bfloat16(), w32.bfloat16()) == fm.mlp_plan(64, 64, 256)
-    assert fm._sm90_plan(x32[:8].bfloat16(), w32.bfloat16()) is None
+    for fwd in (True, False):
+        assert fm._sm90_plan(x32, w32, fwd) is None
+        assert fm._sm90_plan(x32.bfloat16(), w32.bfloat16(), fwd) == fm.mlp_plan(64, 64, 256)
+    assert fm._sm90_plan(x32[:8].bfloat16(), w32.bfloat16(), True) is None
+    assert fm._sm90_plan(x32[:8].bfloat16(), w32.bfloat16(), False) == fm.mlp_plan(8, 64, 256)
 
 
 @contextlib.contextmanager
@@ -168,13 +175,13 @@ def test_launch_plan_from_shapes(monkeypatch, dtype, R):
         y = fm.fused_mlp_fwd_op(x, w1, b1, w2, b2)
         dx = fm.fused_mlp_bwd_dx(x, w1, b1, w2, dy)
     assert y.shape == dx.shape == (R, E) and y.dtype == dx.dtype == dtype
-    sm90 = dtype == torch.bfloat16 and R >= fm.SM90_MIN_ROWS
-    assert [s for s, _ in launches] == (
-        ["fused_mlp_fwd_sm90", "fused_mlp_bwd_dx_sm90"] if sm90
-        else ["fused_mlp_fwd", "fused_mlp_bwd_dx"])
-    if sm90:
-        p = fm.mlp_plan(R, E, F)
-        for _, a in launches:
-            # ..., R, E, F, chunk_rows, f_tiles, e_tile, splits, k_blocks, stream
-            assert a[-9:] == (R, E, F, p.chunk_rows, p.f_tiles, p.e_tile, p.splits,
-                              p.k_blocks, 7)
+    bf16 = dtype == torch.bfloat16
+    fwd_sm90 = bf16 and R >= fm.SM90_MIN_ROWS
+    assert [s for s, _ in launches] == [
+        "fused_mlp_fwd_sm90" if fwd_sm90 else "fused_mlp_fwd",
+        "fused_mlp_bwd_dx_sm90" if bf16 else "fused_mlp_bwd_dx"]
+    p = fm.mlp_plan(R, E, F)
+    for s, a in launches:
+        if s.endswith("_sm90"):
+            # ..., R, E, F, chunk_rows, f_tiles, splits, k_blocks, stream
+            assert a[-8:] == (R, E, F, p.chunk_rows, p.f_tiles, p.splits, p.k_blocks, 7)
