@@ -134,10 +134,12 @@ Run from the root of the repository. Phases, each printing JSON lines:
             stage 3, remat ``dots_saveable+flash``, the chunked CE head at
             ``loss_chunk`` 8192, bf16 compute over fp32 masters): 2 warm-up
             and 8 timed steps (tokens/s, ms per step, MFU, peak memory, the
-            optimizer state's bytes against fp32 AdamW's; exactly one
-            adam8bit launch per leaf and 48 flash forward and merged-backward
-            launches per step), the fused update against the unfused chain
-            from the same state and gradients (and their times), one
+            optimizer state's bytes against fp32 AdamW's; exactly the
+            optimizer's ``launches_per_step`` adam8bit launches (its leaf
+            table: two) and 48 flash forward and merged-backward launches
+            per step), the fused update against the unfused chain from the
+            same state and gradients and against one-leaf calls of the same
+            kernel (the same bits), with their times, one
             profiled step, and one step each of engines built from the same
             weights under ``dots_saveable`` (96 flash forwards) and
             ``loss_pallas`` (one launch of each tensor-core fused CE entry),
@@ -145,7 +147,9 @@ Run from the root of the repository. Phases, each printing JSON lines:
             (``loss_pallas`` also its head gradients, as in 7c).
 
 The kernels phase also holds the fused adam8bit update at the 1.5B leaf
-shapes (and a 100000-wide row, and three steps in place) against its plain
+shapes (and a 100000-wide row, three steps in place, and one table over
+leaves of widths 1, 3, 17, 1600, 4800, 6400 and 100000 with a 0-d leaf
+beside, each case repeated bit for bit, launches counted) against its plain
 version, and the fused CE head's two routes (``kernels_fused_ce``): the
 tensor-core forward and backward at the 1.5B head, gpt2-125m's micro-batch
 (N=24576, E=768: ten vocab chunks) and a ragged bf16 shape, the CUDA-core
@@ -244,7 +248,10 @@ mask and at (256, 128, 512), forward and backward (each backward on the
 plain forward's saved outputs), in bf16 timed beside the library call(s)
 and the bound, in fp32 at ragged widths and with Sq > Sk (NaN rows where
 the plain version has them), and a mean-1000 LayerNorm held against the
-one-pass plain version (the two-pass value must miss). Two paths drive the
+one-pass plain version (the two-pass value must miss); the LayerNorm
+backward also against its tiled plain version bit for bit, repeated bit for
+bit, its time split into the rows kernel and the partial rows' sum
+(``kernels_ln_bwd``: ``run_ln_bwd_checks``' shapes). Two paths drive the
 public entry points with exact launch counts: ``sparse_attention_api``
 (``SparseSelfAttention(FixedSparsityConfig(num_heads=16, block=16),
 impl="pallas")`` called four times in bf16: four launches of the
@@ -494,13 +501,14 @@ def flash_check(torch, got, ref, exact, mag) -> dict:
 def device_ms_by_name(torch, fn, iters: int):
     """Mean device ms per call, in all and by kernel name (torch.profiler),
     after warm-up; (None, {}) if the profiler saw no device activity in
-    three runs (it now and then drops a run's device events)."""
+    five runs (it now and then drops a run's device events, once three runs
+    in a row)."""
     from torch.profiler import ProfilerActivity, profile
 
     for _ in range(3):
         fn()
     torch.cuda.synchronize()
-    for _ in range(3):
+    for _ in range(5):
         with profile(activities=[ProfilerActivity.CUDA]) as prof:
             for _ in range(iters):
                 fn()
@@ -1166,11 +1174,10 @@ def run_bwd_kernels(torch, F, peaks):
 ADAM_HYPER = dict(b1=0.9, b2=0.999, eps=1e-8)
 
 
-def adam8bit_leaf(torch, g, shape):
+def adam8bit_leaf(torch, g, shape, dev="cuda"):
     """A (R, C) leaf with moments in it: fp32 g and p, random int8/uint8
     codes, row scales; on the card."""
     R, C = shape
-    dev = "cuda"
     return dict(g=torch.randn(shape, generator=g, device=dev) * 1e-3,
                 p=torch.randn(shape, generator=g, device=dev) * 0.02,
                 mc=torch.randint(-127, 128, shape, generator=g, device=dev).to(torch.int8),
@@ -1206,16 +1213,115 @@ def adam8bit_ok(e: dict) -> bool:
             and e["code_diff_share"] <= 1e-3 and e["scale_max_rel_err"] <= 1e-6)
 
 
+# the multi-leaf case: one table over rows of these widths (ragged ones on
+# the scalar path, 100000 on the two-pass path), a 0-d leaf beside
+ADAM_MULTI = ((40, 1), (33, 3), (17, 17), (64, 1600), (16, 4800), (16, 6400), (3, 100000), ())
+
+
+def adam8bit_state(torch, g, params, dev="cuda") -> dict:
+    """A warm ``Adam8bit.state_dict`` for ``params`` (names "0", "1", ...):
+    random codes and row scales, count 2."""
+    def sc(p):
+        shape = p.shape[:-1] + (1,) if p.dim() else ()
+        return torch.rand(shape, generator=g, device=dev) * 1e-4 + 1e-6
+    names = [str(i) for i in range(len(params))]
+    return {"count": 2,
+            "m_codes": {n: torch.randint(-127, 128, p.shape, generator=g, device=dev).to(
+                torch.int8) for n, p in zip(names, params)},
+            "r_codes": {n: torch.randint(0, 256, p.shape, generator=g, device=dev).to(
+                torch.uint8) for n, p in zip(names, params)},
+            "scales": {n: {"m": sc(p), "r": sc(p)} for n, p in zip(names, params)}}
+
+
+def adam8bit_outputs(opt, params) -> list:
+    return [*params, *opt.m_codes, *opt.r_codes, *(s[k] for s in opt.scales for k in "mr")]
+
+
+def run_adam8bit_multi(torch, peaks, dev="cuda"):
+    """One fused ``Adam8bit`` step over ``ADAM_MULTI`` (one table, one
+    launch; the 0-d leaf on the unfused math), twice from the same state
+    (the same bits), each leaf against its plain version: the table leaves
+    against ``adam8bit_leaf_plain``, the 0-d leaf against ``Adam8bit(fused=
+    False)``, by ``adam8bit_ok``. adamw8bit's wd 0.1, clip 1.0 at a norm of
+    1/0.7, lr 1e-4, count 2. Returns (row, ok)."""
+    from deepspeed_tpu_torch.ops import adam8bit as a8
+
+    g = torch.Generator(device=dev).manual_seed(SEED + 12)
+    params = [torch.randn(s, generator=g, device=dev) * 0.02 for s in ADAM_MULTI]
+    grads = [torch.randn(s, generator=g, device=dev) * 1e-3 for s in ADAM_MULTI]
+    state = adam8bit_state(torch, g, params, dev)
+    norm = torch.tensor(1.0 / 0.7, device=dev)
+    hyper = dict(weight_decay=0.1, clip=1.0)
+
+    def step(fused=True, leaves=None):
+        idx = range(len(params)) if leaves is None else leaves
+        ps = [params[i].clone() for i in idx]
+        o = a8.Adam8bit(ps, lambda c: 1e-4, 0.9, 0.999, 1e-8, fused=fused, **hyper)
+        o.load_state_dict({"count": state["count"], **{
+            k: {str(j): state[k][str(i)] for j, i in enumerate(idx)}
+            for k in ("m_codes", "r_codes", "scales")}})
+        n0 = a8.KERNEL.launches
+        o.update(ps, [grads[i].clone() for i in idx], norm)
+        return o, ps, a8.KERNEL.launches - n0
+
+    o1, p1, launches = step()
+    o2, p2, _ = step()
+    if dev == "cuda":
+        torch.cuda.synchronize()
+    repeat = all(torch.equal(a, b) for a, b in zip(adam8bit_outputs(o1, p1),
+                                                   adam8bit_outputs(o2, p2)))
+    gscale = o1._gscale(norm)
+    c1, c2 = a8._bias_corrections(0.9, 0.999, state["count"] + 1)
+    scalars = torch.stack([gscale, gscale.new_full((), 1e-4), gscale.new_full((), c1),
+                           gscale.new_full((), c2)])
+    per_leaf, ok = [], repeat
+    for i, shape in enumerate(ADAM_MULTI):
+        got = [p1[i], o1.m_codes[i], o1.r_codes[i], o1.scales[i]["m"], o1.scales[i]["r"]]
+        if a8.fused_leaf_supported(shape):
+            st = [state[k][str(i)] for k in ("m_codes", "r_codes")]
+            sc = state["scales"][str(i)]
+            ref = a8.adam8bit_leaf_plain(a8._rows(grads[i]), a8._rows(params[i]),
+                                         a8._rows(st[0]), a8._rows(st[1]), a8._rows(sc["m"]),
+                                         a8._rows(sc["r"]), scalars, b1=0.9, b2=0.999, eps=1e-8,
+                                         wd=0.1)
+            got = [a8._rows(t) for t in got]
+        else:   # the unfused math, as the JAX fused apply takes such a leaf
+            ou, pu, _ = step(fused=False, leaves=[i])
+            ref = [pu[0], ou.m_codes[0], ou.r_codes[0], ou.scales[0]["m"], ou.scales[0]["r"]]
+            got, ref = [t.reshape(1, 1) for t in got], [t.reshape(1, 1) for t in ref]
+        err = adam8bit_errors(got, ref)
+        per_leaf.append(dict(shape=list(shape), table=a8.fused_leaf_supported(shape),
+                             ok=adam8bit_ok(err), **err))
+        ok &= adam8bit_ok(err)
+    ok &= launches == o1.launches_per_step == 1
+    n_el = sum(p.numel() for p, s in zip(params, ADAM_MULTI) if s)
+    n_rows = sum(p.numel() // p.shape[-1] for p, s in zip(params, ADAM_MULTI) if s)
+    b_ms, b_by = bound_ms(16 * n_el + 16 * n_rows, 0, peaks)
+
+    def call():
+        o1.update(p1, grads, norm)
+
+    row = dict(phase="kernels_adam8bit", name="adam8bit_update", leaf="multi_leaf_table",
+               shapes=[list(s) for s in ADAM_MULTI], launches_per_call=launches,
+               launches_per_step=o1.launches_per_step, repeat_same_bits=repeat,
+               leaves=per_leaf, kernel_ms=device_ms(torch, call, 10),
+               kernel_event_ms=cuda_ms(torch, call, 10), bound_ms=b_ms, bound_by=b_by, ok=ok)
+    return row, ok
+
+
 def run_adam8bit_kernel(torch, peaks):
     """The fused adam8bit update against ``adam8bit_leaf_plain`` at the
     1.5B leaf shapes (c_attn, the MLP's c_proj, wte, a bias, the bias with
-    L2 on as well), a 100000-wide row (past the shared-memory staging: the
-    recomputing pass) and three consecutive steps on one leaf (the in-place
-    scale update read back). adamw8bit's hyper-parameters (wd 0.1), clip
-    scale 0.7, lr 1e-4, count 3. Times: the kernel in place (device time),
-    the plain version; no PyTorch call computes this update (library null).
-    Bound: 16 bytes per element (g, p, codes read; p, codes written) and 16
-    per row (the two scales read and written), by bytes."""
+    L2 on as well), a 100000-wide row (the two-pass path) and three
+    consecutive steps on one leaf (the in-place scale update read back);
+    each case's call repeated from the same inputs (the same bits) and its
+    launches counted (one a call: a one-leaf table); then the multi-leaf
+    table (``run_adam8bit_multi``). adamw8bit's hyper-parameters (wd 0.1),
+    clip scale 0.7, lr 1e-4, count 3. Times: the kernel in place (device
+    time), the plain version; no PyTorch call computes this update (library
+    null). Bound: 16 bytes per element (g, p, codes read; p, codes written)
+    and 16 per row (the two scales read and written), by bytes. Returns
+    (largest parameter error, the per-leaf rows, ok)."""
     from deepspeed_tpu_torch.ops import adam8bit as a8
 
     g = torch.Generator(device="cuda").manual_seed(SEED + 11)
@@ -1225,16 +1331,22 @@ def run_adam8bit_kernel(torch, peaks):
              ("mlp_c_proj_kernel", (6400, 1600), 0.1, 0.0), ("wte", (50304, 1600), 0.1, 0.0),
              ("c_attn_bias", (1, 4800), 0.1, 0.0), ("c_attn_bias_l2", (1, 4800), 0.1, 0.01),
              ("row_100000", (3, 100000), 0.1, 0.0)]
-    ok, max_err = True, 0.0
+    ok, max_err, rows = True, 0.0, []
     for name, shape, wd, l2 in cases:
         leaf = adam8bit_leaf(torch, g, shape)
         kw = dict(ADAM_HYPER, wd=wd, l2=l2)
         ref = a8.adam8bit_leaf_plain(leaf["g"], *(leaf[k] for k in ADAM_KEYS), scalars, **kw)
         got = {k: v.clone() for k, v in leaf.items()}
+        n0 = a8.KERNEL.launches
         a8.adam8bit_update(got["g"], *(got[k] for k in ADAM_KEYS), scalars, **kw)
+        launches = a8.KERNEL.launches - n0
+        again = {k: v.clone() for k, v in leaf.items()}
+        a8.adam8bit_update(again["g"], *(again[k] for k in ADAM_KEYS), scalars, **kw)
         torch.cuda.synchronize()
+        repeat = all(torch.equal(got[k], again[k]) for k in ADAM_KEYS)
         err = adam8bit_errors([got[k] for k in ADAM_KEYS], ref)
-        case_ok = adam8bit_ok(err) and bool(torch.isfinite(got["p"]).all())
+        case_ok = adam8bit_ok(err) and bool(torch.isfinite(got["p"]).all()) and repeat \
+            and launches == 1
         n, R = shape[0] * shape[1], shape[0]
         b_ms, b_by = bound_ms(16 * n + 16 * R, 0, peaks)
 
@@ -1245,14 +1357,18 @@ def run_adam8bit_kernel(torch, peaks):
             return a8.adam8bit_leaf_plain(t["g"], *(t[k] for k in ADAM_KEYS), scalars, **kw)
 
         k_dev, p_dev = device_ms(torch, kernel, 20), device_ms(torch, plain, 5)
-        emit(dict(phase="kernels_adam8bit", name="adam8bit_update", leaf=name, shape=list(shape),
-                  wd=wd, l2=l2, **err, ok=case_ok, kernel_ms=k_dev, plain_ms=p_dev,
-                  kernel_event_ms=cuda_ms(torch, kernel, 20),
-                  plain_event_ms=cuda_ms(torch, plain, 5),
-                  library_ms=None, bound_ms=b_ms, bound_by=b_by))
+        row = dict(phase="kernels_adam8bit", name="adam8bit_update", leaf=name,
+                   shape=list(shape), plan=a8.leaf_plan(*shape)._asdict(), wd=wd, l2=l2, **err,
+                   repeat_same_bits=repeat, launches_per_call=launches, ok=case_ok,
+                   kernel_ms=k_dev, plain_ms=p_dev, kernel_event_ms=cuda_ms(torch, kernel, 20),
+                   plain_event_ms=cuda_ms(torch, plain, 5), library_ms=None, bound_ms=b_ms,
+                   bound_by=b_by)
+        emit(row)
+        rows.append({k: row[k] for k in ("leaf", "shape", "kernel_ms", "plain_ms", "bound_ms",
+                                          "bound_by", "p_max_err")})
         ok &= case_ok
         max_err = max(max_err, err["p_max_err"])
-        del leaf, ref, got
+        del leaf, ref, got, again
     # three steps in place against three plain steps fed forward
     leaf = adam8bit_leaf(torch, g, (6400, 1600))
     ker, pl = {k: v.clone() for k, v in leaf.items()}, {k: v.clone() for k, v in leaf.items()}
@@ -1269,8 +1385,15 @@ def run_adam8bit_kernel(torch, peaks):
     steps_ok = all(adam8bit_ok(e) for e in steps)
     emit(dict(phase="kernels_adam8bit", name="adam8bit_update", leaf="three_steps_in_place",
               shape=[6400, 1600], steps=steps, ok=steps_ok))
+    del leaf, ker, pl
+    multi, multi_ok = run_adam8bit_multi(torch, peaks)
+    emit(multi)
+    rows.append({k: multi[k] for k in ("leaf", "shapes", "kernel_ms", "bound_ms", "bound_by",
+                                        "launches_per_call")})
     torch.cuda.empty_cache()
-    return max(max_err, max(e["p_max_err"] for e in steps)), ok and steps_ok
+    return (max(max_err, max(e["p_max_err"] for e in steps),
+                max(e["p_max_err"] for e in multi["leaves"])), rows,
+            ok and steps_ok and multi_ok)
 
 
 # the fused CE head's entries: the tensor-core route (bf16, E % 8 == 0) and
@@ -4533,10 +4656,14 @@ def northstar_config(**model_overrides) -> dict:
 
 
 def optimizer_check(torch, eng, batch, peaks):
-    """The fused update (one kernel per leaf) against the unfused chain from
-    the engine's current state and its real gradients on ``batch``: one step
-    each on copies, then their times (CUDA events, and the kernel's own
-    device time), and the plain version's over the same leaves.
+    """The fused update (one launch over the optimizer's leaf table a
+    ``launches_per_step``) against the unfused chain from the engine's
+    current state and its real gradients on ``batch``, and against one-leaf
+    calls of the same kernel (``adam8bit_update``, a one-leaf table each)
+    from the same state, which must give the same bits: one step each on
+    copies, then their times (CUDA events, the host's time to enqueue one
+    update, and the kernel's own device time), and the plain version's over
+    the same leaves.
 
     Limits: the two formulas differ in their last bits (see
     ``ops/adam8bit.py``), so parameters agree within 1e-3 of one lr-sized
@@ -4574,8 +4701,40 @@ def optimizer_check(torch, eng, batch, peaks):
     checks = {"fused_vs_unfused_params": p_excess <= 1e-3 * lr,
               "fused_vs_unfused_codes": code_diff <= 1 and code_share <= 1e-3,
               "fused_vs_unfused_scales": scale_rel <= 1e-5}
-    fused_event = cuda_ms(torch, lambda: of.update(pf, grads, norm), 5)
     unfused_event = cuda_ms(torch, lambda: ou.update(pu, grads, norm), 3)
+    del ou, pu
+    runs.pop(False)
+    torch.cuda.empty_cache()
+    # the same step as one-leaf calls of the kernel, leaf by leaf
+    p1 = [p.detach().clone() for p in eng._params]
+    o1 = a8.Adam8bit(p1, opt.lr, opt.b1, opt.b2, opt.eps, weight_decay=opt.weight_decay,
+                     l2=opt.l2, clip=opt.clip, fused=True, names=opt.names)
+    o1.load_state_dict(opt.state_dict())
+    gscale = o1._gscale(norm)
+    c1, c2 = a8._bias_corrections(opt.b1, opt.b2, opt.count + 1)
+    sc1 = torch.stack([gscale, gscale.new_full((), lr), gscale.new_full((), c1),
+                       gscale.new_full((), c2)])
+    n0 = a8.KERNEL.launches
+    for i, p in enumerate(p1):
+        a8.adam8bit_update(a8._rows(grads[i].contiguous()), a8._rows(p), a8._rows(o1.m_codes[i]),
+                           a8._rows(o1.r_codes[i]), a8._rows(o1.scales[i]["m"]),
+                           a8._rows(o1.scales[i]["r"]), sc1, b1=opt.b1, b2=opt.b2, eps=opt.eps,
+                           wd=opt.weight_decay, l2=opt.l2)
+    one_leaf_launches = a8.KERNEL.launches - n0
+    torch.cuda.synchronize()
+    checks["table_step_same_bits_as_one_leaf_calls"] = all(
+        torch.equal(a, b) for a, b in zip(adam8bit_outputs(of, pf), adam8bit_outputs(o1, p1)))
+    checks["one_leaf_calls_one_launch_each"] = one_leaf_launches == len(p1)
+    del o1, p1
+    torch.cuda.empty_cache()
+    fused_event = cuda_ms(torch, lambda: of.update(pf, grads, norm), 5)
+    host = []
+    for _ in range(5):
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        of.update(pf, grads, norm)
+        host.append((time.perf_counter() - t1) * 1e3)
+    torch.cuda.synchronize()
     total, by_name = device_ms_by_name(torch, lambda: of.update(pf, grads, norm), 3)
     kernel_dev = sum(v for k, v in by_name.items() if "adam8bit_kernel" in k) or None
     scalars = torch.tensor([1.0, lr, 0.5, 0.5], device=pf[0].device)
@@ -4597,10 +4756,11 @@ def optimizer_check(torch, eng, batch, peaks):
                fused_vs_unfused_param_max_diff_past_one_ulp=p_excess, lr=lr,
                code_max_diff=code_diff,
                code_diff_share=code_share, scale_max_rel_diff=scale_rel,
-               fused_step_event_ms=fused_event, unfused_step_event_ms=unfused_event,
+               fused_step_event_ms=fused_event, fused_step_host_ms=sorted(host)[2],
+               unfused_step_event_ms=unfused_event,
                fused_step_device_ms=total, fused_kernel_device_ms=kernel_dev,
                plain_event_ms=plain_ms, bound_ms=b_ms, bound_by=b_by)
-    del runs, of, ou, pf, pu, grads
+    del runs, of, pf, grads
     torch.cuda.empty_cache()
     return res, checks
 
@@ -6234,7 +6394,7 @@ FUSED_OPS_CASES = (
 )
 # fp32, checked: ragged widths (no 16-byte loads), odd rows, Sq > Sk (NaN rows)
 FUSED_OPS_FP32_CASES = (
-    ("layer_norm", (333, 1001), {}), ("layer_norm", (64, 1024), {}),
+    ("layer_norm", (333, 1001), {}), ("layer_norm", (64, 1024), {}), ("layer_norm", (97, 2050), {}),
     ("bias_gelu", (333, 4099), {}), ("bias_gelu", (100, 4096), {}),
     ("attention_softmax", (3, 77, 130), dict(causal=True, scale=0.125)),
     ("attention_softmax", (3, 77, 513), dict(causal=False, scale=1.0)),
@@ -6260,6 +6420,52 @@ def fused_ops_bound(op, shape, item, kname, peaks):
     return bound_ms(nbytes, per_el * n, peaks, True)
 
 
+# the LayerNorm backward's rows kernel (the one sweep; the wide route's is
+# ln_bwd_wide_kernel) and the partial rows' sum, as the profiler names them
+LN_BWD_KERNELS = ("ln_bwd_rows_kernel", "ln_bwd_wide_kernel", "ln_bwd_sum_kernel")
+
+
+def ln_bwd_tiled_check(torch, fo, x, gm, mean, rstd, dy) -> dict:
+    """The LayerNorm backward kernels against ``layer_norm_bwd_tiled_plain``
+    on the same saved statistics: dgamma and dbeta the same bits (the plain
+    model of the kernels' order), dx within the plain version's limit
+    (``fused_ops_check``); a second call the same bits."""
+    R, D = x.shape
+    plan = fo.ln_bwd_plan(R, D, fo._sm_count(x.device.index or 0))
+    dx, dg, db = fo.layer_norm_bwd(x, gm, mean, rstd, dy)
+    dx2, dg2, db2 = fo.layer_norm_bwd(x, gm, mean, rstd, dy)
+    _, tdg, tdb = fo.layer_norm_bwd_tiled_plain(x, gm, mean, rstd, dy, plan)
+    torch.cuda.synchronize()
+    return dict(plan=plan._asdict(), route="rows" if D <= fo.LN_HELD_COLS else "wide",
+                tiled_same_bits=torch.equal(dg, tdg) and torch.equal(db, tdb),
+                tiled_max_diff=float(max((dg - tdg).abs().max(), (db - tdb).abs().max())),
+                repeat_same_bits=all(torch.equal(a, b) for a, b in
+                                     ((dx, dx2), (dg, dg2), (db, db2))))
+
+
+def run_ln_bwd_checks(torch, dev="cuda") -> bool:
+    """The LayerNorm backward at the smoke's shapes (bf16 (8192, 1024),
+    fp32 (333, 1001), (64, 1024) and (97, 2050), bf16 (300, 1000)), each
+    against its plain version (``fused_ops_check``) and its tiled plain
+    version (``ln_bwd_tiled_check``); one line each. Returns ok."""
+    from deepspeed_tpu_torch.ops import fused_ops as fo
+
+    g = torch.Generator(device=dev).manual_seed(SEED + 34)
+    ok = True
+    for shape, dtype in (((BERT_B * BERT_S, BERT_E), torch.bfloat16),
+                         ((333, 1001), torch.float32), ((64, 1024), torch.float32),
+                         ((97, 2050), torch.float32), ((300, 1000), torch.bfloat16)):
+        (x, gm, bt), dy = fused_ops_operands(torch, g, "layer_norm", shape, dtype, dev)
+        held = fused_ops_check(torch, fo, "layer_norm", (x, gm, bt), dy, {})["layer_norm_bwd"]
+        _, mean, rstd = fo.layer_norm_fwd(x, gm, bt, 1e-5)
+        tiled = ln_bwd_tiled_check(torch, fo, x, gm, mean, rstd, dy)
+        case_ok = held["ok"] and tiled["tiled_same_bits"] and tiled["repeat_same_bits"]
+        emit(dict(phase="kernels_ln_bwd", name="layer_norm_bwd",
+                  shape=f"{tuple(shape)} {str(dtype)[6:]}", **dict(held, **tiled, ok=case_ok)))
+        ok &= case_ok
+    return ok
+
+
 def run_kernels_fused_ops(torch, F, peaks):
     """The six fused-op kernels on the card: bf16 at ``FUSED_OPS_CASES``
     against their plain versions, each timed with the plain version, the
@@ -6277,9 +6483,15 @@ def run_kernels_fused_ops(torch, F, peaks):
         args, dy = fused_ops_operands(torch, g, op, shape, torch.bfloat16)
         held = fused_ops_check(torch, fo, op, args, dy, kw)
         iters = 20
+        ln_extra = {}
         if op == "layer_norm":
             x, gm, bt = args
             _, mean, rstd = fo.layer_norm_fwd(x, gm, bt, 1e-5)
+            ln_extra = ln_bwd_tiled_check(torch, fo, x, gm, mean, rstd, dy)
+            split = device_ms_by_name(
+                torch, lambda: fo.layer_norm_bwd(x, gm, mean, rstd, dy), iters)[1]
+            ln_extra["kernels_ms"] = {k: v for k, v in split.items()
+                                      if any(n in k for n in LN_BWD_KERNELS)}
             calls = {"layer_norm_fwd": (lambda: fo.layer_norm_fwd(x, gm, bt, 1e-5),
                                         lambda: fo.layer_norm_fwd_plain(x, gm, bt, 1e-5)),
                      "layer_norm_bwd": (lambda: fo.layer_norm_bwd(x, gm, mean, rstd, dy),
@@ -6344,6 +6556,10 @@ def run_kernels_fused_ops(torch, F, peaks):
             if pair:   # two or more calls, not one: beside, not library_ms
                 row["library_pair_ms"] = lib
             row["ok"] = row["ok"] and row["kernel_ms"] is not None
+            if kname == "layer_norm_bwd":
+                row.update(ln_extra)
+                row["ok"] = row["ok"] and ln_extra["tiled_same_bits"] and \
+                    ln_extra["repeat_same_bits"]
             emit(row)
             ok &= row["ok"]
             if kname not in rows:
@@ -6357,6 +6573,11 @@ def run_kernels_fused_ops(torch, F, peaks):
     for op, shape, kw in FUSED_OPS_FP32_CASES:
         args, dy = fused_ops_operands(torch, g, op, shape, torch.float32)
         for kname, h in fused_ops_check(torch, fo, op, args, dy, kw).items():
+            if kname == "layer_norm_bwd":   # also its tiled order, bit for bit
+                x, gm, bt = args
+                _, mean, rstd = fo.layer_norm_fwd(x, gm, bt, 1e-5)
+                h = dict(h, **ln_bwd_tiled_check(torch, fo, x, gm, mean, rstd, dy))
+                h["ok"] = h["ok"] and h["tiled_same_bits"] and h["repeat_same_bits"]
             emit(dict(phase="kernels_fused_ops_fp32", name=kname, shape=f"{op} {tuple(shape)}"
                       + (f" {kw}" if kw else ""), **h))
             ok &= h["ok"]
@@ -6506,7 +6727,7 @@ def main() -> int:
     ok &= run_decode_split_checks(torch)[1]
     bwd_rows, bwd_ok = run_bwd_kernels(torch, F, peaks)
     ok &= bwd_ok
-    adam_err, adam_ok = run_adam8bit_kernel(torch, peaks)
+    adam_err, adam_rows, adam_ok = run_adam8bit_kernel(torch, peaks)
     ok &= adam_ok
     ce_rows, ce_ok = run_fused_ce_kernels(torch, peaks)
     ok &= ce_ok
@@ -6523,6 +6744,7 @@ def main() -> int:
     ok &= sparse_kernels_ok
     fops_rows, fops_kernels_ok = run_kernels_fused_ops(torch, F, peaks)
     ok &= fops_kernels_ok
+    ok &= run_ln_bwd_checks(torch)
     sparse_launches, sparse_api_ok = run_sparse_api(torch)
     ok &= sparse_api_ok
     fops_launches, fops_train_ok = run_fused_ops_train(torch)
@@ -6606,7 +6828,8 @@ def main() -> int:
         max_abs_err=adam_err, ms=opt_res["fused_kernel_device_ms"],
         plain_ms=opt_res["plain_event_ms"], bound_ms=opt_res["bound_ms"],
         bound_by=opt_res["bound_by"], library_ms=None,
-        shape=f"gpt2-1.5b leaf set: {opt_res['leaves']} leaves, {opt_res['elements']} elements"))
+        shape=f"gpt2-1.5b leaf set: {opt_res['leaves']} leaves, {opt_res['elements']} elements",
+        launches_per_step=opt_res["launches_per_step"], at_shapes=adam_rows))
     # the fused CE head: the tensor-core entries at the 1.5B head (the other
     # bf16 shapes under at_shapes), launched on the loss_pallas paths; the
     # CUDA-core entries at the fp32 shape, launched on the fp32 path

@@ -26,22 +26,36 @@ difference tips a round-half tie. The CUDA kernel updates the parameter,
 the codes and the scales in place (the TPU kernel's
 ``input_output_aliases``) and reads its four step scalars ``[gscale, lr,
 c1, c2]`` from a device tensor, so the clip scale taken from the on-device
-gradient norm never travels to the host.
+gradient norm never travels to the host. It takes a table of leaves
+(:class:`LeafTable`): the optimizer's parameters, codes and scales are
+checked and planned once, and a step over every leaf is one launch per
+:data:`MAX_LEAVES` leaves, with the gradients' pointers passed in the
+launch itself.
 """
 from __future__ import annotations
 
-from typing import Callable, List, Optional
+import functools
+from typing import Callable, List, NamedTuple, Optional
 
+import numpy as np
 import torch
 
 from ._build import FLOAT, INT, PTR, Kernel, stream_of
 
-KERNEL = Kernel("adam8bit", "adam8bit_update",
-                [PTR] * 7 + [INT, INT, FLOAT, FLOAT, FLOAT, FLOAT, FLOAT, FLOAT, FLOAT, PTR])
+# one launch over a table of leaves (csrc/adam8bit.cu): the host table, its
+# leaf count, its work items, the step scalars, b1, b2, 1 - b1, 1 - b2, eps,
+# wd, l2, the stream
+KERNEL = Kernel("adam8bit", "adam8bit_update", [PTR, INT, INT, PTR] + [FLOAT] * 7 + [PTR])
 
 # rows longer than this take the unfused math, as the JAX package's fused
 # path does (``adam8bit_kernel.py:_MAX_ROW``)
 MAX_ROW = 100_000
+# the kernel's blocks (csrc/adam8bit.cu): THREADS threads, each holding up
+# to SLOTS chunks of CHUNK elements of its item's rows in registers
+THREADS, SLOTS, CHUNK = 256, 4, 8
+HELD = THREADS * SLOTS   # chunks an item holds: rows of up to 8192 elements
+MAX_LEAVES = 500         # leaves one launch's table carries (a by-value kernel parameter)
+_TABLE_COLS = 10         # int64s a leaf: g, p, mc, rc, scm, scr, R, C, first item, plan
 
 
 # ----------------------------------------------------------------------
@@ -118,20 +132,162 @@ def adam8bit_leaf_plain(g, p, mc, rc, scm, scr, scalars, *, b1, b2, eps, wd=0.0,
     return p_new, mc_new, rc_new, scm_new, scr_new
 
 
-def _check_leaf(g, p, mc, rc, scm, scr, scalars) -> None:
+def _check_state(p, mc, rc, scm, scr, device) -> None:
+    """The tensors a leaf's update writes: ``(R, C)`` fp32 ``p``, int8
+    ``mc``, uint8 ``rc`` and ``(R, 1)`` fp32 scales, contiguous, on
+    ``device``, with 0 < C ≤ :data:`MAX_ROW`."""
+    if p.dim() != 2:
+        raise ValueError(f"adam8bit_update: p of shape {tuple(p.shape)}, expected (R, C) rows")
     R, C = p.shape
-    want = {"g": (g, torch.float32, (R, C)), "p": (p, torch.float32, (R, C)),
-            "mc": (mc, torch.int8, (R, C)), "rc": (rc, torch.uint8, (R, C)),
-            "scm": (scm, torch.float32, (R, 1)), "scr": (scr, torch.float32, (R, 1)),
-            "scalars": (scalars, torch.float32, (4,))}
+    want = {"p": (p, torch.float32, (R, C)), "mc": (mc, torch.int8, (R, C)),
+            "rc": (rc, torch.uint8, (R, C)), "scm": (scm, torch.float32, (R, 1)),
+            "scr": (scr, torch.float32, (R, 1))}
     for name, (t, dtype, shape) in want.items():
         if t.dtype != dtype or tuple(t.shape) != shape:
             raise ValueError(f"adam8bit_update: {name} is {t.dtype} {tuple(t.shape)}, "
                              f"expected {dtype} {shape}")
-        if t.device != p.device or not t.is_contiguous():
-            raise ValueError(f"adam8bit_update: {name} must be a contiguous tensor on {p.device}")
+        if t.device != device or not t.is_contiguous():
+            raise ValueError(f"adam8bit_update: {name} must be a contiguous tensor on {device}")
     if not 0 < C <= MAX_ROW:
         raise ValueError(f"adam8bit_update: rows of {C} elements (the kernel takes 1..{MAX_ROW})")
+
+
+def _check_scalars(scalars, device) -> None:
+    if scalars.dtype != torch.float32 or tuple(scalars.shape) != (4,) or \
+            scalars.device != device or not scalars.is_contiguous():
+        raise ValueError(f"adam8bit_update: scalars are {scalars.dtype} {tuple(scalars.shape)} "
+                         f"on {scalars.device}, expected a contiguous float32 (4,) on {device}")
+
+
+def _check_leaf(g, p, mc, rc, scm, scr, scalars) -> None:
+    _check_state(p, mc, rc, scm, scr, p.device)
+    _check_scalars(scalars, p.device)
+    if g.dtype != torch.float32 or g.shape != p.shape or g.device != p.device \
+            or not g.is_contiguous():
+        raise ValueError(f"adam8bit_update: g is {g.dtype} {tuple(g.shape)} on {g.device}, "
+                         f"expected a contiguous float32 {tuple(p.shape)} on {p.device}")
+
+
+class LeafPlan(NamedTuple):
+    """How the kernel cuts a leaf into work items (one block each)."""
+    rows: int      # whole rows an item (a row's codes need its whole absmax)
+    threads: int   # threads of the block that take the item's chunks
+    wide: bool     # rows of more than HELD chunks: one an item, in two passes
+
+    def code(self, vec: bool) -> int:
+        """The plan as the kernel reads it; ``vec``: 16- and 8-byte loads."""
+        return self.rows | self.threads << 11 | int(self.wide) << 20 | int(vec) << 21
+
+
+@functools.lru_cache(maxsize=None)
+def leaf_plan(R: int, C: int) -> LeafPlan:
+    """The work items of an ``(R, C)`` leaf: K whole rows an item, as many
+    as the block's registers hold (K·⌈C/8⌉ ≤ :data:`HELD` chunks), taken by
+    T threads in ⌈K·⌈C/8⌉ / THREADS⌉ sweeps. K and T make the largest share
+    of the block's slots do work, then T·sweeps equal the chunk count where
+    some K allows it (no thread idles in its last sweep), then K the
+    largest. From shapes alone."""
+    nc = -(-C // CHUNK)
+    if nc > HELD:
+        return LeafPlan(1, THREADS, True)
+    best = None
+    for k in range(1, min(R, HELD // nc) + 1):
+        chunks = k * nc
+        sweeps = -(-chunks // THREADS)
+        threads = -(-chunks // sweeps)
+        key = (chunks / (THREADS * sweeps), threads * sweeps == chunks, k)
+        if best is None or key > best[0]:
+            best = (key, LeafPlan(k, threads, False))
+    return best[1]
+
+
+class TableLaunch(NamedTuple):
+    """One launch over a table: its leaves (by index), each leaf's first
+    work item (items numbered from 0 within the launch), and its items."""
+    leaves: range
+    first: List[int]
+    items: int
+
+
+def plan_table(shapes) -> List[TableLaunch]:
+    """The launches of a table over leaves of ``(R, C)`` ``shapes``, in
+    order, :data:`MAX_LEAVES` a launch; each leaf's items follow the
+    previous leaf's (:func:`leaf_plan`). From shapes alone."""
+    out = []
+    for start in range(0, len(shapes), MAX_LEAVES):
+        leaves = range(start, min(len(shapes), start + MAX_LEAVES))
+        first, n = [], 0
+        for i in leaves:
+            R, C = shapes[i]
+            first.append(n)
+            n += -(-R // leaf_plan(R, C).rows)
+        out.append(TableLaunch(leaves, first, n))
+    return out
+
+
+class LeafTable:
+    """The fused update over a fixed list of leaves, each ``(p, mc, rc, scm,
+    scr)`` as ``(R, C)`` rows and ``(R, 1)`` scales: checked, planned and
+    laid out once (the tensors never move: the optimizer copies state into
+    them). :meth:`launch` updates every leaf in place with one kernel launch
+    per :data:`MAX_LEAVES` leaves (:attr:`launches`), the launch carrying
+    the table by value with the step's gradient pointers filled in: no copy
+    to the card, no read back, nothing allocated. CPU tensors take
+    :func:`adam8bit_leaf_plain` leaf by leaf."""
+
+    def __init__(self, leaves):
+        self.leaves = [tuple(t) for t in leaves]
+        if not self.leaves:
+            raise ValueError("adam8bit_update: a table of no leaves")
+        self.device = self.leaves[0][0].device
+        for leaf in self.leaves:
+            _check_state(*leaf, self.device)
+        self.shapes = [tuple(leaf[0].shape) for leaf in self.leaves]
+        self.plans = [leaf_plan(R, C) for R, C in self.shapes]
+        self.p_ptrs = [leaf[0].data_ptr() for leaf in self.leaves]
+        self.launch_plan = plan_table(self.shapes)
+        self.launches = len(self.launch_plan)
+        self._tables = []   # a launch's host table: int64 rows of _TABLE_COLS
+        for launch in self.launch_plan:
+            tab = np.zeros((len(launch.leaves), _TABLE_COLS), np.int64)
+            for row, (i, first) in enumerate(zip(launch.leaves, launch.first)):
+                (p, mc, rc, scm, scr), (R, C), plan = self.leaves[i], self.shapes[i], self.plans[i]
+                vec = (C % CHUNK == 0 and p.data_ptr() % 16 == 0 and mc.data_ptr() % 8 == 0
+                       and rc.data_ptr() % 8 == 0)
+                tab[row, 1:] = (p.data_ptr(), mc.data_ptr(), rc.data_ptr(), scm.data_ptr(),
+                                scr.data_ptr(), R, C, first, plan.code(vec))
+            self._tables.append(tab)
+
+    def launch(self, grads, scalars, *, b1, b2, eps, wd=0.0, l2=0.0) -> None:
+        """One step: ``grads[i]`` (fp32, leaf i's ``R·C`` elements in any
+        leading shape; a non-contiguous one is copied) and ``scalars =
+        [gscale, lr, c1, c2]`` (fp32, on the device)."""
+        if len(grads) != len(self.leaves):
+            raise ValueError(f"adam8bit_update: {len(grads)} gradients for a table of "
+                             f"{len(self.leaves)} leaves")
+        if not self.leaves[0][0].is_cuda:
+            for g, (p, mc, rc, scm, scr) in zip(grads, self.leaves):
+                outs = adam8bit_leaf_plain(g.reshape(p.shape), p, mc, rc, scm, scr, scalars,
+                                           b1=b1, b2=b2, eps=eps, wd=wd, l2=l2)
+                for dst, src in zip((p, mc, rc, scm, scr), outs):
+                    dst.copy_(src)
+            return
+        _check_scalars(scalars, self.device)
+        # a gradient may be a transposed view (the tied head's wte): its
+        # contiguous copy stays referenced here until every launch is enqueued
+        rows = [g if g.is_contiguous() else g.contiguous() for g in grads]
+        for g, (R, C) in zip(rows, self.shapes):
+            if g.dtype != torch.float32 or g.numel() != R * C or g.shape[-1] != C \
+                    or g.device != self.device:
+                raise ValueError(f"adam8bit_update: a gradient {g.dtype} {tuple(g.shape)} on "
+                                 f"{g.device} for a leaf of {R} rows of {C} float32")
+        ptrs = [g.data_ptr() for g in rows]
+        with torch.cuda.device(self.device):
+            stream = stream_of(rows[0])
+            for launch, tab in zip(self.launch_plan, self._tables):
+                tab[:, 0] = ptrs[launch.leaves.start:launch.leaves.stop]
+                KERNEL.launch(tab.ctypes.data, len(launch.leaves), launch.items,
+                              scalars.data_ptr(), b1, b2, 1.0 - b1, 1.0 - b2, eps, wd, l2, stream)
 
 
 def adam8bit_update(g, p, mc, rc, scm, scr, scalars, *, b1, b2, eps, wd=0.0, l2=0.0) -> None:
@@ -139,20 +295,11 @@ def adam8bit_update(g, p, mc, rc, scm, scr, scalars, *, b1, b2, eps, wd=0.0, l2=
     ``rc``, ``scm`` and ``scr`` (the TPU kernel aliases them to its
     outputs). ``g``, ``p`` fp32; ``mc`` int8; ``rc`` uint8; ``scm``/``scr``
     ``(R, 1)`` fp32; ``scalars = [gscale, lr, c1, c2]`` fp32 on the same
-    device. CUDA tensors launch the kernel; CPU tensors take
-    :func:`adam8bit_leaf_plain` and copy its results in."""
+    device. A one-leaf :class:`LeafTable`: CUDA tensors launch the kernel
+    once; CPU tensors take :func:`adam8bit_leaf_plain` and copy its results
+    in."""
     _check_leaf(g, p, mc, rc, scm, scr, scalars)
-    if not p.is_cuda:
-        outs = adam8bit_leaf_plain(g, p, mc, rc, scm, scr, scalars, b1=b1, b2=b2, eps=eps,
-                                   wd=wd, l2=l2)
-        for dst, src in zip((p, mc, rc, scm, scr), outs):
-            dst.copy_(src)
-        return
-    R, C = p.shape
-    with torch.cuda.device(p.device):
-        KERNEL.launch(g.data_ptr(), p.data_ptr(), mc.data_ptr(), rc.data_ptr(), scm.data_ptr(),
-                      scr.data_ptr(), scalars.data_ptr(), R, C, b1, b2, 1.0 - b1, 1.0 - b2, eps,
-                      wd, l2, stream_of(p))
+    LeafTable([(p, mc, rc, scm, scr)]).launch([g], scalars, b1=b1, b2=b2, eps=eps, wd=wd, l2=l2)
 
 
 # ----------------------------------------------------------------------
@@ -175,9 +322,10 @@ class Adam8bit:
     ``adamw8bit``), in place.
 
     ``fused=False`` runs the optax chain's math per leaf
-    (:func:`_leaf_moments`); ``fused=True`` runs one kernel launch per leaf
-    (:func:`adam8bit_update`), with the leaves :func:`fused_leaf_supported`
-    rejects on the unfused math, as the JAX fused apply does. ``count``
+    (:func:`_leaf_moments`); ``fused=True`` updates every leaf
+    :func:`fused_leaf_supported` takes through one :class:`LeafTable` built
+    here (:attr:`launches_per_step` launches a step), and the rest on the
+    unfused math, as the JAX fused apply does. ``count``
     advances once per applied update; the engine does not call
     :meth:`update` on a skipped fp16 step, so the count, codes, scales and
     LR stay where they were."""
@@ -196,7 +344,17 @@ class Adam8bit:
             shape = p.shape[:-1] + (1,) if p.dim() else ()
             self.scales.append({"m": torch.ones(shape, dtype=torch.float32, device=p.device),
                                 "r": torch.ones(shape, dtype=torch.float32, device=p.device)})
-        self.launches_per_step = sum(fused and fused_leaf_supported(p.shape) for p in params)
+        self._table_idx = [i for i, p in enumerate(params)
+                           if fused and fused_leaf_supported(p.shape)]
+        self._rest_idx = [i for i, p in enumerate(params)
+                          if fused and not fused_leaf_supported(p.shape)]
+        self._table = self._leaf_table(params) if self._table_idx else None
+        self.launches_per_step = self._table.launches if self._table else 0
+
+    def _leaf_table(self, params) -> LeafTable:
+        return LeafTable([(_rows(params[i]), _rows(self.m_codes[i]), _rows(self.r_codes[i]),
+                           _rows(self.scales[i]["m"]), _rows(self.scales[i]["r"]))
+                          for i in self._table_idx])
 
     def state_bytes(self) -> int:
         """Bytes of the moment state: the codes and the per-row scales."""
@@ -270,19 +428,16 @@ class Adam8bit:
         # device to drain the step's queue
         scalars = torch.stack([gscale, gscale.new_full((), lr), gscale.new_full((), c1),
                                gscale.new_full((), c2)])
-        for i, (p, g) in enumerate(zip(params, grads)):
-            if fused_leaf_supported(p.shape):
-                sc = self.scales[i]
-                # a gradient may be a transposed view (the tied head's wte)
-                adam8bit_update(_rows(g.contiguous()), _rows(p), _rows(self.m_codes[i]),
-                                _rows(self.r_codes[i]), _rows(sc["m"]), _rows(sc["r"]), scalars,
-                                b1=self.b1, b2=self.b2, eps=self.eps, wd=self.weight_decay,
-                                l2=self.l2)
-                continue
+        if self._table is not None:
+            if [params[i].data_ptr() for i in self._table_idx] != self._table.p_ptrs:
+                self._table = self._leaf_table(params)   # other parameter tensors: a new table
+            self._table.launch([grads[i] for i in self._table_idx], scalars, b1=self.b1,
+                               b2=self.b2, eps=self.eps, wd=self.weight_decay, l2=self.l2)
+        for i in self._rest_idx:
             # 0-d leaves and oversize rows: the unfused math (the JAX fused
             # apply's fallback), on this leaf alone
-            g = g * gscale
+            p = params[i]
+            g = grads[i] * gscale
             if self.l2:
                 g = g + self.l2 * p
             self._leaf_unfused(i, p, g, lr, c1, c2)
-

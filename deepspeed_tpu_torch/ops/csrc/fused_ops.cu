@@ -18,10 +18,22 @@
 //     a multiple of 8 (VEC), one element at a time otherwise;
 //   - LayerNorm and the softmax take one warp per row; a second (and third)
 //     sweep of the row re-reads it from L1, which the first sweep filled;
-//   - the backward kernels' parameter gradients (dgamma, dbeta, dbias) are
-//     written as one fp32 partial row per block of rows_per_block rows,
-//     summed over the rows in order, and the wrapper adds the partial rows
-//     with torch.sum: no atomics, so a repeated call gives the same bits.
+//   - the bias-GELU backward's dbias is written as one fp32 partial row per
+//     block of rows_per_block rows, summed over the rows in order, and the
+//     wrapper adds the partial rows with torch.sum: no atomics, so a
+//     repeated call gives the same bits;
+//   - the LayerNorm backward reads x and dy once: ln_bwd_rows_kernel holds a
+//     row's slab in a warp's registers from the row sums to the dx write,
+//     each lane keeps its columns' dgamma and dbeta sums over the rows its
+//     warp takes, and the block's warps add theirs in shared memory into one
+//     fp32 partial row a block (one block an SM); ln_bwd_sum_kernel adds the
+//     partial rows in a fixed order (no atomics). Rows wider than
+//     kLnHeldCols keep the row pass that re-reads x and dy from L1
+//     (ln_bwd_wide_kernel, one partial row per rows_per_block rows).
+//     Measured on an H100 (PERF.md, row 12a): 70% of the bound at (8192,
+//     1024) bf16; what moved it was holding each row's mean and rstd with its
+//     prefetched x and dy, and gamma, in registers (0.027 -> 0.0195 ms for the
+//     rows kernel), not a deeper prefetch of x and dy alone.
 #include "common.cuh"
 
 namespace {
@@ -29,6 +41,8 @@ namespace {
 constexpr int kThreads = 256;
 constexpr int kWarps = kThreads / 32;
 constexpr float kSqrt2OverPi = 0.7978845608028654f;
+constexpr int kLnHeldCols = 1024;  // the widest row ln_bwd_rows_kernel holds: 4 slabs of 256
+constexpr int kLnSumSegs = 16;     // segments of the partial rows in ln_bwd_sum_kernel
 
 // Eight elements at columns c .. c + 7 of a row, as floats (VEC: 16-byte
 // loads, the row width a multiple of 8; otherwise masked scalar loads, 0 past D).
@@ -123,11 +137,13 @@ ln_fwd_kernel(const T* __restrict__ x, const float* __restrict__ gamma,
   }
 }
 
-// dx per row (warps over the block's rows), then the block's dgamma and
-// dbeta partial rows (threads over columns, rows in order).
+// Rows wider than kLnHeldCols: dx per row (warps over the block's rows), then
+// the block's dgamma and dbeta partial rows (threads over columns, rows in
+// order; each product and sum rounded on its own, as the plain model of this
+// order, fused_ops.layer_norm_bwd_tiled_plain, rounds them).
 template <typename T, bool VEC>
 __global__ void __launch_bounds__(kThreads)
-ln_bwd_kernel(const T* __restrict__ x, const float* __restrict__ gamma,
+ln_bwd_wide_kernel(const T* __restrict__ x, const float* __restrict__ gamma,
               const float* __restrict__ mean, const float* __restrict__ rstd,
               const T* __restrict__ dy, T* __restrict__ dx, float* __restrict__ dg_part,
               float* __restrict__ db_part, int R, int D, int rows_per_block) {
@@ -177,8 +193,8 @@ ln_bwd_kernel(const T* __restrict__ x, const float* __restrict__ gamma,
       const float mu = mean[row], rs = rstd[row];
 #pragma unroll
       for (int i = 0; i < 8; ++i) {
-        ag[i] += d[i] * ((v[i] - mu) * rs);
-        ab[i] += d[i];
+        ag[i] = __fadd_rn(ag[i], __fmul_rn(d[i], (v[i] - mu) * rs));
+        ab[i] = __fadd_rn(ab[i], d[i]);
       }
     }
 #pragma unroll
@@ -187,6 +203,216 @@ ln_bwd_kernel(const T* __restrict__ x, const float* __restrict__ gamma,
         dg_part[(size_t)blockIdx.x * D + c + i] = ag[i];
         db_part[(size_t)blockIdx.x * D + c + i] = ab[i];
       }
+  }
+}
+
+// Eight elements of a row as loaded: bf16 kept packed (4 registers), fp32 as
+// floats; the same values load_cols gives (0 past D).
+template <typename T>
+struct Eight;
+
+template <>
+struct Eight<float> {
+  float v[8];
+  template <bool VEC>
+  __device__ __forceinline__ void load(const float* row, int c, int D) {
+    load_cols<float, VEC>(row, c, D, v);
+  }
+  __device__ __forceinline__ float operator[](int i) const { return v[i]; }
+  // a fresh value to the compiler: no product of the last sweep is reused
+  __device__ __forceinline__ void opaque() {
+#pragma unroll
+    for (int i = 0; i < 8; ++i) asm volatile("" : "+f"(v[i]));
+  }
+};
+
+template <>
+struct Eight<ds::bf16> {
+  uint4 w;
+  template <bool VEC>
+  __device__ __forceinline__ void load(const ds::bf16* row, int c, int D) {
+    if constexpr (VEC) {
+      w = __ldcs(reinterpret_cast<const uint4*>(row + c));   // read once: evict first
+    } else {
+      unsigned h[8];
+#pragma unroll
+      for (int i = 0; i < 8; ++i) h[i] = c + i < D ? __bfloat16_as_ushort(row[c + i]) : 0u;
+      w = make_uint4(h[0] | h[1] << 16, h[2] | h[3] << 16, h[4] | h[5] << 16, h[6] | h[7] << 16);
+    }
+  }
+  __device__ __forceinline__ float operator[](int i) const {
+    const unsigned word = i < 2 ? w.x : i < 4 ? w.y : i < 6 ? w.z : w.w;
+    return __uint_as_float((i & 1 ? word >> 16 : word & 0xffffu) << 16);
+  }
+  __device__ __forceinline__ void opaque() {
+    asm volatile("" : "+r"(w.x), "+r"(w.y), "+r"(w.z), "+r"(w.w));
+  }
+};
+
+// Rows of up to NS * 256 <= kLnHeldCols columns, one sweep of x and dy: block b
+// takes rows [b * rows_per_block, (b + 1) * rows_per_block), its warp w the
+// rows w, w + 8, ... of them, each lane the columns s * 256 + lane * 8 + i.
+// A lane holds gamma's slab, and its slab of a row's x, dy, mean and rstd in
+// registers (the next PD rows' loads in flight meanwhile: one block an SM,
+// so these keep the bytes in flight; fp32 has registers for one) from the
+// row sums to the dx write; dx comes out as in
+// ln_bwd_wide_kernel's row pass (the same sums in the same order, so the same
+// bits). The lane keeps its columns' dgamma and dbeta sums over its warp's
+// rows, in row order, each product and sum rounded on its own; the warps
+// then add theirs in shared memory, ((w0 + w1) + (w2 + w3)) + ((w4 + w5) +
+// (w6 + w7)), into the block's partial row.
+template <typename T, bool VEC, int NS, int PD = sizeof(T) == 2 ? 2 : 1>
+__global__ void __launch_bounds__(kThreads, 1)
+ln_bwd_rows_kernel(const T* __restrict__ x, const float* __restrict__ gamma,
+                   const float* __restrict__ mean, const float* __restrict__ rstd,
+                   const T* __restrict__ dy, T* __restrict__ dx, float* __restrict__ dg_part,
+                   float* __restrict__ db_part, int R, int D, int rows_per_block) {
+  __shared__ float red[4][2][NS * 256];
+  const int lane = threadIdx.x % 32, warp = threadIdx.x / 32;
+  const int r0 = blockIdx.x * rows_per_block + warp;   // this warp's first row
+  const int r1 = min(R, blockIdx.x * rows_per_block + rows_per_block);
+  const int n = r0 < r1 ? (r1 - r0 + kWarps - 1) / kWarps : 0;   // its rows
+  float ag[NS][8], ab[NS][8], g[NS][8];
+#pragma unroll
+  for (int s = 0; s < NS; ++s) {
+    const int c = s * 256 + lane * 8;
+    if (c < D) load_cols<float, VEC>(gamma, c, D, g[s]);
+#pragma unroll
+    for (int i = 0; i < 8; ++i) ag[s][i] = ab[s][i] = 0.f;
+  }
+  // rows k .. k + PD of the warp: x, dy, mean and rstd
+  Eight<T> xs[PD + 1][NS], ds_[PD + 1][NS];
+  float mu[PD + 1], rs[PD + 1];
+  auto load_row = [&](int row, int b) {
+#pragma unroll
+    for (int s = 0; s < NS; ++s) {
+      const int c = s * 256 + lane * 8;
+      if (c < D) {
+        xs[b][s].template load<VEC>(x + (size_t)row * D, c, D);
+        ds_[b][s].template load<VEC>(dy + (size_t)row * D, c, D);
+      }
+    }
+    mu[b] = mean[row];
+    rs[b] = rstd[row];
+  };
+#pragma unroll
+  for (int k = 0; k < PD; ++k)
+    if (k < n) load_row(r0 + k * kWarps, k);
+  for (int k = 0; k < n; ++k) {
+    const int row = r0 + k * kWarps;
+    if (k + PD < n) load_row(row + PD * kWarps, PD);
+    float s1 = 0.f, s2 = 0.f;
+#pragma unroll
+    for (int s = 0; s < NS; ++s) {
+      const int c = s * 256 + lane * 8;
+      if (c < D) {
+#pragma unroll
+        for (int i = 0; i < 8; ++i) {
+          const float xhat = (xs[0][s][i] - mu[0]) * rs[0];
+          const float dxhat = ds_[0][s][i] * g[s][i];
+          s1 += dxhat;
+          s2 += dxhat * xhat;
+        }
+      }
+    }
+    const float m1 = ds::warp_sum(s1) / D;
+    const float m2 = ds::warp_sum(s2) / D;
+    T* dxr = dx + (size_t)row * D;
+#pragma unroll
+    for (int s = 0; s < NS; ++s) {
+      const int c = s * 256 + lane * 8;
+      if (c < D) {
+        xs[0][s].opaque();
+        ds_[0][s].opaque();
+        float v[8];
+#pragma unroll
+        for (int i = 0; i < 8; ++i) {
+          const float d = ds_[0][s][i];
+          const float xhat = (xs[0][s][i] - mu[0]) * rs[0];
+          v[i] = rs[0] * (d * g[s][i] - m1 - xhat * m2);
+          ag[s][i] = __fadd_rn(ag[s][i], __fmul_rn(d, xhat));
+          ab[s][i] = __fadd_rn(ab[s][i], d);
+        }
+        store_cols<T, VEC>(dxr, c, D, v);
+      }
+    }
+#pragma unroll
+    for (int b = 0; b < PD; ++b) {
+      mu[b] = mu[b + 1];
+      rs[b] = rs[b + 1];
+#pragma unroll
+      for (int s = 0; s < NS; ++s) {
+        xs[b][s] = xs[b + 1][s];
+        ds_[b][s] = ds_[b + 1][s];
+      }
+    }
+  }
+  // the warps' sums, pairwise in warp order: level 1 odd warps to even, 2
+  // warps 2, 6 to 0, 4, then 4 to 0
+#pragma unroll
+  for (int level = 1; level < kWarps; level <<= 1) {
+    const int pos = warp & (2 * level - 1);
+    if (pos == level) {
+#pragma unroll
+      for (int s = 0; s < NS; ++s)
+#pragma unroll
+        for (int i = 0; i < 8; ++i) {
+          red[warp >> 1][0][s * 256 + lane * 8 + i] = ag[s][i];
+          red[warp >> 1][1][s * 256 + lane * 8 + i] = ab[s][i];
+        }
+    }
+    __syncthreads();
+    if (pos == 0) {
+#pragma unroll
+      for (int s = 0; s < NS; ++s)
+#pragma unroll
+        for (int i = 0; i < 8; ++i) {
+          ag[s][i] = __fadd_rn(ag[s][i], red[(warp + level) >> 1][0][s * 256 + lane * 8 + i]);
+          ab[s][i] = __fadd_rn(ab[s][i], red[(warp + level) >> 1][1][s * 256 + lane * 8 + i]);
+        }
+    }
+  }
+  if (warp == 0) {
+#pragma unroll
+    for (int s = 0; s < NS; ++s)
+#pragma unroll
+      for (int i = 0; i < 8; ++i) {
+        const int c = s * 256 + lane * 8 + i;
+        if (c < D) {
+          dg_part[(size_t)blockIdx.x * D + c] = ag[s][i];
+          db_part[(size_t)blockIdx.x * D + c] = ab[s][i];
+        }
+      }
+  }
+}
+
+// dgamma and dbeta from P partial rows, in a fixed order: a block takes 32
+// of the 2 D columns (dgamma's, then dbeta's), its warp k the partial rows
+// [k * per, (k + 1) * per) in order (per = ceil(P / kLnSumSegs)); warp 0
+// then adds the segments in order. No atomics: a repeat gives the same bits.
+__global__ void __launch_bounds__(32 * kLnSumSegs)
+ln_bwd_sum_kernel(const float* __restrict__ dg_part, const float* __restrict__ db_part,
+                  float* __restrict__ dg, float* __restrict__ db, int P, int D) {
+  __shared__ float seg[kLnSumSegs][32];
+  const int lane = threadIdx.x % 32, k = threadIdx.x / 32;
+  const int col = blockIdx.x * 32 + lane;
+  const bool live = col < 2 * D;
+  const float* part = col < D ? dg_part : db_part;
+  const int c = col < D ? col : col - D;
+  const int per = (P + kLnSumSegs - 1) / kLnSumSegs;
+  const int p1 = min(P, (k + 1) * per);
+  float acc = 0.f;
+  if (live) {
+#pragma unroll 4
+    for (int p = k * per; p < p1; ++p) acc = __fadd_rn(acc, part[(size_t)p * D + c]);
+  }
+  seg[k][lane] = acc;
+  __syncthreads();
+  if (k == 0 && live) {
+    float tot = seg[0][lane];
+#pragma unroll
+    for (int j = 1; j < kLnSumSegs; ++j) tot = __fadd_rn(tot, seg[j][lane]);
+    (col < D ? dg : db)[c] = tot;
   }
 }
 
@@ -344,13 +570,38 @@ struct LnFwd {
 
 template <typename T, bool VEC>
 struct LnBwd {
-  static cudaError_t run(const void* x, const void* g, const void* mean, const void* rstd,
-                         const void* dy, void* dx, void* dg, void* db, int R, int D, int rpb,
-                         cudaStream_t st) {
-    ln_bwd_kernel<T, VEC><<<(R + rpb - 1) / rpb, kThreads, 0, st>>>(
+  template <int NS>
+  static void rows(const void* x, const void* g, const void* mean, const void* rstd,
+                   const void* dy, void* dx, void* dg, void* db, int R, int D, int rpb,
+                   cudaStream_t st) {
+    ln_bwd_rows_kernel<T, VEC, NS><<<(R + rpb - 1) / rpb, kThreads, 0, st>>>(
         static_cast<const T*>(x), static_cast<const float*>(g), static_cast<const float*>(mean),
         static_cast<const float*>(rstd), static_cast<const T*>(dy), static_cast<T*>(dx),
         static_cast<float*>(dg), static_cast<float*>(db), R, D, rpb);
+  }
+  static cudaError_t run(const void* x, const void* g, const void* mean, const void* rstd,
+                         const void* dy, void* dx, void* dg_part, void* db_part, void* dg,
+                         void* db, int R, int D, int rpb, cudaStream_t st) {
+    const int ns = (D + 255) / 256;
+    if (D > kLnHeldCols)
+      ln_bwd_wide_kernel<T, VEC><<<(R + rpb - 1) / rpb, kThreads, 0, st>>>(
+          static_cast<const T*>(x), static_cast<const float*>(g),
+          static_cast<const float*>(mean), static_cast<const float*>(rstd),
+          static_cast<const T*>(dy), static_cast<T*>(dx), static_cast<float*>(dg_part),
+          static_cast<float*>(db_part), R, D, rpb);
+    else if (ns == 1)
+      rows<1>(x, g, mean, rstd, dy, dx, dg_part, db_part, R, D, rpb, st);
+    else if (ns == 2)
+      rows<2>(x, g, mean, rstd, dy, dx, dg_part, db_part, R, D, rpb, st);
+    else if (ns == 3)
+      rows<3>(x, g, mean, rstd, dy, dx, dg_part, db_part, R, D, rpb, st);
+    else
+      rows<4>(x, g, mean, rstd, dy, dx, dg_part, db_part, R, D, rpb, st);
+    cudaError_t err = cudaGetLastError();
+    if (err != cudaSuccess) return err;
+    ln_bwd_sum_kernel<<<(2 * D + 31) / 32, 32 * kLnSumSegs, 0, st>>>(
+        static_cast<const float*>(dg_part), static_cast<const float*>(db_part),
+        static_cast<float*>(dg), static_cast<float*>(db), (R + rpb - 1) / rpb, D);
     return cudaGetLastError();
   }
 };
@@ -412,14 +663,16 @@ DS_EXPORT int layer_norm_fwd(const void* x, const void* gamma, const void* beta,
 }
 
 // x, dy, dx (R, D); gamma (D,) fp32; mean, rstd (R, 1) fp32; dg_part and
-// db_part (ceil(R / rows_per_block), D) fp32.
+// db_part (ceil(R / rows_per_block), D) fp32 scratch; dgamma, dbeta (D,)
+// fp32. Rows of up to kLnHeldCols columns take ln_bwd_rows_kernel, wider ones
+// ln_bwd_wide_kernel; then ln_bwd_sum_kernel adds the partial rows.
 DS_EXPORT int layer_norm_bwd(const void* x, const void* gamma, const void* mean,
                              const void* rstd, const void* dy, void* dx, void* dg_part,
-                             void* db_part, int R, int D, int rows_per_block, int dtype,
-                             void* stream) {
+                             void* db_part, void* dgamma, void* dbeta, int R, int D,
+                             int rows_per_block, int dtype, void* stream) {
   if (R < 1 || D < 1 || rows_per_block < 1) return cudaErrorInvalidValue;
-  return dispatch<LnBwd>(dtype, D, x, gamma, mean, rstd, dy, dx, dg_part, db_part, R, D,
-                         rows_per_block, as_stream(stream));
+  return dispatch<LnBwd>(dtype, D, x, gamma, mean, rstd, dy, dx, dg_part, db_part, dgamma,
+                         dbeta, R, D, rows_per_block, as_stream(stream));
 }
 
 // x, y (R, D); bias (D,) fp32.

@@ -31,9 +31,12 @@ The arithmetic is the TPU kernels', fp32 inside:
   the backward ``ds = p·(dy − Σ p·dy)·scale`` in p's dtype.
 
 The backward kernels of LayerNorm and bias-GELU write per-row-block fp32
-partials of the parameter gradients, as the TPU kernels do; ``torch.sum``
-adds them in a fixed order (no atomics: a repeated call gives the same
-bits). The JAX wrappers' ``block_rows`` / ``block_q`` (TPU tiles, which
+partials of the parameter gradients, as the TPU kernels do, added in a fixed
+order (no atomics: a repeated call gives the same bits): bias-GELU's by
+``torch.sum``, LayerNorm's by the library's own sum kernel, in the order
+:func:`layer_norm_bwd_tiled_plain` models (:func:`ln_bwd_plan`: one block of
+rows an SM, one sweep of x and dy, for rows of up to :data:`LN_HELD_COLS`).
+The JAX wrappers' ``block_rows`` / ``block_q`` (TPU tiles, which
 change no result beyond the order of partial sums) and ``interpret`` (the
 Pallas interpreter) have no counterpart here, nor has their row padding: the
 kernels take any row count. ``gelu_tanh`` and ``gelu_tanh_grad`` are the
@@ -43,21 +46,28 @@ the JAX modules do.
 """
 from __future__ import annotations
 
+import functools
+from typing import NamedTuple
+
 import torch
+import torch.nn.functional as F
 
 from ._build import FLOAT, INT, PTR, Kernel, check_operands, dtype_code, stream_of
 
 _TAIL = [INT, PTR]   # dtype, stream
 LN_FWD = Kernel("fused_ops", "layer_norm_fwd", [PTR] * 6 + [INT, INT, FLOAT] + _TAIL)
-LN_BWD = Kernel("fused_ops", "layer_norm_bwd", [PTR] * 8 + [INT, INT, INT] + _TAIL)
+LN_BWD = Kernel("fused_ops", "layer_norm_bwd", [PTR] * 10 + [INT, INT, INT] + _TAIL)
 GELU_FWD = Kernel("fused_ops", "bias_gelu_fwd", [PTR] * 3 + [INT, INT] + _TAIL)
 GELU_BWD = Kernel("fused_ops", "bias_gelu_bwd", [PTR] * 5 + [INT, INT, INT] + _TAIL)
 SOFTMAX_FWD = Kernel("fused_ops", "softmax_fwd", [PTR] * 2 + [INT] * 4 + [FLOAT, INT] + _TAIL)
 SOFTMAX_BWD = Kernel("fused_ops", "softmax_bwd", [PTR] * 3 + [INT, INT, FLOAT] + _TAIL)
 
 _F32 = torch.float32
-LN_ROWS = 32       # rows per block of the LayerNorm backward: one partial row each
-GELU_ROWS = 32     # rows per block of the bias-GELU backward: one partial row each
+LN_HELD_COLS = 1024   # the widest row the one-sweep LayerNorm backward holds
+LN_ROWS = 32          # rows per block of the LayerNorm backward past LN_HELD_COLS
+LN_WARPS = 8          # warps of a LayerNorm backward block
+LN_SUM_SEGS = 16      # segments of the partial rows in the LayerNorm backward's sum
+GELU_ROWS = 32        # rows per block of the bias-GELU backward: one partial row each
 _SQRT_2_OVER_PI = 0.7978845608028654
 
 
@@ -98,6 +108,66 @@ def layer_norm_bwd_plain(x, gamma, mean, rstd, dy):
     m2 = (dxhat * xhat).mean(-1, keepdim=True)
     dx = rstd * (dxhat - m1 - xhat * m2)
     return dx.to(x.dtype), (dyf * xhat).sum(0), dyf.sum(0)
+
+
+class LnBwdPlan(NamedTuple):
+    """The LayerNorm backward's blocks: each takes ``rows_per_block`` rows and
+    writes one fp32 partial row of dgamma and of dbeta; ``parts`` of them."""
+    rows_per_block: int
+    parts: int
+
+
+def ln_bwd_plan(R: int, D: int, n_sm: int) -> LnBwdPlan:
+    """Rows of up to :data:`LN_HELD_COLS` columns: one block of rows an SM
+    (at least one row a warp), one partial row each; wider rows:
+    :data:`LN_ROWS` rows a block. From shapes and the card's SM count."""
+    rpb = LN_ROWS if D > LN_HELD_COLS else max(LN_WARPS, -(-R // n_sm))
+    return LnBwdPlan(rpb, -(-R // rpb))
+
+
+def _ordered_sum(parts: torch.Tensor) -> torch.Tensor:
+    """``parts (P, D)`` summed as ``ln_bwd_sum_kernel`` sums them: segment k
+    takes rows [k·per, (k+1)·per) in order (per = ⌈P / 16⌉), then the
+    segments in order; each sum rounded on its own."""
+    P, D = parts.shape
+    per = -(-P // LN_SUM_SEGS)
+    segs = F.pad(parts, (0, 0, 0, LN_SUM_SEGS * per - P)).view(LN_SUM_SEGS, per, D)
+    acc = torch.zeros_like(segs[:, 0])
+    for j in range(per):
+        acc = acc + segs[:, j]
+    tot = acc[0]
+    for k in range(1, LN_SUM_SEGS):
+        tot = tot + acc[k]
+    return tot
+
+
+def layer_norm_bwd_tiled_plain(x, gamma, mean, rstd, dy, plan: LnBwdPlan):
+    """:func:`layer_norm_bwd_plain` with dgamma and dbeta summed in the
+    kernels' order under ``plan`` (the kernels' bits, each product and sum
+    rounded on its own): per block of ``rows_per_block`` rows, rows past
+    :data:`LN_HELD_COLS` columns in order; narrower ones per warp (local
+    rows w, w + 8, ... in order), the warps then ((w0 + w1) + (w2 + w3)) +
+    ((w4 + w5) + (w6 + w7)); the partial rows as :func:`_ordered_sum`."""
+    dx = layer_norm_bwd_plain(x, gamma, mean, rstd, dy)[0]
+    R, D = x.shape
+    rpb, P = plan
+    dyf = dy.float()
+    terms = torch.stack([dyf * ((x.float() - mean) * rstd), dyf])   # (2, R, D)
+    terms = F.pad(terms, (0, 0, 0, P * rpb - R)).view(2, P, rpb, D)
+    if D > LN_HELD_COLS:
+        acc = torch.zeros_like(terms[:, :, 0])
+        for r in range(rpb):
+            acc = acc + terms[:, :, r]
+    else:
+        steps = -(-rpb // LN_WARPS)
+        terms = F.pad(terms, (0, 0, 0, steps * LN_WARPS - rpb)).view(2, P, steps, LN_WARPS, D)
+        acc = torch.zeros_like(terms[:, :, 0])
+        for i in range(steps):
+            acc = acc + terms[:, :, i]
+        while acc.shape[2] > 1:
+            acc = acc[:, :, 0::2] + acc[:, :, 1::2]
+        acc = acc[:, :, 0]
+    return dx, _ordered_sum(acc[0]), _ordered_sum(acc[1])
 
 
 def bias_gelu_fwd_plain(x, bias):
@@ -162,6 +232,11 @@ def layer_norm_fwd(x, gamma, beta, eps: float):
     return y, mean, rstd
 
 
+@functools.lru_cache(maxsize=None)
+def _sm_count(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
 def layer_norm_bwd(x, gamma, mean, rstd, dy):
     if not x.is_cuda:
         return layer_norm_bwd_plain(x, gamma, mean, rstd, dy)
@@ -173,15 +248,16 @@ def layer_norm_bwd(x, gamma, mean, rstd, dy):
                          f"{tuple(rstd.shape)}, dy {tuple(dy.shape)} for x {tuple(x.shape)}")
     g = gamma.float().contiguous()
     check_operands(x, dy, g, mean, rstd, dtypes=[x.dtype, x.dtype, _F32, _F32, _F32])
+    plan = ln_bwd_plan(R, D, _sm_count(x.device.index or 0))
     dx = torch.empty_like(x)
-    nb = -(-R // LN_ROWS)
-    dg_part = torch.empty((nb, D), dtype=torch.float32, device=x.device)
-    db_part = torch.empty_like(dg_part)
+    parts = torch.empty((2, plan.parts, D), dtype=torch.float32, device=x.device)
+    sums = torch.empty((2, D), dtype=torch.float32, device=x.device)
     with torch.cuda.device(x.device):
         LN_BWD.launch(x.data_ptr(), g.data_ptr(), mean.data_ptr(), rstd.data_ptr(), dy.data_ptr(),
-                      dx.data_ptr(), dg_part.data_ptr(), db_part.data_ptr(), R, D, LN_ROWS,
+                      dx.data_ptr(), parts[0].data_ptr(), parts[1].data_ptr(),
+                      sums[0].data_ptr(), sums[1].data_ptr(), R, D, plan.rows_per_block,
                       *_launch_args(x))
-    return dx, dg_part.sum(0), db_part.sum(0)
+    return dx, sums[0], sums[1]
 
 
 def bias_gelu_fwd(x, bias):
