@@ -251,7 +251,13 @@ the plain version has them), and a mean-1000 LayerNorm held against the
 one-pass plain version (the two-pass value must miss); the LayerNorm
 backward also against its tiled plain version bit for bit, repeated bit for
 bit, its time split into the rows kernel and the partial rows' sum
-(``kernels_ln_bwd``: ``run_ln_bwd_checks``' shapes). Two paths drive the
+(``kernels_ln_bwd``: ``run_ln_bwd_checks``' shapes); the softmax forward
+also past the held kernel's width (bf16 (16, 64, 4096) causal, fp32 (2,
+33, 2051)), its time split into the held and wide kernels, its causal bound
+counting the kept keys' reads, each case called twice on output memory
+filled with NaN beforehand: the same bits, every masked key 0, a row that
+keeps no key all NaN (``kernels_softmax_fwd``: ``run_softmax_fwd_checks``'
+shapes, every held width). Two paths drive the
 public entry points with exact launch counts: ``sparse_attention_api``
 (``SparseSelfAttention(FixedSparsityConfig(num_heads=16, block=16),
 impl="pallas")`` called four times in bf16: four launches of the
@@ -6391,6 +6397,8 @@ FUSED_OPS_CASES = (
     ("attention_softmax", (BERT_B * BERT_H, BERT_S, BERT_S), dict(causal=False, scale=0.125)),
     ("attention_softmax", (BERT_B * BERT_H, BERT_S, BERT_S), dict(causal=True, scale=0.125)),
     ("attention_softmax", (BERT_B * BERT_H, 128, BERT_S), dict(causal=True, scale=0.125)),
+    # rows past the held softmax kernel's width: the wide route
+    ("attention_softmax", (16, 64, 4096), dict(causal=True, scale=0.125)),
 )
 # fp32, checked: ragged widths (no 16-byte loads), odd rows, Sq > Sk (NaN rows)
 FUSED_OPS_FP32_CASES = (
@@ -6399,30 +6407,81 @@ FUSED_OPS_FP32_CASES = (
     ("attention_softmax", (3, 77, 130), dict(causal=True, scale=0.125)),
     ("attention_softmax", (3, 77, 513), dict(causal=False, scale=1.0)),
     ("attention_softmax", (4, 8, 5), dict(causal=True, scale=1.0)),
+    ("attention_softmax", (2, 33, 2051), dict(causal=False, scale=1.0)),
 )
 
 
-def fused_ops_bound(op, shape, item, kname, peaks):
+def softmax_kept_keys(shape, causal: bool) -> int:
+    """Keys the softmax forward must read over (BH, Sq, Sk): under
+    ``causal``, min(Sk, max(0, Sk - Sq + i + 1)) for query i of each head."""
+    BH, Sq, Sk = shape
+    if not causal:
+        return BH * Sq * Sk
+    return BH * sum(min(Sk, max(0, Sk - Sq + i + 1)) for i in range(Sq))
+
+
+def fused_ops_bound(op, shape, item, kname, peaks, causal: bool = False):
     """Each input read once and each output written once (parameters and
-    their gradients fp32 here, mean and rstd fp32), against a count of fp32
+    their gradients fp32 here, mean and rstd fp32; the softmax forward reads
+    only the kept keys, ``softmax_kept_keys``), against a count of fp32
     operations per element (LayerNorm 8 fwd / 12 bwd, GELU 12 / 20, softmax
     6 / 5) at the fp32 rate."""
     n = 1
     for s in shape:
         n *= s
     rows, D = n // shape[-1], shape[-1]
+    kept = softmax_kept_keys(shape, causal) if kname == "softmax_fwd" else n
     nbytes, per_el = {
         "layer_norm_fwd": (2 * n * item + 2 * D * 4 + 2 * rows * 4, 8),
         "layer_norm_bwd": (3 * n * item + D * 4 + 2 * rows * 4 + 2 * D * 4, 12),
         "bias_gelu_fwd": (2 * n * item + D * 4, 12),
         "bias_gelu_bwd": (3 * n * item + 2 * D * 4, 20),
-        "softmax_fwd": (2 * n * item, 6), "softmax_bwd": (3 * n * item, 5)}[kname]
+        "softmax_fwd": ((kept + n) * item, 6), "softmax_bwd": (3 * n * item, 5)}[kname]
     return bound_ms(nbytes, per_el * n, peaks, True)
 
 
 # the LayerNorm backward's rows kernel (the one sweep; the wide route's is
 # ln_bwd_wide_kernel) and the partial rows' sum, as the profiler names them
 LN_BWD_KERNELS = ("ln_bwd_rows_kernel", "ln_bwd_wide_kernel", "ln_bwd_sum_kernel")
+# the softmax forward's two routes, as the profiler names them
+SOFTMAX_FWD_KERNELS = ("softmax_fwd_held_kernel", "softmax_fwd_wide_kernel")
+
+
+def softmax_fwd_dirty_check(torch, fo, s, causal: bool, scale: float) -> dict:
+    """The softmax forward kernel called twice, each time on output memory
+    filled with NaN just before (a tensor of p's size filled and freed after
+    emptying the allocator's cache, so that the call's ``empty_like`` gets
+    its block back: ``dirty``): the two calls the same bits; every masked
+    key of a row that keeps one exactly 0 and no NaN in such a row (a column
+    left unwritten shows as NaN); every column of a row that keeps no key
+    NaN. Also the route of its plan."""
+    BH, Sq, Sk = s.shape
+    plan = fo.softmax_fwd_plan(BH * Sq, Sk, fo._sm_count(s.device.index or 0), s.element_size())
+
+    def call():
+        torch.cuda.empty_cache()
+        junk = torch.full_like(s, float("nan"))
+        ptr = junk.data_ptr()
+        del junk
+        out = fo.softmax_fwd(s, causal, scale)
+        return out, out.data_ptr() == ptr
+    (p1, dirty1), (p2, dirty2) = call(), call()
+    torch.cuda.synchronize()
+    keep = fo._causal_keep(Sq, Sk, s.device) if causal else torch.ones(
+        (Sq, Sk), dtype=torch.bool, device=s.device)
+    empty = ~keep.any(-1)                                   # rows that keep no key
+    pf = p1.float()
+    live = ~empty[None, :, None]
+    bits = torch.int16 if p1.dtype == torch.bfloat16 else torch.int32
+    res = dict(route=plan.route, plan=plan._asdict(), dirty=dirty1 and dirty2,
+               repeat_same_bits=torch.equal(p1.view(bits), p2.view(bits)),
+               masked_not_zero=int(((pf != 0) & ~keep[None] & live).sum()),
+               stray_nans=int((torch.isnan(pf) & live).sum()),
+               empty_rows=int(empty.sum()) * BH,
+               empty_rows_all_nan=bool(torch.isnan(pf[:, empty]).all()))
+    res["dirty_ok"] = (res["dirty"] and res["repeat_same_bits"] and res["masked_not_zero"] == 0
+                       and res["stray_nans"] == 0 and res["empty_rows_all_nan"])
+    return res
 
 
 def ln_bwd_tiled_check(torch, fo, x, gm, mean, rstd, dy) -> dict:
@@ -6466,6 +6525,43 @@ def run_ln_bwd_checks(torch, dev="cuda") -> bool:
     return ok
 
 
+# (shape, dtype, causal, scale): the smoke's bf16 shapes, every held width
+# (256-column groups 1-4, 16-byte loads and not), Sq > Sk (rows that keep no
+# key), and the wide route in both dtypes
+SOFTMAX_FWD_CHECKS = (
+    ((BERT_B * BERT_H, BERT_S, BERT_S), "bfloat16", False, 0.125),
+    ((BERT_B * BERT_H, BERT_S, BERT_S), "bfloat16", True, 0.125),
+    ((BERT_B * BERT_H, 128, BERT_S), "bfloat16", True, 0.125),
+    ((7, 100, 300), "bfloat16", True, 0.125), ((5, 77, 1000), "bfloat16", True, 0.125),
+    ((3, 77, 130), "float32", True, 0.125), ((3, 77, 513), "float32", False, 1.0),
+    ((4, 64, 1024), "float32", False, 0.125), ((4, 8, 5), "float32", True, 1.0),
+    ((16, 64, 4096), "bfloat16", True, 0.125), ((2, 33, 2051), "float32", False, 1.0),
+)
+
+
+def run_softmax_fwd_checks(torch, dev="cuda") -> bool:
+    """The softmax forward at ``SOFTMAX_FWD_CHECKS``, each against its plain
+    version (``fused_ops_check``) and on dirty memory twice
+    (``softmax_fwd_dirty_check``); one line each. Returns ok."""
+    from deepspeed_tpu_torch.ops import fused_ops as fo
+
+    g = torch.Generator(device=dev).manual_seed(SEED + 35)
+    ok = True
+    for shape, dt, causal, scale in SOFTMAX_FWD_CHECKS:
+        kw = dict(causal=causal, scale=scale)
+        (s,), dy = fused_ops_operands(torch, g, "attention_softmax", shape, getattr(torch, dt),
+                                      dev)
+        held = fused_ops_check(torch, fo, "attention_softmax", (s,), dy, kw)["softmax_fwd"]
+        dirty = softmax_fwd_dirty_check(torch, fo, s, causal, scale)
+        case_ok = held["ok"] and dirty["dirty_ok"]
+        emit(dict(phase="kernels_softmax_fwd", name="softmax_fwd",
+                  shape=f"{tuple(shape)} {dt} {kw}", **dict(held, **dirty, ok=case_ok)))
+        ok &= case_ok
+        del s, dy
+    torch.cuda.empty_cache()
+    return ok
+
+
 def run_kernels_fused_ops(torch, F, peaks):
     """The six fused-op kernels on the card: bf16 at ``FUSED_OPS_CASES``
     against their plain versions, each timed with the plain version, the
@@ -6478,12 +6574,18 @@ def run_kernels_fused_ops(torch, F, peaks):
     from deepspeed_tpu_torch.ops import fused_ops as fo
 
     g = torch.Generator(device="cuda").manual_seed(SEED + 32)
+    # the wide-route softmax cases draw from their own generator, so that
+    # the other cases keep the inputs they had before those were added
+    g_wide = torch.Generator(device="cuda").manual_seed(SEED + 36)
+
+    def gen(op, shape):
+        return g_wide if op == "attention_softmax" and shape[-1] > fo.SOFTMAX_HELD_COLS else g
     rows, ok = {}, True
     for op, shape, kw in FUSED_OPS_CASES:
-        args, dy = fused_ops_operands(torch, g, op, shape, torch.bfloat16)
+        args, dy = fused_ops_operands(torch, gen(op, shape), op, shape, torch.bfloat16)
         held = fused_ops_check(torch, fo, op, args, dy, kw)
         iters = 20
-        ln_extra = {}
+        ln_extra, sm_extra = {}, {}
         if op == "layer_norm":
             x, gm, bt = args
             _, mean, rstd = fo.layer_norm_fwd(x, gm, bt, 1e-5)
@@ -6518,6 +6620,10 @@ def run_kernels_fused_ops(torch, F, peaks):
         else:
             (s,) = args
             causal, scale = kw["causal"], kw["scale"]
+            sm_extra = softmax_fwd_dirty_check(torch, fo, s, causal, scale)
+            split = device_ms_by_name(torch, lambda: fo.softmax_fwd(s, causal, scale), iters)[1]
+            sm_extra["kernels_ms"] = {k: v for k, v in split.items()
+                                      if any(n in k for n in SOFTMAX_FWD_KERNELS)}
             p = fo.softmax_fwd(s, causal, scale)
             calls = {"softmax_fwd": (lambda: fo.softmax_fwd(s, causal, scale),
                                      lambda: fo.softmax_fwd_plain(s, causal, scale)),
@@ -6541,7 +6647,7 @@ def run_kernels_fused_ops(torch, F, peaks):
         lfb = device_ms(torch, lib_fb, iters)
         lb = lfb - lf if lfb and lf else None
         for kname, (kern, plain) in calls.items():
-            b_ms, b_by = fused_ops_bound(op, shape, 2, kname, peaks)
+            b_ms, b_by = fused_ops_bound(op, shape, 2, kname, peaks, kw.get("causal", False))
             lib = lf if kname.endswith("_fwd") else lb
             row = dict(phase="kernels_fused_ops", name=kname,
                        shape=f"{op} {tuple(shape)} bfloat16" + (f" {kw}" if kw else ""),
@@ -6560,6 +6666,9 @@ def run_kernels_fused_ops(torch, F, peaks):
                 row.update(ln_extra)
                 row["ok"] = row["ok"] and ln_extra["tiled_same_bits"] and \
                     ln_extra["repeat_same_bits"]
+            if kname == "softmax_fwd":
+                row.update(sm_extra)
+                row["ok"] = row["ok"] and sm_extra["dirty_ok"]
             emit(row)
             ok &= row["ok"]
             if kname not in rows:
@@ -6568,16 +6677,20 @@ def run_kernels_fused_ops(torch, F, peaks):
                 rows[kname]["at_shapes"].append({k: row.get(k) for k in (
                     "shape", "max_err", "err_over_limit", "kernel_ms", "plain_ms", "library_ms",
                     "library_pair_ms", "bound_ms", "bound_by")})
-        del args, dy, lib_in, held
+        del args, dy, lib_in, held, ln_extra, sm_extra
         torch.cuda.empty_cache()
     for op, shape, kw in FUSED_OPS_FP32_CASES:
-        args, dy = fused_ops_operands(torch, g, op, shape, torch.float32)
+        args, dy = fused_ops_operands(torch, gen(op, shape), op, shape, torch.float32)
         for kname, h in fused_ops_check(torch, fo, op, args, dy, kw).items():
             if kname == "layer_norm_bwd":   # also its tiled order, bit for bit
                 x, gm, bt = args
                 _, mean, rstd = fo.layer_norm_fwd(x, gm, bt, 1e-5)
                 h = dict(h, **ln_bwd_tiled_check(torch, fo, x, gm, mean, rstd, dy))
                 h["ok"] = h["ok"] and h["tiled_same_bits"] and h["repeat_same_bits"]
+            if kname == "softmax_fwd":   # also on dirty memory, twice
+                h = dict(h, **softmax_fwd_dirty_check(torch, fo, args[0], kw["causal"],
+                                                      kw["scale"]))
+                h["ok"] = h["ok"] and h["dirty_ok"]
             emit(dict(phase="kernels_fused_ops_fp32", name=kname, shape=f"{op} {tuple(shape)}"
                       + (f" {kw}" if kw else ""), **h))
             ok &= h["ok"]
@@ -6705,13 +6818,14 @@ def main() -> int:
         with open(os.path.join(args.out, "build.log"), "w") as fh:
             for src, log in logs.items():
                 fh.write(f"==== {src}.cu\n{log}\n")
-    # the tensor-core decode GEMV (decode-layer kernels, the W8 matmul: no
-    # spills) and the fused FFN's Hopper kernels (dw, and the forward's and
-    # dx's GEMMs): registers and spills
+    # the tensor-core decode GEMV (decode-layer kernels, the W8 matmul) and
+    # the held softmax forward (no spills), and the fused FFN's Hopper
+    # kernels (dw, and the forward's and dx's GEMMs): registers and spills
     mlp_build = []
     for src, match, phase in (("decode_layer", "gemv90", "build_decode_sm90"),
                               ("w8_matmul", "gemv90", "build_w8_matmul"),
-                              ("fused_mlp", "sm90_kernel", "build_fused_mlp_sm90")):
+                              ("fused_mlp", "sm90_kernel", "build_fused_mlp_sm90"),
+                              ("fused_ops", "softmax_fwd_held", "build_softmax_fwd_held")):
         if src in logs:
             built = decode_sm90_build(logs[src], match)
             emit(dict(phase=phase, kernels=built))
@@ -6745,6 +6859,7 @@ def main() -> int:
     fops_rows, fops_kernels_ok = run_kernels_fused_ops(torch, F, peaks)
     ok &= fops_kernels_ok
     ok &= run_ln_bwd_checks(torch)
+    ok &= run_softmax_fwd_checks(torch)
     sparse_launches, sparse_api_ok = run_sparse_api(torch)
     ok &= sparse_api_ok
     fops_launches, fops_train_ok = run_fused_ops_train(torch)

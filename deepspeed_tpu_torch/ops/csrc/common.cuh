@@ -68,4 +68,16 @@ __device__ __forceinline__ void load8(const bf16* p, float (&o)[8]) {
   }
 }
 
+// e / l as IEEE division rounds it (div.rn), from r = __frcp_rn(l), the
+// reciprocal correctly rounded (formed once for many e): q = e r, then two
+// corrections q + r (e - l q), each residual an exact fma once q is within an
+// ulp (Markstein's theorem), for l in [0.5, 2^20] and e in [2^-100, 2^20], where
+// nothing underflows or overflows. Five operations against the division's
+// own reciprocal, range check and slow path per element; the bits checked
+// against div.rn over every e of that range (scripts/softmax_div_check.py).
+__device__ __forceinline__ float div_rn_by(float e, float l, float r) {
+  const float q = __fmaf_rn(__fmaf_rn(-l, __fmul_rn(e, r), e), r, __fmul_rn(e, r));
+  return __fmaf_rn(__fmaf_rn(-l, q, e), r, q);
+}
+
 }  // namespace ds

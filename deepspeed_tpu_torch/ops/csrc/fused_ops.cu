@@ -16,8 +16,14 @@
 // aims at reading each byte from device memory once and no more:
 //   - rows are read with 16-byte loads (8 elements) where the row width is
 //     a multiple of 8 (VEC), one element at a time otherwise;
-//   - LayerNorm and the softmax take one warp per row; a second (and third)
-//     sweep of the row re-reads it from L1, which the first sweep filled;
+//   - the LayerNorm forward and the softmax backward take one warp per row;
+//     a second sweep of the row re-reads it from L1, which the first filled;
+//   - the softmax forward reads each kept key once: for rows of up to
+//     kSoftmaxHeldCols keys, softmax_fwd_held_kernel holds a warp's row in
+//     registers from the max to the write (one expf a kept element, keys
+//     past the causal limit never read), and each warp walks its own rows
+//     with the next rows' loads in flight; rows wider than that keep the
+//     three-sweep row kernel (softmax_fwd_wide_kernel);
 //   - the bias-GELU backward's dbias is written as one fp32 partial row per
 //     block of rows_per_block rows, summed over the rows in order, and the
 //     wrapper adds the partial rows with torch.sum: no atomics, so a
@@ -33,7 +39,12 @@
 //     Measured on an H100 (PERF.md, row 12a): 70% of the bound at (8192,
 //     1024) bf16; what moved it was holding each row's mean and rstd with its
 //     prefetched x and dy, and gamma, in registers (0.027 -> 0.0195 ms for the
-//     rows kernel), not a deeper prefetch of x and dy alone.
+//     rows kernel), not a deeper prefetch of x and dy alone. The held softmax
+//     forward (PERF.md, row 12c): 79% of the bound at (256, 512, 512) bf16,
+//     88% of a device copy of the same bytes; the causal shapes at 61-64% of
+//     a bound that counts only the kept keys, where dropping the expf or the
+//     division (wrong values, timed only) gained 6-11%; a deeper prefetch or
+//     more resident blocks spilled and ran slower.
 #include "common.cuh"
 
 namespace {
@@ -43,6 +54,7 @@ constexpr int kWarps = kThreads / 32;
 constexpr float kSqrt2OverPi = 0.7978845608028654f;
 constexpr int kLnHeldCols = 1024;  // the widest row ln_bwd_rows_kernel holds: 4 slabs of 256
 constexpr int kLnSumSegs = 16;     // segments of the partial rows in ln_bwd_sum_kernel
+constexpr int kSoftmaxHeldCols = 1024;  // the widest row softmax_fwd_held_kernel holds
 
 // Eight elements at columns c .. c + 7 of a row, as floats (VEC: 16-byte
 // loads, the row width a multiple of 8; otherwise masked scalar loads, 0 past D).
@@ -469,12 +481,152 @@ gelu_bwd_kernel(const T* __restrict__ x, const float* __restrict__ bias,
 }
 
 // ---------------------------------------------------------------------------
-// attention softmax: one warp per (bh, query) row
+// attention softmax forward: rows of up to kSoftmaxHeldCols keys held in a
+// warp's registers; wider rows one warp per row in three sweeps
 // ---------------------------------------------------------------------------
+// One row of the held kernel: its index and its kept keys, [0, lim).
+struct SoftmaxRow {
+  int row, lim;
+};
+
+// Virtual row v of the held kernel's grid. Under causal, virtual rows 2t and
+// 2t + 1 of a head are its queries t and Sq - 1 - t, whose kept keys add up
+// to the same count for every t: a warp's run of an even count of rows, from
+// an even row, reads the same bytes wherever it starts (softmax_fwd_plan
+// gives runs of one row or of an even count).
+__device__ __forceinline__ SoftmaxRow softmax_row(int v, int Sq, int Sk, int q_offset,
+                                                  int causal) {
+  if (!causal) return {v, Sk};
+  const int j = v % Sq, t = j >> 1;
+  const int i = j & 1 ? Sq - 1 - t : t;
+  return {v - j + i, max(0, min(Sk, q_offset + i + 1))};
+}
+
+// Rows of up to NC * 256 <= kSoftmaxHeldCols keys, each kept key read once.
+// Four blocks an SM up to 1024 bytes a row (512 bf16 or 256 fp32 keys),
+// else two, as fused_ops.softmax_fwd_plan counts them. Warp g of the grid
+// takes the rows_per_warp virtual rows from g * rows_per_warp (softmax_row),
+// its lane the columns j * 256 + lane * 8 + i, and holds a row in registers
+// from the max to the write, the next PD rows' loads in flight meanwhile
+// (PD + 1 buffers picked at compile time, so no register copy waits on a
+// load; one row ahead: two spilled at this register budget and ran slower,
+// PERF.md row 12c). Every warp walks rows_per_warp rows, a trip count the
+// compiler sees is uniform, so its shuffles need no divergence handling;
+// rows past `rows` load and store nothing. A lane's group of 8 columns past
+// the row's kept keys is not read and is written as 0 / l: 0, or NaN in a
+// row that keeps no key. The arithmetic is softmax_fwd_wide_kernel's,
+// operation for operation, so are the bits: the max over the rounded
+// products v * scale; each exponent's argument one fma, as nvcc contracts
+// the wide kernel's v * scale - m; one expf a kept key; each lane's terms
+// added in ascending column order, then the warp's sum; the quotient rounded
+// as IEEE division rounds it (ds::div_rn_by from one reciprocal a row, or
+// the division itself where a lane holds an e < 2^-100 or l is out of that
+// function's range).
+template <typename T, bool VEC, int NC, int PD = 1>
+__global__ void __launch_bounds__(kThreads, NC * sizeof(T) <= 4 ? 4 : 2)
+softmax_fwd_held_kernel(const T* __restrict__ s, T* __restrict__ p, int rows, int Sq, int Sk,
+                        int q_offset, float scale, int causal, int rows_per_warp) {
+  const int lane = threadIdx.x % 32;
+  const int v0 = (blockIdx.x * kWarps + threadIdx.x / 32) * rows_per_warp;
+  Eight<T> in[PD + 1][NC];
+  SoftmaxRow at[PD + 1];
+  auto load_row = [&](int k, int b) {
+    at[b] = softmax_row(v0 + k, Sq, Sk, q_offset, causal);
+    if (v0 + k >= rows) {   // past the last row: nothing loaded or stored
+      at[b].row = -1;
+      return;
+    }
+    const T* sr = s + (size_t)at[b].row * Sk;
+#pragma unroll
+    for (int j = 0; j < NC; ++j) {
+      const int c = j * 256 + lane * 8;
+      if (c < at[b].lim) in[b][j].template load<VEC>(sr, c, Sk);
+    }
+  };
+  // f(j, i, keep) over the lane's group j of a row, keep: column i kept.
+  // The tests on a group are the warp's (lim against the group's 256
+  // columns), so its lanes never part: a group wholly kept runs with keep
+  // true, one that holds the row's last kept key with the lanes' own
+  // tests (selects, no branches), one past it not at all.
+  auto each_group = [&](const int (&kept)[NC], int lim, auto f) {
+#pragma unroll
+    for (int j = 0; j < NC; ++j) {
+      if (lim >= (j + 1) * 256) {
+#pragma unroll
+        for (int i = 0; i < 8; ++i) f(j, i, true);
+      } else if (lim > j * 256) {
+#pragma unroll
+        for (int i = 0; i < 8; ++i) f(j, i, i < kept[j]);
+      }
+    }
+  };
+  auto row_out = [&](int k, const Eight<T>(&x)[NC], const SoftmaxRow r) {
+    int kept[NC];   // the lane's kept columns of each group
+#pragma unroll
+    for (int j = 0; j < NC; ++j) kept[j] = r.lim - (j * 256 + lane * 8);
+    float m = -INFINITY;
+    each_group(kept, r.lim, [&](int j, int i, bool keep) {
+      m = fmaxf(m, keep ? __fmul_rn(x[j][i], scale) : -INFINITY);
+    });
+    m = warp_max(m);
+    if (m == -INFINITY) m = 0.f;
+    float e[NC][8] = {}, l = 0.f, emin = INFINITY;   // a key not kept adds 0 to l
+    each_group(kept, r.lim, [&](int j, int i, bool keep) {
+      const float v = expf(__fmaf_rn(x[j][i], scale, -m));
+      e[j][i] = keep ? v : 0.f;
+      l += e[j][i];
+      emin = fminf(emin, keep ? v : INFINITY);
+    });
+    l = ds::warp_sum(l);
+    if (r.row < 0) return;
+    const bool in_range = l >= 0.5f && l <= 0x1p20f;
+    const float z = in_range ? 0.f : 0.f / l;   // a key not kept
+    const float rl = __frcp_rn(l);
+    T* pr = p + (size_t)r.row * Sk;
+    auto write = [&](auto quot) {
+#pragma unroll
+      for (int j = 0; j < NC; ++j) {
+        const int c = j * 256 + lane * 8;
+        if (c < Sk) {
+          float q[8];
+          if (r.lim >= (j + 1) * 256) {
+#pragma unroll
+            for (int i = 0; i < 8; ++i) q[i] = quot(e[j][i]);
+          } else {
+#pragma unroll
+            for (int i = 0; i < 8; ++i) q[i] = i < kept[j] ? quot(e[j][i]) : z;
+          }
+          store_cols<T, VEC>(pr, c, Sk, q);
+        }
+      }
+    };
+    if (in_range && emin >= 0x1p-100f)
+      write([&](float v) { return ds::div_rn_by(v, l, rl); });
+    else
+      write([&](float v) { return v / l; });
+  };
+#pragma unroll
+  for (int k = 0; k < PD; ++k)
+    if (k < rows_per_warp) load_row(k, k);
+  for (int k0 = 0; k0 < rows_per_warp; k0 += PD + 1) {
+#pragma unroll
+    for (int b = 0; b <= PD; ++b) {   // row k0 + b sits in buffer b
+      const int k = k0 + b;
+      if (k < rows_per_warp) {
+        if (k + PD < rows_per_warp) load_row(k + PD, (b + PD) % (PD + 1));
+        row_out(k, in[b], at[b]);
+      }
+    }
+  }
+}
+
+// Rows wider than kSoftmaxHeldCols: one warp per (bh, query) row, three
+// sweeps (the max, the sum, the write), the second and third re-reading the
+// row from L1.
 template <typename T, bool VEC>
 __global__ void __launch_bounds__(kThreads)
-softmax_fwd_kernel(const T* __restrict__ s, T* __restrict__ p, int rows, int Sq, int Sk,
-                   int q_offset, float scale, int causal) {
+softmax_fwd_wide_kernel(const T* __restrict__ s, T* __restrict__ p, int rows, int Sq, int Sk,
+                        int q_offset, float scale, int causal) {
   const int lane = threadIdx.x % 32;
   const int row = blockIdx.x * kWarps + threadIdx.x / 32;
   if (row >= rows) return;
@@ -629,10 +781,29 @@ struct GeluBwd {
 
 template <typename T, bool VEC>
 struct SoftmaxFwd {
+  template <int NC>
+  static void held(const void* s, void* p, int rows, int Sq, int Sk, int q_offset, float scale,
+                   int causal, int rpw, cudaStream_t st) {
+    const int warps = (rows + rpw - 1) / rpw;
+    softmax_fwd_held_kernel<T, VEC, NC><<<(warps + kWarps - 1) / kWarps, kThreads, 0, st>>>(
+        static_cast<const T*>(s), static_cast<T*>(p), rows, Sq, Sk, q_offset, scale, causal, rpw);
+  }
   static cudaError_t run(const void* s, void* p, int rows, int Sq, int Sk, int q_offset,
-                         float scale, int causal, cudaStream_t st) {
-    softmax_fwd_kernel<T, VEC><<<(rows + kWarps - 1) / kWarps, kThreads, 0, st>>>(
-        static_cast<const T*>(s), static_cast<T*>(p), rows, Sq, Sk, q_offset, scale, causal);
+                         float scale, int causal, int rpw, cudaStream_t st) {
+    const int nc = (Sk + 255) / 256;
+    if (Sk > kSoftmaxHeldCols) {
+      if (rpw != 1) return cudaErrorInvalidValue;   // one row a warp
+      softmax_fwd_wide_kernel<T, VEC><<<(rows + kWarps - 1) / kWarps, kThreads, 0, st>>>(
+          static_cast<const T*>(s), static_cast<T*>(p), rows, Sq, Sk, q_offset, scale, causal);
+    } else if (nc == 1) {
+      held<1>(s, p, rows, Sq, Sk, q_offset, scale, causal, rpw, st);
+    } else if (nc == 2) {
+      held<2>(s, p, rows, Sq, Sk, q_offset, scale, causal, rpw, st);
+    } else if (nc == 3) {
+      held<3>(s, p, rows, Sq, Sk, q_offset, scale, causal, rpw, st);
+    } else {
+      held<4>(s, p, rows, Sq, Sk, q_offset, scale, causal, rpw, st);
+    }
     return cudaGetLastError();
   }
 };
@@ -692,11 +863,14 @@ DS_EXPORT int bias_gelu_bwd(const void* x, const void* bias, const void* dy, voi
 }
 
 // s, p (BH, Sq, Sk); causal keeps key j for query i where q_offset + i >= j.
+// Rows of up to kSoftmaxHeldCols keys take softmax_fwd_held_kernel, each warp
+// rows_per_warp of them (fused_ops.softmax_fwd_plan); wider rows
+// softmax_fwd_wide_kernel, one a warp (rows_per_warp 1).
 DS_EXPORT int softmax_fwd(const void* s, void* p, int BH, int Sq, int Sk, int q_offset,
-                          float scale, int causal, int dtype, void* stream) {
-  if (BH < 1 || Sq < 1 || Sk < 1) return cudaErrorInvalidValue;
+                          float scale, int causal, int rows_per_warp, int dtype, void* stream) {
+  if (BH < 1 || Sq < 1 || Sk < 1 || rows_per_warp < 1) return cudaErrorInvalidValue;
   return dispatch<SoftmaxFwd>(dtype, Sk, s, p, BH * Sq, Sq, Sk, q_offset, scale, causal,
-                              as_stream(stream));
+                              rows_per_warp, as_stream(stream));
 }
 
 // p, dy, ds (rows, Sk).

@@ -36,6 +36,10 @@ order (no atomics: a repeated call gives the same bits): bias-GELU's by
 ``torch.sum``, LayerNorm's by the library's own sum kernel, in the order
 :func:`layer_norm_bwd_tiled_plain` models (:func:`ln_bwd_plan`: one block of
 rows an SM, one sweep of x and dy, for rows of up to :data:`LN_HELD_COLS`).
+The softmax forward holds a row of up to :data:`SOFTMAX_HELD_COLS` keys in a
+warp's registers and reads each kept key once (:func:`softmax_fwd_plan`:
+one wave of blocks, each warp a run of rows), with the bits of the
+three-sweep kernel that wider rows keep.
 The JAX wrappers' ``block_rows`` / ``block_q`` (TPU tiles, which
 change no result beyond the order of partial sums) and ``interpret`` (the
 Pallas interpreter) have no counterpart here, nor has their row padding: the
@@ -59,7 +63,7 @@ LN_FWD = Kernel("fused_ops", "layer_norm_fwd", [PTR] * 6 + [INT, INT, FLOAT] + _
 LN_BWD = Kernel("fused_ops", "layer_norm_bwd", [PTR] * 10 + [INT, INT, INT] + _TAIL)
 GELU_FWD = Kernel("fused_ops", "bias_gelu_fwd", [PTR] * 3 + [INT, INT] + _TAIL)
 GELU_BWD = Kernel("fused_ops", "bias_gelu_bwd", [PTR] * 5 + [INT, INT, INT] + _TAIL)
-SOFTMAX_FWD = Kernel("fused_ops", "softmax_fwd", [PTR] * 2 + [INT] * 4 + [FLOAT, INT] + _TAIL)
+SOFTMAX_FWD = Kernel("fused_ops", "softmax_fwd", [PTR] * 2 + [INT] * 4 + [FLOAT, INT, INT] + _TAIL)
 SOFTMAX_BWD = Kernel("fused_ops", "softmax_bwd", [PTR] * 3 + [INT, INT, FLOAT] + _TAIL)
 
 _F32 = torch.float32
@@ -68,6 +72,8 @@ LN_ROWS = 32          # rows per block of the LayerNorm backward past LN_HELD_CO
 LN_WARPS = 8          # warps of a LayerNorm backward block
 LN_SUM_SEGS = 16      # segments of the partial rows in the LayerNorm backward's sum
 GELU_ROWS = 32        # rows per block of the bias-GELU backward: one partial row each
+SOFTMAX_HELD_COLS = 1024   # the widest row the softmax forward holds in registers
+SOFTMAX_WARPS = 8          # warps of a softmax forward block
 _SQRT_2_OVER_PI = 0.7978845608028654
 
 
@@ -197,6 +203,32 @@ def softmax_fwd_plain(s, causal: bool, scale: float):
     return (e / e.sum(-1, keepdim=True)).to(s.dtype)
 
 
+class SoftmaxFwdPlan(NamedTuple):
+    """The softmax forward's grid: ``route`` "held" (rows of up to
+    :data:`SOFTMAX_HELD_COLS` keys in registers) or "wide" (three sweeps);
+    each warp takes ``rows_per_warp`` rows, ``blocks`` blocks of
+    :data:`SOFTMAX_WARPS` warps."""
+    route: str
+    rows_per_warp: int
+    blocks: int
+
+
+def softmax_fwd_plan(rows: int, Sk: int, n_sm: int, item: int = 2) -> SoftmaxFwdPlan:
+    """Held rows: one wave, as many blocks as the card holds at once (four an
+    SM up to 1024 bytes a row, 512 bf16 or 256 fp32 keys, two past that: the
+    kernel's ``__launch_bounds__``), each warp a run of rows, an even one
+    where a warp takes more than one (the kernel pairs causal queries t and
+    Sq − 1 − t); wide rows: one a warp. From shapes, the element size
+    ``item`` and the card's SM count."""
+    if Sk > SOFTMAX_HELD_COLS:
+        return SoftmaxFwdPlan("wide", 1, -(-rows // SOFTMAX_WARPS))
+    warps = n_sm * (4 if -(-Sk // 256) * item <= 4 else 2) * SOFTMAX_WARPS
+    rpw = -(-rows // warps)
+    if rpw > 1:
+        rpw += rpw % 2
+    return SoftmaxFwdPlan("held", rpw, -(-rows // (SOFTMAX_WARPS * rpw)))
+
+
 def softmax_bwd_plain(p, dy, scale: float):
     pf, dyf = p.float(), dy.float()
     dot = (pf * dyf).sum(-1, keepdim=True)
@@ -296,10 +328,11 @@ def softmax_fwd(s, causal: bool, scale: float):
         return softmax_fwd_plain(s, causal, scale)
     BH, Sq, Sk = s.shape
     check_operands(s)
+    plan = softmax_fwd_plan(BH * Sq, Sk, _sm_count(s.device.index or 0), s.element_size())
     p = torch.empty_like(s)
     with torch.cuda.device(s.device):
         SOFTMAX_FWD.launch(s.data_ptr(), p.data_ptr(), BH, Sq, Sk, Sk - Sq, scale, int(causal),
-                           *_launch_args(s))
+                           plan.rows_per_warp, *_launch_args(s))
     return p
 
 

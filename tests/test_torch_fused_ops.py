@@ -148,12 +148,14 @@ def test_bias_gelu_values_and_grads_match_jax(lead, dtype, bdtype):
 
 
 # (lead, Sq, Sk, causal, scale): Sq=130 is no multiple of the JAX block_q
-# (128), so the JAX wrapper pads; 100 < 200 puts the triangle's offset at 100
+# (128), so the JAX wrapper pads; 100 < 200 puts the triangle's offset at 100;
+# rows past the held kernel's width take the card's wide route
 SOFTMAX_CASES = {
     "causal_ragged": ((2, 3), 130, 130, True, 0.125),
     "full_ragged": ((2, 3), 130, 130, False, 0.125),
     "causal_sq_lt_sk": ((2,), 100, 200, True, 1.0),
     "full_sq_lt_sk": ((3,), 40, 72, False, 0.5),
+    "causal_wide": ((2,), 6, fo.SOFTMAX_HELD_COLS + 5, True, 0.125),
 }
 
 

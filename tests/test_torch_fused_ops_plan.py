@@ -1,6 +1,6 @@
 """The LayerNorm backward's blocks (``ops/fused_ops.py``: ``ln_bwd_plan``) and
 the plain model of its order of summation (``layer_norm_bwd_tiled_plain``),
-on the CPU.
+and the softmax forward's grid (``softmax_fwd_plan``), on the CPU.
 
 The plan: blocks of whole rows covering every row once, one block an SM for
 rows of up to ``LN_HELD_COLS`` columns and ``LN_ROWS`` rows a block past
@@ -15,6 +15,13 @@ The order itself, block by block, warp by warp and segment by segment, is
 pinned against a loop over float32 scalars in the kernels' order. Then the
 wrapper's CUDA branch: one counted launch with the plan's rows a block,
 nothing read back.
+
+The softmax forward's plan: the held route up to ``SOFTMAX_HELD_COLS`` keys,
+one wave of blocks, each warp a run of rows (even past one row); the kernel's row order
+(causal queries t and Sq − 1 − t paired, modelled here in numpy) covers
+every row once and gives each warp's run the same kept keys; the wide route
+one row a warp. The wrapper's CUDA branch at a held and a wide width: one
+counted launch with the plan's rows a warp, nothing read back.
 """
 import contextlib
 
@@ -141,3 +148,67 @@ def test_ln_bwd_launch_from_shapes(monkeypatch):
     # ..., R, D, rows a block, dtype, stream
     assert args[-5:] == (300, 520, fo.ln_bwd_plan(300, 520, 4).rows_per_block, 1, 7)
     assert args[8] == dg.data_ptr() and args[9] == db.data_ptr()
+
+
+def test_softmax_fwd_plan_covers_rows_once():
+    # resident blocks an SM: four up to 1024 bytes a row, else two
+    per_sm = {(256, 2): 4, (512, 2): 4, (520, 2): 2, (1024, 2): 2, (256, 4): 4, (512, 4): 2}
+    for n_sm, item in ((1, 2), (4, 4), (132, 2), (132, 4)):
+        for Sk in (5, 256, 512, 520, 1024, 1025, 4096):
+            for rows in (1, 7, 8, 111, 32768, 131072):
+                route, rpw, blocks = fo.softmax_fwd_plan(rows, Sk, n_sm, item)
+                warps = blocks * fo.SOFTMAX_WARPS
+                assert (blocks - 1) * fo.SOFTMAX_WARPS * rpw < rows <= warps * rpw
+                if Sk > fo.SOFTMAX_HELD_COLS:
+                    assert (route, rpw) == ("wide", 1)
+                else:
+                    assert route == "held" and (rpw % 2 == 0 or rows <= warps)
+                    assert blocks <= n_sm * per_sm.get((Sk, item), 4 if Sk < 256 else 2)
+    # BERT-large on an H100's 132 SMs: (B·H, S, S) and a 128-query block
+    # over 512 keys; a wide row
+    assert fo.softmax_fwd_plan(256 * 512, 512, 132) == fo.SoftmaxFwdPlan("held", 32, 512)
+    assert fo.softmax_fwd_plan(256 * 128, 512, 132) == fo.SoftmaxFwdPlan("held", 8, 512)
+    assert fo.softmax_fwd_plan(16 * 64, 4096, 132) == fo.SoftmaxFwdPlan("wide", 1, 128)
+
+
+def _held_rows(BH, Sq, Sk, causal, n_sm):
+    """``softmax_fwd_held_kernel``'s rows, warp by warp (``softmax_row``),
+    and each row's kept keys."""
+    _, rpw, blocks = fo.softmax_fwd_plan(BH * Sq, Sk, n_sm)
+    v = np.arange(blocks * fo.SOFTMAX_WARPS * rpw)
+    v = v[v < BH * Sq]
+    j = v % Sq
+    i = np.where(j % 2 == 1, Sq - 1 - j // 2, j // 2) if causal else j
+    kept = np.clip((Sk - Sq) + i + 1, 0, Sk) if causal else np.full_like(v, Sk)
+    return rpw, v - j + i, kept
+
+
+@pytest.mark.parametrize("BH,Sq,Sk", [(3, 512, 512), (5, 128, 512), (2, 77, 130), (4, 8, 5),
+                                      (1, 7, 1024)])
+def test_softmax_held_rows_once_and_even_per_warp(BH, Sq, Sk):
+    for causal in (False, True):
+        rpw, rows, kept = _held_rows(BH, Sq, Sk, causal, 4)
+        assert np.array_equal(np.sort(rows), np.arange(BH * Sq))
+        if causal and Sq <= Sk and Sq % 2 == 0 and rpw > 1:   # whole pairs: runs read alike
+            full = len(rows) // rpw * rpw
+            per_warp = kept[:full].reshape(-1, rpw).sum(1)
+            assert (per_warp == per_warp[0]).all()
+
+
+@pytest.mark.parametrize("Sk,route", [(520, "held"), (fo.SOFTMAX_HELD_COLS + 76, "wide")])
+def test_softmax_fwd_launch_from_shapes(monkeypatch, Sk, route):
+    launches = []
+    monkeypatch.setattr(fo.SOFTMAX_FWD, "launch", lambda *a: launches.append(a))
+    monkeypatch.setattr(fo, "_sm_count", lambda index: 4)
+    monkeypatch.setattr(fo, "stream_of", lambda t: 7)
+    monkeypatch.setattr(torch.cuda, "device", lambda d: contextlib.nullcontext())
+    s = torch.zeros((6, 40, Sk), dtype=torch.bfloat16).as_subclass(_OnCard)
+    with _NoHostRead():
+        p = fo.softmax_fwd(s, True, 0.125)
+    assert p.shape == s.shape and p.dtype == torch.bfloat16
+    (args,) = launches
+    plan = fo.softmax_fwd_plan(240, Sk, 4, 2)
+    assert plan.route == route
+    # s, p, BH, Sq, Sk, q_offset, scale, causal, rows a warp, dtype, stream
+    assert args[0] == s.data_ptr() and args[1] == p.data_ptr()
+    assert args[2:] == (6, 40, Sk, Sk - 40, 0.125, 1, plan.rows_per_warp, 1, 7)
