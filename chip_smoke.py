@@ -85,6 +85,19 @@ Run from the root of the repository. Phases, each printing JSON lines:
             page-resident batcher pass of the serve phase's requests, each
             with its exact launch counts and greedy streams teacher-forced
             through the fp32 engine.
+6f. serve_graph_parity  every ``generate`` and batcher above runs its
+            decode ticks as replays of a captured CUDA graph (the default,
+            ``compiled_loop=True``); this phase holds that path against the
+            eager one: gpt2-125m, llama-1b and pythia-1b at full width and
+            two layers, bf16 and W8A16, the batcher page-resident and with
+            contiguous slots (12 of the serve requests, greedy and sampled
+            rows) and ``generate`` greedy and sampled, with the fused decode
+            kernels and without (the W8 matmul's ticks; GPT-2 with
+            ``fused_mlp=True``: the fused FFN's 8-row forward): tokens
+            identical bit for bit, launch counts equal kernel by kernel (the
+            graph run's read as its eager prefills and first ticks plus each
+            graph's launches per replay times its replays), both walls, each
+            graph's capture time and the programmatic edges capture kept.
 7. train    GPT-2-125M at full width and depth through ``initialize`` with
             the JAX package's flagship training config (S=1024, micro 24,
             gradient accumulation 4, adamw lr 1e-4 wd 0.1, clipping 1.0,
@@ -532,7 +545,6 @@ def device_union_ms(torch, fn, iters: int):
     the kernel before it runs (its blocks wait in griddepcontrol.wait), so
     there the sum counts the overlap twice and the union is the card's busy
     time. (None, None) if the profiler saw no device activity in three runs."""
-    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     for _ in range(3):
@@ -543,12 +555,22 @@ def device_union_ms(torch, fn, iters: int):
             for _ in range(iters):
                 fn()
             torch.cuda.synchronize()
-        spans = sorted((e.time_range.start, e.time_range.end) for e in prof.events()
-                       if e.device_type == DeviceType.CUDA)
-        if spans:
-            break
+        total, busy = device_sum_and_union_ms(prof)
+        if total:
+            return total / iters, busy / iters
+    return None, None
+
+
+def device_sum_and_union_ms(prof):
+    """A finished torch.profiler run's device ms: the kernels' (and
+    copies') summed durations, and the union of their intervals (0, 0 if
+    it saw none)."""
+    from torch.autograd import DeviceType
+
+    spans = sorted((e.time_range.start, e.time_range.end) for e in prof.events()
+                   if e.device_type == DeviceType.CUDA)
     if not spans:
-        return None, None
+        return 0.0, 0.0
     busy, lo, hi = 0.0, *spans[0]
     for a, b in spans[1:]:
         if a > hi:
@@ -556,8 +578,7 @@ def device_union_ms(torch, fn, iters: int):
         else:
             hi = max(hi, b)
     busy += hi - lo
-    total = sum(b - a for a, b in spans)
-    return total / 1e3 / iters, busy / 1e3 / iters
+    return sum(b - a for a, b in spans) / 1e3, busy / 1e3
 
 
 def graph_ms(torch, fn, iters: int):
@@ -2146,15 +2167,19 @@ def serve_profile(torch, batcher, reqs, out_path=None):
     ticks = batcher.stats["ticks"] - st0["ticks"]
     wall_ms = (batcher.stats["decode_s"] - st0["decode_s"]) * 1e3
     by_name = device_ms_of(prof)
-    dev_ms = sum(by_name.values())
+    dev_ms, busy_ms = device_sum_and_union_ms(prof)
     attn_ms = sum(v for k, v in by_name.items() if "decode_split::" in k)
     batcher.wait(uids)
     if out_path:
         with open(out_path, "w") as fh:
             fh.write(prof.key_averages().table(sort_by="self_cpu_time_total", row_limit=50))
+    # a programmatic dependent launch starts while the kernel before it
+    # runs, and a graph's replays leave no gap between them: the busy share
+    # is the union of the kernels' intervals over the wall
     return dict(window_ticks=ticks, tick_wall_ms=wall_ms / ticks,
                 tick_device_ms=dev_ms / ticks if dev_ms else "not measured",
-                tick_device_busy_share=dev_ms / wall_ms if dev_ms else "not measured",
+                tick_device_union_ms=busy_ms / ticks if dev_ms else "not measured",
+                tick_device_busy_share=busy_ms / wall_ms if dev_ms else "not measured",
                 tick_attention_device_ms=attn_ms / ticks if dev_ms else "not measured",
                 tick_attention_share_of_device=attn_ms / dev_ms if dev_ms else "not measured")
 
@@ -2313,7 +2338,9 @@ def near_max_share(pick, ref_logits, delta: float) -> float:
 
 def run_profile(torch, eng, prompt, out_dir):
     """Device time against wall time for a prefill alone (1 new token) and
-    for a prefill plus 16 ticks; their difference is 16 ticks."""
+    for a prefill plus 16 ticks; their difference is 16 ticks (device time
+    summed by kernel, and the union of the kernels' intervals, whose share
+    of the wall is the busy share)."""
     from torch.profiler import ProfilerActivity, profile
 
     windows = {}
@@ -2326,19 +2353,20 @@ def run_profile(torch, eng, prompt, out_dir):
             torch.cuda.synchronize()
             wall_ms = (time.perf_counter() - t0) * 1e3
         by_name = device_ms_of(prof)
-        windows[new] = (wall_ms, sum(by_name.values()), by_name)
+        windows[new] = (wall_ms, *device_sum_and_union_ms(prof), by_name)
         if out_dir:
             with open(os.path.join(out_dir, f"profile_new{new}.txt"), "w") as fh:
                 fh.write(prof.key_averages().table(sort_by="self_cuda_time_total",
                                                    row_limit=40))
-    (w1, d1, _), (w17, d17, names) = windows[1], windows[17]
+    (w1, d1, u1, _), (w17, d17, u17, names) = windows[1], windows[17]
     measured = d17 > 0
-    tick_wall, tick_dev = (w17 - w1) / 16, (d17 - d1) / 16
+    tick_wall, tick_dev, tick_busy = (w17 - w1) / 16, (d17 - d1) / 16, (u17 - u1) / 16
     top = sorted(names.items(), key=lambda kv: -kv[1])[:10]
     emit(dict(phase="profile", window="generate B=8 prompt=256, new=1 and new=17",
               prefill_wall_ms=w1, prefill_device_ms=d1 if measured else "not measured",
               tick_wall_ms=tick_wall, tick_device_ms=tick_dev if measured else "not measured",
-              tick_device_busy_share=tick_dev / tick_wall if measured else "not measured",
+              tick_device_union_ms=tick_busy if measured else "not measured",
+              tick_device_busy_share=tick_busy / tick_wall if measured else "not measured",
               top_device_us_new17={k[:90]: v * 1e3 for k, v in top}))
 
 
@@ -4300,6 +4328,157 @@ def run_serve_neox(torch, out_dir=None):
     torch.cuda.empty_cache()
     emit(dict(phase="serve_neox_summary", checks=checks))
     return by_path, all(checks.values())
+
+
+# ---------------------------------------------------------------------------
+# serve_graph_parity phase
+# ---------------------------------------------------------------------------
+
+# the families at full width, cut to two layers: (label, models module,
+# config function, preset, model class)
+GRAPH_PARITY_MODELS = (("gpt2", "gpt2", "gpt2_config", "gpt2-125m", "GPT2LMHeadModel"),
+                       ("llama", "llama", "llama_config", "llama-1b", "LlamaForCausalLM"),
+                       ("neox", "gptneox", "gptneox_config", "pythia-1b",
+                        "GPTNeoXForCausalLM"))
+GRAPH_PARITY_LAYERS = 2
+# the kernels a decode tick can run (rows 4-8 and row 11's mma.sync forward)
+TICK_KERNELS = ("decode_attention", "paged_attention", "norm_qkv", "post_attn",
+                "w8a16_matmul", "decode_norm_proj_w8", "decode_post_attn_w8",
+                "norm_proj_rms", "post_attn_swiglu", "norm_proj_rms_w8", "post_attn_swiglu_w8",
+                "post_attn_erf_par", "post_attn_erf_par_w8", "fused_mlp_fwd")
+
+
+def graph_launches(graphs) -> dict:
+    """Each captured graph's launches per replay and replays, by counter name."""
+    names = {id(k): n for n, k in counters().items()}
+    return [dict(capture_s=g.capture_s, replays=g.replays, edges=g.edges,
+                 per_replay={names.get(id(k), k.symbol): d for k, d in g.launches.kernels.items()})
+            for g in graphs if g.launches is not None]
+
+
+def run_serve_graph_parity(torch):
+    """Each family at full width and two layers (gpt2-125m, llama-1b,
+    pythia-1b; random weights from the seed), bf16 and W8A16, served by
+    the batcher with its decode windows as CUDA-graph replays and again
+    with the eager window, page-resident and with contiguous slots, 12 of
+    the serve requests (sampled rows 8-23 new tokens, greedy rows 24-39, so
+    that windows run both the sampled and the greedy-pool graph), then
+    ``generate`` (B=8, prompt 64, 24 new) greedy and sampled with
+    ``compiled_loop`` True and False, and with ``decode_fused=False`` (the
+    W8 matmul's ticks; GPT-2 with ``fused_mlp=True``: the 8-row ticks of the
+    fused FFN's ``mma.sync`` forward). Gates: the two paths' tokens
+    identical bit for bit, and their launch counts equal kernel by kernel
+    (the graph run's: its eager prefills and first ticks, and each graph's
+    launches per replay times its replays). Both walls printed, and each
+    graph's capture time, replays and (bf16 fused ticks) the programmatic
+    edges that stream capture kept of the GEMV's dependent launches."""
+    import importlib
+
+    import numpy as np
+
+    import deepspeed_tpu_torch as ds
+    from deepspeed_tpu_torch.inference.graphs import DecodeGraph
+
+    ok = True
+    pages = {"page_tokens": 16, "n_pages": 512}
+    for family, mod, cfg_fn, preset, cls in GRAPH_PARITY_MODELS:
+        m = importlib.import_module(f"deepspeed_tpu_torch.models.{mod}")
+        layer_key = "n_layer" if family == "gpt2" else "num_hidden_layers"
+        variants = [({}, {})]
+        if family == "gpt2":   # the fused FFN's 8-row forward on unfused ticks
+            variants.append(({"fused_mlp": True}, {"decode_fused": False}))
+        for cfg_kw, eng_kw in variants:
+            cfg = getattr(m, cfg_fn)(preset, **{layer_key: GRAPH_PARITY_LAYERS}, **cfg_kw)
+            model = getattr(m, cls)(cfg).init_weights(torch.Generator().manual_seed(SEED))
+            V = cfg.vocab_size
+            # sampled rows short, greedy rows long: the windows after the
+            # sampled rows retire are greedy-only and take the other graph
+            reqs = [dict(r, max_new_tokens=(8 if i % 2 else 24) + r["max_new_tokens"] % 16)
+                    for i, r in enumerate(serve_requests(V)[:12])]
+            prompt = torch.randint(0, V, (8, 64), generator=torch.Generator().manual_seed(SEED))
+            dtypes = (("bf16", {}),) if cfg_kw else (("bf16", {}), ("w8", dict(quant=W8)))
+            for dlabel, qkw in dtypes:
+                unfused = [{}] if eng_kw else [{}, {"decode_fused": False}]
+                for ekw in unfused:
+                    ekw = {**ekw, **eng_kw}
+                    eng = ds.init_inference(model, dtype=torch.bfloat16, max_tokens=512,
+                                            **qkw, **ekw)
+                    label = f"{family}{'_fused_mlp' if cfg_kw else ''}_{dlabel}" + (
+                        "_unfused" if ekw.get("decode_fused") is False else "")
+                    edges = dlabel == "bf16" and not ekw
+                    DecodeGraph.inspect_edges = edges
+                    try:
+                        ok &= graph_parity_engine(torch, np, ds, eng, label, reqs, prompt,
+                                                  pages, serve=not ekw)
+                    finally:
+                        DecodeGraph.inspect_edges = False
+                    del eng
+                    torch.cuda.empty_cache()
+            del model
+    return ok
+
+
+def graph_parity_engine(torch, np, ds, eng, label, reqs, prompt, pages, serve=True) -> bool:
+    """One engine's graph path against its eager path (see
+    :func:`run_serve_graph_parity`); emits one line per path and returns
+    whether every gate held."""
+    ok = True
+    runs = []
+    if serve:
+        for mode, pc in (("paged", pages), ("contiguous", None)):
+            res = {}
+            for compiled in (True, False):
+                b = ds.ContinuousBatcher(eng, n_slots=8, prefix_cache=pc, seed=SEED,
+                                         compiled_loop=compiled)
+                zero_counts()
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                uids = [b.submit(**r) for r in reqs]
+                out = {}
+                while len(out) < len(uids):
+                    out.update(b.step(ticks=8))
+                torch.cuda.synchronize()
+                res[compiled] = dict(
+                    tokens=[np.asarray(out[u]) for u in uids], launches=read_counts(),
+                    wall_s=time.perf_counter() - t0, ticks=b.stats["ticks"],
+                    windows=b.stats["windows"], leaks=b.leak_counts(),
+                    graphs=graph_launches(b._graphs.values()))
+                del b
+            runs.append((f"serve_{mode}", res))
+    for gen_label, kw in (("greedy", {}), ("sampled", dict(temperature=0.8, top_k=50,
+                                                          top_p=0.9, seed=7))):
+        res = {}
+        for compiled in (True, False):
+            eng._graphs.clear()   # each run pays its own capture
+            zero_counts()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = eng.generate(prompt, max_new_tokens=24, compiled_loop=compiled, **kw)
+            torch.cuda.synchronize()
+            res[compiled] = dict(tokens=[out.cpu().numpy()], launches=read_counts(),
+                                 wall_s=time.perf_counter() - t0, ticks=23, windows=1,
+                                 graphs=graph_launches(g for _, g in eng._graphs.values()))
+        runs.append((f"generate_{gen_label}", res))
+    for path, res in runs:
+        g, e = res[True], res[False]
+        same = all(x.shape == y.shape and np.array_equal(x, y)
+                   for x, y in zip(g["tokens"], e["tokens"]))
+        tick = {k: n for k, n in e["launches"].items() if k in TICK_KERNELS and n}
+        replayed = sum(r["replays"] for r in g["graphs"])
+        checks = {"tokens_identical": same, "launches_equal": g["launches"] == e["launches"],
+                  "ticks_equal": (g["ticks"], g["windows"]) == (e["ticks"], e["windows"]),
+                  "replays": replayed > 0 and len(tick) > 0
+                  and all(any(k in r["per_replay"] for r in g["graphs"]) for k in tick)}
+        if "leaks" in g:   # the batcher: its sampled and its greedy-pool graph
+            checks["no_leaks"] = all(v == 0 for r in (g, e) for v in r["leaks"].values())
+            checks["replays"] &= len(g["graphs"]) == 2 and all(r["replays"] > 0
+                                                               for r in g["graphs"])
+        emit(dict(phase="serve_graph_parity", engine=label, path=path,
+                  graph_wall_s=g["wall_s"], eager_wall_s=e["wall_s"], ticks=g["ticks"],
+                  windows=g["windows"], tick_launches=tick, graphs=g["graphs"],
+                  checks=checks))
+        ok &= all(checks.values())
+    return ok
 
 
 # ---------------------------------------------------------------------------
@@ -6340,10 +6519,14 @@ def fused_ops_mags(torch, fo, op, args, dy, kw, ref):
         dyf = dy.float()
         dxh = (dyf * gm).abs()
         m2 = (dxh * xhat.abs()).mean(-1, keepdim=True)
-        return {"y": xhat.abs() * gm.abs() + bt.abs(),
-                "mean": x.abs().mean(-1, keepdim=True),
-                # rstd moves by half var's relative error: var's addends over var
-                "rstd": rstd.pow(3) * (x * x).mean(-1, keepdim=True),
+        y0 = xhat.abs() * gm.abs() + bt.abs()
+        # rstd moves by half var's relative error: var's addends over var
+        rstd_mag = rstd.pow(3) * (x * x).mean(-1, keepdim=True)
+        mean_mag = x.abs().mean(-1, keepdim=True)
+        # y also carries the statistics' own sum-order error: the mean's
+        # through rstd·|γ|, rstd's through |x − mean|·|γ| = |x̂|·|γ| / rstd
+        return {"y": y0 + rstd * gm.abs() * mean_mag + xhat.abs() * gm.abs() * rstd_mag / rstd,
+                "y_without_statistics": y0, "mean": mean_mag, "rstd": rstd_mag,
                 "dx": rstd * (dxh + dxh.mean(-1, keepdim=True) + xhat.abs() * m2),
                 "dgamma": (dyf * xhat).abs().sum(0), "dbeta": dyf.abs().sum(0)}
     if op == "bias_gelu":
@@ -6381,6 +6564,11 @@ def fused_ops_check(torch, fo, op, args, dy, kw):
                                      nan_rows_equal=bool(torch.equal(nan_r, nan_g)),
                                      nans=int(nan_r.sum()), dtype=str(gt.dtype)[6:],
                                      dtype_ok=gt.dtype == r.dtype)
+            if f"{out}_without_statistics" in mags:   # the earlier limit: printed, not gated
+                lim0 = ulp_t(torch, r.float(), r.dtype) \
+                    + 1e-5 * mags[f"{out}_without_statistics"].float()
+                p["outputs"][out]["err_over_limit_without_statistics"] = float(
+                    torch.where(live, d / lim0.clamp(min=1e-30), torch.zeros_like(lim0)).max())
             p["max_err"], p["err_over_limit"] = max(p["max_err"], err), max(p["err_over_limit"],
                                                                           ratio)
         p["ok"] = all(o["err_over_limit"] <= 1.0 and o["nan_rows_equal"] and o["dtype_ok"]
@@ -6679,8 +6867,14 @@ def run_kernels_fused_ops(torch, F, peaks):
                     "library_pair_ms", "bound_ms", "bound_by")})
         del args, dy, lib_in, held, ln_extra, sm_extra
         torch.cuda.empty_cache()
+    # the fp32 (333, 1001) LayerNorm draws fresh inputs from a generator of
+    # its own (its limit counts the statistics' own error); it still
+    # draws its earlier ones, unused, so that the later cases keep theirs
+    g_ln = torch.Generator(device="cuda").manual_seed(SEED + 37)
     for op, shape, kw in FUSED_OPS_FP32_CASES:
         args, dy = fused_ops_operands(torch, gen(op, shape), op, shape, torch.float32)
+        if (op, shape) == ("layer_norm", (333, 1001)):
+            args, dy = fused_ops_operands(torch, g_ln, op, shape, torch.float32)
         for kname, h in fused_ops_check(torch, fo, op, args, dy, kw).items():
             if kname == "layer_norm_bwd":   # also its tiled order, bit for bit
                 x, gm, bt = args
@@ -6877,6 +7071,7 @@ def main() -> int:
     ok &= llama_ok
     neox_launches, neox_ok = run_serve_neox(torch, args.out)
     ok &= neox_ok
+    ok &= run_serve_graph_parity(torch)
     mlp_launches, mlp_slice_ok = run_slice_fused_mlp(torch, args.out)
     ok &= mlp_slice_ok
     train_launches, train_peak_gb, train_ok = run_train(torch, peaks, args.out)

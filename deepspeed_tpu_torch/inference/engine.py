@@ -3,9 +3,14 @@
 Port of ``deepspeed_tpu/inference/engine.py`` for one card. The engine
 builds a model of the family it is given (GPT-2, LLaMA or GPT-NeoX) and holds its own
 copy of the weights at the serving dtype on its device; ``forward`` runs the
-model, ``generate`` prefills a KV cache and then steps a plain Python tick
-loop (the JAX package's compiled ``lax.scan`` loop; CUDA graphs for the tick
-are later work).
+model, ``generate`` prefills a KV cache and then runs one decode tick per
+new token. ``compiled_loop=True`` (the default, as in the JAX package, whose
+loop is one ``lax.scan`` program) replays the tick as a CUDA graph on the
+card (``inference/graphs.py``): the tick reads and writes the static
+buffers of its batch width (:class:`_DecodeState`), and graphs are cached
+per static key, at most :data:`GRAPH_CACHE` of them, as the JAX package
+bounds its executables. ``compiled_loop=False`` steps the same tick function
+eagerly and stops once every row is done.
 
 The generation limit and the KV cache length follow the JAX engine's rule.
 A model whose parameter shapes depend on its context field (GPT-2's learned
@@ -35,16 +40,23 @@ Options the JAX engine has and this slice does not port raise
 from __future__ import annotations
 
 import dataclasses
+from collections import OrderedDict
 from typing import Any, Mapping, Optional
 
 import numpy as np
 import torch
 
-from ..models.common import LayerNorm, RMSNorm, init_layer_cache
+from ..models.common import (STATIC_HEAD, LayerNorm, RMSNorm, advance_heads, init_layer_cache,
+                             set_cache_index)
 from ..models.convert import _tensor, is_flax_tree, params_from_jax
+from ..ops.decode_layer import tickets_needed
 from ..ops.quantizer import fake_quantize
 from ..ops.w8 import quantize_state_dict
 from ..utils.logging import logger
+from .graphs import DecodeGraph
+
+GRAPH_CACHE = 16    # decode graphs an engine keeps (the JAX engine's lru_cache(maxsize=16))
+DECODE_WIDTHS = 4   # batch widths whose static decode buffers an engine keeps
 
 
 @dataclasses.dataclass
@@ -119,6 +131,30 @@ def _params_depend_on(model_cls, cfg, field: str) -> bool:
     return shapes(cfg) != shapes(dataclasses.replace(cfg, **{field: 2 * getattr(cfg, field)}))
 
 
+@dataclasses.dataclass
+class _DecodeState:
+    """The static buffers ``generate``'s decode ticks run over at one batch
+    width ``B``: a contiguous cache whose layers share one ``(B,)`` write
+    head (``static_head``), the token and positions the next tick reads, the
+    done flags, the seen mask of the repetition penalty ``(B, V)``, the
+    penalty, EOS and pad values (device scalars, so that they are no part of
+    a graph's key), the output rows ``(gen_limit, B)`` and the tick counter
+    that indexes them, and the generator sampled ticks draw from."""
+
+    cache: list
+    head: torch.Tensor
+    token: torch.Tensor
+    pos: torch.Tensor
+    done: torch.Tensor
+    seen: torch.Tensor
+    rep: torch.Tensor
+    eos: torch.Tensor
+    pad: torch.Tensor
+    out: torch.Tensor
+    idx: torch.Tensor
+    generator: torch.Generator
+
+
 class InferenceEngine:
     """Serving wrapper around a port model (``GPT2LMHeadModel``,
     ``LlamaForCausalLM`` or ``GPTNeoXForCausalLM``): the engine builds its
@@ -155,6 +191,12 @@ class InferenceEngine:
         self.model_cfg = dataclasses.replace(self.model_cfg, cache_len=self.cache_len)
         self.module = type(model)(self.model_cfg, device=self.device, dtype=dtype)
         self.module.requires_grad_(False)
+        self._tickets = tickets_needed(self.module)
+        # generate's static decode buffers by batch width, and its decode
+        # graphs by static key (each with the state it was captured over)
+        self._decode_states: OrderedDict = OrderedDict()
+        self._graphs: OrderedDict = OrderedDict()
+        self.params_version = 0   # bumped by load_params: graphs over old weights are stale
         self.load_params(model.state_dict() if params is None else params)
 
     def _limits(self, cfg):
@@ -211,6 +253,11 @@ class InferenceEngine:
                 p.data = src.to(dtype).to(device=self.device, dtype=torch.float32)
             else:
                 p.copy_(src.to(dtype))
+        # a graph holds the weights' addresses (a norm parameter's storage is
+        # replaced above): graphs captured before this load are dropped
+        self._decode_states.clear()
+        self._graphs.clear()
+        self.params_version += 1
         n = sum(p.numel() for p in own.values())
         logger.info(f"inference params loaded: {n / 1e6:.1f}M on {self.device}"
                     + (" (W8A16 dense kernels)" if self._w8 else ""))
@@ -255,13 +302,23 @@ class InferenceEngine:
 
     __call__ = forward
 
-    def init_cache(self, batch_size: int, per_row: bool = True) -> list:
+    def init_cache(self, batch_size: int, per_row: bool = True,
+                   static_head: bool = False) -> list:
         """A zeroed contiguous cache, one dict per layer, with a ``(B,)``
         write head per row (``per_row=False``: one host ``int`` head, the
-        static batch of ``generate`` and of a prefill)."""
+        static batch of a prefill). ``static_head``: the layers share one
+        ``(B,)`` head that appends leave alone and a decode tick advances in
+        place (``models/common.advance_heads``)."""
         cfg = self.model_cfg
-        return [init_layer_cache(batch_size, self.cache_len, cfg.kv_heads, cfg.head_dim,
-                                 cfg.dtype, self.device, per_row) for _ in range(cfg.n_layer)]
+        head = torch.zeros((batch_size,), dtype=torch.int32, device=self.device) \
+            if static_head else None
+        cache = [init_layer_cache(batch_size, self.cache_len, cfg.kv_heads, cfg.head_dim,
+                                  cfg.dtype, self.device, per_row or static_head, head)
+                 for _ in range(cfg.n_layer)]
+        if static_head:
+            for layer in cache:
+                layer[STATIC_HEAD] = True
+        return cache
 
     @torch.no_grad()
     def prefill(self, cache: list, input_ids, positions):
@@ -273,51 +330,134 @@ class InferenceEngine:
         pos = torch.as_tensor(positions, dtype=torch.long, device=self.device)
         return self.module(ids, position_ids=pos, cache=cache).logits, cache
 
+    def _decode_state(self, B: int) -> _DecodeState:
+        """The static decode buffers of batch width ``B``, made at first use;
+        the engine keeps :data:`DECODE_WIDTHS` widths and drops the graphs
+        of a width it lets go."""
+        st = self._decode_states.pop(B, None)
+        if st is None:
+            while len(self._decode_states) >= DECODE_WIDTHS:
+                old, _ = self._decode_states.popitem(last=False)
+                for key in [k for k in self._graphs if k[0] == old]:
+                    del self._graphs[key]
+            dev, long = self.device, torch.long
+            cache = self.init_cache(B, static_head=True)
+            st = _DecodeState(
+                cache=cache, head=cache[0]["cache_index"],
+                token=torch.zeros((B,), dtype=long, device=dev),
+                pos=torch.zeros((B,), dtype=long, device=dev),
+                done=torch.zeros((B,), dtype=torch.bool, device=dev),
+                seen=torch.zeros((B, self.model_cfg.padded_vocab_size), dtype=torch.bool,
+                                 device=dev),
+                rep=torch.ones((), dtype=torch.float32, device=dev),
+                eos=torch.full((), -1, dtype=long, device=dev),
+                pad=torch.zeros((), dtype=long, device=dev),
+                out=torch.zeros((self._gen_limit, B), dtype=long, device=dev),
+                idx=torch.zeros((1,), dtype=long, device=dev),
+                generator=torch.Generator(device=dev))
+        self._decode_states[B] = st
+        return st
+
+    def _decode_tick(self, st: _DecodeState, temperature: float, top_k: int, top_p: float,
+                     penalty: bool):
+        """ONE decode tick over ``st``, in place (the JAX engine's
+        ``_decode_tick``, shared by the compiled and the stepwise loop, so
+        that they agree token for token by construction): the forward of
+        the last token at its position appends to the cache, the next token
+        is sampled, finished rows emit pad from then on, EOS latches done,
+        the token joins the seen mask, lands in the output row the tick
+        counter names, and the token, positions, head and counter advance."""
+        module, seen = self.module, st.seen if penalty else None
+
+        def tick():
+            logits = module(st.token[:, None], position_ids=st.pos[:, None],
+                            cache=st.cache).logits
+            nxt = _sample(logits[:, -1, :].float(), st.generator, temperature, top_k, top_p,
+                          st.rep, seen)
+            nxt = torch.where(st.done, st.pad, nxt)
+            st.done.logical_or_(nxt == st.eos)
+            if seen is not None:
+                seen.scatter_(1, nxt[:, None], True)
+            st.out.index_copy_(0, st.idx, nxt[None])
+            st.token.copy_(nxt)
+            st.pos.add_(1)
+            advance_heads(st.cache)
+            st.idx.add_(1)
+
+        return tick
+
+    def _decode_graph(self, st: _DecodeState, key: tuple, tick) -> DecodeGraph:
+        """The decode graph of ``key``, captured over ``st`` at its first
+        run; the engine keeps the :data:`GRAPH_CACHE` most recently used."""
+        entry = self._graphs.pop(key, None)
+        if entry is None or entry[0] is not st:
+            while len(self._graphs) >= GRAPH_CACHE:
+                self._graphs.popitem(last=False)
+            entry = (st, DecodeGraph(tick, self.device, st.generator, self._tickets))
+        self._graphs[key] = entry
+        return entry[1]
+
     @torch.no_grad()
     def generate(self, input_ids, max_new_tokens: int = 32, temperature: float = 0.0,
                  top_k: int = 0, top_p: float = 1.0, repetition_penalty: float = 1.0,
                  seed: int = 0, eos_token_id: Optional[int] = None,
-                 pad_token_id: Optional[int] = None) -> torch.Tensor:
-        """Prefill, then one tick per new token; returns ``(B, S +
-        max_new_tokens)`` token ids on the engine's device.
+                 pad_token_id: Optional[int] = None,
+                 compiled_loop: bool = True) -> torch.Tensor:
+        """Prefill, then one decode tick per new token; returns token ids on
+        the engine's device.
 
         Greedy when ``temperature == 0``; ``top_k``, ``top_p`` and
         ``repetition_penalty`` follow the HF semantics. A sequence that
         emits ``eos_token_id`` is padded with ``pad_token_id`` (default: the
         EOS id) from then on. Sampling draws from a ``torch.Generator``
-        seeded with ``seed``."""
+        seeded with ``seed``.
+
+        ``compiled_loop=True`` runs every tick after the first token as a
+        replay of a captured CUDA graph on the card (the same tick function
+        without capture on the CPU) and always returns ``(B, S +
+        max_new_tokens)``. ``compiled_loop=False`` steps the tick eagerly,
+        reads the done flags back once a tick and stops once every row is
+        done, so it may return fewer columns (the JAX package's two paths)."""
         ids = self._ids(input_ids)
         B, S = ids.shape
         if S + max_new_tokens > self._gen_limit:
             raise ValueError(f"prompt({S}) + max_new_tokens({max_new_tokens}) exceeds the "
                              f"generation limit {self._gen_limit} (max_tokens/model context)")
-        cache = self.init_cache(B, per_row=False)
+        st = self._decode_state(B)
+        set_cache_index(st.cache, 0)
         positions = torch.arange(S, device=self.device)[None, :].expand(B, S)
-        logits = self.module(ids, position_ids=positions, cache=cache).logits
-        gen = torch.Generator(device=self.device).manual_seed(seed)
+        logits = self.module(ids, position_ids=positions, cache=st.cache).logits
+        set_cache_index(st.cache, S)     # a static head: the prefill's appends left it at 0
+        penalty = repetition_penalty != 1.0
         pad = eos_token_id if pad_token_id is None else pad_token_id
-        seen = None
-        if repetition_penalty != 1.0:
-            seen = torch.zeros((B, logits.shape[-1]), dtype=torch.bool, device=self.device)
-            seen.scatter_(1, ids, True)
-        rows = torch.arange(B, device=self.device)
-
-        token = _sample(logits[:, -1, :].float(), gen, temperature, top_k, top_p,
-                        repetition_penalty, seen)
-        done = None if eos_token_id is None else token == eos_token_id
-        tokens = [token]
-        for t in range(max_new_tokens - 1):
-            if seen is not None:
-                seen[rows, token] = True
-            pos = torch.full((B, 1), S + t, device=self.device)
-            logits = self.module(token[:, None], position_ids=pos, cache=cache).logits
-            token = _sample(logits[:, -1, :].float(), gen, temperature, top_k, top_p,
-                            repetition_penalty, seen)
-            if done is not None:   # finished rows emit pad from then on
-                token = torch.where(done, pad, token)
-                done = done | (token == eos_token_id)
-            tokens.append(token)
-        return torch.cat([ids, torch.stack(tokens, dim=1)], dim=1)
+        st.rep.fill_(repetition_penalty)
+        st.eos.fill_(-1 if eos_token_id is None else eos_token_id)
+        st.pad.fill_(0 if pad is None else pad)
+        if penalty:
+            st.seen.zero_()
+            st.seen.scatter_(1, ids, True)
+        st.generator.manual_seed(seed)
+        token = _sample(logits[:, -1, :].float(), st.generator, temperature, top_k, top_p,
+                        st.rep, st.seen if penalty else None)
+        st.token.copy_(token)
+        st.pos.fill_(S)
+        torch.eq(token, st.eos, out=st.done)
+        if penalty:
+            st.seen.scatter_(1, token[:, None], True)
+        st.idx.zero_()
+        tick = self._decode_tick(st, temperature, top_k, top_p, penalty)
+        n = max(max_new_tokens - 1, 0)
+        if compiled_loop:
+            key = (B, self.cache_len, self.model_cfg.dtype, temperature <= 0.0, int(top_k),
+                   float(top_p), float(temperature), penalty)
+            self._decode_graph(st, key, tick).run(n)
+        else:
+            for t in range(n):
+                tick()
+                if eos_token_id is not None and bool(st.done.all()):
+                    n = t + 1
+                    break
+        return torch.cat([ids, token[:, None], st.out[:n].T], dim=1)
 
 
 def _penalized_logits(logits, repetition_penalty=1.0, seen_mask=None):

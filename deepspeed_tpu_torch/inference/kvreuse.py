@@ -400,6 +400,11 @@ class PagedServingState:
         self.lengths = np.zeros((self.n_slots,), np.int32)
         self.slot_meta: List[Optional[_SlotPages]] = [None] * self.n_slots
         self._slot_pages_n = 0     # pages owned by parked/active requests
+        # the static device copies a captured decode tick reads (decode_cache)
+        self._lengths_dev = torch.zeros((self.n_slots,), dtype=torch.int32, device=self.device)
+        self._table_dev = torch.full((self.n_slots, self.T), self.trash, dtype=torch.int32,
+                                     device=self.device)
+        self._decode_cache = None
 
     # -- admission / placement / retirement ----------------------------
     def try_admit(self, prompt, max_new: int, m0: int, nodes, pids,
@@ -473,8 +478,8 @@ class PagedServingState:
         dict per layer: the K/V leaves ARE the pool arena (by reference),
         ``cache_index`` holds per-row lengths and ``page_table`` the rows'
         tables (one device copy of each, shared by every layer)."""
-        lengths = torch.as_tensor(np.asarray(lengths_np, np.int32), device=self.device)
-        table = torch.as_tensor(np.asarray(table_np, np.int32), device=self.device)
+        lengths = torch.as_tensor(lengths_np, dtype=torch.int32, device=self.device)
+        table = torch.as_tensor(table_np, dtype=torch.int32, device=self.device)
         pages = self.pool.pages
         return [{"cached_key": pages[_leaf_key(i, "cached_key")],
                  "cached_value": pages[_leaf_key(i, "cached_value")],
@@ -483,7 +488,19 @@ class PagedServingState:
                 for i in range(self.n_layers)]
 
     def decode_cache(self) -> list:
-        return self.build_cache(self.lengths, self.table)
+        """The paged cache a decode window's ticks run over: the host
+        mirrors of the slots' lengths and table rows copied into static
+        device buffers, which every layer shares (``static_head``: the tick
+        advances the lengths in place, ``models/common.advance_heads``). The
+        same list, over the same buffers, at every window, so a captured
+        tick reads each window's values."""
+        self._lengths_dev.copy_(torch.from_numpy(self.lengths))
+        self._table_dev.copy_(torch.from_numpy(self.table))
+        if self._decode_cache is None:
+            self._decode_cache = self.build_cache(self._lengths_dev, self._table_dev)
+            for layer in self._decode_cache:
+                layer[model_common.STATIC_HEAD] = True
+        return self._decode_cache
 
 
 def resolve_paged_decode(engine, prefix_cache, n_slots: int, specdec=None,

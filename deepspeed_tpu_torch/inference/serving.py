@@ -24,12 +24,24 @@ Scheduling is the JAX batcher's: prompts at the queue head that share a
 power-of-two bucket (and, paged, the same cached prefix) form one prefill,
 fed as descending power-of-two chunks; the first token is sampled at
 prefill and parks until a slot frees; with waiters, a decode window ends at
-the next certain retirement. Two changes for eager PyTorch: windows are
-not rounded up to a power of two (that bounds XLA's executable cache,
-which has no counterpart here), and every window also ends before any live
-row's head would reach ``cache_len``, so no row ever writes past its cache
-(the JAX batcher lets those writes clamp at the cache edge). Free slots
-rewind their head to 0 at each window.
+the next certain retirement, rounded up to a power of two within the step's
+ticks (the JAX batcher's rule, which bounds its executables; here it keeps
+each request retiring on the same ``step()`` call). One change: every
+window also ends before any live row's head would reach ``cache_len``, so
+no row ever writes past its cache (the JAX batcher lets those writes clamp
+at the cache edge). Free slots rewind their head to 0 at each window.
+
+Each decode window runs ``sub`` ticks over all ``n_slots`` rows as replays
+of ONE captured tick (``compiled_loop=True``, the default; the JAX batcher
+runs the window as one compiled ``lax.scan`` over its tick): the tick reads
+and writes static device buffers (token, position, done, the per-row heads
+or the paged lengths and page table, temperature, top-p, penalty, the
+window's uniforms and output rows, a tick counter), which the host refreshes
+once per window before the first replay; there is one graph per greedy
+pool flag (``inference/graphs.py``). On the CPU the same tick function runs
+without capture. ``compiled_loop=False`` keeps the eager window, which
+enqueues every op of every tick from Python, to hold the two against each
+other.
 
 Sampling is per row (``sample_row`` of the JAX batcher): temperature,
 top-p and repetition penalty per request, ``top_k`` and EOS pool-wide, the
@@ -55,8 +67,10 @@ from typing import Dict, List, Optional
 import numpy as np
 import torch
 
+from ..models.common import advance_heads
 from . import kvreuse
 from .engine import _filtered_logits, _penalized_logits
+from .graphs import DecodeGraph
 
 _TODO = "is not ported to the PyTorch/CUDA batcher yet (ROADMAP.md, queue A)"
 
@@ -113,6 +127,23 @@ def sample_rows(logits: torch.Tensor, greedy_pool: bool, temp: torch.Tensor,
     return torch.where(temp <= 0.0, greedy, sampled)
 
 
+class _TickState:
+    """The static buffers of the batcher's compiled tick over ``n`` slots:
+    token and position (one int64 block), done, temperature / top-p /
+    penalty (one fp32 block), the window's uniforms and output rows
+    (``cap`` ticks: a window never outruns the cache) and the tick counter."""
+
+    def __init__(self, n: int, cap: int, device):
+        self.ints = torch.zeros((2, n), dtype=torch.long, device=device)
+        self.token, self.pos = self.ints[0], self.ints[1]
+        self.done = torch.ones((n,), dtype=torch.bool, device=device)
+        self.floats = torch.zeros((3, n), dtype=torch.float32, device=device)
+        self.temp, self.top_p, self.rep = self.floats[0], self.floats[1], self.floats[2]
+        self.u = torch.zeros((cap, n), dtype=torch.float32, device=device)
+        self.out = torch.zeros((cap, n), dtype=torch.long, device=device)
+        self.idx = torch.zeros((1,), dtype=torch.long, device=device)
+
+
 class ContinuousBatcher:
     """Slot-pool scheduler over an :class:`~.engine.InferenceEngine`.
 
@@ -120,12 +151,13 @@ class ContinuousBatcher:
     repetition penalty are per request. ``prefix_cache`` (None defers to the
     engine config and ``DSTPU_PREFIX_CACHE``) turns on page-resident
     serving; ``paged_decode`` may only confirm it (False asks for the gather
-    path, which is not ported and raises)."""
+    path, which is not ported and raises). ``compiled_loop``: decode windows
+    as replays of a captured tick (True) or the eager window (False)."""
 
     def __init__(self, engine, n_slots: int = 4, *, top_k: int = 0,
                  eos_token_id: Optional[int] = None, pad_token_id: Optional[int] = None,
                  seed: int = 0, prefill_ahead: Optional[int] = None, prefix_cache=None, specdec=None,
-                 paged_decode=None, slo=None, admission=None):
+                 paged_decode=None, slo=None, admission=None, compiled_loop: bool = True):
         for name, value in (("specdec", specdec), ("slo", slo), ("admission", admission)):
             if value is not None and value is not False:   # {} asks for the defaults
                 raise NotImplementedError(f"{name} {_TODO}")
@@ -142,9 +174,12 @@ class ContinuousBatcher:
         self.prefill_ahead = n_slots if prefill_ahead is None else int(prefill_ahead)
         self._vocab = int(engine.model_cfg.padded_vocab_size)
         self._device = engine.device
+        self.compiled_loop = bool(compiled_loop)
         # contiguous slots: one row per slot, per-row write heads (mirrored
-        # in self._heads); page-resident slots keep their K/V in the arena
-        self._cache = engine.init_cache(n_slots) if self.paged is None else None
+        # in self._heads; one static head the tick advances under
+        # compiled_loop); page-resident slots keep their K/V in the arena
+        self._cache = None if self.paged is not None else engine.init_cache(
+            n_slots, static_head=self.compiled_loop)
         # host mirrors of the per-slot decode state, uploaded once per window
         n = self.n_slots
         self._token = np.zeros((n,), np.int64)
@@ -170,6 +205,11 @@ class ContinuousBatcher:
         self._t_first: Dict[int, float] = {}
         self._lat: deque = deque(maxlen=4096)
         self._tpot_window: deque = deque(maxlen=512)
+        # the static buffers of the compiled tick and its graphs by greedy flag
+        self._tick_state = _TickState(n, engine.cache_len, self._device) \
+            if self.compiled_loop else None
+        self._graphs: Dict[bool, DecodeGraph] = {}
+        self._graphs_version = engine.params_version
         # per-instance counters: decode ticks and windows, decode wall
         # seconds and tokens, prefill tokens (padding included), and prefill
         # forwards of one token (which, like a decode tick, run the
@@ -442,11 +482,75 @@ class ContinuousBatcher:
         return min(cache_len - int(self._pos[i]) for i, s in enumerate(self._slots)
                    if s is not None)
 
+    def _decode_tick(self, greedy: bool, cache: list):
+        """ONE decode tick over all ``n_slots`` rows, in place on the static
+        buffers and ``cache`` (a ``static_head`` cache): the batched forward
+        of each row's last token at its position, the per-row sample (this
+        tick's uniforms picked by the tick counter), done → pad and the EOS
+        latch, the seen mask, the output row the counter names; then token,
+        position, heads and counter advance."""
+        # no reference to the batcher: its graphs (which hold this tick) go
+        # with it when it is dropped, not at a later garbage collection
+        st, module, seen = self._tick_state, self.engine.module, self._seen
+        top_k, pad, eos = self.top_k, self.pad, self.eos
+
+        def tick():
+            logits = module(st.token[:, None], position_ids=st.pos[:, None],
+                            cache=cache).logits[:, -1, :].float()
+            u = None if greedy else st.u.index_select(0, st.idx)[0]
+            nxt = sample_rows(logits, greedy, st.temp, st.top_p, st.rep, seen, u, top_k)
+            nxt = torch.where(st.done, pad, nxt)
+            st.done.logical_or_(nxt == eos)
+            seen.scatter_(1, nxt[:, None], True)
+            st.out.index_copy_(0, st.idx, nxt[None])
+            st.token.copy_(nxt)
+            st.pos.add_(1)
+            advance_heads(cache)
+            st.idx.add_(1)
+
+        return tick
+
+    def graph_stats(self) -> Dict[bool, dict]:
+        """Each captured window graph (by greedy pool flag): its capture time
+        (warm-up tick included, host seconds) and replays."""
+        return {k: {"capture_s": g.capture_s, "replays": g.replays}
+                for k, g in self._graphs.items()}
+
+    @torch.no_grad()
+    def _window_compiled(self, ticks: int, greedy: bool) -> np.ndarray:
+        """The window of :meth:`_window` as ``ticks`` runs of the captured
+        tick (:class:`~.graphs.DecodeGraph`): the host mirrors go to the
+        static buffers once, then the replays, then one device fetch."""
+        if self._graphs_version != self.engine.params_version:   # weights reloaded
+            self._graphs, self._graphs_version = {}, self.engine.params_version
+        st, n = self._tick_state, self.n_slots
+        free = np.asarray([s is None for s in self._slots])
+        self._pos[free] = 0      # free rows decode discarded pads from 0
+        self._heads[free] = 0
+        st.ints.copy_(torch.from_numpy(np.stack([self._token, self._pos])))
+        st.done.copy_(torch.from_numpy(self._done))
+        st.floats.copy_(torch.from_numpy(np.stack([self._temp, self._top_p, self._rep])))
+        if not greedy:
+            st.u[:ticks].copy_(torch.from_numpy(np.stack(
+                [_uniforms(self.seed, 2 * (self._tick_no + t), n) for t in range(ticks)])))
+        if self.paged is None:
+            cache = self._cache
+            cache[0]["cache_index"].copy_(torch.from_numpy(self._heads))
+        else:
+            cache = self.paged.decode_cache()    # the window's lengths and table
+        st.idx.zero_()
+        graph = self._graphs.get(greedy)
+        if graph is None:
+            graph = self._graphs[greedy] = DecodeGraph(
+                self._decode_tick(greedy, cache), self._device, tickets=self.engine._tickets)
+        graph.run(ticks)
+        return st.out[:ticks].cpu().numpy()
+
     @torch.no_grad()
     def _window(self, ticks: int, greedy: bool) -> np.ndarray:
-        """Run ``ticks`` decode ticks over all ``n_slots`` rows: one batched
-        forward and one per-row sample each. Returns the tokens ``(ticks,
-        n_slots)`` on the host (one device fetch per window)."""
+        """Run ``ticks`` decode ticks over all ``n_slots`` rows, eagerly: one
+        batched forward and one per-row sample each. Returns the tokens
+        ``(ticks, n_slots)`` on the host (one device fetch per window)."""
         dev, n = self._device, self.n_slots
         free = np.asarray([s is None for s in self._slots])
         self._pos[free] = 0      # free rows decode discarded pads from 0
@@ -459,7 +563,7 @@ class ContinuousBatcher:
         u = None if greedy else torch.as_tensor(np.stack(
             [_uniforms(self.seed, 2 * (self._tick_no + t), n) for t in range(ticks)]), device=dev)
         if self.paged is not None:
-            cache = self.paged.decode_cache()
+            cache = self.paged.build_cache(self.paged.lengths, self.paged.table)
         else:
             cache = self._cache
             heads = torch.as_tensor(self._heads, device=dev)
@@ -484,8 +588,10 @@ class ContinuousBatcher:
         Returns {uid: full token array} for requests completed in this call.
 
         With waiters (queued or parked requests) a window ends at the next
-        CERTAIN retirement (a slot reaching its ``max_new_tokens``), so freed
-        slots refill at once; queued requests are prefilled ahead so their
+        CERTAIN retirement (a slot reaching its ``max_new_tokens``), rounded
+        up to a power of two as in the JAX batcher (a slot past its budget
+        decodes discarded pads to the window's end), so freed slots refill
+        soon; queued requests are prefilled ahead so their
         first token is produced while slots are still busy. EOS retirements
         are seen at window boundaries (the done flag freezes the row, so
         its pads are discarded, not emitted)."""
@@ -505,9 +611,11 @@ class ContinuousBatcher:
             if self._queue or self._parked:
                 t2r = min(a.req.max_new_tokens - len(a.emitted) for a in active)
                 sub = max(1, min(remaining, t2r))
+                if sub & (sub - 1):   # up to a power of two, at most remaining's largest
+                    sub = min(1 << sub.bit_length(), 1 << (remaining.bit_length() - 1))
             sub = min(sub, self._headroom())
             t0 = time.perf_counter()
-            toks = self._window(sub, greedy)
+            toks = (self._window_compiled if self.compiled_loop else self._window)(sub, greedy)
             wall = time.perf_counter() - t0
             self._tick_no += sub
             self._token[:] = toks[-1]

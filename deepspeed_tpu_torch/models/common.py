@@ -28,6 +28,13 @@ Three layouts share :func:`append_kv_cache`:
 - paged: K/V are the shared page arena ``(P, pt, KV, D)``, ``page_table``
   ``(B, T)`` int32 and ``cache_index`` ``(B,)`` lengths (page-resident
   serving, ``inference/kvreuse.py``).
+
+An append advances the head by binding ``cur + S`` in the layer's dict. A
+decode tick that is captured as a CUDA graph cannot do that: the graph
+reads fixed addresses. Its cache carries ``static_head`` (True): every layer
+shares ONE ``(B,)`` head tensor, an append leaves it as it is, and the tick
+advances it in place once, after every layer has read it
+(:func:`advance_heads`).
 """
 from __future__ import annotations
 
@@ -50,6 +57,9 @@ CACHE_INDEX_LEAF = "cache_index"
 # per-row page table mapping token range [j*pt, (j+1)*pt) to an arena page.
 # Its presence is how append_kv_cache detects paged mode.
 PAGE_TABLE_LEAF = "page_table"
+# True in a decode tick's cache: the layers share one head tensor that the
+# tick advances in place (advance_heads); appends leave it as it is
+STATIC_HEAD = "static_head"
 
 
 def layer_norm(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
@@ -359,27 +369,42 @@ def cache_leaf_kind(name: str) -> Optional[str]:
 
 
 def set_cache_index(cache: list, value) -> list:
-    """Set every layer's write head to ``value`` (in place; returns cache):
-    an ``int`` head stays an ``int``, a per-row head takes ``value`` (an
-    ``int`` or a ``(B,)`` tensor) in every row."""
+    """Set every layer's write head to ``value`` (returns cache): an
+    ``int`` head stays an ``int``; a per-row head is written in place (the
+    same tensor, so a captured tick that reads it sees the new value) with
+    ``value`` (an ``int`` or a ``(B,)`` tensor) in every row."""
     for layer in cache:
         for name in layer:
             if cache_leaf_kind(name) == "index":
                 cur = layer[name]
-                if isinstance(cur, torch.Tensor):
-                    layer[name] = torch.as_tensor(value, dtype=torch.int32,
-                                                  device=cur.device).expand(cur.shape).clone()
-                else:
+                if not isinstance(cur, torch.Tensor):
                     layer[name] = int(value)
+                elif isinstance(value, torch.Tensor):
+                    cur.copy_(value)
+                else:
+                    cur.fill_(int(value))
     return cache
 
 
+def advance_heads(cache: list, n: int = 1) -> None:
+    """Advance the write heads of a ``static_head`` cache by ``n`` in place,
+    each distinct head tensor once (the layers share one)."""
+    done = set()
+    for layer in cache:
+        head = layer[CACHE_INDEX_LEAF]
+        if id(head) not in done:
+            done.add(id(head))
+            head.add_(n)
+
+
 def init_layer_cache(batch: int, cache_len: int, heads: int, head_dim: int,
-                     dtype, device, per_row: bool = False) -> dict:
+                     dtype, device, per_row: bool = False, head=None) -> dict:
     """One layer's contiguous cache; ``per_row`` gives each row its own
-    ``(B,)`` int32 write head instead of one host ``int``."""
+    ``(B,)`` int32 write head instead of one host ``int``. ``head``: a
+    ``(B,)`` int32 head the layers of a ``static_head`` cache share."""
     shape = (batch, cache_len, heads, head_dim)
-    head = torch.zeros((batch,), dtype=torch.int32, device=device) if per_row else 0
+    if head is None:
+        head = torch.zeros((batch,), dtype=torch.int32, device=device) if per_row else 0
     return {"cached_key": torch.zeros(shape, dtype=dtype, device=device),
             "cached_value": torch.zeros(shape, dtype=dtype, device=device),
             CACHE_INDEX_LEAF: head}
@@ -407,7 +432,10 @@ def append_kv_cache(layer_cache: dict, k: torch.Tensor, v: torch.Tensor,
     decode windows so that no row's head reaches the end (a host check,
     ``serving.py``), so the per-row append on the card carries no check
     that would need a device→host sync. Each row writes only at its own
-    ``(row, position)`` pairs, never into another row."""
+    ``(row, position)`` pairs, never into another row.
+
+    A ``static_head`` cache keeps its head: the caller advances it
+    (:func:`advance_heads`) once every layer has appended."""
     if PAGE_TABLE_LEAF in layer_cache:
         return _append_paged_kv_cache(layer_cache, k, v, cache_len)
     ck, cv = layer_cache["cached_key"], layer_cache["cached_value"]
@@ -429,7 +457,8 @@ def append_kv_cache(layer_cache: dict, k: torch.Tensor, v: torch.Tensor,
     rows = _arange(B, ck.device)[:, None]
     ck[rows, pos] = k
     cv[rows, pos] = v
-    layer_cache[CACHE_INDEX_LEAF] = cur + S
+    if not layer_cache.get(STATIC_HEAD):
+        layer_cache[CACHE_INDEX_LEAF] = cur + S
     return ck, cv, cur
 
 
@@ -454,7 +483,8 @@ def _append_paged_kv_cache(layer_cache: dict, k: torch.Tensor, v: torch.Tensor,
     offs = pos % pt
     ck[pids, offs] = k
     cv[pids, offs] = v
-    layer_cache[CACHE_INDEX_LEAF] = lengths + S
+    if not layer_cache.get(STATIC_HEAD):
+        layer_cache[CACHE_INDEX_LEAF] = lengths + S
     cache_len = T * pt if cache_len is None else int(cache_len)
     return (PagedKV(ck, table, cache_len), PagedKV(cv, table, cache_len), lengths)
 

@@ -12,15 +12,28 @@ Nothing builds when a module is imported: a kernel's first launch builds
 its library (or ``build_all`` does so up front). Each C entry returns the
 ``cudaGetLastError()`` of its launches and :meth:`Kernel.launch` raises
 on a non-zero code, so a launch the card refuses never passes silently.
+
+Launches are counted on the host where they are issued: ``Kernel.launches``
+per C entry, and each library's own count per device kernel
+(:class:`LibraryCounts`). A CUDA graph issues nothing from the host when it
+replays, and its capture issues nothing to the card. So a capture runs under
+:func:`recording_capture`, which takes the capture's counts back and keeps
+them as the graph's launches per replay (:class:`GraphLaunches`), and
+:func:`count_replays` adds them once for every replay: the counters read
+the same totals as the eager ticks would give.
 """
 from __future__ import annotations
 
+import contextlib
 import ctypes
+import dataclasses
 import hashlib
 import os
 import shutil
 import subprocess
 import threading
+import weakref
+from collections import Counter
 from pathlib import Path
 
 import torch
@@ -116,17 +129,26 @@ def load(name: str) -> ctypes.CDLL:
 PTR, INT, FLOAT = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 
 
+_KERNELS: "weakref.WeakSet[Kernel]" = weakref.WeakSet()
+_LIBRARIES: "weakref.WeakSet[LibraryCounts]" = weakref.WeakSet()
+# (source, kernel) -> launches that graph replays made, net of what their
+# captures counted without launching
+_replayed: Counter = Counter()
+
+
 class Kernel:
     """One C entry of a csrc library and the count of its launches.
 
     ``launches`` grows by one for each call of :meth:`launch` whose C entry
-    returned success, and nowhere else: a run reads it to show which
+    returned success, and nowhere else, and by a graph's launches for each
+    of its replays (:func:`count_replays`): a run reads it to show which
     kernels its path went through."""
 
     def __init__(self, source: str, symbol: str, argtypes: list):
         self.source, self.symbol, self.argtypes = source, symbol, argtypes
         self.launches = 0
         self._fn = None
+        _KERNELS.add(self)
 
     def launch(self, *args) -> None:
         fn = self._fn
@@ -141,6 +163,88 @@ class Kernel:
             msg = load(self.source).ds_error_string(err).decode()
             raise RuntimeError(f"{self.symbol}: CUDA error {err} ({msg})")
         self.launches += 1
+
+
+class LibraryCounts:
+    """A C library's own launch counts by device kernel: ``symbol(i)``
+    returns the launches of ``names[i]``, counted where the library
+    launches it. :meth:`read` adds what graph replays launched."""
+
+    def __init__(self, source: str, symbol: str, names: tuple):
+        self.source, self.symbol, self.names = source, symbol, tuple(names)
+        _LIBRARIES.add(self)
+
+    def loaded(self) -> bool:
+        return self.source in _libs
+
+    def raw(self) -> dict:
+        """The library's counters as they stand. Loads (and builds) it."""
+        fn = getattr(load(self.source), self.symbol)
+        fn.argtypes, fn.restype = [INT], ctypes.c_ulonglong
+        return {name: int(fn(i)) for i, name in enumerate(self.names)}
+
+    def read(self) -> dict:
+        """Launches so far of each kernel, replays of captured graphs included."""
+        return {name: n + _replayed[(self.source, name)] for name, n in self.raw().items()}
+
+
+@dataclasses.dataclass
+class GraphLaunches:
+    """The launches one replay of a captured graph makes: per C entry
+    (``kernels``) and per library kernel (``library``, keyed by (source,
+    kernel))."""
+
+    kernels: dict = dataclasses.field(default_factory=dict)
+    library: dict = dataclasses.field(default_factory=dict)
+
+
+def _counts() -> tuple:
+    """Every counter as it stands; a library not yet loaded counts 0."""
+    kernels = {k: k.launches for k in list(_KERNELS)}
+    library = Counter()
+    for lib in list(_LIBRARIES):
+        if lib.loaded():
+            for name, n in lib.raw().items():
+                library[(lib.source, name)] = n
+    return kernels, library
+
+
+@contextlib.contextmanager
+def recording_capture():
+    """Around a graph capture: yields the :class:`GraphLaunches` it fills
+    with what the capture counted, and takes those counts back, since a
+    capture issues nothing to the card. Replays add them
+    (:func:`count_replays`)."""
+    rec = GraphLaunches()
+    k0, l0 = _counts()
+    try:
+        yield rec
+    finally:
+        k1, l1 = _counts()
+        for k, n in k1.items():
+            d = n - k0.get(k, 0)
+            if d:
+                rec.kernels[k] = d
+                k.launches -= d
+        for key, n in l1.items():
+            d = n - l0.get(key, 0)
+            if d:
+                rec.library[key] = d
+                _replayed[key] -= d
+
+
+def count_replays(rec: GraphLaunches, replays: int) -> None:
+    """Add ``replays`` replays of a graph's launches to every counter."""
+    for k, d in rec.kernels.items():
+        k.launches += d * replays
+    for key, d in rec.library.items():
+        _replayed[key] += d * replays
+
+
+def capturing() -> bool:
+    """True while the current stream is under graph capture (never without
+    CUDA, where no graph is captured)."""
+    return torch.cuda.is_available() and torch.cuda.is_current_stream_capturing()
 
 
 def stream_of(t: torch.Tensor) -> int:

@@ -51,6 +51,8 @@
 // launches for post_attn (o-proj + residual, norm + up, down + residual),
 // one for norm_proj, each block taking its rows' statistics itself; the
 // plan, workspace, tickets and bf16 scratch arguments are unread there.
+#include <vector>
+
 #include "decode_gemv_sm90.cuh"
 #include "rows_gemv.cuh"
 
@@ -316,6 +318,35 @@ DS_DEFINE_ERROR_STRING
 DS_EXPORT unsigned long long decode_layer_launched(int which) {
   if (which >= 0 && which < 3) return g9::g_launched[which].load();
   return which == 3 ? g_rows_gemv_launched.load() : 0;
+}
+
+// The edges of a captured CUDA graph (a cudaGraph_t) and how many of them are
+// programmatic: stream capture turns a programmatic dependent launch into such
+// an edge, which lets the dependent kernel start on its producer's tail as it
+// does on a stream. Returns a CUDA error code, else 0.
+DS_EXPORT int decode_graph_edges(void* graph, unsigned long long* total,
+                                 unsigned long long* programmatic) {
+  cudaGraph_t g = static_cast<cudaGraph_t>(graph);
+  size_t n = 0;
+#if CUDART_VERSION >= 13000
+  cudaError_t err = cudaGraphGetEdges(g, nullptr, nullptr, nullptr, &n);
+#else
+  cudaError_t err = cudaGraphGetEdges_v2(g, nullptr, nullptr, nullptr, &n);
+#endif
+  if (err != cudaSuccess) return err;
+  std::vector<cudaGraphNode_t> from(n), to(n);
+  std::vector<cudaGraphEdgeData> data(n);
+#if CUDART_VERSION >= 13000
+  err = cudaGraphGetEdges(g, from.data(), to.data(), data.data(), &n);
+#else
+  err = cudaGraphGetEdges_v2(g, from.data(), to.data(), data.data(), &n);
+#endif
+  if (err != cudaSuccess) return err;
+  unsigned long long prog = 0;
+  for (size_t i = 0; i < n; ++i) prog += data[i].type == cudaGraphDependencyTypeProgrammatic;
+  *total = n;
+  *programmatic = prog;
+  return 0;
 }
 
 // x (M, E); ns, nb (E,) fp32 (nb unread under rms); w (E, N); b (N,); out

@@ -26,7 +26,7 @@ from typing import Optional, Union
 
 import torch
 
-from ._build import FLOAT, INT, PTR, Kernel, check_operands, dtype_code, stream_of
+from ._build import FLOAT, INT, PTR, Kernel, capturing, check_operands, dtype_code, stream_of
 
 KERNEL = Kernel("decode_attention", "decode_attention_fwd",
                 [PTR, PTR, PTR, PTR, INT, PTR, PTR, INT, INT, INT, INT, INT, FLOAT, INT, PTR])
@@ -126,7 +126,10 @@ def decode_attention(q: torch.Tensor, k_cache: torch.Tensor, v_cache: torch.Tens
     """One decode tick; returns ``(B, 1, H, D)`` in ``q``'s dtype.
 
     ``k_cache``/``v_cache`` are the caches AFTER the new token's K/V was
-    appended; ``length`` counts the live positions (``cur + 1``)."""
+    appended; ``length`` counts the live positions (``cur + 1``). A captured
+    tick passes ``(B,)`` lengths on the card, which the kernel reads there
+    at every replay; a host ``int`` would be baked into the graph, so under
+    capture it raises."""
     B, one, H, D = q.shape
     S, KV = k_cache.shape[1], k_cache.shape[2]
     if one != 1 or k_cache.shape != v_cache.shape or k_cache.shape[0] != B \
@@ -155,6 +158,9 @@ def decode_attention(q: torch.Tensor, k_cache: torch.Tensor, v_cache: torch.Tens
     q = q.contiguous()   # q is often a view into the fused QKV output
     check_operands(q, k_cache, v_cache)
     if scalar:
+        if capturing():
+            raise ValueError("decode_attention under graph capture takes per-row lengths on "
+                             "the card: a host length would be baked into the graph")
         len_ptr = None
     else:
         length = length.to(device=q.device, dtype=torch.int32).contiguous()

@@ -40,7 +40,8 @@ from typing import Optional
 
 import torch
 
-from ._build import FLOAT, INT, PTR, Kernel, check_operands, dtype_code, load, stream_of
+from ._build import (FLOAT, INT, PTR, Kernel, LibraryCounts, capturing, check_operands,
+                     dtype_code, load, stream_of)
 from .fused_ops import gelu_tanh
 from .w8 import w8a16_matmul
 
@@ -114,14 +115,15 @@ _TICKETS = {}                  # (device, stream) -> zeroed int32 counters, one 
 _MIN_TICKETS = 4096
 
 
+COUNTS = LibraryCounts("decode_layer", "decode_layer_launched", KERNELS)
+
+
 def kernel_launches() -> dict:
     """Launches so far of each kernel of :data:`KERNELS`, as the C library
-    counts them where it launches them: which kernels a call took (the bf16
-    tensor-core GEMV or the fp32 CUDA-core one). Loads (and builds) the
-    library."""
-    fn = load("decode_layer").decode_layer_launched
-    fn.argtypes, fn.restype = [INT], ctypes.c_ulonglong
-    return {name: int(fn(i)) for i, name in enumerate(KERNELS)}
+    counts them where it launches them (graph replays included): which
+    kernels a call took (the bf16 tensor-core GEMV or the fp32 CUDA-core
+    one). Loads (and builds) the library."""
+    return COUNTS.read()
 
 
 @functools.lru_cache(maxsize=None)
@@ -168,13 +170,49 @@ def gemv_partials(m: int, k: int, n: int, plan: tuple, pair: bool = False) -> in
 def gemv_tickets(device, stream: int, n_tiles: int) -> torch.Tensor:
     """The zeroed column-tile counters of ``stream`` on ``device``, made once
     and reused: every launch's last blocks reset theirs, and launches on one
-    stream run in order, so the next launch finds them zero."""
+    stream run in order, so the next launch finds them zero.
+
+    A graph bakes the counters' address in, so a stream under capture must
+    hold enough of them already: replacing them there would leave the
+    graph a freed buffer, so it raises instead. Called on the capture
+    stream before capture with the most the capture needs
+    (:func:`tickets_needed`), it reserves them."""
     key = (device, stream)
     t = _TICKETS.get(key)
     if t is None or t.numel() < n_tiles:
+        if capturing():
+            raise RuntimeError(
+                f"gemv_tickets: a launch under graph capture needs {n_tiles} column-tile "
+                f"counters and its stream holds {0 if t is None else t.numel()}; reserve "
+                "them on the capture stream before capture")
         t = torch.zeros(max(_MIN_TICKETS, n_tiles), dtype=torch.int32, device=device)
         _TICKETS[key] = t
     return t
+
+
+def tickets_needed(module: torch.nn.Module) -> int:
+    """The most column-tile counters one GEMV launch of ``module``'s dense
+    panels can take: the widest panel over the narrowest tile."""
+    widths = [p.shape[1] for name, p in module.named_parameters()
+              if name.endswith(("_kernel", "_kernel_q")) and p.dim() == 2]
+    return max(widths, default=0) // N_TILES[-1]
+
+
+def graph_edges(graph) -> dict:
+    """The edges of a captured graph kept as a ``cudaGraph_t``
+    (``torch.cuda.CUDAGraph(keep_graph=True)`` before its instantiation) and
+    how many are programmatic: the dependent launches of the bf16 GEMVs
+    (``csrc/decode_gemv_sm90.cuh``) as stream capture records them."""
+    lib = load("decode_layer")
+    fn = lib.decode_graph_edges
+    fn.argtypes = [PTR, ctypes.POINTER(ctypes.c_ulonglong), ctypes.POINTER(ctypes.c_ulonglong)]
+    fn.restype = ctypes.c_int
+    total, prog = ctypes.c_ulonglong(), ctypes.c_ulonglong()
+    err = fn(graph.raw_cuda_graph(), ctypes.byref(total), ctypes.byref(prog))
+    if err:
+        raise RuntimeError(f"decode_graph_edges: CUDA error {err} "
+                           f"({lib.ds_error_string(err).decode()})")
+    return {"edges": int(total.value), "programmatic": int(prog.value)}
 
 
 def gelu_exact(u: torch.Tensor) -> torch.Tensor:

@@ -33,13 +33,12 @@ fp32 kernels carry ``dk``'s through the pre-scaled q, as the TPU kernels do).
 """
 from __future__ import annotations
 
-import ctypes
 import os
 from typing import Optional
 
 import torch
 
-from ._build import FLOAT, INT, PTR, Kernel, check_operands, dtype_code, load, stream_of
+from ._build import FLOAT, INT, PTR, Kernel, LibraryCounts, check_operands, dtype_code, stream_of
 
 KERNEL = Kernel("flash_attention", "flash_attention_fwd",
                 [PTR, PTR, PTR, PTR, PTR, INT, INT, INT, INT, INT, FLOAT, INT, INT, PTR])
@@ -58,6 +57,8 @@ BWD_DQ_CAST = Kernel("flash_attention_bwd", "flash_attention_bwd_dq_cast",
 FWD_KERNELS = ("flash_fwd_sm90_kernel", "flash_fwd_kernel")
 BWD_KERNELS = ("flash_bwd_sm90_kernel", "flash_bwd_kv_kernel", "flash_bwd_dq_kernel",
                "flash_bwd_dq_sm90_kernel", "flash_bwd_dkv_sm90_kernel")
+FWD_COUNTS = LibraryCounts("flash_attention", "flash_attention_fwd_launched", FWD_KERNELS)
+BWD_COUNTS = LibraryCounts("flash_attention_bwd", "flash_attention_bwd_launched", BWD_KERNELS)
 
 HEAD_DIMS = (64, 128, 256)   # the flash predicate's head dims, instantiated in CUDA
 BWD_MODE = "merged"          # "merged" | "split"; env DS_TPU_FLASH_BWD overrides
@@ -77,16 +78,9 @@ def kernel_launches() -> dict:
     """Launches so far of each flash kernel, by symbol (:data:`FWD_KERNELS`,
     :data:`BWD_KERNELS`), as the C libraries count them where they launch
     them: which kernel a run took, the bf16 tensor-core ones or the fp32
-    CUDA-core ones. Loads (and builds) the libraries."""
-    counts = {}
-    for source, symbol, names in (("flash_attention", "flash_attention_fwd_launched",
-                                   FWD_KERNELS),
-                                  ("flash_attention_bwd", "flash_attention_bwd_launched",
-                                   BWD_KERNELS)):
-        fn = getattr(load(source), symbol)
-        fn.argtypes, fn.restype = [INT], ctypes.c_ulonglong
-        counts.update({name: int(fn(i)) for i, name in enumerate(names)})
-    return counts
+    CUDA-core ones (graph replays included). Loads (and builds) the
+    libraries."""
+    return {**FWD_COUNTS.read(), **BWD_COUNTS.read()}
 
 
 def _causal_keep(S: int, Sk: int, device) -> torch.Tensor:

@@ -46,11 +46,9 @@ value read back from the card.
 """
 from __future__ import annotations
 
-import ctypes
-
 import torch
 
-from ._build import INT, PTR, Kernel, dtype_code, load, stream_of
+from ._build import INT, PTR, Kernel, LibraryCounts, dtype_code, stream_of
 
 NEG = -1e30
 _CE_ARGS = [INT, INT, INT, INT, INT, INT, PTR]   # N E Vp vocab ignore dtype stream
@@ -66,6 +64,7 @@ BWD_SM90 = Kernel("fused_ce", "fused_ce_bwd_sm90", [PTR] * 9 + [INT] * 7 + [PTR]
 KERNELS = ("ce_fwd_sm90_kernel", "ce_dlog_sm90_kernel", "ce_dh_sm90_kernel",
            "ce_dw_sm90_kernel", "ce_fwd_combine", "ce_fwd_kernel", "ce_dh_kernel",
            "ce_dw_kernel")
+COUNTS = LibraryCounts("fused_ce", "fused_ce_launched", KERNELS)
 
 ROWS = 16          # the CUDA-core kernels' rows per block (tokens for fwd/dh, vocab for dw)
 COLS = 256         # their columns per tile of the other side
@@ -79,10 +78,9 @@ _SM_COUNT = 132    # blocks are split for at least a few waves on an H100
 
 def kernel_launches() -> dict:
     """Launches so far of each device kernel of :data:`KERNELS`, as the C
-    library counts them where it launches them. Loads (and builds) it."""
-    fn = load("fused_ce").fused_ce_launched
-    fn.argtypes, fn.restype = [INT], ctypes.c_ulonglong
-    return {name: int(fn(i)) for i, name in enumerate(KERNELS)}
+    library counts them where it launches them (graph replays included).
+    Loads (and builds) it."""
+    return COUNTS.read()
 
 
 def sm90_route(dtype: torch.dtype, E: int) -> bool:

@@ -57,7 +57,8 @@ from typing import NamedTuple
 
 import torch
 
-from ._build import INT, PTR, Kernel, check_operands, dtype_code, load, stream_of
+from ._build import (INT, PTR, Kernel, LibraryCounts, check_operands, dtype_code, load,
+                     stream_of)
 from .fused_ops import gelu_tanh, gelu_tanh_grad
 
 _ARGS = [INT, INT, INT, INT, INT, INT, PTR]   # R E F splits per_split dtype stream
@@ -77,6 +78,7 @@ DX_SM90 = Kernel("fused_mlp", "fused_mlp_bwd_dx_sm90", [PTR] * 8 + _SM90_ARGS)
 # forward's two GEMMs (h, y) and dx's (du, dx) on the tensor cores
 KERNELS = ("fwd_kernel", "dx_kernel", "dw_sm90_kernel", "dw_kernel", "reduce_kernel",
            "h_sm90_kernel", "y_sm90_kernel", "du_sm90_kernel", "dx_sm90_kernel")
+COUNTS = LibraryCounts("fused_mlp", "fused_mlp_launched", KERNELS)
 
 MAX_E = {torch.bfloat16: 768, torch.float32: 384}
 ROWS = 32          # the kernels' row tile
@@ -111,10 +113,9 @@ BYTES_PER_KBLOCK = 1.88e6   # device-memory bytes in a k-block time (3.35 TB/s)
 
 def kernel_launches() -> dict:
     """Launches so far of each kernel of :data:`KERNELS`, as the C library
-    counts them where it launches them. Loads (and builds) the library."""
-    fn = load("fused_mlp").fused_mlp_launched
-    fn.argtypes, fn.restype = [INT], ctypes.c_ulonglong
-    return {name: int(fn(i)) for i, name in enumerate(KERNELS)}
+    counts them where it launches them (graph replays included). Loads (and
+    builds) the library."""
+    return COUNTS.read()
 
 
 DW_SEGMENT_COST = 3   # a segment's fp32 partials, in tiles of time (~11 us against ~3.5 us)

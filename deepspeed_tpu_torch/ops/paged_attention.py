@@ -36,7 +36,7 @@ from typing import NamedTuple, Optional
 
 import torch
 
-from ._build import FLOAT, INT, PTR, Kernel, check_operands, dtype_code, stream_of
+from ._build import FLOAT, INT, PTR, Kernel, capturing, check_operands, dtype_code, stream_of
 from .decode_attention import (CHUNK, decode_attention_plain, decode_attention_split_plain,
                                decode_supported, split_workspace)
 
@@ -118,8 +118,15 @@ def paged_decode_attention(q: torch.Tensor, k_pages: torch.Tensor, v_pages: torc
                            scale: Optional[float] = None) -> torch.Tensor:
     """One decode tick off the page arena; returns ``(B, 1, H, D)`` in
     ``q``'s dtype (fp32 scores, softmax and accumulation; a row with no
-    live position gives zeros)."""
+    live position gives zeros). Under graph capture ``lengths`` must already
+    be ``(B,)`` int32 on q's device (the static lengths the tick advances),
+    so that converting them is no copy."""
     B, _, H, D = q.shape
+    if q.is_cuda and capturing() and not (
+            isinstance(lengths, torch.Tensor) and lengths.dtype == torch.int32
+            and lengths.device == q.device and lengths.shape == (B,)):
+        raise ValueError("paged_decode_attention under graph capture takes (B,) int32 lengths "
+                         "on q's device: a conversion would be a host copy baked into the graph")
     lengths = torch.as_tensor(lengths, dtype=torch.int32, device=q.device).reshape(-1)
     if lengths.numel() == 1 and B != 1:
         lengths = lengths.expand(B)

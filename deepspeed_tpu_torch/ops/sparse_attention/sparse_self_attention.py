@@ -47,13 +47,12 @@ function builds its LUT per call.
 """
 from __future__ import annotations
 
-import ctypes
 from typing import NamedTuple, Optional
 
 import numpy as np
 import torch
 
-from .._build import FLOAT, INT, PTR, Kernel, check_operands, load, stream_of
+from .._build import FLOAT, INT, PTR, Kernel, LibraryCounts, check_operands, stream_of
 from ..attention import dense_attention
 from .sparsity_config import SparsityConfig
 
@@ -65,6 +64,7 @@ KERNEL_FP32 = Kernel("sparse_attention", "sparse_attention_fwd",
                      [PTR] * 6 + [INT] * 6 + [FLOAT, INT, PTR])
 # the kernels behind the two C entries, in the order their library counts them
 KERNELS = ("sparse_fwd_sm90_kernel", "sparse_merge_kernel", "sparse_fwd_kernel")
+COUNTS = LibraryCounts("sparse_attention", "sparse_attention_launched", KERNELS)
 HEAD_DIMS = (64, 128)          # instantiated in CUDA
 BLOCKS = (16, 32, 64, 128)
 IMPLS = ("mask", "pallas")
@@ -311,10 +311,9 @@ def sparse_attention_tiled_plain(q, k, v, plan: SparsePlan, scale: float):
 
 def kernel_launches() -> dict:
     """Launches so far of each kernel of :data:`KERNELS`, as the C library
-    counts them where it launches them. Loads (and builds) the library."""
-    fn = load("sparse_attention").sparse_attention_launched
-    fn.argtypes, fn.restype = [INT], ctypes.c_ulonglong
-    return {name: int(fn(i)) for i, name in enumerate(KERNELS)}
+    counts them where it launches them (graph replays included). Loads (and
+    builds) the library."""
+    return COUNTS.read()
 
 
 def sparse_attention_kernel(q, k, v, dplan: DevicePlan, scale: float):

@@ -14,19 +14,19 @@ is the JAX package's dispatch guard; ``ops/w8.w8a16_matmul`` consults it.
 """
 from __future__ import annotations
 
-import ctypes
 import math
 
 import torch
 
 from . import decode_layer as dl
-from ._build import INT, PTR, Kernel, check_operands, load, stream_of
+from ._build import INT, PTR, Kernel, LibraryCounts, check_operands, stream_of
 
 # x, codes, scale, group, out, workspace, tickets, M, K, N, n_tile, k_slice, stream
 KERNEL = Kernel("w8_matmul", "w8a16_matmul_fwd",
                 [PTR, PTR, PTR, INT, PTR, PTR, PTR] + [INT] * 5 + [PTR])
 # the kernel behind the C entry, as the library counts it (``w8_matmul_launched``)
 KERNELS = ("gemv_sm90_kernel_w8",)
+COUNTS = LibraryCounts("w8_matmul", "w8_matmul_launched", KERNELS)
 
 MAX_ROWS = 64     # decode rows (batched slots fold to M = n_slots)
 
@@ -43,10 +43,9 @@ def supported(x_shape, codes_shape, n_groups: int) -> bool:
 
 def kernel_launches() -> dict:
     """Launches so far of each kernel of :data:`KERNELS`, as the C library
-    counts them where it launches them. Loads (and builds) the library."""
-    fn = load("w8_matmul").w8_matmul_launched
-    fn.argtypes, fn.restype = [INT], ctypes.c_ulonglong
-    return {name: int(fn(i)) for i, name in enumerate(KERNELS)}
+    counts them where it launches them (graph replays included). Loads (and
+    builds) the library."""
+    return COUNTS.read()
 
 
 def w8a16_matmul_plain(x: torch.Tensor, codes: torch.Tensor, scale: torch.Tensor):
